@@ -3,16 +3,28 @@
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
 builds the CUDA kernels from ``sdflib_tpu_torch/csrc`` (the first run of
-a checkout compiles them with nvcc), then drives the exact-octree path at
-the bench configuration: the torus of bench.py (9,216 triangles, box
-margin 0.14), the port's own depth-6 region build, ``get_distance`` on
-2^21 uniform points (seed 0) and the 10k-point oracle gate (seed 7)
-against the brute-force ``RealSdf``. Each kernel is held against its
-plain torch version on the card and timed beside it with CUDA events.
+a checkout compiles them with nvcc) and drives the exact-octree paths:
 
-Every phase raises on failure, so the exit code is non-zero then, and
-without a CUDA device. The last line of standard output is one JSON
-object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+* the bench torus of bench.py (9,216 triangles, box margin 0.14), the
+  port's own depth-6 region build, ``get_distance`` on 2^21 uniform
+  points (seed 0, the window scan), and the 10k-point oracle gate (seed
+  7) against the brute-force ``RealSdf`` through the grouped scan, which
+  sparse batches take, and again with the window scan pinned;
+* both scans pinned at 2^16 to 2^21 points;
+* the depth-7 cell: the 100,800-triangle torus of bench.py's big mesh,
+  start depth 3, 2^20 uniform points (the grouped scan) and its oracle
+  gate;
+* the row-fetch probes K3a/K3b at the defaults of
+  scripts/perf_pallas_gather.py and over the rows K1's window scan
+  fetches.
+
+Each kernel is held against its plain torch version on the card and
+timed beside it with CUDA events (best of 3 after a warmup). Launch
+counts are reset before each path and read after it. Every phase raises
+on failure, so the exit code is non-zero then, and without a CUDA device.
+The line before the last lists every kernel as JSON; the last line of
+standard output is one JSON object:
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
@@ -24,8 +36,22 @@ import time
 
 import numpy as np
 
-BENCH_LEAVES = 145_636   # leaf count of the JAX package's build, same config
+BENCH_LEAVES = 145_636     # leaf count of the JAX package's d6 build
+BIG_LEAVES = 2_097_152     # ... and of its d7 build (BIGMESH_r05.json)
 ORACLE_TOL = 1e-5
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, and device-memory bytes per second.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Flops counted from the kernels' code, rsqrt as one: a triangle frame
+# from 9 vertex floats (edges 6, three normalisations 3 x (5 + 1) and
+# 2 x (3 + 1), the normal and sy 9 each, the projected vertices 15, the
+# edge directions 6), and one point against a derived frame (offset 3,
+# projection 15, the region ladder's common terms 12 and its cheapest
+# return 4). K2's packed rows hold the frame, so it pays the second only.
+FLOPS_FRAME = 78
+FLOPS_PAIR = 34
+ROW_BYTES = 64 * 4 + 9 * 64 * 4    # one bucket row: 64 ids + 576 floats
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -51,6 +77,13 @@ def _check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) for the work, and which of bytes or operations
+    sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> None:
     import torch
 
@@ -63,7 +96,7 @@ def main() -> None:
 
     from sdflib_tpu_torch import ExactOctreeSdf, RealSdf
     from sdflib_tpu_torch.kernels import build
-    from sdflib_tpu_torch.ops import nearest, scan
+    from sdflib_tpu_torch.ops import nearest, row_gather, scan
     from sdflib_tpu_torch.ops.point_triangle import (
         gather_triangles,
         pack_triangle_fields,
@@ -73,6 +106,7 @@ def main() -> None:
     from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data, soa_to_torch
     from sdflib_tpu_torch.utils.primitives import make_torus
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -86,21 +120,109 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
 
-    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
-    box = mesh.bounding_box.add_margin(0.14)
-    lo = np.asarray(box.min) + 1e-4
-    hi = np.asarray(box.max) - 1e-4
-    opts = torch.as_tensor(
-        np.random.default_rng(7).uniform(lo, hi, (10_000, 3)).astype(np.float32),
-        device=dev,
-    )
-    pts = torch.as_tensor(
-        np.random.default_rng(0).uniform(lo, hi, (1 << 21, 3)).astype(np.float32),
-        device=dev,
-    )
+    def reset_counts():
+        scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
+        row_gather.block_launch_count = row_gather.tile_launch_count = 0
+
+    def read_counts():
+        return {
+            "nearest": nearest.launch_count, "scan_window": scan.launch_count,
+            "scan_grouped": scan.grouped_launch_count,
+            "row_min_block": row_gather.block_launch_count,
+            "row_min_tile": row_gather.tile_launch_count,
+        }
+
+    def uniform(box, n, seed):
+        lo = np.asarray(box.min) + 1e-4
+        hi = np.asarray(box.max) - 1e-4
+        return torch.as_tensor(
+            np.random.default_rng(seed).uniform(lo, hi, (n, 3)).astype(np.float32),
+            device=dev,
+        )
+
+    def scan_work(sdf, pts):
+        """(pairs, valid slots of the touched rows, touched rows) of a
+        query: each point scans its own leaf's list; each touched row is
+        fetched and its frames derived at least once."""
+        leaf = sdf._descend(pts)
+        cnt = torch.as_tensor(sdf.leaf_count, device=dev).long()
+        touched = torch.unique(leaf)
+        return (int(cnt[leaf].sum()), int(cnt[touched].sum()),
+                int(sdf.leaf_nchunks[touched].sum()))
+
+    def scan_bound(sdf, pts, in_bytes_per_point):
+        pairs, slots, rows = scan_work(sdf, pts)
+        nbytes = rows * ROW_BYTES + pts.shape[0] * (in_bytes_per_point + 4)
+        return _bound(nbytes, pairs * FLOPS_PAIR + slots * FLOPS_FRAME)
+
+    def winner_dist(sdf, pts_s, win):
+        v = sdf.triangles.v_world.reshape(-1, 9)[win.long()]
+        return sq_dist_from_vertex_cols(
+            pts_s[:, 0], pts_s[:, 1], pts_s[:, 2], lambda r: v[:, r]
+        ).sqrt()
+
+    def grouped_vs_plain(sdf, pts, label):
+        """K1g against its plain version on one batch: (max winner distance
+        difference, kernel ms, plain ms, rows visited)."""
+        pts_s, lid_s, start, G, _ = sdf._sorted_groups(pts)
+        args = (sdf.bucket_ids, sdf.bucket_fields, pts_s, lid_s, start,
+                sdf.leaf_row0, sdf.leaf_nchunks)
+        wk = scan.scan_grouped(*args)
+        wp = scan.scan_grouped_plain(*args)
+        live = sdf.leaf_nchunks[lid_s.long()] > 0
+        err = float((winner_dist(sdf, pts_s, wk) - winner_dist(sdf, pts_s, wp))[live]
+                    .abs().max())
+        _check(err <= 1e-6, f"K1g winner distances differ by {err} ({label})")
+        ms = _cuda_ms(lambda: scan.scan_grouped(*args))
+        plain_ms = _cuda_ms(lambda: scan.scan_grouped_plain(*args))
+        nonempty = start[1:] > start[:-1]
+        rows = int(sdf.leaf_nchunks[lid_s[start[:-1][nonempty].long()].long()].sum())
+        print(f"K1g grouped scan vs plain ({label}): max |winner dist diff| "
+              f"{err:.3e}, ids differ {int((wk != wp).sum())}, kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms (P={pts.shape[0]}, G={G}, "
+              f"{int(nonempty.sum())} groups, {rows} rows visited = "
+              f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s)")
+        return err, ms, plain_ms
+
+    def window_ms(sdf, pts):
+        """K1w's time on the windows of a batch."""
+        pts_s, b0, nc, _ = sdf._sorted_windows(pts)
+        return _cuda_ms(lambda: scan.scan_window(sdf.bucket_ids, sdf.bucket_fields,
+                                                 pts_s, b0, nc))
+
+    def breakdown(fn, label, top=6):
+        """Where a call's time goes: CUDA-event time, device and host time
+        per call from torch.profiler over 3 calls, the busy share, and the
+        kernels with the most device time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        ev_ms = _cuda_ms(fn)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
+        dev_us = {e.key: e.self_device_time_total / 3 for e in on_dev}
+        host_ms = sum(e.self_cpu_time_total for e in avgs
+                      if e.device_type == DeviceType.CPU) / 3e3
+        busy_ms = sum(dev_us.values()) / 1e3
+        print(f"breakdown, {label}: {ev_ms:.4f} ms a call (CUDA events); device "
+              f"busy {busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}), host self time "
+              f"under the profiler {host_ms:.4f} ms, "
+              f"{sum(e.count for e in on_dev) // 3} device activities a call")
+        for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
+            print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
+
     kernels = {}
+    launches = {}
 
     # -- K2 against its plain version: 10k points x the bench torus ---------
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    opts = uniform(box, 10_000, 7)
+    pts = uniform(box, 1 << 21, 0)
     tris = soa_to_torch(calculate_mesh_triangle_data(mesh), dev)
     fields = pack_triangle_fields(tris)
     bk, ik = nearest.nearest_triangle(opts, fields)
@@ -115,15 +237,17 @@ def main() -> None:
     k2_err = float((bk - bp).abs().max())
     k2_ms = _cuda_ms(lambda: nearest.nearest_triangle(opts, fields))
     k2_plain_ms = _cuda_ms(lambda: nearest.nearest_triangle_plain(opts, fields))
+    T = fields.shape[0]
     print(f"K2 nearest vs plain: max |sq diff| {k2_err:.3e}, index ties "
           f"{int(diff.sum())}, kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
-          f"(P=10000, T={fields.shape[0]}, "
-          f"{1e4 * fields.shape[0] / k2_ms / 1e6:.3f} G pairs/s)")
-    kernels["nearest"] = dict(err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms)
+          f"(P=10000, T={T}, {1e4 * T / k2_ms / 1e6:.3f} G pairs/s)")
+    kernels["nearest"] = dict(
+        err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+        bound=_bound(1e4 * 12 + T * 19 * 4 + 1e4 * 8, 1e4 * T * FLOPS_PAIR),
+    )
 
-    # -- the main path, with the launch counts ------------------------------
-    scan.launch_count = 0
-    nearest.launch_count = 0
+    # -- main path A, d6: build, dense query, oracle gates -------------------
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sdf = ExactOctreeSdf(mesh, box, max_depth=6, start_depth=2,
@@ -131,90 +255,235 @@ def main() -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cnt = sdf.leaf_count
-    print(f"exact build: {build_s:.3f} s, leaves {sdf.num_leaves}, mean list "
+    print(f"exact build d6: {build_s:.3f} s, leaves {sdf.num_leaves}, mean list "
           f"{cnt.mean():.3f}, max list {int(cnt.max())}, buckets "
           f"{sdf.bucket_bytes / 2**20:.1f} MB, splits "
           f"{sdf.build_stats['build_splits']}")
     _check(abs(sdf.num_leaves - BENCH_LEAVES) <= 0.05 * BENCH_LEAVES,
            f"leaf count {sdf.num_leaves} is >5% from {BENCH_LEAVES}")
 
-    d = sdf.get_distance(pts)
-    torch.cuda.synchronize()
-    _check(d.shape == (1 << 21,) and bool(torch.isfinite(d).all()),
-           "get_distance output is not finite (P,)")
+    for n, want in ((1 << 16, "grouped"), (1 << 18, "grouped"), (1 << 21, "window")):
+        d = sdf.get_distance(pts[:n])
+        torch.cuda.synchronize()
+        _check(d.shape == (n,) and bool(torch.isfinite(d).all()),
+               f"get_distance output on {n} points is not finite (P,)")
+        took = sdf.last_scan_stats
+        _check(took["scan"] == want, f"{n} points took the {took['scan']} scan")
+        print(f"scan choice d6: {n} points -> {took['scan']} (G={took['G']}, "
+              f"padded {sdf._padded_batch(n)} vs 4 x {sdf.num_leaves} leaves)")
 
     oracle = RealSdf(mesh, device=dev)
     d_ref = oracle.get_distance(opts)
-    d_ex = sdf.get_distance(opts)
-    err = float((d_ex - d_ref).abs().max())
+    gates = {}
+    for impl in (None, "xla_window"):
+        if impl is not None:
+            sdf.set_scan_impl(impl)
+        d_ex = sdf.get_distance(opts)
+        gates[sdf.last_scan_stats["scan"]] = float((d_ex - d_ref).abs().max())
+    sdf._default_scan_impl()
     d_g, g_ex = sdf.get_distance_and_gradient(opts[:4000])
+    _check(sdf.last_scan_stats["scan"] == "grouped", "the gradient batch took the window scan")
     d_gr, g_ref = oracle.get_distance_and_gradient(opts[:4000])
     g_err = float((d_g - d_gr).abs().max())
     stable = d_gr.abs() > 1e-3
     g_bad = float(((g_ex - g_ref).norm(dim=-1)[stable] > 1e-3).float().mean())
     torch.cuda.synchronize()
-    launches = {"scan_window": scan.launch_count, "nearest": nearest.launch_count}
-    print(f"oracle gate: max |exact - RealSdf| {err:.3e} on 10000 points; "
-          f"gradient path on 4000: max dist err {g_err:.3e}, gradient "
-          f"mismatch share {g_bad:.2e}")
-    _check(err <= ORACLE_TOL, f"oracle max error {err} > {ORACLE_TOL}")
+    launches["d6"] = read_counts()
+    print(f"oracle gate d6: max |exact - RealSdf| on 10000 points: grouped scan "
+          f"{gates['grouped']:.3e}, window scan {gates['window']:.3e}; gradient "
+          f"path on 4000: max dist err {g_err:.3e}, gradient mismatch share {g_bad:.2e}")
+    for name, err in gates.items():
+        _check(err <= ORACLE_TOL, f"oracle max error {err} > {ORACLE_TOL} ({name} scan)")
     _check(g_err <= ORACLE_TOL, f"gradient-path distance error {g_err}")
     _check(g_bad < 5e-3, f"gradient mismatch share {g_bad}")
-    print(f"launches on the main path: {launches}")
-    _check(all(n > 0 for n in launches.values()), "a kernel was not launched")
+    print(f"launches on main path A (d6): {launches['d6']}")
+    for name in ("nearest", "scan_window", "scan_grouped"):
+        _check(launches["d6"][name] > 0, f"{name} was not launched on path A")
 
-    # -- K1 against its plain version on the 2^21 bench points --------------
+    # -- K1w against its plain version on the 2^21 bench points -------------
     pts_s, b0, nc, _ = sdf._sorted_windows(pts)
     args = (sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc)
     wk = scan.scan_window(*args).reshape(-1)
     wp = scan.scan_window_plain(*args).reshape(-1)
-    vw = sdf.triangles.v_world.reshape(-1, 9)
-
-    def winner_dist(win):
-        v = vw[win.long()]
-        return sq_dist_from_vertex_cols(
-            pts_s[:, 0], pts_s[:, 1], pts_s[:, 2], lambda r: v[:, r]
-        ).sqrt()
-
     live = nc > 0
     # rows each window visits: the union of its points' leaf spans (the
     # points are leaf-sorted, so each new leaf in a window adds its span)
     first = torch.ones_like(live)
     first[1:] = b0[1:] != b0[:-1]
     first[::32] = True
-    rows = int(nc[first & live].sum())
-    k1_err = float((winner_dist(wk) - winner_dist(wp))[live].abs().max())
+    visit = first & live
+    rows = int(nc[visit].sum())
+    k1_err = float((winner_dist(sdf, pts_s, wk) - winner_dist(sdf, pts_s, wp))[live]
+                   .abs().max())
     _check(k1_err <= 1e-6, f"K1 winner distances differ by {k1_err}")
     k1_ms = _cuda_ms(lambda: scan.scan_window(*args))
     k1_plain_ms = _cuda_ms(lambda: scan.scan_window_plain(*args))
-    print(f"K1 scan vs plain: max |winner dist diff| {k1_err:.3e}, ids differ "
-          f"{int((wk != wp).sum())}, kernel {k1_ms:.3f} ms, plain "
+    print(f"K1w window scan vs plain: max |winner dist diff| {k1_err:.3e}, ids "
+          f"differ {int((wk != wp).sum())}, kernel {k1_ms:.3f} ms, plain "
           f"{k1_plain_ms:.3f} ms (P=2^21, {pts_s.shape[0] // 32} windows, "
-          f"{rows} rows visited = {rows * 2560 / 1e6:.1f} MB, "
-          f"{rows * 2560 / k1_ms / 1e6:.1f} GB/s)")
-    kernels["scan_window"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms)
+          f"{rows} rows visited = {rows * ROW_BYTES / 1e6:.1f} MB, "
+          f"{rows * ROW_BYTES / k1_ms / 1e6:.1f} GB/s)")
+    kernels["scan_window"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+                                  bound=scan_bound(sdf, pts, 12 + 8))
+    # the rows K1w fetches, in its order, as one stream for the probes
+    lens = nc[visit].long()
+    offs = torch.arange(rows, device=dev) - torch.repeat_interleave(
+        torch.cumsum(lens, 0) - lens, lens)
+    k1_stream = (torch.repeat_interleave(b0[visit].long(), lens) + offs).int()
+
+    # -- K1g against its plain version on 2^16 d6 points --------------------
+    g_err6, g_ms6, g_plain6 = grouped_vs_plain(sdf, pts[: 1 << 16], "d6, 2^16 points")
+    w_ms6 = window_ms(sdf, pts[: 1 << 16])
+    print(f"K1w on the same 2^16 points: {w_ms6:.3f} ms ({w_ms6 / g_ms6:.2f}x K1g)")
+    kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6,
+                                   bound=scan_bound(sdf, pts[: 1 << 16], 12 + 4))
+
+    # -- both scans pinned, d6 ----------------------------------------------
+    for n in (1 << k for k in range(16, 22)):
+        q = pts[:n]
+        row = []
+        for impl, name in (("xla", "grouped"), ("xla_window", "window")):
+            sdf.set_scan_impl(impl)
+            ms = _cuda_ms(lambda: sdf.get_distance(q))
+            row.append(f"{name} {ms:.4f} ms ({n / ms * 1e3:.4e} q/s)")
+        print(f"get_distance d6 2^{n.bit_length() - 1} points, scan pinned: "
+              + ", ".join(row))
+    sdf.set_scan_impl("xla")
+    breakdown(lambda: sdf.get_distance(pts[:n]), "d6 2^21 points, grouped scan pinned")
+    sdf._default_scan_impl()
+    breakdown(lambda: sdf.get_distance(pts[: 1 << 16]), "d6 2^16 points (auto: grouped)")
 
     # -- end-to-end query timing, kernel path and plain path ----------------
     q_ms = _cuda_ms(lambda: sdf.get_distance(pts))
-    q_plain_ms = _cuda_ms(
-        lambda: sdf._query(pts, False, scan=scan.scan_window_plain)
-    )
+    q_plain_ms = _cuda_ms(lambda: sdf._query(pts, False, plain=True))
     n = pts.shape[0]
-    print(f"get_distance 2^21 points: kernel path {q_ms:.3f} ms "
+    print(f"get_distance d6 2^21 points (auto: window): kernel path {q_ms:.3f} ms "
           f"({n / q_ms * 1e3:.4e} q/s), plain path {q_plain_ms:.3f} ms "
           f"({n / q_plain_ms * 1e3:.4e} q/s)")
+
+    # -- K3a/K3b: the probe script's defaults, then K1w's fetch stream ------
+    rng = np.random.default_rng(0)
+    table = torch.as_tensor(rng.standard_normal((1 << 19, 512), dtype=np.float32),
+                            device=dev)
+    rows_d = torch.as_tensor(rng.integers(0, 1 << 19, 1 << 19).astype(np.int32),
+                             device=dev)
+
+    def probe(table, rows, label, counted=False):
+        """Both probes against row_min_plain, then timed; with ``counted``
+        the counts restart after the comparison, so they hold the timed
+        launches only."""
+        ref = row_gather.row_min_plain(table, rows)
+        fns = {"row_min_block": lambda: row_gather.row_min_block(table, rows),
+               "row_min_tile": lambda: row_gather.row_min_tile(table, rows)}
+        errs = {name: float((fn() - ref).abs().max()) for name, fn in fns.items()}
+        for name, err in errs.items():
+            _check(err == 0.0, f"{name} disagrees with row_min_plain ({label})")
+        if counted:
+            reset_counts()
+        res = {name: (errs[name], _cuda_ms(fn)) for name, fn in fns.items()}
+        plain_ms = _cuda_ms(lambda: row_gather.row_min_plain(table, rows))
+        n, w = rows.shape[0], table.shape[1]
+        uniq = int(torch.unique(rows).numel())
+        bound = _bound(uniq * w * 4 + n * 8, n * w)
+        parts = [f"{name} {ms:.4f} ms ({n / ms / 1e3:.1f} M rows/s, "
+                 f"{n * w * 4 / ms / 1e6:.1f} GB/s)" for name, (_, ms) in res.items()]
+        print(f"K3 probes, {label} (N={n}, W={w}, {uniq} distinct rows, tile 512): "
+              + ", ".join(parts) + f"; row_min_plain {plain_ms:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        return res, plain_ms, bound
+
+    res_def, plain_def, bound_def = probe(table, rows_d, "script defaults")
+    del table, rows_d
+    pad = (-k1_stream.shape[0]) % 512
+    stream = torch.cat([k1_stream, k1_stream[:pad]])
+    res_k1, _, _ = probe(sdf.bucket_fields, stream,
+                         f"K1w's 2^21-point fetch stream + {pad} wrapped rows", counted=True)
+    launches["probe"] = read_counts()
+    print(f"launches on the probe path (K1w's stream): {launches['probe']}")
+    for name in ("row_min_block", "row_min_tile"):
+        _check(launches["probe"][name] > 0, f"{name} was not launched on the probe path")
+        err, ms = res_def[name]
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_def, library_ms=plain_def,
+                             bound=bound_def)
+    fetch_ms = min(ms for _, ms in res_k1.values()) * rows / stream.shape[0]
+    print(f"K1w achieved row-fetch bound: {fetch_ms:.4f} ms for its {rows} rows "
+          f"(faster probe, scaled to the unpadded stream) vs K1w {k1_ms:.4f} ms "
+          f"({fetch_ms / k1_ms:.1%} of its time)")
+    del sdf, oracle, pts, pts_s, b0, nc, args, stream, k1_stream
+    torch.cuda.empty_cache()
+
+    # -- main path B, the depth-7 cell: 100,800 triangles, 2^20 points ------
+    big = make_torus(R=0.3, r=0.12, nu=420, nv=120)
+    big_box = big.bounding_box.add_margin(0.14)
+    bpts = uniform(big_box, 1 << 20, 0)
+    bopts = uniform(big_box, 10_000, 7)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bsdf = ExactOctreeSdf(big, big_box, max_depth=7, start_depth=3,
+                          min_triangles_per_node=32, bucket_byte_budget=8 << 30,
+                          device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cnt = bsdf.leaf_count
+    print(f"exact build d7 ({big.indices.size // 3} triangles): {build_s:.3f} s, "
+          f"leaves {bsdf.num_leaves}, mean list {cnt.mean():.3f}, max list "
+          f"{int(cnt.max())}, buckets {bsdf.bucket_bytes / 2**20:.1f} MB, splits "
+          f"{bsdf.build_stats['build_splits']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(abs(bsdf.num_leaves - BIG_LEAVES) <= 0.05 * BIG_LEAVES,
+           f"d7 leaf count {bsdf.num_leaves} is >5% from {BIG_LEAVES}")
+    d = bsdf.get_distance(bpts)
+    torch.cuda.synchronize()
+    _check(d.shape == (1 << 20,) and bool(torch.isfinite(d).all()),
+           "d7 get_distance output is not finite (P,)")
+    _check(bsdf.last_scan_stats["scan"] == "grouped", "the d7 batch took the window scan")
+    big_oracle = RealSdf(big, device=dev)
+    err7 = float((bsdf.get_distance(bopts) - big_oracle.get_distance(bopts)).abs().max())
+    torch.cuda.synchronize()
+    launches["d7"] = read_counts()
+    print(f"oracle gate d7: max |exact - RealSdf| {err7:.3e} on 10000 points "
+          f"({bsdf.last_scan_stats['scan']} scan); launches on main path B (d7): "
+          f"{launches['d7']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(err7 <= ORACLE_TOL, f"d7 oracle max error {err7} > {ORACLE_TOL}")
+    for name in ("nearest", "scan_grouped"):
+        _check(launches["d7"][name] > 0, f"{name} was not launched on path B")
+    row = []
+    for impl, name in (("xla", "grouped"), ("xla_window", "window")):
+        bsdf.set_scan_impl(impl)
+        ms = _cuda_ms(lambda: bsdf.get_distance(bpts))
+        row.append(f"{name} {ms:.4f} ms ({bpts.shape[0] / ms * 1e3:.4e} q/s)")
+    bsdf._default_scan_impl()
+    print("get_distance d7 2^20 points, scan pinned: " + ", ".join(row))
+    breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
+    g_err7, g_ms7, g_plain7 = grouped_vs_plain(bsdf, bpts, "d7, 2^20 points")
+    w_ms7 = window_ms(bsdf, bpts)
+    print(f"K1w on the same d7 2^20 points: {w_ms7:.3f} ms ({w_ms7 / g_ms7:.2f}x K1g)")
+    kernels["scan_grouped"]["err"] = max(g_err6, g_err7)
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",
                     "sdflib_tpu/ops/pallas_kernels.py:50"),
         "scan_window": ("sdflib_tpu_torch/csrc/scan_window.cu",
                         "sdflib_tpu/ops/pallas_scan.py:56"),
+        "scan_grouped": ("sdflib_tpu_torch/csrc/scan_grouped.cu",
+                         "sdflib_tpu/ops/pallas_scan.py:255"),
+        "row_min_block": ("sdflib_tpu_torch/csrc/row_gather.cu",
+                          "scripts/perf_pallas_gather.py:56"),
+        "row_min_tile": ("sdflib_tpu_torch/csrc/row_gather.cu",
+                         "scripts/perf_pallas_gather.py:80"),
     }
+    print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1],
+            "launches": sum(counts[name] for counts in launches.values()),
             "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+            "library_ms": k.get("library_ms"),
         }
         for name, k in kernels.items()
     ]}))

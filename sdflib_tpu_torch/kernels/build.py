@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` at first use and load them.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
-with a plain C interface, loaded through ``ctypes`` (no PyTorch headers,
-so a build takes seconds). The library lands in ``_build/`` inside the
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library lands in ``_build/`` inside the
 package, named by a hash of the sources and flags: a changed source
 rebuilds, an unchanged one loads the existing file. Each entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
@@ -32,7 +33,7 @@ _BUILD = _PKG / "_build"
 # compute it, so kernel and plain version round alike.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false",
 )
 
@@ -43,6 +44,15 @@ _SIGNATURES = {
     # (bucket_ids, bucket_fields, num_rows, points, b0, nc, num_windows,
     #  win, stream)
     "sdf_scan_window": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
+    # (bucket_ids, bucket_fields, num_rows, points, point_leaf, group_start,
+    #  num_groups, leaf_row0, leaf_nrows, win, stream)
+    "sdf_scan_grouped": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    # (table, num_rows, w, rows, n, out, stream)
+    "sdf_row_min_block": [_P, _I, _I, _P, _I, _P, _P],
+    # (table, num_rows, w, rows, n, tile, out, stream)
+    "sdf_row_min_tile": [_P, _I, _I, _P, _I, _I, _P, _P],
+    # (w) -> shared-memory bytes of the tile kernel
+    "sdf_row_min_tile_smem": [_I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -74,12 +84,31 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        jobs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
+            for src, obj in zip(sources, objs)
+        ]
+        outs = [(job, *job.communicate()) for job in jobs]
+        try:
+            for job, out, err in outs:
+                if job.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({job.returncode}):\n{out}\n{err}")
+            res = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+                )
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -1,13 +1,25 @@
-"""K1: the exact octree's candidate scan over fixed point windows.
+"""K1: the exact octree's candidate scan, in its two modes.
 
-``scan_window`` launches the CUDA kernel ``csrc/scan_window.cu`` for CUDA
-tensors (it replaces sdflib_tpu/ops/pallas_scan.py:_scan_kernel in window
-mode) and takes ``scan_window_plain`` for CPU tensors. The plain version
-follows the JAX package's ``_exact_scan_window_xla``: windows are G
-consecutive points of the leaf-sorted order; a window walks the union of
-its points' bucket-row spans, each point masks rows outside its own
-[b0, b0 + nc), and after each row the window jumps to the smallest row a
-point still needs. ``launch_count`` counts kernel launches.
+Both replace sdflib_tpu/ops/pallas_scan.py:_scan_kernel. Each wrapper
+launches its CUDA kernel for CUDA tensors and takes its plain torch
+version for CPU tensors.
+
+* Window mode, ``scan_window`` (``csrc/scan_window.cu``; the TPU kernel
+  through ``exact_scan_window_pallas``). The plain version follows the
+  JAX package's ``_exact_scan_window_xla``: windows are G consecutive
+  points of the leaf-sorted order; a window walks the union of its
+  points' bucket-row spans, each point masks rows outside its own
+  [b0, b0 + nc), and after each row the window jumps to the smallest row
+  a point still needs.
+* Grouped mode, ``scan_grouped`` (``csrc/scan_grouped.cu``; the TPU kernel
+  through ``exact_scan_grouped_pallas``). Groups are runs of leaf-sorted
+  points that share one leaf, given as CSR offsets into the points; every
+  point of a group scans its leaf's rows [row0, row0 + nrows).
+
+Winner rules of both: ids of -1 are masked, within a row the first
+minimal slot wins, across rows a strict <, a row whose minimum is NaN
+never wins, and a point with no rows gets id 0. ``launch_count`` and
+``grouped_launch_count`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -16,11 +28,15 @@ import torch
 from ..kernels import build
 from .point_triangle import sq_dist_from_vertex_cols
 
-__all__ = ["scan_window", "scan_window_plain", "launch_count", "WINDOW"]
+__all__ = [
+    "scan_window", "scan_window_plain", "scan_grouped", "scan_grouped_plain",
+    "launch_count", "grouped_launch_count", "WINDOW",
+]
 
 WINDOW = 32       # points per window: one warp in the kernel
 _BIG = 1 << 30
 launch_count = 0
+grouped_launch_count = 0
 
 
 def scan_window_plain(bucket_ids, bucket_fields, points, b0, nc, *,
@@ -109,4 +125,96 @@ def scan_window(bucket_ids, bucket_fields, points, b0, nc, *, G: int = WINDOW):
         )
     build.check(code, "sdf_scan_window")
     launch_count += 1
+    return win
+
+
+def scan_grouped_plain(bucket_ids, bucket_fields, points, point_leaf,
+                       group_start, leaf_row0, leaf_nrows, *, block: int = 1 << 16):
+    """Winner ids (P,) int32 of the leaf-sorted (P, 3) points.
+
+    ``point_leaf`` (P,) int32 is each point's leaf; ``group_start``
+    (NG + 1,) int32 the CSR offsets of the groups into the points
+    (non-decreasing from 0 to P; trailing empty groups allowed), each
+    group's leaf being that of its first point; ``leaf_row0`` and
+    ``leaf_nrows`` (L,) int32 each leaf's first bucket row and row count.
+    Row step i evaluates, in blocks of ``block`` points, only the points
+    whose group has more than i rows."""
+    P = points.shape[0]
+    NB, CH = bucket_ids.shape
+    dev = points.device
+    out = torch.zeros(P, dtype=torch.int32, device=dev)
+    if P == 0:
+        return out
+    sizes = (group_start[1:] - group_start[:-1]).long()
+    gleaf = point_leaf[group_start[:-1].clamp(max=P - 1).long()].long()
+    leaf = torch.repeat_interleave(gleaf, sizes, output_size=P)
+    b0 = leaf_row0[leaf]
+    nc = leaf_nrows[leaf]
+    best = torch.full((P,), torch.inf, device=dev)
+    for i in range(int(nc.max())):
+        live = torch.nonzero(nc > i)[:, 0]
+        for c0 in range(0, live.shape[0], block):
+            j = live[c0 : c0 + block]
+            r = (b0[j] + i).clamp(0, NB - 1)
+            tri = bucket_ids[r]                                # (n, CH)
+            fld = bucket_fields[r]                             # (n, 9*CH)
+            pts = points[j]
+            sqd = sq_dist_from_vertex_cols(
+                pts[:, 0:1], pts[:, 1:2], pts[:, 2:3],
+                lambda k: fld[:, k * CH : (k + 1) * CH],
+            )                                                  # (n, CH)
+            sqd = torch.where(tri >= 0, sqd, torch.inf)
+            local, amin = sqd.min(dim=1)
+            take = local < best[j]
+            best[j] = torch.where(take, local, best[j])
+            out[j] = torch.where(take, tri.gather(1, amin[:, None])[:, 0], out[j])
+    return out
+
+
+def scan_grouped(bucket_ids, bucket_fields, points, point_leaf, group_start,
+                 leaf_row0, leaf_nrows):
+    """Winner ids (P,) int32 of leaf-aligned point groups; see
+    ``scan_grouped_plain``. A CUDA tensor runs the kernel (64-slot rows);
+    a CPU tensor the plain version."""
+    P = points.shape[0]
+    NB, CH = bucket_ids.shape
+    NG = group_start.shape[0] - 1
+    L = leaf_row0.shape[0]
+    if points.shape != (P, 3) or point_leaf.shape != (P,):
+        raise ValueError("points must be (P, 3) and point_leaf (P,)")
+    if group_start.ndim != 1 or NG < 0:
+        raise ValueError("group_start must be (NG + 1,) CSR offsets")
+    if leaf_row0.shape != (L,) or leaf_nrows.shape != (L,):
+        raise ValueError("leaf_row0 and leaf_nrows must be (L,)")
+    if bucket_fields.shape != (NB, 9 * CH):
+        raise ValueError("bucket_fields must be (NB, 9 * CH) vertex rows")
+    for t, dt in ((bucket_ids, torch.int32), (bucket_fields, torch.float32),
+                  (points, torch.float32), (point_leaf, torch.int32),
+                  (group_start, torch.int32), (leaf_row0, torch.int32),
+                  (leaf_nrows, torch.int32)):
+        if t.dtype != dt or t.device != points.device:
+            raise ValueError(f"expected {dt} on {points.device}")
+    if points.device.type == "cpu":
+        return scan_grouped_plain(bucket_ids, bucket_fields, points, point_leaf,
+                                  group_start, leaf_row0, leaf_nrows)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if CH != 64:
+        raise ValueError("the kernel takes 64-slot rows")
+    if NG == 0 or P == 0:
+        return torch.zeros(P, dtype=torch.int32, device=points.device)
+    global grouped_launch_count
+    args = [t.contiguous() for t in (bucket_ids, bucket_fields, points, point_leaf,
+                                     group_start, leaf_row0, leaf_nrows)]
+    win = torch.empty(P, dtype=torch.int32, device=points.device)
+    lib = build.library()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sdf_scan_grouped(
+            args[0].data_ptr(), args[1].data_ptr(), NB, args[2].data_ptr(),
+            args[3].data_ptr(), args[4].data_ptr(), NG, args[5].data_ptr(),
+            args[6].data_ptr(), win.data_ptr(), stream,
+        )
+    build.check(code, "sdf_scan_grouped")
+    grouped_launch_count += 1
     return win

@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``sdf/exact_octree.py`` (reference:
 ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320), region cull and
-window-scan query only:
+the window and grouped scans only:
 
 * Build: a level loop over node groups. Each group's candidate lists are
   culled by the per-node-region influence test (``_region_cull_chunk``,
@@ -15,11 +15,13 @@ window-scan query only:
   table of the slots' world vertices (field-major), and per leaf its
   first row and row count.
 * Query: dense-grid descent (or the node walk past depth 7), a stable
-  sort of the points by leaf carrying the original index, fixed windows
-  of 32 sorted points through the scan (kernel K1 on a CUDA device), the
-  signed evaluation of each winner, the box fallback outside the domain
-  (box distance + sqrt(3) * box size, ExactOctreeSdf.cpp:44-49), and the
-  unsort.
+  sort of the points by leaf carrying the original index, the scan
+  (kernel K1 on a CUDA device), the signed evaluation of each winner,
+  the box fallback outside the domain (box distance + sqrt(3) * box
+  size, ExactOctreeSdf.cpp:44-49), and the unsort. The scan takes fixed
+  windows of 32 sorted points for dense batches and leaf-aligned groups
+  of G points for sparse ones (padded batch < 4 points per leaf, the JAX
+  package's rule), unless ``set_scan_impl`` pins one.
 
 The state round-trips through the ``.npz`` container of the JAX package
 (``from_jax_state``, ``save``, ``SdfFunction.load``).
@@ -42,11 +44,17 @@ from ..ops.point_triangle import (
     sq_dist_and_grad_from_field_fn,
     sq_dist_from_field_fn,
 )
-from ..ops.scan import WINDOW, scan_window
+from ..ops.scan import (
+    WINDOW,
+    scan_grouped,
+    scan_grouped_plain,
+    scan_window,
+    scan_window_plain,
+)
 from ..triangle import TriangleDataSoA, calculate_mesh_triangle_data, soa_to_torch
 from .octree import _build_leaf_grid
 from .octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK, _round_pow2
-from .sdf_function import SdfFormat, SdfFunction
+from .sdf_function import SdfFormat, SdfFunction, resolve_device
 
 __all__ = ["ExactOctreeSdf"]
 
@@ -68,6 +76,18 @@ _SLAB_ROWS = 256      # tri_flat pads to whole slabs, as the JAX build does
 _AUTO_GRID_DEPTH = 7  # dense leaf grid up to this depth (4 B per cell)
 _CULL_GROUPS_IN_FLIGHT = 2
 _DEFAULT_BUCKET_BYTES = 4 << 30
+# Sparse-batch switch: below this many padded points per leaf the query
+# takes the grouped scan (the JAX package's rule, exact_octree.py:2213).
+# Kept after measuring both scans on an H100 (chip_smoke.py, PERF.md
+# section 6): over the d6 torus's 145,636 leaves the grouped query was
+# 1.3-1.9x faster at 2^16 points, and from 2^19 to 2^21 points the two
+# differed by less than the spread between runs, so no crossover was
+# resolved to move the threshold to.
+_SPARSE_POINTS_PER_LEAF = 4
+_QUERY_BLOCK = 1 << 17   # the JAX package's padding unit for large batches
+# set_scan_impl's names (the JAX package's) -> the scan each pins
+_SCAN_IMPLS = {"xla": "grouped", "pallas": "grouped",
+               "xla_window": "window", "pallas_window": "window"}
 
 
 def _f32(x) -> float:
@@ -433,14 +453,14 @@ class ExactOctreeSdf(SdfFunction):
         entry_budget: int = 1 << 27,
         bucket_byte_budget: int | None = None,
         *,
-        device="cpu",
+        device="cuda",
     ):
         if strategy != "region":
             raise NotImplementedError(
                 f"cull strategy {strategy!r} is not ported yet; only 'region' "
                 "is (ROADMAP.md, Queue 1)"
             )
-        device = torch.device(device)
+        device = resolve_device(device)
         cbox = box.cubified()
         triangles = soa_to_torch(calculate_mesh_triangle_data(mesh), device)
         octree, leaf_offset, leaf_count, tri_flat, leaf_centers, stats = _build_exact(
@@ -470,12 +490,12 @@ class ExactOctreeSdf(SdfFunction):
         self.build_stats = stats
 
     @classmethod
-    def from_jax_state(cls, state: dict, device="cpu") -> "ExactOctreeSdf":
+    def from_jax_state(cls, state: dict, device="cuda") -> "ExactOctreeSdf":
         """The structure held by a state dict of the JAX package's
         ``ExactOctreeSdf._state_arrays()`` (the ``.npz`` container's
         arrays, ``tri_*`` included), on ``device``."""
         self = cls.__new__(cls)
-        device = torch.device(device)
+        device = resolve_device(device)
         L = max(int(np.asarray(state["leaf_count"]).shape[0]), 1)
         self._set_state(
             device=device,
@@ -531,6 +551,9 @@ class ExactOctreeSdf(SdfFunction):
         self._box_min = torch.as_tensor(box.min, device=device)
         self._box_size3 = torch.full((3,), size, device=device)
         self._make_buckets()
+        self._default_scan_impl()
+        self._group_width_cache: dict[int, int] = {}
+        self.last_scan_stats: dict = {}
         if max_depth <= _AUTO_GRID_DEPTH:
             grid = _build_leaf_grid(octree_data, start_grid_size, max_depth)
             lid = (grid[:, 0] & CHILDREN_INDEX_MASK).astype(np.int32)
@@ -585,6 +608,39 @@ class ExactOctreeSdf(SdfFunction):
     def bucket_bytes(self) -> int:
         return 4 * (self.bucket_ids.numel() + self.bucket_fields.numel())
 
+    # -- scan choice ----------------------------------------------------------
+
+    def _default_scan_impl(self) -> None:
+        """Let each query choose its scan by the batch's density (an
+        explicit ``set_scan_impl`` pins the choice)."""
+        self._pinned_scan = None
+
+    def set_scan_impl(self, impl: str) -> None:
+        """Pin the candidate scan by the JAX package's names: "xla" and
+        "pallas" the grouped scan, "xla_window" and "pallas_window" the
+        window scan (both run kernel K1 on a CUDA device)."""
+        if impl not in _SCAN_IMPLS:
+            raise ValueError(f"unknown scan impl {impl!r}")
+        self._pinned_scan = _SCAN_IMPLS[impl]
+
+    @staticmethod
+    def _padded_batch(P: int) -> int:
+        """The JAX package's padded batch size: below the query block the
+        next power of two (floor 1024), else a multiple of the block. The
+        port pads nothing; the size only feeds the scan choice and the
+        group-width cache, so a batch takes the same scan in both."""
+        B = _QUERY_BLOCK
+        if P < B:
+            B = max(1 << (max(P - 1, 1)).bit_length(), 1024)
+        return -(-max(P, 1) // B) * B
+
+    def _choose_scan(self, P: int) -> str:
+        """"grouped" or "window" for a batch of P points."""
+        if self._pinned_scan is not None:
+            return self._pinned_scan
+        sparse = self._padded_batch(P) < _SPARSE_POINTS_PER_LEAF * self.num_leaves
+        return "grouped" if sparse else "window"
+
     # -- queries ------------------------------------------------------------
 
     def _descend(self, pts):
@@ -619,18 +675,60 @@ class ExactOctreeSdf(SdfFunction):
             frac = torch.where(is_leaf[:, None], frac, nfrac)
         return word & int(CHILDREN_INDEX_MASK)
 
+    def _sort_by_leaf(self, pts):
+        """(points sorted by leaf (stable), their leaf ids (int64), the
+        sort order)."""
+        lid_s, order = torch.sort(self._descend(pts), stable=True)
+        return pts[order], lid_s, order
+
     def _sorted_windows(self, pts):
         """Points sorted by leaf (stable) and padded to whole windows, with
         each point's first bucket row and row count (0 for padding), and
         the sort order."""
-        leaf = self._descend(pts)
-        lid_s, order = torch.sort(leaf, stable=True)
+        pts_s, lid_s, order = self._sort_by_leaf(pts)
         pad = (-pts.shape[0]) % WINDOW
         zi = torch.zeros(pad, dtype=torch.int32, device=self.device)
-        pts_s = torch.cat([pts[order], pts.new_zeros((pad, 3))])
+        pts_s = torch.cat([pts_s, pts.new_zeros((pad, 3))])
         b0 = torch.cat([self.leaf_row0[lid_s], zi])
         nc = torch.cat([self.leaf_nchunks[lid_s], zi])
         return pts_s, b0, nc, order
+
+    def _pick_group_width(self, lid_s, Pp: int) -> int:
+        """Group width from the points per touched leaf of the padded batch
+        (the JAX package pads with points at the origin), cached per padded
+        size: G = min(64, max(8, round_pow2(Pp // touched)))."""
+        G = self._group_width_cache.get(Pp)
+        if G is None:
+            touched = int((lid_s[1:] != lid_s[:-1]).sum()) + 1 if len(lid_s) else 0
+            if Pp > len(lid_s):
+                origin = self._descend(torch.zeros((1, 3), device=self.device))
+                touched += int(not bool((lid_s == origin).any()))
+            G = min(64, max(8, _round_pow2(max(1, Pp // max(touched, 1)), 1)))
+            self._group_width_cache[Pp] = G
+        return G
+
+    def _sorted_groups(self, pts):
+        """Points sorted by leaf, their leaf ids (int32), the CSR offsets
+        (NG + 1,) of the groups (runs of at most G points of one leaf;
+        trailing groups past the last are empty), G, and the sort order.
+        Port of the JAX package's ``_assign_groups``, with no host sync
+        once G is cached: NG is the bound min(P, P // G + L). Each run's
+        start is a binary search of the sorted ids for themselves: the
+        JAX package's max-scan, as ``torch.cummax`` over int64, took 2.85
+        of the 7.52 ms d7 2^20-point query on an H100 (PERF.md)."""
+        pts_s, lid_s, order = self._sort_by_leaf(pts)
+        P = pts.shape[0]
+        G = self._pick_group_width(lid_s, self._padded_batch(P))
+        i = torch.arange(P, dtype=torch.int64, device=self.device)
+        seg_start = torch.searchsorted(lid_s, lid_s)
+        boundary = (i - seg_start) % G == 0
+        gid = torch.cumsum(boundary, dim=0) - 1
+        NG = min(P, P // G + self.num_leaves)
+        start = torch.full((NG + 1,), P, dtype=torch.int32, device=self.device)
+        # non-boundary points land in the spare last slot, then reset to P
+        start.scatter_(0, torch.where(boundary, gid, NG), i.to(torch.int32))
+        start[NG] = P
+        return pts_s, lid_s.to(torch.int32), start, G, order
 
     def _finish(self, pts, win, with_gradient):
         """Signed distance of each point to its winning triangle, with the
@@ -655,12 +753,25 @@ class ExactOctreeSdf(SdfFunction):
         d_out = box_distance(pts, center, size)
         return torch.where(in_box, d_in, d_out + fallback)
 
-    def _query(self, points, with_gradient: bool, scan=scan_window):
+    def _query(self, points, with_gradient: bool, plain: bool = False):
+        """The query; ``plain`` runs the scans' plain versions (a
+        yardstick on the card)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         flat = pts.reshape(-1, 3).contiguous()
         P = flat.shape[0]
-        pts_s, b0, nc, order = self._sorted_windows(flat)
-        win = scan(self.bucket_ids, self.bucket_fields, pts_s, b0, nc).reshape(-1)
+        kind = self._choose_scan(P)
+        if kind == "grouped":
+            pts_s, lid_s, start, G, order = self._sorted_groups(flat)
+            scan = scan_grouped_plain if plain else scan_grouped
+            win = scan(self.bucket_ids, self.bucket_fields, pts_s, lid_s, start,
+                       self.leaf_row0, self.leaf_nchunks)
+            self.last_scan_stats = {"scan": kind, "G": G, "NG": start.shape[0] - 1}
+        else:
+            pts_s, b0, nc, order = self._sorted_windows(flat)
+            scan = scan_window_plain if plain else scan_window
+            win = scan(self.bucket_ids, self.bucket_fields, pts_s, b0, nc).reshape(-1)
+            self.last_scan_stats = {"scan": kind, "G": WINDOW,
+                                    "NG": pts_s.shape[0] // WINDOW}
         out = self._finish(pts_s[:P], win[:P], with_gradient)
         if with_gradient:
             d = torch.empty_like(out[0])

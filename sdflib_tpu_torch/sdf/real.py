@@ -16,7 +16,7 @@ from ..ops.point_triangle import (
     signed_distance_grad_batch,
 )
 from ..triangle import calculate_mesh_triangle_data, soa_to_torch
-from .sdf_function import SdfFormat, SdfFunction
+from .sdf_function import SdfFormat, SdfFunction, resolve_device
 
 __all__ = ["RealSdf"]
 
@@ -24,9 +24,9 @@ __all__ = ["RealSdf"]
 class RealSdf(SdfFunction):
     """Exact signed distance via brute force over every triangle."""
 
-    def __init__(self, mesh: Mesh, device="cpu"):
+    def __init__(self, mesh: Mesh, device="cuda"):
         self.mesh = mesh
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.triangles = soa_to_torch(calculate_mesh_triangle_data(mesh), self.device)
         self.fields = pack_triangle_fields(self.triangles)
 

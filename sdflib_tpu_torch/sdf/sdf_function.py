@@ -12,10 +12,23 @@ import abc
 from enum import Enum
 
 import numpy as np
+import torch
 
 from ..mesh import BoundingBox
 
-__all__ = ["SdfFormat", "SdfFunction"]
+__all__ = ["SdfFormat", "SdfFunction", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises rather than running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the entry points run on the card unless the "
+            "caller passes device='cpu'"
+        )
+    return dev
 
 
 class SdfFormat(str, Enum):
@@ -59,8 +72,9 @@ class SdfFunction(abc.ABC):
         np.savez(path, **state)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "SdfFunction":
+    def load(path: str, device="cuda") -> "SdfFunction":
         """Load a container written by either package onto ``device``."""
+        device = resolve_device(device)
         with np.load(path, allow_pickle=False) as f:
             state = {k: f[k] for k in f.files}
         if "__format__" not in state:

@@ -3,20 +3,25 @@ of test_pallas_scan.py (nu=20, nv=12, max_depth 4, start_depth 1, 16
 triangles per node).
 
 Distances and gradients agree within rtol 1e-5 / atol 1e-6 (fp32
-rounding order); the port's own build is exact against the JAX RealSdf
-within 1e-5 and matches the JAX build's leaf count and mean list length
-within 2%.
+rounding order), under the scan each query chooses and under each scan
+pinned; the port chooses its scan by the JAX package's rule; the port's
+own build is exact against the JAX RealSdf within 1e-5 and matches the
+JAX build's leaf count and mean list length within 2%. The entry points
+default to the card and raise without one.
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import sdflib_tpu.sdf.exact_octree as jeo
 from sdflib_tpu.sdf.exact_octree import ExactOctreeSdf as JExact
 from sdflib_tpu.sdf.real import RealSdf as JReal
 from sdflib_tpu.sdf.sdf_function import SdfFunction as JSdfFunction
 from sdflib_tpu.utils.primitives import make_torus as j_torus
-from sdflib_tpu_torch import ExactOctreeSdf, SdfFunction
+from sdflib_tpu_torch import ExactOctreeSdf, RealSdf, SdfFunction
 from sdflib_tpu_torch.utils.primitives import make_torus
 
 torch.set_num_threads(1)
@@ -36,7 +41,7 @@ def jax_sdf():
 
 @pytest.fixture(scope="module")
 def port_sdf():
-    return ExactOctreeSdf(*_mesh_box(make_torus), **CFG)
+    return ExactOctreeSdf(*_mesh_box(make_torus), **CFG, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +61,8 @@ def test_jax_container_gives_jax_results(jax_sdf, pts, tmp_path):
     d_j = _np(jax_sdf.get_distance(pts))
     dg_j, g_j = (_np(a) for a in jax_sdf.get_distance_and_gradient(pts))
     for sdf in (
-        ExactOctreeSdf.from_jax_state(jax_sdf._state_arrays()),
-        SdfFunction.load(path),
+        ExactOctreeSdf.from_jax_state(jax_sdf._state_arrays(), device="cpu"),
+        SdfFunction.load(path, device="cpu"),
     ):
         assert isinstance(sdf, ExactOctreeSdf)
         assert sdf.num_leaves == int(jax_sdf.leaf_count.shape[0])
@@ -114,7 +119,7 @@ def test_port_container_loads_into_jax(port_sdf, pts, tmp_path):
     np.testing.assert_allclose(
         _np(j.get_distance(jnp.asarray(pts))), port_sdf.get_distance(pts).numpy(), **TOL
     )
-    again = SdfFunction.load(path)
+    again = SdfFunction.load(path, device="cpu")
     np.testing.assert_array_equal(
         again.get_distance(pts).numpy(), port_sdf.get_distance(pts).numpy()
     )
@@ -123,7 +128,7 @@ def test_port_container_loads_into_jax(port_sdf, pts, tmp_path):
 def test_node_walk_matches_grid_descent(port_sdf, pts):
     """The node walk (used past depth 7) lands every point in a leaf whose
     list answers exactly as the dense grid's."""
-    walk = ExactOctreeSdf.from_jax_state(port_sdf._state_arrays())
+    walk = ExactOctreeSdf.from_jax_state(port_sdf._state_arrays(), device="cpu")
     walk._leaf_grid = None
     walk._octree_dev = torch.as_tensor(walk.octree_data.astype(np.int64))
     np.testing.assert_array_equal(
@@ -150,10 +155,78 @@ def test_query_shapes_and_batches(port_sdf, pts):
 def test_unported_options_raise(tmp_path):
     mesh, box = _mesh_box(make_torus)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExactOctreeSdf(mesh, box, strategy="lattice", **CFG)
+        ExactOctreeSdf(mesh, box, strategy="lattice", **CFG, device="cpu")
     with pytest.raises(MemoryError):
-        ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG)
+        ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG, device="cpu")
     path = str(tmp_path / "grid.npz")
     np.savez(path, __format__=np.array("grid"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SdfFunction.load(path)
+        SdfFunction.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_window"])
+def test_pinned_scans_match_jax(port_sdf, jax_sdf, pts, impl):
+    """Each scan pinned by name, in both packages: distances and gradients
+    agree, and the port records the scan it took."""
+    try:
+        jax_sdf.set_scan_impl(impl)
+        port_sdf.set_scan_impl(impl)
+        d = port_sdf.get_distance(pts).numpy()
+        assert port_sdf.last_scan_stats["scan"] == ("grouped" if impl == "xla" else "window")
+        np.testing.assert_allclose(d, _np(jax_sdf.get_distance(pts)), **TOL)
+        d_g, g = port_sdf.get_distance_and_gradient(pts[:256])
+        d_gj, g_j = jax_sdf.get_distance_and_gradient(pts[:256])
+        np.testing.assert_allclose(d_g.numpy(), _np(d_gj), **TOL)
+        np.testing.assert_allclose(g.numpy(), _np(g_j), **TOL)
+    finally:
+        jax_sdf._default_scan_impl()
+        port_sdf._default_scan_impl()
+    with pytest.raises(ValueError):
+        port_sdf.set_scan_impl("window")
+
+
+@pytest.mark.parametrize("side", ["sparse", "dense"])
+def test_auto_scan_choice_matches_jax_rule(port_sdf, jax_sdf, monkeypatch, side):
+    """Batches on either side of a padded size of 4 points per leaf take
+    the same scan, with the same group width, in both packages."""
+    L = port_sdf.num_leaves
+    assert L == int(jax_sdf.leaf_count.shape[0])
+    below = max(p for p in (1 << k for k in range(10, 20)) if p < 4 * L)
+    P = below if side == "sparse" else below + 1           # padded: below, 2 * below
+    taken = {}
+    real = jeo._exact_query_fused
+
+    def spy(*args, **kw):
+        taken["impl"] = kw["scan_impl"]
+        return real(*args, **kw)
+
+    monkeypatch.setattr(jeo, "_exact_query_fused", spy)
+    q = np.random.default_rng(4).uniform(-0.45, 0.45, (P, 3)).astype(np.float32)
+    d_j = _np(jax_sdf.get_distance(q))
+    d = port_sdf.get_distance(q).numpy()
+    want = "grouped" if side == "sparse" else "window"
+    assert taken["impl"] == ("xla" if want == "grouped" else "xla_window")
+    assert port_sdf.last_scan_stats["scan"] == want
+    if want == "grouped":
+        assert port_sdf.last_scan_stats["G"] == jax_sdf._last_scan_stats["G"]
+    np.testing.assert_allclose(d, d_j, **TOL)
+
+
+@pytest.mark.parametrize("entry", ["init", "from_jax_state", "real", "load"])
+def test_entry_points_default_to_the_card(entry, jax_sdf, monkeypatch, tmp_path):
+    """The four entry points default to device="cuda" (read from their
+    signatures, nothing is built on a card), and without a card that
+    default raises rather than running on the CPU."""
+    mesh, box = _mesh_box(make_torus)
+    fn, call = {
+        "init": (ExactOctreeSdf.__init__, lambda: ExactOctreeSdf(mesh, box, **CFG)),
+        "from_jax_state": (ExactOctreeSdf.from_jax_state,
+                           lambda: ExactOctreeSdf.from_jax_state(jax_sdf._state_arrays())),
+        "real": (RealSdf.__init__, lambda: RealSdf(mesh)),
+        "load": (SdfFunction.load, lambda: SdfFunction.load(str(tmp_path / "x.npz"))),
+    }[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    jax_sdf.save(str(tmp_path / "x.npz"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

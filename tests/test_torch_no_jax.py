@@ -1,7 +1,8 @@
 """The port runs where JAX is absent, as on the GPU machine: a fresh
 interpreter with ``sys.modules["jax"] = None`` (any ``import jax`` then
 raises) imports sdflib_tpu_torch and runs the exact-octree slice on the
-CPU at test size, exact against the port's own RealSdf within 1e-5."""
+CPU at test size, through the window and the grouped scan, exact against
+the port's own RealSdf within 1e-5, and the row-fetch probes."""
 import os
 import subprocess
 import sys
@@ -23,11 +24,23 @@ SCRIPT = textwrap.dedent(
     mesh = make_torus(R=0.3, r=0.12, nu=20, nv=12)
     box = mesh.bounding_box.add_margin(0.1)
     sdf = ExactOctreeSdf(mesh, box, max_depth=4, start_depth=1,
-                         min_triangles_per_node=16)
+                         min_triangles_per_node=16, device="cpu")
     pts = np.random.default_rng(0).uniform(-0.6, 0.6, (500, 3)).astype(np.float32)
     inside = np.all((pts >= sdf.box.min) & (pts < sdf.box.max), axis=1)
-    err = (sdf.get_distance(pts) - RealSdf(mesh).get_distance(pts)).abs()
-    assert float(err[torch.as_tensor(inside)].max()) <= 1e-5
+    ref = RealSdf(mesh, device="cpu").get_distance(pts)
+    for impl, scan in (("xla", "grouped"), ("xla_window", "window")):
+        sdf.set_scan_impl(impl)
+        err = (sdf.get_distance(pts) - ref).abs()
+        assert sdf.last_scan_stats["scan"] == scan
+        assert float(err[torch.as_tensor(inside)].max()) <= 1e-5
+
+    from sdflib_tpu_torch.ops import row_gather
+    table = torch.randn(64, 12, generator=torch.Generator().manual_seed(1))
+    rows = torch.randint(0, 64, (32,), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    ref_min = row_gather.row_min_plain(table, rows)
+    assert torch.equal(row_gather.row_min_block(table, rows), ref_min)
+    assert torch.equal(row_gather.row_min_tile(table, rows, tile=8), ref_min)
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)

@@ -148,7 +148,7 @@ def test_real_sdf_matches_cpp_goldens(name):
     g = np.load(os.path.join(DATA, f"dist_{name}.npz"))
     sel = slice(None, None, 5)
     pts, gd, gg = g["points"][sel], g["dist"][sel], g["grad"][sel]
-    d, grad = RealSdf(_golden_mesh(name)).get_distance_and_gradient(pts)
+    d, grad = RealSdf(_golden_mesh(name), device="cpu").get_distance_and_gradient(pts)
     d, grad = d.numpy(), grad.numpy()
     np.testing.assert_allclose(np.abs(d), np.abs(gd), atol=5e-5)
     sign_mismatch = (np.sign(d) != np.sign(gd)) & (np.abs(gd) > 1e-4)
@@ -157,4 +157,4 @@ def test_real_sdf_matches_cpp_goldens(name):
     err = np.linalg.norm(grad - gg, axis=-1)
     assert (err[stable] > 1e-3).mean() < 5e-3
     # the distance-only path gives the same distances
-    np.testing.assert_array_equal(RealSdf(_golden_mesh(name)).get_distance(pts[:2000]).numpy(), d[:2000])
+    np.testing.assert_array_equal(RealSdf(_golden_mesh(name), device="cpu").get_distance(pts[:2000]).numpy(), d[:2000])
