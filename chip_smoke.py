@@ -5,15 +5,26 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
 builds the CUDA kernels from ``sdflib_tpu_torch/csrc`` (the first run of
 a checkout compiles them with nvcc) and drives the exact-octree paths:
 
+* ptxas's registers and spills of each kernel, and the branches in K2's
+  machine code (``<true>``: the instance for points in Morton order, with
+  the branching ladder; ``<false>``: points as given, select ladder);
+* K2 against its plain version at the oracle's 10k points, the gradient
+  batch's 4k and 2^20 points (the approximate builders' sweep, checked on
+  its first 2^16), with its grid of point tiles x triangle slices, timed
+  in both point orders and the Morton sort alone;
 * the bench torus of bench.py (9,216 triangles, box margin 0.14), the
   port's own depth-6 region build, ``get_distance`` on 2^21 uniform
   points (seed 0, the window scan), and the 10k-point oracle gate (seed
   7) against the brute-force ``RealSdf`` through the grouped scan, which
   sparse batches take, and again with the window scan pinned;
+* K1w against its plain version at d6 2^21 and 2^16 points, with its
+  rows visited and active-lane share;
 * both scans pinned at 2^16 to 2^21 points;
 * the depth-7 cell: the 100,800-triangle torus of bench.py's big mesh,
   start depth 3, 2^20 uniform points (the grouped scan) and its oracle
-  gate;
+  gate, K2 and its Morton-code kernel at the d7 oracle's shape (10k x
+  100,800), and K1w on the 2^20 points (checked on the first 2^16 of
+  their windows);
 * the row-fetch probes K3a/K3b at the defaults of
   scripts/perf_pallas_gather.py and over the rows K1's window scan
   fetches.
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +96,30 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _instance(mangled: str) -> str:
+    """The bool template argument of a mangled kernel name, if any."""
+    return "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+
+
+def _sass_branches(so_path, short: str) -> str:
+    """Instruction, branch (BRA) and convergence-barrier (BSSY) counts in
+    the machine code of each kernel whose name holds ``short``."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    out = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                         text=True).stdout
+    found = []
+    for part in out.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        if short in name:
+            code = [ln for ln in part.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+            found.append(f"{short}{_instance(name)} {len(code)} instructions, "
+                         f"{sum(' BRA' in ln for ln in code)} BRA, "
+                         f"{sum('BSSY' in ln for ln in code)} BSSY")
+    return "; ".join(found) or "not found"
+
+
 def main() -> None:
     import torch
 
@@ -119,14 +155,24 @@ def main() -> None:
     build.library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    report = build.ptxas_report()
+    for short in ("nearest_kernel", "merge_kernel", "morton_kernel", "scan_window_kernel",
+                  "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel"):
+        lines = [(_instance(k), v) for k, v in report.items() if short in k]
+        for tag, line in lines or [("", "not reported")]:
+            print(f"ptxas {short}{tag}: {line}")
+    print(f"SASS {_sass_branches(build.library_path(), 'nearest_kernel')}")
 
     def reset_counts():
         scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
+        nearest.morton_launch_count = 0
         row_gather.block_launch_count = row_gather.tile_launch_count = 0
 
     def read_counts():
         return {
-            "nearest": nearest.launch_count, "scan_window": scan.launch_count,
+            "nearest": nearest.launch_count,
+            "nearest_morton": nearest.morton_launch_count,
+            "scan_window": scan.launch_count,
             "scan_grouped": scan.grouped_launch_count,
             "row_min_block": row_gather.block_launch_count,
             "row_min_tile": row_gather.tile_launch_count,
@@ -184,11 +230,101 @@ def main() -> None:
               f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s)")
         return err, ms, plain_ms
 
-    def window_ms(sdf, pts):
-        """K1w's time on the windows of a batch."""
+    def k2_vs_plain(pts, fields, tris, label, n_check=None):
+        """K2 against its plain version on the first ``n_check`` points
+        (all by default): squared distances equal, index ties agree by
+        signed distance; then both timed. (max |sq diff|, kernel ms, plain
+        ms, bound)."""
+        n_check = pts.shape[0] if n_check is None else n_check
+        bk, ik = nearest.nearest_triangle(pts, fields)
+        tiles_p, S = nearest.last_grid
+        q = pts[:n_check]
+        bk, ik = bk[:n_check], ik[:n_check]
+        bp, ip = nearest.nearest_triangle_plain(q, fields)
+        torch.cuda.synchronize()
+        _check(torch.equal(bk, bp), f"K2 squared distances differ from the plain version's ({label})")
+        diff = ik != ip
+        if bool(diff.any()):   # last-ulp ties: the signed distances must agree
+            dk = signed_dist_pair(q[diff], gather_triangles(tris, ik[diff]))
+            dp = signed_dist_pair(q[diff], gather_triangles(tris, ip[diff]))
+            _check(bool(((dk - dp).abs() <= 1e-6).all()), f"K2 tie winners disagree ({label})")
+        err = float((bk - bp).abs().max())
+        ms = _cuda_ms(lambda: nearest.nearest_triangle(pts, fields))
+        # the kernel's two point orders, whichever the wrapper takes
+        as_given_ms = _cuda_ms(lambda: nearest._launch(pts, fields, None))
+        morton_ms = _cuda_ms(lambda: nearest._launch(pts, fields, nearest.morton_order(pts)))
+        sort_ms = _cuda_ms(lambda: nearest.morton_order(pts))
+        sorts = pts.shape[0] * fields.shape[0] >= nearest.MORTON_PAIRS
+        plain_ms = _cuda_ms(lambda: nearest.nearest_triangle_plain(q, fields))
+        P, T = pts.shape[0], fields.shape[0]
+        bound = _bound(P * 12 + T * 19 * 4 + P * 8, P * T * FLOPS_PAIR)
+        print(f"K2 nearest vs plain ({label}): grid {tiles_p} point tiles x {S} slices "
+              f"= {tiles_p * S} CTAs; max |sq diff| {err:.3e}, index ties "
+              f"{int(diff.sum())} of {n_check} checked; kernel {ms:.4f} ms "
+              f"({P * T / ms / 1e6:.3f} G pairs/s; the wrapper takes the "
+              f"{'Morton' if sorts else 'given'} order; points as given, select "
+              f"ladder {as_given_ms:.4f} ms; Morton order and its sort, branching "
+              f"ladder {morton_ms:.4f} ms, of which the sort {sort_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms on "
+              f"{n_check} points (P={P}, T={T}); bound {bound[0]:.4f} ms ({bound[1]})")
+        return err, ms, plain_ms, bound
+
+    def morton_vs_plain(pts, label):
+        """K2's Morton-code kernel against its plain version (codes
+        equal), then both timed. (max |code diff|, kernel ms, plain ms,
+        bound)."""
+        lo, hi = (t.contiguous() for t in torch.aminmax(pts, dim=0))
+        ck = nearest.morton_codes(pts, lo, hi)
+        cp = nearest.morton_codes_plain(pts, lo, hi)
+        _check(torch.equal(ck, cp), f"Morton codes differ from the plain version's ({label})")
+        ms = _cuda_ms(lambda: nearest.morton_codes(pts, lo, hi))
+        plain_ms = _cuda_ms(lambda: nearest.morton_codes_plain(pts, lo, hi))
+        P = pts.shape[0]
+        bound = _bound(P * 12 + 24 + P * 4, P * 9)
+        print(f"K2 Morton codes vs plain ({label}): equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (P={P}); bound {bound[0]:.6f} ms ({bound[1]})")
+        return 0.0, ms, plain_ms, bound
+
+    def window_stats(sdf, pts):
+        """The sorted windows of a batch, the rows K1w visits (the union of
+        each window's point spans: the points are leaf-sorted, so each new
+        leaf in a window adds its span) and the share of lanes that need
+        each visited row."""
         pts_s, b0, nc, _ = sdf._sorted_windows(pts)
-        return _cuda_ms(lambda: scan.scan_window(sdf.bucket_ids, sdf.bucket_fields,
-                                                 pts_s, b0, nc))
+        live = nc > 0
+        first = torch.ones_like(live)
+        first[1:] = b0[1:] != b0[:-1]
+        first[::32] = True
+        visit = first & live
+        rows = int(nc[visit].sum())
+        return pts_s, b0, nc, visit, rows, int(nc[live].sum()) / (32 * max(rows, 1))
+
+    def window_vs_plain(sdf, pts, label, n_check=None):
+        """K1w against its plain version on the windows of the first
+        ``n_check`` leaf-sorted points (all by default; the plain version
+        takes windows one by one, so these are the timed windows), winner
+        distances within 1e-6; then timed, the plain version on the
+        checked windows. (max diff, kernel ms, plain ms, the windows'
+        (sorted points, b0, nc, visited leaf runs, rows visited))."""
+        pts_s, b0, nc, visit, rows, share = window_stats(sdf, pts)
+        n = pts_s.shape[0] if n_check is None else n_check
+        args = (sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc)
+        wk = scan.scan_window(*args).reshape(-1)[:n]
+        check = (sdf.bucket_ids, sdf.bucket_fields, pts_s[:n], b0[:n], nc[:n])
+        wp = scan.scan_window_plain(*check).reshape(-1)
+        live = nc[:n] > 0
+        err = float((winner_dist(sdf, pts_s[:n], wk) - winner_dist(sdf, pts_s[:n], wp))[live]
+                    .abs().max())
+        _check(err <= 1e-6, f"K1w winner distances differ by {err} ({label})")
+        ms = _cuda_ms(lambda: scan.scan_window(*args))
+        plain_ms = _cuda_ms(lambda: scan.scan_window_plain(*check))
+        print(f"K1w window scan vs plain ({label}): max |winner dist diff| {err:.3e}, "
+              f"ids differ {int((wk != wp).sum())} of {n} checked, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms on {n} points (P={pts_s.shape[0]}, "
+              f"{pts_s.shape[0] // 32} windows, {rows} rows visited = "
+              f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s, "
+              f"active-lane share {share:.4f})")
+        return err, ms, plain_ms, (pts_s, b0, nc, visit, rows)
 
     def breakdown(fn, label, top=6):
         """Where a call's time goes: CUDA-event time, device and host time
@@ -225,26 +361,12 @@ def main() -> None:
     pts = uniform(box, 1 << 21, 0)
     tris = soa_to_torch(calculate_mesh_triangle_data(mesh), dev)
     fields = pack_triangle_fields(tris)
-    bk, ik = nearest.nearest_triangle(opts, fields)
-    bp, ip = nearest.nearest_triangle_plain(opts, fields)
-    torch.cuda.synchronize()
-    _check(torch.allclose(bk, bp, rtol=1e-5, atol=1e-7), "K2 squared distances disagree")
-    diff = ik != ip
-    if bool(diff.any()):   # last-ulp ties: the signed distances must agree
-        dk = signed_dist_pair(opts[diff], gather_triangles(tris, ik[diff]))
-        dp = signed_dist_pair(opts[diff], gather_triangles(tris, ip[diff]))
-        _check(bool(((dk - dp).abs() <= 1e-6).all()), "K2 tie winners disagree")
-    k2_err = float((bk - bp).abs().max())
-    k2_ms = _cuda_ms(lambda: nearest.nearest_triangle(opts, fields))
-    k2_plain_ms = _cuda_ms(lambda: nearest.nearest_triangle_plain(opts, fields))
-    T = fields.shape[0]
-    print(f"K2 nearest vs plain: max |sq diff| {k2_err:.3e}, index ties "
-          f"{int(diff.sum())}, kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
-          f"(P=10000, T={T}, {1e4 * T / k2_ms / 1e6:.3f} G pairs/s)")
-    kernels["nearest"] = dict(
-        err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-        bound=_bound(1e4 * 12 + T * 19 * 4 + 1e4 * 8, 1e4 * T * FLOPS_PAIR),
-    )
+    k2_err, k2_ms, k2_plain_ms, k2_bound = k2_vs_plain(opts, fields, tris, "d6 oracle")
+    kernels["nearest"] = dict(err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound=k2_bound)
+    k2_err4, _, _, _ = k2_vs_plain(opts[:4000], fields, tris, "d6 gradient batch")
+    k2_err20, _, _, _ = k2_vs_plain(uniform(box, 1 << 20, 1), fields, tris,
+                                    "2^20 points, checked on 2^16", n_check=1 << 16)
+    kernels["nearest"]["err"] = max(k2_err, k2_err4, k2_err20)
 
     # -- main path A, d6: build, dense query, oracle gates -------------------
     reset_counts()
@@ -301,30 +423,12 @@ def main() -> None:
         _check(launches["d6"][name] > 0, f"{name} was not launched on path A")
 
     # -- K1w against its plain version on the 2^21 bench points -------------
-    pts_s, b0, nc, _ = sdf._sorted_windows(pts)
-    args = (sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc)
-    wk = scan.scan_window(*args).reshape(-1)
-    wp = scan.scan_window_plain(*args).reshape(-1)
-    live = nc > 0
-    # rows each window visits: the union of its points' leaf spans (the
-    # points are leaf-sorted, so each new leaf in a window adds its span)
-    first = torch.ones_like(live)
-    first[1:] = b0[1:] != b0[:-1]
-    first[::32] = True
-    visit = first & live
-    rows = int(nc[visit].sum())
-    k1_err = float((winner_dist(sdf, pts_s, wk) - winner_dist(sdf, pts_s, wp))[live]
-                   .abs().max())
-    _check(k1_err <= 1e-6, f"K1 winner distances differ by {k1_err}")
-    k1_ms = _cuda_ms(lambda: scan.scan_window(*args))
-    k1_plain_ms = _cuda_ms(lambda: scan.scan_window_plain(*args))
-    print(f"K1w window scan vs plain: max |winner dist diff| {k1_err:.3e}, ids "
-          f"differ {int((wk != wp).sum())}, kernel {k1_ms:.3f} ms, plain "
-          f"{k1_plain_ms:.3f} ms (P=2^21, {pts_s.shape[0] // 32} windows, "
-          f"{rows} rows visited = {rows * ROW_BYTES / 1e6:.1f} MB, "
-          f"{rows * ROW_BYTES / k1_ms / 1e6:.1f} GB/s)")
+    k1_err, k1_ms, k1_plain_ms, (pts_s, b0, nc, visit, rows) = window_vs_plain(
+        sdf, pts, "d6 2^21")
     kernels["scan_window"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
                                   bound=scan_bound(sdf, pts, 12 + 8))
+    print(f"K1w bound d6 2^21: {kernels['scan_window']['bound'][0]:.4f} ms "
+          f"({kernels['scan_window']['bound'][1]})")
     # the rows K1w fetches, in its order, as one stream for the probes
     lens = nc[visit].long()
     offs = torch.arange(rows, device=dev) - torch.repeat_interleave(
@@ -333,8 +437,9 @@ def main() -> None:
 
     # -- K1g against its plain version on 2^16 d6 points --------------------
     g_err6, g_ms6, g_plain6 = grouped_vs_plain(sdf, pts[: 1 << 16], "d6, 2^16 points")
-    w_ms6 = window_ms(sdf, pts[: 1 << 16])
-    print(f"K1w on the same 2^16 points: {w_ms6:.3f} ms ({w_ms6 / g_ms6:.2f}x K1g)")
+    w_err6, w_ms6, _, _ = window_vs_plain(sdf, pts[: 1 << 16], "d6 2^16")
+    print(f"K1w on the same 2^16 points: {w_ms6:.4f} ms ({w_ms6 / g_ms6:.2f}x K1g)")
+    kernels["scan_window"]["err"] = max(k1_err, w_err6)
     kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6,
                                    bound=scan_bound(sdf, pts[: 1 << 16], 12 + 4))
 
@@ -409,7 +514,7 @@ def main() -> None:
     print(f"K1w achieved row-fetch bound: {fetch_ms:.4f} ms for its {rows} rows "
           f"(faster probe, scaled to the unpadded stream) vs K1w {k1_ms:.4f} ms "
           f"({fetch_ms / k1_ms:.1%} of its time)")
-    del sdf, oracle, pts, pts_s, b0, nc, args, stream, k1_stream
+    del sdf, oracle, pts, pts_s, b0, nc, stream, k1_stream
     torch.cuda.empty_cache()
 
     # -- main path B, the depth-7 cell: 100,800 triangles, 2^20 points ------
@@ -448,7 +553,12 @@ def main() -> None:
           f"{launches['d7']}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     _check(err7 <= ORACLE_TOL, f"d7 oracle max error {err7} > {ORACLE_TOL}")
-    for name in ("nearest", "scan_grouped"):
+    big_tris = big_oracle.triangles
+    k2_err7, _, _, _ = k2_vs_plain(bopts, big_oracle.fields, big_tris, "d7 oracle")
+    kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2_err7)
+    m_err, m_ms, m_plain_ms, m_bound = morton_vs_plain(bopts, "d7 oracle")
+    kernels["nearest_morton"] = dict(err=m_err, ms=m_ms, plain_ms=m_plain_ms, bound=m_bound)
+    for name in ("nearest", "nearest_morton", "scan_grouped"):
         _check(launches["d7"][name] > 0, f"{name} was not launched on path B")
     row = []
     for impl, name in (("xla", "grouped"), ("xla_window", "window")):
@@ -459,13 +569,17 @@ def main() -> None:
     print("get_distance d7 2^20 points, scan pinned: " + ", ".join(row))
     breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
     g_err7, g_ms7, g_plain7 = grouped_vs_plain(bsdf, bpts, "d7, 2^20 points")
-    w_ms7 = window_ms(bsdf, bpts)
-    print(f"K1w on the same d7 2^20 points: {w_ms7:.3f} ms ({w_ms7 / g_ms7:.2f}x K1g)")
+    w_err7, w_ms7, _, _ = window_vs_plain(bsdf, bpts, "d7 2^20, checked on 2^16",
+                                          n_check=1 << 16)
+    print(f"K1w on the same d7 2^20 points: {w_ms7:.4f} ms ({w_ms7 / g_ms7:.2f}x K1g)")
     kernels["scan_grouped"]["err"] = max(g_err6, g_err7)
+    kernels["scan_window"]["err"] = max(kernels["scan_window"]["err"], w_err7)
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",
                     "sdflib_tpu/ops/pallas_kernels.py:50"),
+        "nearest_morton": ("sdflib_tpu_torch/csrc/nearest.cu",
+                           "sdflib_tpu/ops/pallas_kernels.py:50"),
         "scan_window": ("sdflib_tpu_torch/csrc/scan_window.cu",
                         "sdflib_tpu/ops/pallas_scan.py:56"),
         "scan_grouped": ("sdflib_tpu_torch/csrc/scan_grouped.cu",

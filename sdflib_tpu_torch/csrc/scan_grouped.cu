@@ -32,7 +32,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "region.cuh"
+#include "frame.cuh"
 
 namespace {
 
@@ -40,61 +40,6 @@ constexpr int kWarps = 8;            // groups per CTA
 constexpr int kCH = 64;              // slots per bucket row
 constexpr int kNF = 9;               // floats per slot (3 world vertices)
 constexpr unsigned kFull = 0xffffffffu;
-
-// The point-independent part of sq_dist_from_vertex_cols
-// (ops/point_triangle.py) for one slot, in the same operand order.
-struct Frame {
-  float ax, ay, az;
-  float sxx, sxy, sxz, syx, syy, syz, szx, szy, szz;
-  float v2x, v3x, v3y, b0, b1, c0, c1;
-};
-
-__device__ __forceinline__ Frame slot_frame(const float* __restrict__ f, int c) {
-  Frame r;
-  r.ax = f[0 * kCH + c];
-  r.ay = f[1 * kCH + c];
-  r.az = f[2 * kCH + c];
-  const float bx = f[3 * kCH + c], by = f[4 * kCH + c], bz = f[5 * kCH + c];
-  const float cx = f[6 * kCH + c], cy = f[7 * kCH + c], cz = f[8 * kCH + c];
-  const float e1x = bx - r.ax, e1y = by - r.ay, e1z = bz - r.az;
-  const float e2x = cx - r.ax, e2y = cy - r.ay, e2z = cz - r.az;
-  const float il1 = rsqrtf(e1x * e1x + e1y * e1y + e1z * e1z);
-  r.sxx = e1x * il1;
-  r.sxy = e1y * il1;
-  r.sxz = e1z * il1;
-  const float nx = e1y * e2z - e1z * e2y;
-  const float ny = e1z * e2x - e1x * e2z;
-  const float nz = e1x * e2y - e1y * e2x;
-  const float iln = rsqrtf(nx * nx + ny * ny + nz * nz);
-  r.szx = nx * iln;
-  r.szy = ny * iln;
-  r.szz = nz * iln;
-  r.syx = r.szy * r.sxz - r.szz * r.sxy;
-  r.syy = r.szz * r.sxx - r.szx * r.sxz;
-  r.syz = r.szx * r.sxy - r.szy * r.sxx;
-  r.v2x = r.sxx * e1x + r.sxy * e1y + r.sxz * e1z;
-  r.v3x = r.sxx * e2x + r.sxy * e2y + r.sxz * e2z;
-  r.v3y = r.syx * e2x + r.syy * e2y + r.syz * e2z;
-  const float bx2 = r.v3x - r.v2x, by2 = r.v3y;
-  const float ilb = rsqrtf(bx2 * bx2 + by2 * by2);
-  r.b0 = bx2 * ilb;
-  r.b1 = by2 * ilb;
-  const float cx2 = -r.v3x, cy2 = -r.v3y;
-  const float ilc = rsqrtf(cx2 * cx2 + cy2 * cy2);
-  r.c0 = cx2 * ilc;
-  r.c1 = cy2 * ilc;
-  return r;
-}
-
-__device__ __forceinline__ float frame_sq_dist(float px, float py, float pz,
-                                               const Frame& r) {
-  const float dx = px - r.ax, dy = py - r.ay, dz = pz - r.az;
-  const float ppx = r.sxx * dx + r.sxy * dy + r.sxz * dz;
-  const float ppy = r.syx * dx + r.syy * dy + r.syz * dz;
-  const float ppz = r.szx * dx + r.szy * dy + r.szz * dz;
-  return region_sq_dist(ppx, ppy, ppz, r.v2x, r.v3x, r.v3y, r.b0, r.b1, r.c0,
-                        r.c1);
-}
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
@@ -141,8 +86,8 @@ scan_grouped_kernel(const int* __restrict__ bucket_ids,
       const float* f = bucket_fields + static_cast<size_t>(r) * (kNF * kCH);
       const int t0 = ids[lane];
       const int t1 = ids[lane + 32];
-      const Frame f0 = slot_frame(f, lane);
-      const Frame f1 = slot_frame(f, lane + 32);
+      const Frame f0 = slot_frame(f, lane, kCH);
+      const Frame f1 = slot_frame(f, lane + 32, kCH);
       for (int j = 0; j < n; ++j) {  // j is uniform across the warp
         const bool in_a = j < 32;
         const int src = j & 31;

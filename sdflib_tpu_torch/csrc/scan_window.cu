@@ -9,26 +9,42 @@
 // vertices, field-major (9 x 64 floats). Output: per point, the id of the
 // winning triangle: within a row the first minimal slot, across rows a
 // strict < (a row whose minimum is NaN, from a zero-area triangle, never
-// wins, as with the NaN-propagating row minimum of the JAX scan).
+// wins, as with the NaN-propagating row minimum of the JAX scan); a point
+// with no rows gets id 0.
 //
 // Design: one warp per window, one point per lane. The warp reduces its
-// lanes' spans to the window's union [lo, hi) and walks it; each visited
-// row (64 ids + 576 floats, 2.5 KB) is staged in shared memory by the
-// whole warp with coalesced loads, and each lane evaluates it only when
-// b0 <= row < b0 + nc holds for its own point. After a row the warp jumps
-// to the smallest row some lane still needs, so rows of leaves that lie
-// between a sparse window's leaves are never fetched.
+// lanes' spans to the window's union [lo, hi) and walks it; after a row it
+// jumps to the smallest row some lane still needs, so rows of leaves that
+// lie between a sparse window's leaves are never fetched. That row sequence
+// depends on b0 and nc only, so while the warp evaluates one row its lanes
+// already hold the next row's vertices in registers (lane l loads slots l
+// and l + 32, each field a coalesced 128-byte load per warp). At the top of
+// a row lane l derives the frames of its two slots (frame.cuh), once for
+// the whole warp. The warp then runs over the row's active points (those
+// whose span covers it) one by one, parallel over the slots as the grouped
+// kernel does: every lane evaluates its two slots for the point, and a warp
+// min, a ballot for the first minimal slot and an any-vote for NaN give the
+// row's winner, the lexicographic (distance, slot) minimum. Each lane reads
+// only the frames it derived, so they stay in registers. At the bench's
+// dense batch (~14 points a leaf) about 43% of a window's points need each
+// visited row, at a sparse one 5%; slot-parallel, the lanes of points that
+// do not need the row work too. The lanes evaluate different triangles, so
+// the region ladder is the select form (frame_sq_dist<true>; region.cuh),
+// with no divergent branches.
 //
-// Bound: designed around bucket-row bytes (each visited row is read once
-// per window), but at the bench shapes on an H100 (2^21 points over the
-// depth-6 torus structure) it is arithmetic: every lane that needs a row
-// re-derives the frame of all 64 slot triangles (~130 flops a slot), and
-// the rows' bytes take a fraction of the kernel's time (PERF.md). Deriving
-// each slot's frame once per row for the whole warp is the next step.
+// Bound: by PERF.md's rule (bytes or operations over the card's peaks),
+// bytes: one read of each visited row's 2.5 KB and of the points (0.0895
+// ms at the bench's 2^21 points over the depth-6 torus, on an H100), above
+// the operations (~34 flops a point-slot pair of a point's own rows, ~78 a
+// slot frame). What sets the pace is instruction issue: the row fetch takes
+// a sixth of the kernel's time. With --fmad=false a multiply and an add
+// issue separately, the select ladder computes every region's terms, and
+// each active point of each row costs every lane two point-slot pairs and
+// the warp's shuffles and votes.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "region.cuh"
+#include "frame.cuh"
 
 namespace {
 
@@ -37,49 +53,46 @@ constexpr int kWarps = 8;            // windows per CTA
 constexpr int kCH = 64;              // slots per bucket row
 constexpr int kNF = 9;               // floats per slot (3 world vertices)
 constexpr int kBig = 1 << 30;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
 __device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// sq_dist_from_vertex_cols of ops/point_triangle.py for slot c of a staged
-// field-major row f (component r of slot c at f[r * kCH + c]).
-__device__ __forceinline__ float vertex_sq_dist(float px, float py, float pz,
-                                                const float* f, int c) {
-  const float ax = f[0 * kCH + c], ay = f[1 * kCH + c], az = f[2 * kCH + c];
-  const float bx = f[3 * kCH + c], by = f[4 * kCH + c], bz = f[5 * kCH + c];
-  const float cx = f[6 * kCH + c], cy = f[7 * kCH + c], cz = f[8 * kCH + c];
-  const float e1x = bx - ax, e1y = by - ay, e1z = bz - az;
-  const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
-  const float il1 = rsqrtf(e1x * e1x + e1y * e1y + e1z * e1z);
-  const float sxx = e1x * il1, sxy = e1y * il1, sxz = e1z * il1;
-  const float nx = e1y * e2z - e1z * e2y;
-  const float ny = e1z * e2x - e1x * e2z;
-  const float nz = e1x * e2y - e1y * e2x;
-  const float iln = rsqrtf(nx * nx + ny * ny + nz * nz);
-  const float szx = nx * iln, szy = ny * iln, szz = nz * iln;
-  const float syx = szy * sxz - szz * sxy;
-  const float syy = szz * sxx - szx * sxz;
-  const float syz = szx * sxy - szy * sxx;
-  const float dx = px - ax, dy = py - ay, dz = pz - az;
-  const float ppx = sxx * dx + sxy * dy + sxz * dz;
-  const float ppy = syx * dx + syy * dy + syz * dz;
-  const float ppz = szx * dx + szy * dy + szz * dz;
-  const float v2x = sxx * e1x + sxy * e1y + sxz * e1z;
-  const float v3x = sxx * e2x + sxy * e2y + sxz * e2z;
-  const float v3y = syx * e2x + syy * e2y + syz * e2z;
-  const float bx2 = v3x - v2x, by2 = v3y;
-  const float ilb = rsqrtf(bx2 * bx2 + by2 * by2);
-  const float cx2 = -v3x, cy2 = -v3y;
-  const float ilc = rsqrtf(cx2 * cx2 + cy2 * cy2);
-  return region_sq_dist(ppx, ppy, ppz, v2x, v3x, v3y, bx2 * ilb, by2 * ilb,
-                        cx2 * ilc, cy2 * ilc);
+__device__ __forceinline__ float warp_minf(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// The vertices of slots lane and lane + 32 of one bucket row, in registers.
+struct SlotVerts {
+  float a[kNF], b[kNF];
+  int ta, tb;
+};
+
+__device__ __forceinline__ void load_slots(SlotVerts& v, const int* __restrict__ ids,
+                                           const float* __restrict__ fields,
+                                           int num_rows, int row, int lane) {
+  const int r = min(max(row, 0), num_rows - 1);
+  const int* src_ids = ids + static_cast<size_t>(r) * kCH;
+  const float* f = fields + static_cast<size_t>(r) * (kNF * kCH);
+  v.ta = src_ids[lane];
+  v.tb = src_ids[lane + 32];
+#pragma unroll
+  for (int k = 0; k < kNF; ++k) {
+    v.a[k] = f[k * kCH + lane];
+    v.b[k] = f[k * kCH + lane + 32];
+  }
+}
+
+__device__ __forceinline__ Frame verts_frame(const float* v) {
+  return triangle_frame(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8]);
 }
 
 __global__ void __launch_bounds__(kWarps * kWindow)
@@ -88,11 +101,8 @@ scan_window_kernel(const int* __restrict__ bucket_ids,
                    const float* __restrict__ points,
                    const int* __restrict__ b0, const int* __restrict__ nc,
                    int num_windows, int* __restrict__ win) {
-  __shared__ int s_ids[kWarps][kCH];
-  __shared__ float s_fields[kWarps][kNF * kCH];
-  const int warp = threadIdx.x / kWindow;
   const int lane = threadIdx.x % kWindow;
-  const int w = blockIdx.x * kWarps + warp;
+  const int w = blockIdx.x * kWarps + threadIdx.x / kWindow;
   if (w >= num_windows) return;  // uniform across the warp
 
   const int p = w * kWindow + lane;
@@ -105,42 +115,40 @@ scan_window_kernel(const int* __restrict__ bucket_ids,
   const int hi = warp_max(pend);
   int row = warp_min(live ? pb0 : kBig);
 
-  int* ids = s_ids[warp];
-  float* fields = s_fields[warp];
   float best = INFINITY;
   int best_id = 0;
+  SlotVerts v;
+  if (row < hi) load_slots(v, bucket_ids, bucket_fields, num_rows, row, lane);
   while (row < hi) {
-    const int r = min(max(row, 0), num_rows - 1);
-    const int* src_ids = bucket_ids + static_cast<size_t>(r) * kCH;
-    const float* src_f = bucket_fields + static_cast<size_t>(r) * (kNF * kCH);
-    for (int k = lane; k < kCH; k += kWindow) ids[k] = src_ids[k];
-    for (int k = lane; k < kNF * kCH; k += kWindow) fields[k] = src_f[k];
-    __syncwarp();
-    if (row >= pb0 && row < pend) {
-      float row_best = INFINITY;
-      int row_id = 0;
-      bool row_nan = false;
-      for (int c = 0; c < kCH; ++c) {
-        const int tid = ids[c];
-        if (tid < 0) continue;
-        const float d = vertex_sq_dist(px, py, pz, fields, c);
-        if (d != d) {
-          row_nan = true;
-          break;
-        }
-        if (d < row_best) {
-          row_best = d;
-          row_id = tid;
-        }
-      }
-      if (!row_nan && row_best < best) {
-        best = row_best;
-        best_id = row_id;
+    const Frame f0 = verts_frame(v.a), f1 = verts_frame(v.b);
+    const int t0 = v.ta, t1 = v.tb;
+    const int next =
+        warp_min((live && pb0 > row) ? pb0 : (row + 1 < pend ? row + 1 : kBig));
+    if (next < hi) load_slots(v, bucket_ids, bucket_fields, num_rows, next, lane);
+
+    // the warp runs over the active points, parallel over the slots
+    const unsigned active = __ballot_sync(kFull, row >= pb0 && row < pend);
+    for (unsigned m = active; m != 0; m &= m - 1) {
+      const int src = __ffs(m) - 1;  // uniform across the warp
+      const float qx = __shfl_sync(kFull, px, src);
+      const float qy = __shfl_sync(kFull, py, src);
+      const float qz = __shfl_sync(kFull, pz, src);
+      const float d0 = t0 >= 0 ? frame_sq_dist<true>(qx, qy, qz, f0) : INFINITY;
+      const float d1 = t1 >= 0 ? frame_sq_dist<true>(qx, qy, qz, f1) : INFINITY;
+      if (__any_sync(kFull, d0 != d0 || d1 != d1)) continue;  // NaN row
+      const float mn = warp_minf(fminf(d0, d1));
+      const float cur = __shfl_sync(kFull, best, src);
+      if (!(mn < cur)) continue;
+      // first minimal slot: slots 0-31 (d0 of lanes 0-31) before 32-63
+      const unsigned lo = __ballot_sync(kFull, d0 == mn);
+      const int slot = lo ? __ffs(lo) - 1 : 31 + __ffs(__ballot_sync(kFull, d1 == mn));
+      const int tid = __shfl_sync(kFull, slot < 32 ? t0 : t1, slot & 31);
+      if (lane == src) {
+        best = mn;
+        best_id = tid;
       }
     }
-    __syncwarp();
-    const int next = (live && pb0 > row) ? pb0 : (row + 1 < pend ? row + 1 : kBig);
-    row = warp_min(next);
+    row = next;
   }
   win[p] = best_id;
 }

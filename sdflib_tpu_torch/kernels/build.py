@@ -5,7 +5,9 @@ started together, and the objects link into one shared library with a
 plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
 build takes seconds). The library lands in ``_build/`` inside the
 package, named by a hash of the sources and flags: a changed source
-rebuilds, an unchanged one loads the existing file. Each entry point
+rebuilds, an unchanged one loads the existing file, and ptxas's report
+of each kernel's registers and spills lies beside it (``ptxas_report``).
+Each entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
 ``check`` turns a non-zero code into an exception.
 
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "check", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "check", "ptxas_report", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -34,13 +36,15 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    "--fmad=false",
+    "--fmad=false", "-Xptxas=-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (points, P, fields, T, best, idx, stream)
-    "sdf_nearest_triangle": [_P, _I, _P, _I, _P, _P, _P],
+    # (points, P, lo, hi, codes, stream)
+    "sdf_nearest_morton": [_P, _I, _P, _P, _P, _P],
+    # (points, order, P, fields, T, S, scratch, best, idx, stream)
+    "sdf_nearest_triangle": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     # (bucket_ids, bucket_fields, num_rows, points, b0, nc, num_windows,
     #  win, stream)
     "sdf_scan_window": [_P, _P, _I, _P, _P, _P, _I, _P, _P],
@@ -56,6 +60,7 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_so: Path | None = None
 
 
 def _nvcc() -> str:
@@ -72,7 +77,7 @@ def _nvcc() -> str:
 def library() -> ctypes.CDLL:
     """The kernel library, compiled on the first call of the process when
     no build of the current sources exists yet."""
-    global _lib
+    global _lib, _so
     if _lib is not None:
         return _lib
     sources = sorted(_CSRC.glob("*.cu"))
@@ -98,6 +103,7 @@ def library() -> ctypes.CDLL:
             for job, out, err in outs:
                 if job.returncode != 0:
                     raise RuntimeError(f"nvcc failed ({job.returncode}):\n{out}\n{err}")
+            so.with_suffix(".ptxas.txt").write_text("".join(out + err for _, out, err in outs))
             res = subprocess.run(
                 [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                 capture_output=True, text=True,
@@ -117,8 +123,27 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sdf_error_string.argtypes = [ctypes.c_int]
     lib.sdf_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib, _so = lib, so
     return lib
+
+
+def library_path() -> Path:
+    """The file of the loaded kernel library (built if need be)."""
+    library()
+    return _so
+
+
+def ptxas_report() -> dict[str, str]:
+    """ptxas's resource line of each kernel of the loaded library, by the
+    kernel's (mangled) name; empty when the report is missing."""
+    path = library_path().with_suffix(".ptxas.txt")
+    report, name = {}, None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name is not None and ("spill" in line or "Used" in line):
+            report[name] = (report.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return report
 
 
 def check(code: int, what: str) -> None:

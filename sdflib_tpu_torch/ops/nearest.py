@@ -4,7 +4,12 @@
 CUDA tensors (it replaces sdflib_tpu/ops/pallas_kernels.py:
 _nearest_kernel) and takes ``nearest_triangle_plain``, the plain torch
 version with the semantics of the JAX package's ``nearest_triangle``,
-for CPU tensors. ``launch_count`` counts kernel launches.
+for CPU tensors. From ``MORTON_PAIRS`` point-triangle pairs on, the
+kernel takes the points in Morton order (``morton_order``, whose codes
+come from the kernel ``morton_codes``); results come back in the
+caller's order. ``launch_count`` counts launches of the nearest-triangle
+kernel, ``morton_launch_count`` those of the Morton-code kernel;
+``last_grid`` holds the (point tiles, triangle slices) of the last launch.
 """
 from __future__ import annotations
 
@@ -13,9 +18,43 @@ import torch
 from ..kernels import build
 from .point_triangle import NUM_PACKED_FIELDS, sq_dist_from_field_fn
 
-__all__ = ["nearest_triangle", "nearest_triangle_plain", "launch_count"]
+__all__ = [
+    "nearest_triangle", "nearest_triangle_plain", "morton_codes", "morton_codes_plain",
+    "morton_order", "launch_count", "morton_launch_count",
+]
 
+POINT_TILE = 1024   # points a CTA of the kernel owns (256 threads x 4)
+TRI_TILE = 64       # triangles a staged tile; slices are runs of whole tiles
+CTAS_PER_SM = 4     # the grid a split aims for, in CTAs per SM
+# P * T from which the points are put in Morton order (chip_smoke.py times
+# both orders at each of its K2 shapes). On an H100 80GB HBM3 at 700 W the
+# order as given was faster at 4k x 9,216 (0.1864 against 0.3121 ms, sort
+# included) and 10k x 9,216 (0.3125 against 0.4356 ms; the sort alone
+# 0.10-0.13 ms at both), Morton order at 10k x 100,800 (2.7333 against
+# 3.3449 ms) and 2^20 x 9,216 (18.4481 against 25.5961 ms).
+MORTON_PAIRS = 1 << 27
 launch_count = 0
+morton_launch_count = 0
+last_grid: tuple[int, int] | None = None
+
+
+def _split(P: int, T: int, sm_count: int) -> tuple[int, int]:
+    """(point tiles, triangle slices S) of the kernel's grid.
+
+    Slice s holds the triangle tiles [s * n // S, (s + 1) * n // S) of the
+    n = ceil(T / TRI_TILE) tiles, as the kernel computes them. S = 1 once
+    the point tiles alone reach the target of ``CTAS_PER_SM * sm_count``
+    CTAs. Below it, each slice takes the same number of whole tiles, the
+    fewest slices that come near the target: never below half of it (2
+    CTAs an SM), or one tile a slice where T is too small for that."""
+    tiles_p = -(-P // POINT_TILE)
+    tiles_t = -(-T // TRI_TILE)
+    target = CTAS_PER_SM * sm_count
+    if tiles_p == 0 or tiles_t <= 1 or tiles_p >= target:
+        return tiles_p, 1
+    want = min(-(-target // tiles_p), tiles_t)
+    per = -(-tiles_t // want)
+    return tiles_p, -(-tiles_t // per)
 
 
 def nearest_triangle_plain(points, fields, chunk: int = 512, block: int = 8192):
@@ -56,19 +95,78 @@ def nearest_triangle(points, fields):
         return nearest_triangle_plain(points, fields)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    global launch_count
     pts = points.to(torch.float32).contiguous()
     fld = fields.to(torch.float32).contiguous()
+    sort = pts.shape[0] and pts.shape[0] * fld.shape[0] >= MORTON_PAIRS
+    return _launch(pts, fld, morton_order(pts) if sort else None)
+
+
+def morton_codes_plain(pts, lo, hi):
+    """(P,) int32 Morton codes of (P, 3) f32 points on a 1024^3 grid over
+    the box [lo, hi]: each axis scaled to [0, 1023] (a NaN to 0), clamped
+    and truncated, its 10 bits spread to every third bit (x lowest)."""
+    t = (pts - lo) / (hi - lo) * 1023.0
+    cell = torch.where(t != t, 0.0, t).clamp(0.0, 1023.0).to(torch.int64)
+    for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
+                        (2, 0x09249249)):
+        cell = (cell | (cell << shift)) & mask
+    return (cell[:, 0] | (cell[:, 1] << 1) | (cell[:, 2] << 2)).to(torch.int32)
+
+
+def morton_codes(pts, lo, hi):
+    """``morton_codes_plain`` of contiguous f32 points and (3,) f32 box
+    corners: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    for t, shape in ((pts, (pts.shape[0], 3)), (lo, (3,)), (hi, (3,))):
+        if t.shape != shape or t.dtype != torch.float32 or t.device != pts.device:
+            raise ValueError(f"expected f32 {shape} on {pts.device}")
+    if pts.device.type == "cpu":
+        return morton_codes_plain(pts, lo, hi)
+    global morton_launch_count
+    codes = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
+    lib = build.library()
+    with torch.cuda.device(pts.device):
+        code = lib.sdf_nearest_morton(
+            pts.data_ptr(), pts.shape[0], lo.data_ptr(), hi.data_ptr(),
+            codes.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(code, "sdf_nearest_morton")
+    morton_launch_count += 1
+    return codes
+
+
+def morton_order(pts):
+    """(P,) int64: the points in Morton order over their own box, so that
+    a warp's points lie close together and mostly take the same branch of
+    the region ladder."""
+    lo, hi = torch.aminmax(pts, dim=0)
+    return torch.sort(morton_codes(pts, lo.contiguous(), hi.contiguous())).indices
+
+
+def _launch(pts, fld, order):
+    """The kernel over contiguous f32 CUDA points and fields, taking the
+    points in ``order`` with the branching ladder, or as given with the
+    select ladder (``order`` None); results in the points' order."""
+    global launch_count, last_grid
     P, T = pts.shape[0], fld.shape[0]
     best = torch.empty(P, dtype=torch.float32, device=pts.device)
     idx = torch.empty(P, dtype=torch.int32, device=pts.device)
+    if P == 0:
+        return best, idx
+    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+    grid = _split(P, T, sms)
+    S = grid[1]
+    # the slices' minima, then their ids as int32 bits; filled by the kernel
+    scratch = torch.empty(2 * S * P if S > 1 else 0, dtype=torch.float32,
+                          device=pts.device)
     lib = build.library()
     with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
         code = lib.sdf_nearest_triangle(
-            pts.data_ptr(), P, fld.data_ptr(), T,
-            best.data_ptr(), idx.data_ptr(), stream,
+            pts.data_ptr(), None if order is None else order.data_ptr(), P,
+            fld.data_ptr(), T, S, scratch.data_ptr() if S > 1 else None,
+            best.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, "sdf_nearest_triangle")
     launch_count += 1
+    last_grid = grid
     return best, idx

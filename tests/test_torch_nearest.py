@@ -1,10 +1,14 @@
 """K2 (nearest triangle): the plain version against the JAX package's
-``nearest_triangle`` and its Pallas kernel in interpret mode, and, on a
-CUDA device, the kernel against the plain version.
+``nearest_triangle`` and its Pallas kernel in interpret mode, the grid
+split of the kernel, and, on a CUDA device, the kernel against the plain
+version.
 
-Squared distances agree within rtol 1e-5 / atol 1e-7 (fp32 rounding
-order); indices may differ only on last-ulp ties, where the signed
-distances through either winner agree within 1e-6.
+Between the packages squared distances agree within rtol 1e-5 / atol
+1e-7 (fp32 rounding order); indices may differ only on last-ulp ties,
+where the signed distances through either winner agree within 1e-6. The
+kernel and the plain version round alike (``--fmad=false``), so their
+squared distances are equal. At exact ties (a duplicated triangle) every
+version returns the lower index.
 
 JAX is imported inside the fixture: the GPU machine has no JAX and runs
 only the cuda-marked cases (``pytest --noconftest -m cuda``).
@@ -15,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from sdflib_tpu_torch.mesh import Mesh
 from sdflib_tpu_torch.ops import nearest
 from sdflib_tpu_torch.ops.point_triangle import (
     gather_triangles,
@@ -52,6 +57,21 @@ def _tris(mesh, device="cpu"):
     soa = calculate_mesh_triangle_data(mesh)
     tris = soa_to_torch(soa, device)
     return soa, tris, pack_triangle_fields(tris)
+
+
+def _dup_mesh(nu, nv, k):
+    """A torus with triangle ``k`` repeated at the end (index nu * nv * 2),
+    and 8 points just off triangle k's centroid along its normal: the two
+    copies tie exactly, every other triangle is farther."""
+    torus = make_torus(R=0.3, r=0.12, nu=nu, nv=nv)
+    idx = np.concatenate([torus.indices, torus.indices[k : k + 1]])
+    mesh = Mesh(torus.vertices, idx)
+    a, b, c = mesh.vertices[idx[k].astype(np.int64)].astype(np.float64)
+    n = np.cross(b - a, c - a)
+    n /= np.linalg.norm(n)
+    h = np.array([-3e-3, -1e-3, -3e-4, -1e-4, 1e-4, 3e-4, 1e-3, 3e-3])
+    pts = ((a + b + c) / 3 + h[:, None] * n).astype(np.float32)
+    return mesh, pts
 
 
 def _assert_same_nearest(pts, tris, b0, i0, b1, i1):
@@ -95,6 +115,49 @@ def test_plain_unaligned_sizes(jx, n):
     _assert_same_nearest(torch.as_tensor(pts), tris, b, i, b_j, i_j)
 
 
+def test_exact_tie_goes_to_the_lower_index(jx):
+    """Triangle 100 and its copy at index 576 tie exactly: the copy lies
+    in another 512-triangle chunk of the plain and JAX scans and another
+    256-triangle tile of the Pallas kernel; all three keep index 100."""
+    mesh, pts = _dup_mesh(24, 12, 100)
+    soa, tris, fields = _tris(mesh)
+    assert fields.shape[0] == 577 and torch.equal(fields[100], fields[576])
+    jtris = jx.jax.tree.map(jx.jnp.asarray, soa)
+    b, i = nearest.nearest_triangle_plain(torch.as_tensor(pts), fields)
+    b_j, i_j = jx.nearest(pts, jtris)
+    b_p, i_p = jx.pallas(pts, jtris, interpret=True)
+    for bb, ii in ((b, i), (b_j, i_j), (b_p, i_p)):
+        np.testing.assert_array_equal(np.asarray(ii), np.full(8, 100))
+        np.testing.assert_allclose(np.asarray(bb), b.numpy(), rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("P,T,sms", [
+    (10_000, 9_216, 132),        # the d6 oracle
+    (10_000, 100_800, 132),      # the d7 oracle
+    (1 << 20, 9_216, 132),       # the builders' sweep: point tiles fill the card
+    (1 << 18, 9_216, 132),
+    (257, 1_000, 132),
+    (1, 7, 132),                 # fewer triangles than one tile
+    (3_000, 64 * 5 + 1, 8),
+    (40_000, 9_216, 16),
+])
+def test_split_fills_the_card_and_covers_the_triangles(P, T, sms):
+    tiles_p, S = nearest._split(P, T, sms)
+    n = -(-T // nearest.TRI_TILE)
+    assert tiles_p * nearest.POINT_TILE >= P > (tiles_p - 1) * nearest.POINT_TILE
+    assert 1 <= S <= max(n, 1)
+    if tiles_p >= nearest.CTAS_PER_SM * sms:
+        assert S == 1
+    # at least 2 CTAs an SM, unless every tile already has a CTA of its own
+    assert tiles_p * S >= min(2 * sms, tiles_p * n)
+    # the kernel's slices: runs of whole tiles, none empty, covering T
+    bounds = [(s * n // S, (s + 1) * n // S) for s in range(S)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(t0 < t1 for t0, t1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert min(n * nearest.TRI_TILE, T) == T
+
+
 def test_wrapper_rejects_bad_input():
     _, _, fields = _tris(make_torus(R=0.3, r=0.1, nu=7, nv=5))
     with pytest.raises(ValueError):
@@ -104,9 +167,15 @@ def test_wrapper_rejects_bad_input():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 257, 10_000])
-def test_kernel_matches_plain(cuda, n):
+@pytest.mark.parametrize("T", [7, 1_000, 9_216])
+@pytest.mark.parametrize("n", [1, 257, 10_000, 1 << 18])
+def test_kernel_matches_plain(cuda, n, T):
+    """The first T triangles of the bench torus: squared distances equal,
+    indices equal but on last-ulp ties (2^18 x 9,216 takes the Morton
+    order, the rest the given one)."""
     _, tris, fields = _tris(make_torus(R=0.3, r=0.12, nu=96, nv=48), cuda)
+    tris = type(tris)(*(f[:T] for f in tris))
+    fields = fields[:T]
     pts = torch.as_tensor(
         np.random.default_rng(7).uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
         device=cuda,
@@ -115,7 +184,92 @@ def test_kernel_matches_plain(cuda, n):
     b, i = nearest.nearest_triangle(pts, fields)
     torch.cuda.synchronize()
     assert nearest.launch_count == before + 1
+    assert nearest.last_grid == nearest._split(
+        n, T, torch.cuda.get_device_properties(cuda).multi_processor_count)
     b_p, i_p = nearest.nearest_triangle_plain(pts, fields)
+    assert torch.equal(b, b_p)
     _assert_same_nearest(
         pts, tris, b.cpu().numpy(), i.cpu().numpy(), b_p.cpu().numpy(), i_p.cpu().numpy()
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("morton_pairs", [0, 1 << 62])
+def test_kernel_exact_tie_across_slices(cuda, morton_pairs, monkeypatch):
+    """The bench torus with triangle 100 repeated at index 9,216: the two
+    copies lie in different triangle slices of the kernel's grid, and
+    the tie goes to index 100, with the points in Morton order
+    (``MORTON_PAIRS`` 0) and as given."""
+    monkeypatch.setattr(nearest, "MORTON_PAIRS", morton_pairs)
+    mesh, pts = _dup_mesh(96, 48, 100)
+    _, _, fields = _tris(mesh, cuda)
+    pts = torch.as_tensor(pts, device=cuda)
+    b, i = nearest.nearest_triangle(pts, fields)
+    torch.cuda.synchronize()
+    tiles_p, S = nearest.last_grid
+    n = -(-fields.shape[0] // nearest.TRI_TILE)
+    slice_of = [next(s for s in range(S) if (s + 1) * n // S > t // nearest.TRI_TILE)
+                for t in (100, 9_216)]
+    assert slice_of[0] != slice_of[1]
+    b_p, i_p = nearest.nearest_triangle_plain(pts, fields)
+    assert torch.equal(b, b_p)
+    assert i.tolist() == [100] * 8 == i_p.tolist()
+
+
+@pytest.mark.cuda
+def test_morton_order_is_a_local_permutation(cuda):
+    """The kernel's point order: a permutation of the points in which
+    neighbours lie far closer together than in the caller's order."""
+    pts = torch.as_tensor(
+        np.random.default_rng(3).uniform(-0.6, 0.6, (4096, 3)).astype(np.float32),
+        device=cuda,
+    )
+    order = nearest.morton_order(pts)
+    assert torch.equal(order.sort().values, torch.arange(4096, device=cuda))
+    step = (pts[order][1:] - pts[order][:-1]).norm(dim=1).mean()
+    assert float(step) < 0.25 * float((pts[1:] - pts[:-1]).norm(dim=1).mean())
+
+
+def _interleave(cells):
+    """Morton codes by the definition: bit b of axis k at bit 3b + k."""
+    code = np.zeros(cells.shape[0], np.int64)
+    for b in range(10):
+        for k in range(3):
+            code |= ((cells[:, k] >> b) & 1) << (3 * b + k)
+    return code
+
+
+def test_morton_codes_plain_interleave_the_cells():
+    """The plain codes: each axis on 1024 cells of the box (the box's
+    corners, a NaN and points outside clamp into the grid), its bits
+    interleaved x lowest; and the order they give is a local permutation."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-0.6, 0.6, (4096, 3)).astype(np.float32)
+    lo, hi = pts.min(0), pts.max(0)
+    pts[:3] = [lo, hi, [np.nan, 2.0, -2.0]]
+    t = torch.as_tensor
+    codes = nearest.morton_codes(t(pts), t(lo), t(hi))
+    assert codes.dtype == torch.int32
+    scaled = (pts - lo) / (hi - lo) * np.float32(1023.0)
+    cells = np.clip(np.nan_to_num(scaled, nan=0.0), 0, 1023).astype(np.int64)
+    np.testing.assert_array_equal(codes.numpy(), _interleave(cells))
+    assert codes[0] == 0 and codes[1] == (1 << 30) - 1
+    order = nearest.morton_order(t(pts[3:]))
+    q = t(pts[3:])
+    assert torch.equal(order.sort().values, torch.arange(q.shape[0]))
+    step = (q[order][1:] - q[order][:-1]).norm(dim=1).mean()
+    assert float(step) < 0.25 * float((q[1:] - q[:-1]).norm(dim=1).mean())
+
+
+@pytest.mark.cuda
+def test_kernel_morton_codes_match_plain(cuda):
+    pts = torch.as_tensor(
+        np.random.default_rng(4).uniform(-0.6, 0.6, (5000, 3)).astype(np.float32),
+        device=cuda,
+    )
+    lo, hi = torch.aminmax(pts, dim=0)
+    before = nearest.morton_launch_count
+    codes = nearest.morton_codes(pts, lo.contiguous(), hi.contiguous())
+    torch.cuda.synchronize()
+    assert nearest.morton_launch_count == before + 1
+    assert torch.equal(codes, nearest.morton_codes_plain(pts, lo, hi))

@@ -1,7 +1,8 @@
 """K1 (window scan): the plain version against the JAX package's XLA
 window scan and its Pallas kernel in interpret mode, on a synthetic CSR
 bucket table (an empty leaf, windows straddling leaves, padding points, a
-sparse batch, a zero-area triangle), and, on a CUDA device, the kernel
+sparse batch, a zero-area triangle, windows of 32 distinct leaves, a row
+whose only id is in its last slot), and, on a CUDA device, the kernel
 against the plain version.
 
 Winners are compared by squared distance (rtol 1e-5, atol 1e-6): ids may
@@ -39,8 +40,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _csr(seed=0, L=23, T=200, rows_mult=64, degenerate=False):
-    """Random leaf lists over random triangles, as bucket tables."""
+def _csr(seed=0, L=23, T=200, rows_mult=64, degenerate=False, lone_slot=None):
+    """Random leaf lists over random triangles, as bucket tables. With
+    ``lone_slot`` that leaf gets two rows, the first all -1 but its last
+    slot."""
     rng = np.random.default_rng(seed)
     tri = rng.normal(size=(T, 9)).astype(np.float32)
     counts = rng.integers(0, 150, size=L).astype(np.int32)
@@ -48,6 +51,8 @@ def _csr(seed=0, L=23, T=200, rows_mult=64, degenerate=False):
     if degenerate:
         tri[5] = [0, 0, 0, 1, 0, 0, 2, 0, 0]            # collinear: NaN distances
         counts[7] = 100
+    if lone_slot is not None:
+        counts[lone_slot] = 100
     nch = -(-counts // CH)
     row0 = np.concatenate([[0], np.cumsum(np.maximum(nch, 1))[:-1]]).astype(np.int32)
     NB = -(-int(row0[-1] + max(nch[-1], 1)) // rows_mult) * rows_mult
@@ -58,6 +63,8 @@ def _csr(seed=0, L=23, T=200, rows_mult=64, degenerate=False):
             lst[10] = 5                                 # in the leaf's first row
         for k, t in enumerate(lst):
             ids[row0[l] + k // CH, k % CH] = t
+    if lone_slot is not None:
+        ids[row0[lone_slot], : CH - 1] = -1
     fields = np.zeros((NB, 9 * CH), np.float32)
     live = ids >= 0
     for r in range(9):
@@ -74,6 +81,33 @@ def _points(counts, nch, row0, P, seed, n_pad=0, leaves=None):
     if n_pad:
         b0[-n_pad:], nc[-n_pad:], pts[-n_pad:] = 0, 0, 0.0
     return pts, b0.astype(np.int32), nc.astype(np.int32)
+
+
+def _spread_points(L, n_windows, seed):
+    """Windows of 32 points in 32 distinct leaves each (sorted by leaf
+    within a window)."""
+    rng = np.random.default_rng(seed)
+    lid = np.concatenate([np.sort(rng.choice(L, 32, replace=False))
+                          for _ in range(n_windows)])
+    return lid, rng.normal(size=(32 * n_windows, 3)).astype(np.float32)
+
+
+def _case(name):
+    """(tri, ids, fields, pts, b0, nc) of a named test case."""
+    if name == "sparse":
+        tri, counts, nch, row0, ids, fields = _csr(seed=3, L=300)
+        pts, b0, nc = _points(counts, nch, row0, P=96, seed=5)
+    elif name == "spread":
+        tri, counts, nch, row0, ids, fields = _csr(seed=4, L=40, lone_slot=9)
+        lid, pts = _spread_points(40, 6, seed=6)
+        b0, nc = row0[lid].astype(np.int32), nch[lid].astype(np.int32)
+    elif name == "lone_slot":
+        tri, counts, nch, row0, ids, fields = _csr(seed=1, lone_slot=7)
+        pts, b0, nc = _points(counts, nch, row0, P=32 * 20, seed=2, leaves=[6, 7, 8])
+    else:
+        tri, counts, nch, row0, ids, fields = _csr(seed=1, degenerate=name == "degenerate")
+        pts, b0, nc = _points(counts, nch, row0, P=32 * 300, seed=2, n_pad=7)
+    return tri, ids, fields, pts, b0, nc
 
 
 def _winner_sq(tri, pts, win):
@@ -150,6 +184,20 @@ def test_plain_degenerate_row_matches_jax(jx):
     assert np.isin(win.reshape(-1)[in7], ids[row0[7] + 1]).all()
 
 
+@pytest.mark.parametrize("case", ["spread", "lone_slot"])
+def test_plain_spread_and_lone_slot_match_jax(jx, case):
+    """Windows whose 32 points lie in 32 distinct leaves (an empty leaf
+    among them), and a leaf whose first row holds one id, in its last
+    slot: the ids equal the JAX window scan's."""
+    tri, ids, fields, pts, b0, nc = _case(case)
+    win = _plain(ids, fields, pts, b0, nc, 32)
+    ref = _jax_xla(jx, ids, fields, pts, b0, nc, 32)
+    np.testing.assert_array_equal(win, ref)
+    lone = ids[:, : CH - 1].max(axis=1) < 0
+    lone_row = int(np.flatnonzero(lone & (ids[:, CH - 1] >= 0))[0])
+    assert ((b0 == lone_row) & (nc > 0)).any()
+
+
 def test_wrapper_rejects_bad_input():
     tri, counts, nch, row0, ids, fields = _csr()
     t = torch.as_tensor
@@ -161,14 +209,9 @@ def test_wrapper_rejects_bad_input():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dense", "sparse", "degenerate"])
+@pytest.mark.parametrize("case", ["dense", "sparse", "degenerate", "spread", "lone_slot"])
 def test_kernel_matches_plain(cuda, case):
-    if case == "sparse":
-        tri, counts, nch, row0, ids, fields = _csr(seed=3, L=300)
-        pts, b0, nc = _points(counts, nch, row0, P=96, seed=5)
-    else:
-        tri, counts, nch, row0, ids, fields = _csr(seed=1, degenerate=case == "degenerate")
-        pts, b0, nc = _points(counts, nch, row0, P=32 * 300, seed=2, n_pad=7)
+    tri, ids, fields, pts, b0, nc = _case(case)
     args = [torch.as_tensor(a, device=cuda) for a in (ids, fields, pts, b0, nc)]
     before = scan.launch_count
     win = scan.scan_window(*args)
