@@ -19,6 +19,10 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   sparse batches take, and again with the window scan pinned;
 * K1w against its plain version at d6 2^21 and 2^16 points, with its
   rows visited and active-lane share;
+* K1g against its plain version at d6 2^16 and d7 2^20 points, with its
+  work (groups holding points, rows fetched, the shares of slots with an
+  id and of rows with a dead half), its bound and its fetch floor: its
+  own row stream through the faster K3 probe;
 * both scans pinned at 2^16 to 2^21 points;
 * the depth-7 cell: the 100,800-triangle torus of bench.py's big mesh,
   start depth 3, 2^20 uniform points (the grouped scan) and its oracle
@@ -26,8 +30,7 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   100,800), and K1w on the 2^20 points (checked on the first 2^16 of
   their windows);
 * the row-fetch probes K3a/K3b at the defaults of
-  scripts/perf_pallas_gather.py and over the rows K1's window scan
-  fetches.
+  scripts/perf_pallas_gather.py and over the rows each K1 mode fetches.
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -64,6 +67,7 @@ PEAK_BYTES = 3.35e12
 FLOPS_FRAME = 78
 FLOPS_PAIR = 34
 ROW_BYTES = 64 * 4 + 9 * 64 * 4    # one bucket row: 64 ids + 576 floats
+ROW_BYTES_HALF = 9 * 32 * 4        # the fields of 32 slots of a row
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -162,6 +166,9 @@ def main() -> None:
         for tag, line in lines or [("", "not reported")]:
             print(f"ptxas {short}{tag}: {line}")
     print(f"SASS {_sass_branches(build.library_path(), 'nearest_kernel')}")
+    print(f"SASS {_sass_branches(build.library_path(), 'scan_grouped_kernel')}")
+    print(f"SASS {_sass_branches(build.library_path(), 'scan_window_kernel')}")
+    print(f"K1g occupancy: {build.library().sdf_scan_grouped_warps_per_sm()} warps an SM")
 
     def reset_counts():
         scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
@@ -209,7 +216,7 @@ def main() -> None:
 
     def grouped_vs_plain(sdf, pts, label):
         """K1g against its plain version on one batch: (max winner distance
-        difference, kernel ms, plain ms, rows visited)."""
+        difference, kernel ms, plain ms)."""
         pts_s, lid_s, start, G, _ = sdf._sorted_groups(pts)
         args = (sdf.bucket_ids, sdf.bucket_fields, pts_s, lid_s, start,
                 sdf.leaf_row0, sdf.leaf_nchunks)
@@ -221,14 +228,67 @@ def main() -> None:
         _check(err <= 1e-6, f"K1g winner distances differ by {err} ({label})")
         ms = _cuda_ms(lambda: scan.scan_grouped(*args))
         plain_ms = _cuda_ms(lambda: scan.scan_grouped_plain(*args))
-        nonempty = start[1:] > start[:-1]
-        rows = int(sdf.leaf_nchunks[lid_s[start[:-1][nonempty].long()].long()].sum())
         print(f"K1g grouped scan vs plain ({label}): max |winner dist diff| "
-              f"{err:.3e}, ids differ {int((wk != wp).sum())}, kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms (P={pts.shape[0]}, G={G}, "
-              f"{int(nonempty.sum())} groups, {rows} rows visited = "
-              f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s)")
+              f"{err:.3e}, ids differ {int((wk != wp).sum())}, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms (P={pts.shape[0]}, G={G})")
         return err, ms, plain_ms
+
+    def grouped_work(sdf, pts, ms, label):
+        """K1g's work and floors on one batch: its bound, the groups that
+        hold points out of NG, the rows it fetches (its row stream), the
+        share of their slots with an id >= 0 and of rows whose slots 0-31
+        or 32-63 are all -1, and its fetch floor, its own row stream
+        through the faster K3 probe. Returns the bound."""
+        pts_s, lid_s, start, G, _ = sdf._sorted_groups(pts)
+        stream = scan.grouped_row_stream(lid_s, start, sdf.leaf_row0, sdf.leaf_nchunks)
+        ids = sdf.bucket_ids[stream.clamp(0, sdf.bucket_ids.shape[0] - 1)]
+        rows = stream.shape[0]
+        lo_dead = (ids[:, :32] < 0).all(1)
+        hi_dead = (ids[:, 32:] < 0).all(1)
+        live_bytes = (rows * 256 + int((~lo_dead).sum() + (~hi_dead).sum()) * ROW_BYTES_HALF
+                      + pts.shape[0] * 16)
+        bound = scan_bound(sdf, pts, 12 + 4)
+        pad = (-rows) % 512
+        padded = torch.cat([stream, stream[:pad]]).int()
+        res, _, _ = probe(sdf.bucket_fields, padded,
+                          f"K1g's {label} row stream + {pad} wrapped rows")
+        floor = min(t for _, t in res.values()) * rows / padded.shape[0]
+        print(f"K1g work ({label}): {int((start[1:] > start[:-1]).sum())} groups hold "
+              f"points of NG={start.shape[0] - 1} (G={G}); {rows} rows fetched = "
+              f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s; "
+              f"slots with an id >= 0 {float((ids >= 0).float().mean()):.4f}; rows with "
+              f"slots 32-63 all -1 {float(hi_dead.float().mean()):.4f}, slots 0-31 all -1 "
+              f"{float(lo_dead.float().mean()):.4f}; live-half bytes "
+              f"{live_bytes / 1e6:.1f} MB ({live_bytes / PEAK_BYTES * 1e3:.4f} ms)")
+        print(f"K1g bound ({label}): {bound[0]:.4f} ms ({bound[1]}), kernel {ms:.4f} ms "
+              f"= {bound[0] / ms:.1%} of bound; fetch floor (the faster probe over its "
+              f"fields rows, scaled to the unpadded stream) {floor:.4f} ms = "
+              f"{floor / ms:.1%} of the kernel's time")
+        return bound
+
+    def probe(table, rows, label, counted=False):
+        """Both K3 probes against row_min_plain, then timed; with
+        ``counted`` the counts restart after the comparison, so they hold
+        the timed launches only. ({name: (err, ms)}, plain ms, bound)."""
+        ref = row_gather.row_min_plain(table, rows)
+        fns = {"row_min_block": lambda: row_gather.row_min_block(table, rows),
+               "row_min_tile": lambda: row_gather.row_min_tile(table, rows)}
+        errs = {name: float((fn() - ref).abs().max()) for name, fn in fns.items()}
+        for name, err in errs.items():
+            _check(err == 0.0, f"{name} disagrees with row_min_plain ({label})")
+        if counted:
+            reset_counts()
+        res = {name: (errs[name], _cuda_ms(fn)) for name, fn in fns.items()}
+        plain_ms = _cuda_ms(lambda: row_gather.row_min_plain(table, rows))
+        n, w = rows.shape[0], table.shape[1]
+        uniq = int(torch.unique(rows).numel())
+        bound = _bound(uniq * w * 4 + n * 8, n * w)
+        parts = [f"{name} {ms:.4f} ms ({n / ms / 1e3:.1f} M rows/s, "
+                 f"{n * w * 4 / ms / 1e6:.1f} GB/s)" for name, (_, ms) in res.items()]
+        print(f"K3 probes, {label} (N={n}, W={w}, {uniq} distinct rows, tile 512): "
+              + ", ".join(parts) + f"; row_min_plain {plain_ms:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        return res, plain_ms, bound
 
     def k2_vs_plain(pts, fields, tris, label, n_check=None):
         """K2 against its plain version on the first ``n_check`` points
@@ -437,11 +497,11 @@ def main() -> None:
 
     # -- K1g against its plain version on 2^16 d6 points --------------------
     g_err6, g_ms6, g_plain6 = grouped_vs_plain(sdf, pts[: 1 << 16], "d6, 2^16 points")
+    g_bound6 = grouped_work(sdf, pts[: 1 << 16], g_ms6, "d6 2^16")
     w_err6, w_ms6, _, _ = window_vs_plain(sdf, pts[: 1 << 16], "d6 2^16")
     print(f"K1w on the same 2^16 points: {w_ms6:.4f} ms ({w_ms6 / g_ms6:.2f}x K1g)")
     kernels["scan_window"]["err"] = max(k1_err, w_err6)
-    kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6,
-                                   bound=scan_bound(sdf, pts[: 1 << 16], 12 + 4))
+    kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6, bound=g_bound6)
 
     # -- both scans pinned, d6 ----------------------------------------------
     for n in (1 << k for k in range(16, 22)):
@@ -472,31 +532,6 @@ def main() -> None:
                             device=dev)
     rows_d = torch.as_tensor(rng.integers(0, 1 << 19, 1 << 19).astype(np.int32),
                              device=dev)
-
-    def probe(table, rows, label, counted=False):
-        """Both probes against row_min_plain, then timed; with ``counted``
-        the counts restart after the comparison, so they hold the timed
-        launches only."""
-        ref = row_gather.row_min_plain(table, rows)
-        fns = {"row_min_block": lambda: row_gather.row_min_block(table, rows),
-               "row_min_tile": lambda: row_gather.row_min_tile(table, rows)}
-        errs = {name: float((fn() - ref).abs().max()) for name, fn in fns.items()}
-        for name, err in errs.items():
-            _check(err == 0.0, f"{name} disagrees with row_min_plain ({label})")
-        if counted:
-            reset_counts()
-        res = {name: (errs[name], _cuda_ms(fn)) for name, fn in fns.items()}
-        plain_ms = _cuda_ms(lambda: row_gather.row_min_plain(table, rows))
-        n, w = rows.shape[0], table.shape[1]
-        uniq = int(torch.unique(rows).numel())
-        bound = _bound(uniq * w * 4 + n * 8, n * w)
-        parts = [f"{name} {ms:.4f} ms ({n / ms / 1e3:.1f} M rows/s, "
-                 f"{n * w * 4 / ms / 1e6:.1f} GB/s)" for name, (_, ms) in res.items()]
-        print(f"K3 probes, {label} (N={n}, W={w}, {uniq} distinct rows, tile 512): "
-              + ", ".join(parts) + f"; row_min_plain {plain_ms:.4f} ms; bound "
-              f"{bound[0]:.4f} ms ({bound[1]})")
-        return res, plain_ms, bound
-
     res_def, plain_def, bound_def = probe(table, rows_d, "script defaults")
     del table, rows_d
     pad = (-k1_stream.shape[0]) % 512
@@ -569,6 +604,7 @@ def main() -> None:
     print("get_distance d7 2^20 points, scan pinned: " + ", ".join(row))
     breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
     g_err7, g_ms7, g_plain7 = grouped_vs_plain(bsdf, bpts, "d7, 2^20 points")
+    grouped_work(bsdf, bpts, g_ms7, "d7 2^20")
     w_err7, w_ms7, _, _ = window_vs_plain(bsdf, bpts, "d7 2^20, checked on 2^16",
                                           n_check=1 << 16)
     print(f"K1w on the same d7 2^20 points: {w_ms7:.4f} ms ({w_ms7 / g_ms7:.2f}x K1g)")

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # (bucket_ids, bucket_fields, num_rows, points, point_leaf, group_start,
     #  num_groups, leaf_row0, leaf_nrows, win, stream)
     "sdf_scan_grouped": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    # () -> warps of the grouped kernel an SM holds at once
+    "sdf_scan_grouped_warps_per_sm": [],
     # (table, num_rows, w, rows, n, out, stream)
     "sdf_row_min_block": [_P, _I, _I, _P, _I, _P, _P],
     # (table, num_rows, w, rows, n, tile, out, stream)

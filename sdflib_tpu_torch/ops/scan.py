@@ -15,6 +15,8 @@ version for CPU tensors.
   through ``exact_scan_grouped_pallas``). Groups are runs of leaf-sorted
   points that share one leaf, given as CSR offsets into the points; every
   point of a group scans its leaf's rows [row0, row0 + nrows).
+  ``grouped_rows`` gives each group's row span and ``grouped_row_stream``
+  the rows the kernel fetches, in its order.
 
 Winner rules of both: ids of -1 are masked, within a row the first
 minimal slot wins, across rows a strict <, a row whose minimum is NaN
@@ -30,10 +32,12 @@ from .point_triangle import sq_dist_from_vertex_cols
 
 __all__ = [
     "scan_window", "scan_window_plain", "scan_grouped", "scan_grouped_plain",
-    "launch_count", "grouped_launch_count", "WINDOW",
+    "grouped_rows", "grouped_row_stream", "launch_count", "grouped_launch_count",
+    "WINDOW", "PASS",
 ]
 
 WINDOW = 32       # points per window: one warp in the kernel
+PASS = 32         # points of a group the grouped kernel holds at once (kPass)
 _BIG = 1 << 30
 launch_count = 0
 grouped_launch_count = 0
@@ -169,6 +173,38 @@ def scan_grouped_plain(bucket_ids, bucket_fields, points, point_leaf,
             best[j] = torch.where(take, local, best[j])
             out[j] = torch.where(take, tri.gather(1, amin[:, None])[:, 0], out[j])
     return out
+
+
+def grouped_rows(point_leaf, group_start, leaf_row0, leaf_nrows):
+    """(first bucket row, row count) int32 (NG,) of each group: those of
+    its leaf, and (0, 0) for an empty group; the JAX grouped scan's
+    ``bucket0`` and ``nchunk`` under its ``has_pts`` mask."""
+    NG = group_start.shape[0] - 1
+    P = point_leaf.shape[0]
+    if P == 0:
+        zero = torch.zeros(NG, dtype=torch.int32, device=group_start.device)
+        return zero, zero.clone()
+    first = group_start[:-1]
+    live = group_start[1:] > first
+    leaf = point_leaf[first.clamp(0, P - 1).long()].long()
+    return (torch.where(live, leaf_row0[leaf], 0).to(torch.int32),
+            torch.where(live, leaf_nrows[leaf], 0).to(torch.int32))
+
+
+def grouped_row_stream(point_leaf, group_start, leaf_row0, leaf_nrows):
+    """The bucket rows the grouped kernel fetches, in its order: each
+    group's rows [row0, row0 + nrows), once per pass of PASS of its points,
+    groups in order (int64, unclamped)."""
+    row0, nrows = grouped_rows(point_leaf, group_start, leaf_row0, leaf_nrows)
+    passes = (group_start[1:] - group_start[:-1] + PASS - 1) // PASS
+    items = (nrows * passes).long()
+    total = int(items.sum())
+    first = torch.cumsum(items, 0) - items
+    k = torch.arange(total, device=items.device) - torch.repeat_interleave(
+        first, items, output_size=total)
+    g = torch.repeat_interleave(torch.arange(items.shape[0], device=items.device),
+                                items, output_size=total)
+    return row0[g].long() + k % nrows[g].long()
 
 
 def scan_grouped(bucket_ids, bucket_fields, points, point_leaf, group_start,
