@@ -30,7 +30,19 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   100,800), and K1w on the 2^20 points (checked on the first 2^16 of
   their windows);
 * the row-fetch probes K3a/K3b at the defaults of
-  scripts/perf_pallas_gather.py and over the rows each K1 mode fetches.
+  scripts/perf_pallas_gather.py and over the rows each K1 mode fetches;
+* main path C, the approximate octree at bench.py's configuration
+  (bench.py:117-149): the bench torus, ``OctreeSdf(max_depth=6,
+  start_depth=2, termination_threshold=1e-3)`` built by "no_continuity"
+  and by "continuity" (each seeds its lattice through K2), each held to
+  the JAX package's words and leaves per depth and to its error against
+  ``RealSdf`` on the 10k oracle points; ``build_query_grid``; the three
+  query routes held to each other on 2^16 points; ``get_distance`` and
+  ``get_distance_and_gradient`` timed on 2^22 uniform points (seed 1)
+  beside their bound from bytes; and the compiled reference's goldens
+  (its walk over ``octree_torus.bin``, its two builders' ``.bin``) loaded
+  through the port's ``io`` and queried on the card. K2 is held against
+  its plain version at the seed lattice's shape (125 x 9,216).
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -68,6 +80,30 @@ FLOPS_FRAME = 78
 FLOPS_PAIR = 34
 ROW_BYTES = 64 * 4 + 9 * 64 * 4    # one bucket row: 64 ids + 576 floats
 ROW_BYTES_HALF = 9 * 32 * 4        # the fields of 32 slots of a row
+
+# The JAX package's approximate octrees at path C's configuration, built
+# on the CPU by scripts/approx_reference_jax.py: octree words, leaves per
+# depth, re-opened leaves, and rms / 95th percentile of |octree - RealSdf|
+# on the 10k oracle points (seed 7).
+APPROX_REF = {
+    "no_continuity": dict(words=243_136, leaves={2: 24, 3: 232, 4: 548, 5: 1008, 6: 1920},
+                          rms=4.3180485954508185e-4, q95=8.57540697325021e-4),
+    "continuity": dict(words=320_640, leaves={2: 24, 3: 360, 4: 756, 5: 1392, 6: 2560},
+                       rms=4.3823750456795096e-4, q95=8.72185395564884e-4, reopened=170),
+}
+# Leaves per depth may stray 5% from the JAX build's, words and leaves in
+# all 1%: many of the torus's midpoints sit on exact nearest-triangle
+# ties (its symmetry planes), where the last ulp picks one of two mirror
+# triangles, and with it one of two mirror gradients, for the children's
+# fits; that moves leaves between depths (no_continuity: 41 of 1,008 at
+# depth 5) and hardly changes the totals (scripts/approx_build_ties.py).
+APPROX_DEPTH_TOL = 0.05
+# One query point's bytes through the grid route: the point in, its grid
+# row (8 B), its leaf's 64 coefficients, the distance out; the gradient
+# writes 12 B more.
+APPROX_POINT_BYTES = 12 + 8 + 64 * 4 + 4
+APPROX_GRAD_BYTES = APPROX_POINT_BYTES + 12
+GOLDEN = os.path.join("tests", "golden", "data")
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -124,6 +160,283 @@ def _sass_branches(so_path, short: str) -> str:
     return "; ".join(found) or "not found"
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from sdflib_tpu_torch.ops import nearest, row_gather, scan
+
+    scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
+    nearest.morton_launch_count = 0
+    row_gather.block_launch_count = row_gather.tile_launch_count = 0
+
+
+def read_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from sdflib_tpu_torch.ops import nearest, row_gather, scan
+
+    return {
+        "nearest": nearest.launch_count,
+        "nearest_morton": nearest.morton_launch_count,
+        "scan_window": scan.launch_count,
+        "scan_grouped": scan.grouped_launch_count,
+        "row_min_block": row_gather.block_launch_count,
+        "row_min_tile": row_gather.tile_launch_count,
+    }
+
+
+def k2_vs_plain(pts, fields, tris, label, n_check=None):
+    """K2 against its plain version on the first ``n_check`` points
+    (all by default): squared distances equal, index ties agree by
+    signed distance; then both timed. (max |sq diff|, kernel ms, plain
+    ms, bound)."""
+    import torch
+
+    from sdflib_tpu_torch.ops import nearest
+    from sdflib_tpu_torch.ops.point_triangle import gather_triangles, signed_dist_pair
+
+    n_check = pts.shape[0] if n_check is None else n_check
+    bk, ik = nearest.nearest_triangle(pts, fields)
+    tiles_p, S = nearest.last_grid
+    q = pts[:n_check]
+    bk, ik = bk[:n_check], ik[:n_check]
+    bp, ip = nearest.nearest_triangle_plain(q, fields)
+    torch.cuda.synchronize()
+    _check(torch.equal(bk, bp), f"K2 squared distances differ from the plain version's ({label})")
+    diff = ik != ip
+    if bool(diff.any()):   # last-ulp ties: the signed distances must agree
+        dk = signed_dist_pair(q[diff], gather_triangles(tris, ik[diff]))
+        dp = signed_dist_pair(q[diff], gather_triangles(tris, ip[diff]))
+        _check(bool(((dk - dp).abs() <= 1e-6).all()), f"K2 tie winners disagree ({label})")
+    err = float((bk - bp).abs().max())
+    ms = _cuda_ms(lambda: nearest.nearest_triangle(pts, fields))
+    # the kernel's two point orders, whichever the wrapper takes
+    as_given_ms = _cuda_ms(lambda: nearest._launch(pts, fields, None))
+    morton_ms = _cuda_ms(lambda: nearest._launch(pts, fields, nearest.morton_order(pts)))
+    sort_ms = _cuda_ms(lambda: nearest.morton_order(pts))
+    sorts = pts.shape[0] * fields.shape[0] >= nearest.MORTON_PAIRS
+    plain_ms = _cuda_ms(lambda: nearest.nearest_triangle_plain(q, fields))
+    P, T = pts.shape[0], fields.shape[0]
+    bound = _bound(P * 12 + T * 19 * 4 + P * 8, P * T * FLOPS_PAIR)
+    print(f"K2 nearest vs plain ({label}): grid {tiles_p} point tiles x {S} slices "
+          f"= {tiles_p * S} CTAs; max |sq diff| {err:.3e}, index ties "
+          f"{int(diff.sum())} of {n_check} checked; kernel {ms:.4f} ms "
+          f"({P * T / ms / 1e6:.3f} G pairs/s; the wrapper takes the "
+          f"{'Morton' if sorts else 'given'} order; points as given, select "
+          f"ladder {as_given_ms:.4f} ms; Morton order and its sort, branching "
+          f"ladder {morton_ms:.4f} ms, of which the sort {sort_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms on "
+          f"{n_check} points (P={P}, T={T}); bound {bound[0]:.4f} ms ({bound[1]})")
+    return err, ms, plain_ms, bound
+
+
+def breakdown(fn, label, top=6):
+    """Where a call's time goes: CUDA-event time, device and host time
+    per call from torch.profiler over 3 calls, the busy share, and the
+    kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev_ms = _cuda_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total / 3 for e in on_dev}
+    host_ms = sum(e.self_cpu_time_total for e in avgs
+                  if e.device_type == DeviceType.CPU) / 3e3
+    busy_ms = sum(dev_us.values()) / 1e3
+    print(f"breakdown, {label}: {ev_ms:.4f} ms a call (CUDA events); device "
+          f"busy {busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}), host self time "
+          f"under the profiler {host_ms:.4f} ms, "
+          f"{sum(e.count for e in on_dev) // 3} device activities a call")
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
+
+
+def _uniform(box, n: int, seed: int, dev):
+    """``n`` uniform points (numpy seed) 1e-4 inside ``box``, on ``dev``."""
+    import torch
+
+    lo = np.asarray(box.min) + 1e-4
+    hi = np.asarray(box.max) - 1e-4
+    return torch.as_tensor(
+        np.random.default_rng(seed).uniform(lo, hi, (n, 3)).astype(np.float32), device=dev
+    )
+
+
+def approx_path(dev, root: str, n_query: int):
+    """Main path C: the approximate octree at bench.py's configuration on
+    ``dev``. The counts run from the first build to the last golden
+    query; then the routes are held to each other, the queries timed on
+    ``n_query`` points and K2 checked at the seed lattice's shape.
+    Returns (the path's launch counts, K2's check there)."""
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf, RealSdf
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin
+    from sdflib_tpu_torch.sdf import octree as oq
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    opts = _uniform(box, 10_000, 7, dev)
+    pts = _uniform(box, n_query, 1, dev)
+
+    reset_counts()
+    oracle = RealSdf(mesh, device=dev)
+    d_ref = oracle.get_distance(opts)
+    built = {}
+    for alg in ("no_continuity", "continuity"):
+        ref = APPROX_REF[alg]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdf = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+                        init_algorithm=alg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        st = sdf.build_stats
+        leaves = {int(k): int(v) for k, v in sorted(st["leaves_per_depth"].items())}
+        words = int(sdf.octree_data.shape[0])
+        extra = (f", re-opened {st['resubdivided']}, midpoints clamped "
+                 f"{st['midpoints_clamped']}" if alg == "continuity" else
+                 f", level chunks queued {st['level_enqueue_s']:.3f} s, waited on and "
+                 f"copied back {st['level_device_and_d2h_s']:.3f} s, host epilogue "
+                 f"{st['level_host_epilogue_s']:.3f} s")
+        print(f"approx build {alg} d6: {build_s:.3f} s, octree words {words} (JAX "
+              f"{ref['words']}), leaves per depth {leaves} (JAX {ref['leaves']}), mean "
+              f"candidates per node {st['tris_per_node']}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB{extra}")
+        _check(abs(words - ref["words"]) <= 0.01 * ref["words"],
+               f"{alg}: {words} octree words, >1% from the JAX build's {ref['words']}")
+        total, ref_total = sum(leaves.values()), sum(ref["leaves"].values())
+        _check(abs(total - ref_total) <= 0.01 * ref_total,
+               f"{alg}: {total} leaves, >1% from the JAX build's {ref_total}")
+        for depth, n in ref["leaves"].items():
+            _check(abs(leaves.get(depth, 0) - n) <= APPROX_DEPTH_TOL * n,
+                   f"{alg}: {leaves.get(depth, 0)} leaves at depth {depth}, "
+                   f">{APPROX_DEPTH_TOL:.0%} from {n}")
+        if alg == "continuity":
+            _check(st["resubdivided"] > 0, "the continuity build re-opened no leaf")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdf.build_query_grid()
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        fat_bytes = sdf._fat_grid.numel() * 4
+        print(f"approx query grid {alg}: build_query_grid {grid_s:.3f} s, leaf grid "
+              f"{sdf._query_grid.numel() * 4 / 2**20:.1f} MiB, fat grid "
+              f"{fat_bytes / 2**20:.1f} MiB ({fat_bytes} B)")
+
+        err = (sdf.get_distance(opts) - d_ref).abs()
+        rms = float(err.square().mean().sqrt())
+        q95 = float(torch.quantile(err, 0.95))
+        print(f"approx accuracy gate {alg}: |octree - RealSdf| on 10000 points: rms "
+              f"{rms:.4e} (JAX {ref['rms']:.4e}), q95 {q95:.4e} (JAX {ref['q95']:.4e}), "
+              f"max {float(err.max()):.4e}")
+        _check(rms <= 4e-3 and q95 <= 8e-3, f"{alg}: rms {rms} / q95 {q95} above 4e-3 / 8e-3")
+        _check(abs(rms - ref["rms"]) <= 0.1 * ref["rms"],
+               f"{alg}: rms {rms} >10% from the JAX build's {ref['rms']}")
+        _check(abs(q95 - ref["q95"]) <= 0.1 * ref["q95"],
+               f"{alg}: q95 {q95} >10% from the JAX build's {ref['q95']}")
+        built[alg] = sdf
+
+    # the compiled reference's goldens through the port's io, on the card
+    # (tests/test_reference_parity.py:147-157, 206-226)
+    walk = np.load(os.path.join(root, GOLDEN, "octree_walk.npz"))
+    cases = [("octree_torus.bin", walk["points"], walk["dist"], walk["grad"])]
+    bld = np.load(os.path.join(root, GOLDEN, "builders_torus.npz"))
+    for tag in ("octree_nc", "octree_cont"):
+        cases.append((f"builders_{tag}.bin", bld["points"], bld[f"{tag}_dist"],
+                      bld[f"{tag}_grad"]))
+    for name, gp, gd, gg in cases:
+        gold = load_sdflib_bin(os.path.join(root, GOLDEN, name), device=dev)
+        q = torch.as_tensor(gp, device=dev)
+        d = gold.get_distance(q)
+        d2, g = gold.get_distance_and_gradient(q)
+        gd, gg = torch.as_tensor(gd, device=dev), torch.as_tensor(gg, device=dev)
+        d_err = float(torch.maximum((d - gd).abs().max(), (d2 - gd).abs().max()))
+        g_bad = float(((g - gg).norm(dim=-1) > 1e-3).float().mean())
+        print(f"approx C++ golden {name}: {q.shape[0]} points, aligned layout "
+              f"{gold._fast_layout}, max |d - C++| {d_err:.3e}, share of gradients off "
+              f"by >1e-3 {g_bad:.2e}")
+        _check(d_err <= 5e-5, f"{name}: distance {d_err} from the C++ walk's, above 5e-5")
+        _check(g_bad < 1e-3, f"{name}: {g_bad} of gradients off by >1e-3")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"launches on main path C (approximate octree): {launches}")
+    _check(launches["nearest"] > 0, "nearest was not launched on path C")
+
+    # the three routes on the first 2^16 points, JAX's tolerances
+    # (tests/test_octree.py:205-207)
+    sdf = built["no_continuity"]
+    sub = pts[: 1 << 16]
+    kw = dict(num_coeff=sdf.num_coefficients, interpolation=sdf.interpolation,
+              with_gradient=True)
+    box_args = (sdf._box_min, sdf._box_size3)
+    levels = sdf.max_depth - sdf.start_depth
+    routes = {
+        "walk, aligned": oq._octree_query(sdf._octree_dev, sub, *box_args, sdf.start_grid_size,
+                                          sdf.min_border_value, levels=levels, fast=True, **kw),
+        "walk, any layout": oq._octree_query(sdf._octree_dev, sub, *box_args,
+                                             sdf.start_grid_size, sdf.min_border_value,
+                                             levels=levels, fast=False, **kw),
+        "grid": oq._octree_query_grid(sdf._octree_dev, sdf._query_grid, sub, *box_args,
+                                      sdf.min_border_value, grid_depth=sdf.max_depth, **kw),
+        "fat": oq._octree_query_fat(sdf._fat_grid, sub, *box_args, sdf.min_border_value,
+                                    grid_depth=sdf.max_depth, **kw),
+    }
+    d_w, g_w = routes.pop("walk, aligned")
+    for name, (d, g) in routes.items():
+        dd, gd = float((d - d_w).abs().max()), float((g - g_w).abs().max())
+        print(f"approx routes on 2^16 points: {name} vs the aligned walk: max |d| diff "
+              f"{dd:.3e}, max |g| diff {gd:.3e}")
+        _check(dd <= 1e-6 and gd <= 1e-4, f"route {name} differs from the walk")
+
+    # the query on n_query points: each route timed, then the profiler
+    n = pts.shape[0]
+    bound = n * APPROX_POINT_BYTES / PEAK_BYTES * 1e3
+    bound_g = n * APPROX_GRAD_BYTES / PEAK_BYTES * 1e3
+    ms = _cuda_ms(lambda: sdf.get_distance(pts))
+    ms_g = _cuda_ms(lambda: sdf.get_distance_and_gradient(pts))
+    print(f"approx get_distance d6 {n} points (grid route): {ms:.4f} ms "
+          f"({n / ms * 1e3:.4e} q/s); bound {bound:.4f} ms (bytes, "
+          f"{APPROX_POINT_BYTES} B a point) = {bound / ms:.1%} of it")
+    print(f"approx get_distance_and_gradient d6 {n} points (grid route): {ms_g:.4f} ms "
+          f"({n / ms_g * 1e3:.4e} q/s); bound {bound_g:.4f} ms (bytes, "
+          f"{APPROX_GRAD_BYTES} B a point) = {bound_g / ms_g:.1%} of it")
+    for name, fn in (
+        ("walk, aligned", lambda: oq._octree_query(
+            sdf._octree_dev, pts, *box_args, sdf.start_grid_size, sdf.min_border_value,
+            levels=levels, fast=True, **dict(kw, with_gradient=False))),
+        ("fat", lambda: oq._octree_query_fat(
+            sdf._fat_grid, pts, *box_args, sdf.min_border_value, grid_depth=sdf.max_depth,
+            **dict(kw, with_gradient=False))),
+    ):
+        r_ms = _cuda_ms(fn)
+        print(f"approx distance d6 {n} points, {name} route: {r_ms:.4f} ms "
+              f"({n / r_ms * 1e3:.4e} q/s)")
+    breakdown(lambda: sdf.get_distance(pts), f"approx get_distance d6 {n} points, grid route",
+              top=8)
+    breakdown(lambda: sdf.get_distance_and_gradient(pts),
+              f"approx get_distance_and_gradient d6 {n} points, grid route", top=8)
+
+    # K2 at the builders' seed lattice: (2^start_depth + 1)^3 x T
+    cbox = box.cubified()
+    axis = np.arange(5, dtype=np.float32) * np.float32(cbox.size[0] / 4)
+    gz, gy, gx = np.meshgrid(axis, axis, axis, indexing="ij")
+    lattice = torch.as_tensor(
+        (np.stack([gx, gy, gz], -1).reshape(-1, 3) + cbox.min).astype(np.float32), device=dev
+    )
+    k2 = k2_vs_plain(lattice, oracle.fields, oracle.triangles, "approx seed lattice")
+    del built, sdf, routes
+    torch.cuda.empty_cache()
+    return launches, k2
+
+
 def main() -> None:
     import torch
 
@@ -138,9 +451,7 @@ def main() -> None:
     from sdflib_tpu_torch.kernels import build
     from sdflib_tpu_torch.ops import nearest, row_gather, scan
     from sdflib_tpu_torch.ops.point_triangle import (
-        gather_triangles,
         pack_triangle_fields,
-        signed_dist_pair,
         sq_dist_from_vertex_cols,
     )
     from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data, soa_to_torch
@@ -170,28 +481,8 @@ def main() -> None:
     print(f"SASS {_sass_branches(build.library_path(), 'scan_window_kernel')}")
     print(f"K1g occupancy: {build.library().sdf_scan_grouped_warps_per_sm()} warps an SM")
 
-    def reset_counts():
-        scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
-        nearest.morton_launch_count = 0
-        row_gather.block_launch_count = row_gather.tile_launch_count = 0
-
-    def read_counts():
-        return {
-            "nearest": nearest.launch_count,
-            "nearest_morton": nearest.morton_launch_count,
-            "scan_window": scan.launch_count,
-            "scan_grouped": scan.grouped_launch_count,
-            "row_min_block": row_gather.block_launch_count,
-            "row_min_tile": row_gather.tile_launch_count,
-        }
-
     def uniform(box, n, seed):
-        lo = np.asarray(box.min) + 1e-4
-        hi = np.asarray(box.max) - 1e-4
-        return torch.as_tensor(
-            np.random.default_rng(seed).uniform(lo, hi, (n, 3)).astype(np.float32),
-            device=dev,
-        )
+        return _uniform(box, n, seed, dev)
 
     def scan_work(sdf, pts):
         """(pairs, valid slots of the touched rows, touched rows) of a
@@ -290,45 +581,6 @@ def main() -> None:
               f"{bound[0]:.4f} ms ({bound[1]})")
         return res, plain_ms, bound
 
-    def k2_vs_plain(pts, fields, tris, label, n_check=None):
-        """K2 against its plain version on the first ``n_check`` points
-        (all by default): squared distances equal, index ties agree by
-        signed distance; then both timed. (max |sq diff|, kernel ms, plain
-        ms, bound)."""
-        n_check = pts.shape[0] if n_check is None else n_check
-        bk, ik = nearest.nearest_triangle(pts, fields)
-        tiles_p, S = nearest.last_grid
-        q = pts[:n_check]
-        bk, ik = bk[:n_check], ik[:n_check]
-        bp, ip = nearest.nearest_triangle_plain(q, fields)
-        torch.cuda.synchronize()
-        _check(torch.equal(bk, bp), f"K2 squared distances differ from the plain version's ({label})")
-        diff = ik != ip
-        if bool(diff.any()):   # last-ulp ties: the signed distances must agree
-            dk = signed_dist_pair(q[diff], gather_triangles(tris, ik[diff]))
-            dp = signed_dist_pair(q[diff], gather_triangles(tris, ip[diff]))
-            _check(bool(((dk - dp).abs() <= 1e-6).all()), f"K2 tie winners disagree ({label})")
-        err = float((bk - bp).abs().max())
-        ms = _cuda_ms(lambda: nearest.nearest_triangle(pts, fields))
-        # the kernel's two point orders, whichever the wrapper takes
-        as_given_ms = _cuda_ms(lambda: nearest._launch(pts, fields, None))
-        morton_ms = _cuda_ms(lambda: nearest._launch(pts, fields, nearest.morton_order(pts)))
-        sort_ms = _cuda_ms(lambda: nearest.morton_order(pts))
-        sorts = pts.shape[0] * fields.shape[0] >= nearest.MORTON_PAIRS
-        plain_ms = _cuda_ms(lambda: nearest.nearest_triangle_plain(q, fields))
-        P, T = pts.shape[0], fields.shape[0]
-        bound = _bound(P * 12 + T * 19 * 4 + P * 8, P * T * FLOPS_PAIR)
-        print(f"K2 nearest vs plain ({label}): grid {tiles_p} point tiles x {S} slices "
-              f"= {tiles_p * S} CTAs; max |sq diff| {err:.3e}, index ties "
-              f"{int(diff.sum())} of {n_check} checked; kernel {ms:.4f} ms "
-              f"({P * T / ms / 1e6:.3f} G pairs/s; the wrapper takes the "
-              f"{'Morton' if sorts else 'given'} order; points as given, select "
-              f"ladder {as_given_ms:.4f} ms; Morton order and its sort, branching "
-              f"ladder {morton_ms:.4f} ms, of which the sort {sort_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms on "
-              f"{n_check} points (P={P}, T={T}); bound {bound[0]:.4f} ms ({bound[1]})")
-        return err, ms, plain_ms, bound
-
     def morton_vs_plain(pts, label):
         """K2's Morton-code kernel against its plain version (codes
         equal), then both timed. (max |code diff|, kernel ms, plain ms,
@@ -385,31 +637,6 @@ def main() -> None:
               f"{rows * ROW_BYTES / 1e6:.1f} MB, {rows * ROW_BYTES / ms / 1e6:.1f} GB/s, "
               f"active-lane share {share:.4f})")
         return err, ms, plain_ms, (pts_s, b0, nc, visit, rows)
-
-    def breakdown(fn, label, top=6):
-        """Where a call's time goes: CUDA-event time, device and host time
-        per call from torch.profiler over 3 calls, the busy share, and the
-        kernels with the most device time."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        ev_ms = _cuda_ms(fn)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        avgs = prof.key_averages()
-        on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
-        dev_us = {e.key: e.self_device_time_total / 3 for e in on_dev}
-        host_ms = sum(e.self_cpu_time_total for e in avgs
-                      if e.device_type == DeviceType.CPU) / 3e3
-        busy_ms = sum(dev_us.values()) / 1e3
-        print(f"breakdown, {label}: {ev_ms:.4f} ms a call (CUDA events); device "
-              f"busy {busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}), host self time "
-              f"under the profiler {host_ms:.4f} ms, "
-              f"{sum(e.count for e in on_dev) // 3} device activities a call")
-        for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
-            print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
 
     kernels = {}
     launches = {}
@@ -610,6 +837,12 @@ def main() -> None:
     print(f"K1w on the same d7 2^20 points: {w_ms7:.4f} ms ({w_ms7 / g_ms7:.2f}x K1g)")
     kernels["scan_grouped"]["err"] = max(g_err6, g_err7)
     kernels["scan_window"]["err"] = max(kernels["scan_window"]["err"], w_err7)
+    del bsdf, big_oracle, big_tris, bpts, bopts
+    torch.cuda.empty_cache()
+
+    # -- main path C, the approximate octree at bench.py's configuration ----
+    launches["approx"], k2c = approx_path(dev, root, 1 << 22)
+    kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2c[0])
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

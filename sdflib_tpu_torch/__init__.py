@@ -1,11 +1,12 @@
-"""sdflib_tpu_torch: the exact-octree path of sdflib_tpu in PyTorch, with
-hand-written CUDA kernels for an NVIDIA Hopper GPU.
+"""sdflib_tpu_torch: the exact and approximate octrees of sdflib_tpu in
+PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU.
 
 Imports torch and numpy only, never JAX: the JAX package ``sdflib_tpu``
 is the reference this package is held against, in tests that import both.
 """
 from .mesh import BoundingBox, Mesh, load_mesh
 from .sdf.exact_octree import ExactOctreeSdf
+from .sdf.octree import OctreeSdf
 from .sdf.real import RealSdf
 from .sdf.sdf_function import SdfFormat, SdfFunction
 from .triangle import TriangleDataSoA, calculate_mesh_triangle_data, soa_to_torch
@@ -20,5 +21,6 @@ __all__ = [
     "SdfFunction",
     "SdfFormat",
     "ExactOctreeSdf",
+    "OctreeSdf",
     "RealSdf",
 ]

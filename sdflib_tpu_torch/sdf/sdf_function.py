@@ -86,6 +86,10 @@ class SdfFunction(abc.ABC):
             from .exact_octree import ExactOctreeSdf
 
             return ExactOctreeSdf.from_jax_state(state, device=device)
+        if fmt == SdfFormat.OCTREE:
+            from .octree import OctreeSdf
+
+            return OctreeSdf.from_jax_state(state, device=device)
         raise NotImplementedError(
             f"format {fmt.value!r} is not ported yet (ROADMAP.md, Queue 1)"
         )

@@ -6,10 +6,12 @@ Distances and gradients agree within rtol 1e-5 / atol 1e-6 (fp32
 rounding order), under the scan each query chooses and under each scan
 pinned; the port chooses its scan by the JAX package's rule; the port's
 own build is exact against the JAX RealSdf within 1e-5 and matches the
-JAX build's leaf count and mean list length within 2%. The entry points
-default to the card and raise without one.
+JAX build's leaf count and mean list length within 2%. The entry points,
+the approximate octree's among them, default to the card and raise
+without one.
 """
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +19,13 @@ import pytest
 import torch
 
 import sdflib_tpu.sdf.exact_octree as jeo
+from sdflib_tpu.io.sdflib_binary import load_sdflib_bin as j_load_bin
 from sdflib_tpu.sdf.exact_octree import ExactOctreeSdf as JExact
 from sdflib_tpu.sdf.real import RealSdf as JReal
 from sdflib_tpu.sdf.sdf_function import SdfFunction as JSdfFunction
 from sdflib_tpu.utils.primitives import make_torus as j_torus
-from sdflib_tpu_torch import ExactOctreeSdf, RealSdf, SdfFunction
+from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, SdfFunction
+from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin
 from sdflib_tpu_torch.utils.primitives import make_torus
 
 torch.set_num_threads(1)
@@ -212,21 +216,31 @@ def test_auto_scan_choice_matches_jax_rule(port_sdf, jax_sdf, monkeypatch, side)
     np.testing.assert_allclose(d, d_j, **TOL)
 
 
-@pytest.mark.parametrize("entry", ["init", "from_jax_state", "real", "load"])
+@pytest.mark.parametrize("entry", ["init", "from_jax_state", "real", "load", "octree_init",
+                                   "octree_from_jax_state", "octree_load", "bin_load"])
 def test_entry_points_default_to_the_card(entry, jax_sdf, monkeypatch, tmp_path):
-    """The four entry points default to device="cuda" (read from their
-    signatures, nothing is built on a card), and without a card that
-    default raises rather than running on the CPU."""
+    """The entry points of both octrees, the oracle, the container and the
+    reference .bin default to device="cuda" (read from their signatures,
+    nothing is built on a card), and without a card that default raises
+    rather than running on the CPU."""
     mesh, box = _mesh_box(make_torus)
+    octree_bin = os.path.join(os.path.dirname(__file__), "golden", "data", "octree_torus.bin")
+    j_octree = j_load_bin(octree_bin)
     fn, call = {
         "init": (ExactOctreeSdf.__init__, lambda: ExactOctreeSdf(mesh, box, **CFG)),
         "from_jax_state": (ExactOctreeSdf.from_jax_state,
                            lambda: ExactOctreeSdf.from_jax_state(jax_sdf._state_arrays())),
         "real": (RealSdf.__init__, lambda: RealSdf(mesh)),
         "load": (SdfFunction.load, lambda: SdfFunction.load(str(tmp_path / "x.npz"))),
+        "octree_init": (OctreeSdf.__init__, lambda: OctreeSdf(mesh, box, max_depth=3)),
+        "octree_from_jax_state": (OctreeSdf.from_jax_state,
+                                  lambda: OctreeSdf.from_jax_state(j_octree._state_arrays())),
+        "octree_load": (SdfFunction.load, lambda: SdfFunction.load(str(tmp_path / "o.npz"))),
+        "bin_load": (load_sdflib_bin, lambda: load_sdflib_bin(octree_bin)),
     }[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     jax_sdf.save(str(tmp_path / "x.npz"))
+    j_octree.save(str(tmp_path / "o.npz"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

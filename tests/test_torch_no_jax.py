@@ -2,7 +2,10 @@
 interpreter with ``sys.modules["jax"] = None`` (any ``import jax`` then
 raises) imports sdflib_tpu_torch and runs the exact-octree slice on the
 CPU at test size, through the window and the grouped scan, exact against
-the port's own RealSdf within 1e-5, and the row-fetch probes."""
+the port's own RealSdf within 1e-5, and the row-fetch probes; then both
+approximate builders (rms error against RealSdf below the JAX tests'
+4e-3), the walk against the grid route within 1e-6, and a reference
+``.bin`` golden through the port's io within 5e-5 of the C++ walk."""
 import os
 import subprocess
 import sys
@@ -41,6 +44,21 @@ SCRIPT = textwrap.dedent(
     ref_min = row_gather.row_min_plain(table, rows)
     assert torch.equal(row_gather.row_min_block(table, rows), ref_min)
     assert torch.equal(row_gather.row_min_tile(table, rows, tile=8), ref_min)
+
+    from sdflib_tpu_torch import OctreeSdf
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin
+    for alg in ("no_continuity", "continuity"):
+        approx = OctreeSdf(mesh, box, max_depth=4, start_depth=2, init_algorithm=alg,
+                           device="cpu")
+        q = pts[inside]
+        walk = approx.get_distance(q)
+        assert float((walk - ref[torch.as_tensor(inside)]).square().mean().sqrt()) < 4e-3
+        approx.build_query_grid()
+        assert float((approx.get_distance(q) - walk).abs().max()) <= 1e-6
+    gold = np.load("tests/golden/data/octree_walk.npz")
+    bin_sdf = load_sdflib_bin("tests/golden/data/octree_torus.bin", device="cpu")
+    d = bin_sdf.get_distance(gold["points"][:2000]).numpy()
+    assert np.abs(d - gold["dist"][:2000]).max() <= 5e-5
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)
