@@ -42,7 +42,23 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   beside their bound from bytes; and the compiled reference's goldens
   (its walk over ``octree_torus.bin``, its two builders' ``.bin``) loaded
   through the port's ``io`` and queried on the card. K2 is held against
-  its plain version at the seed lattice's shape (125 x 9,216).
+  its plain version at the seed lattice's shape (125 x 9,216);
+* main path D, the sphere tracer at bench.py's configuration
+  (bench.py:151-187): path C's no_continuity octree after
+  ``build_query_grid``, 1024^2 rays from z = -1.2 along +z,
+  ``max_iters=1024``, eps 1e-5, far 4; rays/s (best of 3 after a warmup)
+  beside the frame's bound from bytes, the hits, rounds, ray-trips, the
+  device activities and a ``breakdown`` of a frame; the hits held to a
+  plain host march through ``get_distance`` on every 16th ray, to
+  ``RealSdf`` (q95 below 8e-3) and to the trace without a beam; then a
+  512^2 camera frame in sdf_render's defaults shaded five ways (written
+  as PNGs to a temporary directory) and a 512^2 plane cut;
+* main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the bench
+  torus (128^3 corners) by BASIC init (K2 over every corner) and by
+  OCTREE init (K1 through a depth-6 exact octree), the two held to each
+  other and to ``RealSdf`` at 10k corners, queries timed on 2^22 points
+  beside their bound, the GRID ``.bin`` round trip bit-equal, and K2 held
+  against its plain version at 2^21 x 9,216.
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -104,6 +120,16 @@ APPROX_DEPTH_TOL = 0.05
 APPROX_POINT_BYTES = 12 + 8 + 64 * 4 + 4
 APPROX_GRAD_BYTES = APPROX_POINT_BYTES + 12
 GOLDEN = os.path.join("tests", "golden", "data")
+# One march step's bytes on the fused-row route, counted from
+# render/sphere_trace.py (_grid_distance_and_step and _march): the
+# position (12 B) and direction (12 B) in, the fused row's two-word
+# header (8 B) and 64 coefficients (256 B), and the state written back:
+# position 12, accumulated distance 4, last distance 4, active flag 4.
+TRACE_STEP_BYTES = 12 + 12 + 8 + 64 * 4 + 12 + 4 + 4 + 4
+# One uniform-grid query point: the point in and the distance out (the
+# gradient writes 12 B more); the grid itself counts once per call.
+GRID_POINT_BYTES = 12 + 4
+GRID_GRAD_BYTES = GRID_POINT_BYTES + 12
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -231,7 +257,8 @@ def k2_vs_plain(pts, fields, tris, label, n_check=None):
 def breakdown(fn, label, top=6):
     """Where a call's time goes: CUDA-event time, device and host time
     per call from torch.profiler over 3 calls, the busy share, and the
-    kernels with the most device time."""
+    kernels with the most device time. Returns (CUDA-event ms, device
+    busy ms, device activities a call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -253,6 +280,7 @@ def breakdown(fn, label, top=6):
           f"{sum(e.count for e in on_dev) // 3} device activities a call")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
+    return ev_ms, busy_ms, sum(e.count for e in on_dev) // 3
 
 
 def _uniform(box, n: int, seed: int, dev):
@@ -433,6 +461,288 @@ def approx_path(dev, root: str, n_query: int):
     )
     k2 = k2_vs_plain(lattice, oracle.fields, oracle.triangles, "approx seed lattice")
     del built, sdf, routes
+    torch.cuda.empty_cache()
+    return launches, k2
+
+
+def _ortho_rays(n: int, dev):
+    """bench.py's trace rays (bench.py:159-166): an n x n grid of origins
+    on z = -1.2 over [-0.5, 0.5]^2, directions +z, on ``dev``."""
+    import torch
+
+    u = (np.arange(n, dtype=np.float32) + 0.5) / n - 0.5
+    gu, gv = np.meshgrid(u, u)
+    origins = np.stack([gu, gv, np.full_like(gu, -1.2)], -1).astype(np.float32)
+    dirs = np.broadcast_to(np.array([0.0, 0.0, 1.0], np.float32), origins.shape).copy()
+    return torch.as_tensor(origins, device=dev), torch.as_tensor(dirs, device=dev)
+
+
+def _plain_march(sdf, origins, dirs, eps: float, far: float, max_iters: int):
+    """The reference shader's raycast loop (sdfOctreeRender.comp:392-409)
+    on the host: one ``get_distance`` call over the active rays per trip,
+    step max(d, 0), hit at d <= eps. eps and far in box units. Returns
+    (hit, depth)."""
+    import torch
+
+    box_size = float(sdf.box.size[0])
+    pos, d_flat = origins.reshape(-1, 3).clone(), dirs.reshape(-1, 3)
+    acc = torch.zeros(pos.shape[0], device=pos.device)
+    last = torch.full_like(acc, float("inf"))
+    active = torch.ones_like(acc, dtype=torch.bool)
+    for _ in range(max_iters):
+        idx = active.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        d = sdf.get_distance(pos[idx])
+        step = d.clamp_min(0.0)
+        pos[idx] += d_flat[idx] * step[:, None]
+        acc[idx] += step
+        last[idx] = d
+        active[idx] = (d > eps * box_size) & (acc[idx] < far * box_size)
+    return last <= eps * box_size, acc
+
+
+def trace_path(dev, n_rays: int):
+    """Main path D, the sphere tracer at bench.py's configuration
+    (bench.py:151-187): path C's no_continuity octree (built here, its
+    seed lattice through K2) after ``build_query_grid``, n_rays^2 rays on
+    z = -1.2 marching +z, ``max_iters=1024``, eps 1e-5, far 4. The counts
+    run from the build to the first frame. Then the frame is timed, its
+    bound printed, its hits held to a plain host march, to ``RealSdf`` and
+    to the trace without a beam; then a 512^2 camera frame shaded five
+    ways and a 512^2 plane cut. Returns the path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf, RealSdf
+    from sdflib_tpu_torch.render import (
+        Camera,
+        ambient_occlusion,
+        iteration_heatmap,
+        normal_color,
+        render_plane_cut,
+        shade_lambert,
+        soft_shadow,
+        trace_octree,
+        write_png,
+    )
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    origins, dirs = _ortho_rays(n_rays, dev)
+    R = origins.shape[0] * origins.shape[1]
+    kw = dict(eps=1e-5, far=4.0, max_iters=1024)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdf = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+                    init_algorithm="no_continuity", device=dev)
+    sdf.build_query_grid()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = {}
+    res = trace_octree(sdf, origins, dirs, stats_out=stats, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"trace path D: octree and query grid built in {build_s:.3f} s; launches on "
+          f"main path D: {launches}")
+    _check(launches["nearest"] > 0, "nearest was not launched on path D")
+
+    hit = res.hit
+    n_hit = int(hit.sum())
+    trips = int(res.iterations.sum(dtype=torch.int64))
+    _check(res.depth.shape == (n_rays, n_rays) and bool(torch.isfinite(res.depth).all())
+           and bool(torch.isfinite(res.normal[hit]).all()), "trace outputs are not finite")
+    _check(0 < n_hit < R, f"{n_hit} of {R} rays hit")
+    ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
+    bound = trips * TRACE_STEP_BYTES / PEAK_BYTES * 1e3
+    print(f"trace d6 {n_rays}^2 rays (beam 4, fused rows): {ms:.4f} ms a frame, "
+          f"{R / ms * 1e3:.6e} rays/s; hits {n_hit}; ray-trips (sum of iterations) "
+          f"{trips}, max {int(res.iterations.max())} a ray; rounds (iters, marched, "
+          f"still active) {stats['rounds']}; bound {bound:.4f} ms (bytes, "
+          f"{TRACE_STEP_BYTES} B a ray-trip) = {bound / ms:.2%} of the frame")
+    # the frame split: 8 trips over every ray (and the normals) with and
+    # without the beam prepass, the later rounds the rest of the frame
+    first_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **dict(kw, max_iters=8)))
+    round1_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, beam=None,
+                                              **dict(kw, max_iters=8)))
+    print(f"trace frame split: beam prepass {first_ms - round1_ms:.4f} ms; the first round "
+          f"(8 trips over all {R} rays) and the normals {round1_ms:.4f} ms; the later "
+          f"rounds {ms - first_ms:.4f} ms")
+    ev_ms, busy_ms, acts = breakdown(lambda: trace_octree(sdf, origins, dirs, **kw),
+                                     f"trace d6 {n_rays}^2 rays", top=10)
+    print(f"trace d6 {n_rays}^2 rays: {acts} device activities a frame, device busy "
+          f"{busy_ms / ev_ms:.1%}")
+
+    # the hits against RealSdf (the fit gate of path C) and a plain host
+    # march through get_distance (grid route, beam off) on every 16th ray
+    oracle = RealSdf(mesh, device=dev)
+    err = oracle.get_distance(res.position[hit]).abs()
+    q95 = float(torch.quantile(err, 0.95))
+    step = max(n_rays // 64, 1)
+    sub_o, sub_d = origins[::step, ::step], dirs[::step, ::step]
+    t0 = time.perf_counter()
+    hit_p, acc_p = _plain_march(sdf, sub_o, sub_d, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    sub_hit = hit[::step, ::step].reshape(-1)
+    agree = float((sub_hit == hit_p).float().mean())
+    both = sub_hit & hit_p
+    d_err = float((res.depth[::step, ::step].reshape(-1)[both] - acc_p[both]).abs().max())
+    print(f"trace hits: |RealSdf| at {n_hit} hits q95 {q95:.4e}, max {float(err.max()):.4e}; "
+          f"plain host march of {sub_hit.numel()} rays ({plain_s:.3f} s): hit masks agree "
+          f"{agree:.4%}, max |depth diff| on {int(both.sum())} common hits {d_err:.3e}")
+    _check(q95 < 8e-3, f"q95 of |RealSdf| at the hits {q95} >= 8e-3")
+    _check(agree > 0.998, f"hit masks agree with the plain march on {agree:.4%}")
+    _check(d_err <= 1e-3, f"depths differ from the plain march's by {d_err}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nob = trace_octree(sdf, origins, dirs, beam=None, **kw)
+    torch.cuda.synchronize()
+    nob_s = time.perf_counter() - t0
+    agree = float((nob.hit == hit).float().mean())
+    both = nob.hit & hit
+    d_err = float((nob.depth[both] - res.depth[both]).abs().max())
+    print(f"trace without the beam: {nob_s * 1e3:.4f} ms (host clock), ray-trips "
+          f"{int(nob.iterations.sum(dtype=torch.int64))}; hit masks agree with beam 4 on "
+          f"{agree:.6%} ({int((nob.hit != hit).sum())} rays differ), max |depth diff| "
+          f"{d_err:.3e}")
+    _check(agree > 0.998, f"beam and no-beam hit masks agree on {agree:.4%}")
+    _check(d_err <= 1e-3, f"beam and no-beam depths differ by {d_err}")
+    del nob
+
+    # a 512^2 camera frame in sdf_render's defaults, shaded five ways
+    area = sdf.get_sample_area()
+    center = np.asarray(area.center, np.float64)
+    cam = Camera(position=center + np.array([0.6, 0.45, 0.9]) * float(np.linalg.norm(area.size)),
+                 target=center, fov_y_deg=45.0)
+    co, cd = (torch.as_tensor(a, device=dev) for a in cam.rays(512, 512))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cres = trace_octree(sdf, co, cd, **kw)
+    torch.cuda.synchronize()
+    cam_s = time.perf_counter() - t0
+    light = (0.577, 0.577, 0.577)
+    ao = ambient_occlusion(sdf.get_distance, cres.position, cres.normal)
+    shadow = soft_shadow(sdf.get_distance, cres.position, light)
+    images = {
+        "normal": normal_color(cres.normal, cres.hit),
+        "lit": shade_lambert(cres.position, cres.normal, cres.hit, light_dir=light,
+                             view_dir=cd, ao=ao, shadow=shadow),
+        "ao": ao,
+        "shadow": shadow,
+        "iterations": iteration_heatmap(cres.iterations, kw["max_iters"]),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cut = render_plane_cut(sdf, resolution=512)
+    cut_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, img in list(images.items()) + [("plane_cut", cut)]:
+            img = img.cpu().numpy() if isinstance(img, torch.Tensor) else img
+            _check(bool(np.isfinite(img).all()) and img.min() >= 0.0 and img.max() <= 1.0,
+                   f"{name} image is not finite in [0, 1]")
+            write_png(os.path.join(tmp, f"{name}.png"), img)
+        sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+    print(f"camera frame 512^2 (sdf_render defaults): {cam_s * 1e3:.3f} ms (host clock), "
+          f"hits {int(cres.hit.sum())}, ray-trips {int(cres.iterations.sum(dtype=torch.int64))}; "
+          f"shaded and written: {sizes}")
+    print(f"plane cut 512^2: {cut_s * 1e3:.3f} ms (host clock, image to numpy included)")
+    del sdf, res, cres, images, oracle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grid_path(dev):
+    """Main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the
+    bench torus (box margin 0.14), 128^3 corners, built by BASIC init (one
+    K2 sweep of the corners) and by OCTREE init (K1 through a depth-6
+    exact octree); the counts run over both builds. Both are held to each
+    other and to ``RealSdf`` at 10k corners, queries timed on 2^22 points
+    (seed 1) beside their bound, the GRID .bin round trip held bit-equal,
+    and K2 held against its plain version at the corners' shape. Returns
+    (the path's launch counts, K2's check there)."""
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import RealSdf, UniformGridSdf
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin, save_sdflib_bin
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    reset_counts()
+    grids, secs = {}, {}
+    for init in ("basic", "octree"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids[init] = UniformGridSdf(mesh, box, depth=7, init_algorithm=init, device=dev)
+        torch.cuda.synchronize()
+        secs[init] = time.perf_counter() - t0
+        g = grids[init]
+        print(f"grid build d7 {init}: {secs[init]:.3f} s, grid {g.grid_size}, "
+              f"{g.grid.numel() * 4 / 2**20:.1f} MiB, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"launches on main path E (uniform grid): {launches}")
+    for name in ("nearest", "scan_window"):
+        _check(launches[name] > 0, f"{name} was not launched on path E")
+
+    basic, octree = grids["basic"], grids["octree"]
+    init_diff = float((basic.grid - octree.grid).abs().max())
+    # every corner, as the init computes them (z-major)
+    gmin = np.asarray(basic.box.min, np.float32)
+    xs, ys, zs = (gmin[a] + basic.cell_size * np.arange(k, dtype=np.float32)
+                  for a, k in enumerate(basic.grid_size))
+    gz, gy, gx = np.meshgrid(zs, ys, xs, indexing="ij")
+    all_corners = torch.as_tensor(np.stack([gx, gy, gz], -1).reshape(-1, 3), device=dev)
+    idx = np.random.default_rng(7).choice(all_corners.shape[0], 10_000, replace=False)
+    flat = torch.as_tensor(idx, device=dev)
+    oracle = RealSdf(mesh, device=dev)
+    d_ref = oracle.get_distance(all_corners[flat])
+    real_err = max(float((g.grid.reshape(-1)[flat] - d_ref).abs().max())
+                   for g in grids.values())
+    print(f"grid gates d7: max |basic - octree| over all corners {init_diff:.3e}; "
+          f"max |grid - RealSdf| at 10000 corners {real_err:.3e} (both inits)")
+    _check(init_diff <= 1e-5, f"BASIC and OCTREE inits differ by {init_diff}")
+    _check(real_err <= 1e-5, f"grid differs from RealSdf by {real_err} at its corners")
+
+    pts = _uniform(basic.box, 1 << 22, 1, dev)
+    n = pts.shape[0]
+    grid_bytes = basic.grid.numel() * 4
+    for label, fn, per_point in (
+        ("get_distance", lambda: basic.get_distance(pts), GRID_POINT_BYTES),
+        ("get_distance_and_gradient", lambda: basic.get_distance_and_gradient(pts),
+         GRID_GRAD_BYTES),
+    ):
+        ms = _cuda_ms(fn)
+        bound = (n * per_point + grid_bytes) / PEAK_BYTES * 1e3
+        print(f"grid {label} d7 {n} points: {ms:.4f} ms ({n / ms * 1e3:.4e} q/s); bound "
+              f"{bound:.4f} ms (bytes: {per_point} B a point + the {grid_bytes} B grid) "
+              f"= {bound / ms:.1%} of it")
+    breakdown(lambda: basic.get_distance(pts), f"grid get_distance d7 {n} points")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.bin")
+        save_sdflib_bin(basic, path)
+        back = load_sdflib_bin(path, device=dev)
+        nbytes = os.path.getsize(path)
+    same = (torch.equal(back.grid, basic.grid) and back.grid_size == basic.grid_size
+            and torch.equal(back.get_distance(pts[:1 << 16]), basic.get_distance(pts[:1 << 16])))
+    print(f"grid .bin round trip: {nbytes} B, bit-equal {same}")
+    _check(same, "the GRID .bin round trip is not bit-equal")
+
+    # K2 at the BASIC init's shape: every corner x every triangle
+    k2 = k2_vs_plain(all_corners, oracle.fields, oracle.triangles,
+                     "grid BASIC init, 2^21 corners, checked on 2^16", n_check=1 << 16)
+    del grids, basic, octree, back, pts, all_corners, oracle
     torch.cuda.empty_cache()
     return launches, k2
 
@@ -843,6 +1153,13 @@ def main() -> None:
     # -- main path C, the approximate octree at bench.py's configuration ----
     launches["approx"], k2c = approx_path(dev, root, 1 << 22)
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2c[0])
+
+    # -- main path D, the sphere tracer at bench.py's configuration --------
+    launches["trace"] = trace_path(dev, 1024)
+
+    # -- main path E, the uniform grid at depth 7 ---------------------------
+    launches["grid"], k2e = grid_path(dev)
+    kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2e[0])
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

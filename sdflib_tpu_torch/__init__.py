@@ -1,11 +1,13 @@
-"""sdflib_tpu_torch: the exact and approximate octrees of sdflib_tpu in
-PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU.
+"""sdflib_tpu_torch: the exact and approximate octrees, the uniform grid
+and the renderer of sdflib_tpu in PyTorch, with hand-written CUDA kernels
+for an NVIDIA Hopper GPU.
 
 Imports torch and numpy only, never JAX: the JAX package ``sdflib_tpu``
 is the reference this package is held against, in tests that import both.
 """
 from .mesh import BoundingBox, Mesh, load_mesh
 from .sdf.exact_octree import ExactOctreeSdf
+from .sdf.grid import UniformGridSdf
 from .sdf.octree import OctreeSdf
 from .sdf.real import RealSdf
 from .sdf.sdf_function import SdfFormat, SdfFunction
@@ -23,4 +25,5 @@ __all__ = [
     "ExactOctreeSdf",
     "OctreeSdf",
     "RealSdf",
+    "UniformGridSdf",
 ]

@@ -1,6 +1,7 @@
-"""Reference-format (.bin) serialization of the approximate octree.
+"""Reference-format (.bin) serialization of the approximate octree and
+the uniform grid.
 
-A numpy copy of the OCTREE part of the JAX package's
+A numpy copy of the OCTREE and GRID parts of the JAX package's
 ``io/sdflib_binary.py`` (that module imports JAX through its ``sdf/``
 imports). Reads and writes the reference's cereal PortableBinaryArchive
 container (reference: src/sdf/SdfFunction.cpp:9-79):
@@ -12,11 +13,14 @@ container (reference: src/sdf/SdfFunction.cpp:9-79):
             + f32 valueRange + f32 minBorderValue
             + vector<OctreeNode> (u64 count + u32 data)
             (OctreeSdf.h:222-238)
+  GRID    : BoundingBox (6 f32) + 3 x int32 gridSize
+            + vector<float> (u64 count + f32 data, z-major)
+            (UniformGridSdf.h:60-74)
 
 An array that the reference wrote need not have the builders' aligned
 layout; ``OctreeSdf`` then queries it through the walk's
-layout-agnostic form. GRID and EXACT_OCTREE containers raise
-``NotImplementedError``: their structures are not ported yet.
+layout-agnostic form. EXACT_OCTREE containers raise
+``NotImplementedError``: their format is not ported yet.
 """
 from __future__ import annotations
 
@@ -63,10 +67,15 @@ class _Reader:
         n = self.u64()
         return np.frombuffer(self.take(4 * n), dtype="<u4").copy()
 
+    def vec_f32(self) -> np.ndarray:
+        n = self.u64()
+        return np.frombuffer(self.take(4 * n), dtype="<f4").copy()
+
 
 def load_sdflib_bin(path: str, device="cuda"):
     """Load a reference .bin container onto ``device`` (an OCTREE
-    container gives an ``OctreeSdf``)."""
+    container gives an ``OctreeSdf``, a GRID one a ``UniformGridSdf``)."""
+    from ..sdf.grid import UniformGridSdf
     from ..sdf.octree import OctreeSdf
 
     with open(path, "rb") as f:
@@ -88,43 +97,60 @@ def load_sdflib_bin(path: str, device="cuda"):
         }
         return OctreeSdf.from_jax_state(state, device=device)
     if fmt == _FMT_GRID:
-        raise NotImplementedError(
-            "GRID .bin containers wait for the uniform grid's port "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
+        box_min, box_max = r.f32v(3), r.f32v(3)
+        gs = np.frombuffer(r.take(12), dtype="<i4").copy()
+        state = {
+            "box_min": box_min,
+            "box_max": box_max,
+            "grid_size": gs,
+            # the reference stores z-major flat; the grid is (nz, ny, nx)
+            "grid": r.vec_f32().reshape(gs[2], gs[1], gs[0]),
+        }
+        return UniformGridSdf.from_jax_state(state, device=device)
     if fmt == _FMT_EXACT:
         raise NotImplementedError(
             "EXACT_OCTREE .bin containers are not ported yet "
-            "(ROADMAP.md, Queue 1 item 1.4)"
+            "(ROADMAP.md, Queue 1 item 4.1)"
         )
     raise ValueError(f"Unknown SdfFormat {fmt} in {path!r}")
 
 
 def save_sdflib_bin(sdf, path: str) -> None:
-    """Write a reference-compatible .bin container of an ``OctreeSdf``."""
+    """Write a reference-compatible .bin container of an ``OctreeSdf`` or
+    a ``UniformGridSdf``."""
+    from ..sdf.grid import UniformGridSdf
     from ..sdf.octree import OctreeSdf
 
-    if not isinstance(sdf, OctreeSdf):
-        raise NotImplementedError(
-            f".bin export of {type(sdf).__name__} is not ported yet "
-            "(ROADMAP.md, Queue 1 items 1.4 and 4)"
-        )
-    if sdf.interpolation != "tricubic":
-        raise ValueError(
-            ".bin export requires tricubic octrees (the reference's "
-            "compiled interpolation method, OctreeSdf.cpp:16)"
-        )
     out = bytearray()
     out += b"\x01"  # little-endian archive flag
-    out += struct.pack("<i", _FMT_OCTREE)
-    out += np.asarray(sdf.box.min, "<f4").tobytes()
-    out += np.asarray(sdf.box.max, "<f4").tobytes()
-    out += struct.pack("<i", sdf.start_grid_size)
-    out += struct.pack("<I", sdf.max_depth)
-    out += struct.pack("<f", sdf.value_range)
-    out += struct.pack("<f", sdf.min_border_value)
-    data = np.asarray(sdf.octree_data, "<u4")
-    out += struct.pack("<Q", data.size)
-    out += data.tobytes()
+    if isinstance(sdf, OctreeSdf):
+        if sdf.interpolation != "tricubic":
+            raise ValueError(
+                ".bin export requires tricubic octrees (the reference's "
+                "compiled interpolation method, OctreeSdf.cpp:16)"
+            )
+        out += struct.pack("<i", _FMT_OCTREE)
+        out += np.asarray(sdf.box.min, "<f4").tobytes()
+        out += np.asarray(sdf.box.max, "<f4").tobytes()
+        out += struct.pack("<i", sdf.start_grid_size)
+        out += struct.pack("<I", sdf.max_depth)
+        out += struct.pack("<f", sdf.value_range)
+        out += struct.pack("<f", sdf.min_border_value)
+        data = np.asarray(sdf.octree_data, "<u4")
+        out += struct.pack("<Q", data.size)
+        out += data.tobytes()
+    elif isinstance(sdf, UniformGridSdf):
+        out += struct.pack("<i", _FMT_GRID)
+        out += np.asarray(sdf.box.min, "<f4").tobytes()
+        out += np.asarray(sdf.box.max, "<f4").tobytes()
+        out += struct.pack("<3i", *sdf.grid_size)
+        grid = sdf.grid.cpu().numpy().astype("<f4")  # (nz, ny, nx) -> z-major flat
+        out += struct.pack("<Q", grid.size)
+        out += grid.tobytes()
+    else:
+        raise NotImplementedError(
+            f".bin export of {type(sdf).__name__} is not ported yet "
+            "(ROADMAP.md, Queue 1 item 4.1)"
+        )
     with open(path, "wb") as f:
         f.write(bytes(out))

@@ -1,1 +1,2 @@
-"""SDF structures: the exact octree and the brute-force oracle."""
+"""SDF structures: the exact and approximate octrees, the uniform grid and
+the brute-force oracle."""

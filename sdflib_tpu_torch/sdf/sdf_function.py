@@ -82,6 +82,10 @@ class SdfFunction(abc.ABC):
                 f"{path!r} is not an SDF container (missing format tag)"
             )
         fmt = SdfFormat(str(state.pop("__format__")))
+        if fmt == SdfFormat.GRID:
+            from .grid import UniformGridSdf
+
+            return UniformGridSdf.from_jax_state(state, device=device)
         if fmt == SdfFormat.EXACT_OCTREE:
             from .exact_octree import ExactOctreeSdf
 

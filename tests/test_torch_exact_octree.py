@@ -162,8 +162,8 @@ def test_unported_options_raise(tmp_path):
         ExactOctreeSdf(mesh, box, strategy="lattice", **CFG, device="cpu")
     with pytest.raises(MemoryError):
         ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG, device="cpu")
-    path = str(tmp_path / "grid.npz")
-    np.savez(path, __format__=np.array("grid"))
+    path = str(tmp_path / "tiled.npz")
+    np.savez(path, __format__=np.array("octree_tiled"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SdfFunction.load(path, device="cpu")
 

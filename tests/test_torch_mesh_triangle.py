@@ -1,6 +1,7 @@
-"""The port's numpy host layer (mesh, primitives, triangle precompute)
-against the JAX package's: the same meshes and the same per-triangle data,
-bit for bit (tolerance: exact equality)."""
+"""The port's numpy host layer (mesh, primitives, triangle precompute,
+the renderer's camera and PNG writer) against the JAX package's: the same
+meshes, per-triangle data, rays and PNG bytes, bit for bit (tolerance:
+exact equality)."""
 import os
 import sys
 
@@ -9,9 +10,13 @@ import pytest
 import torch
 
 import sdflib_tpu.mesh as jmesh
+from sdflib_tpu.render.camera import Camera as JCamera
+from sdflib_tpu.render.image import to_u8 as j_to_u8, write_png as j_write_png
 from sdflib_tpu.triangle import calculate_mesh_triangle_data as j_calc
 from sdflib_tpu.utils.primitives import make_icosphere as j_ico, make_torus as j_torus
 import sdflib_tpu_torch.mesh as tmesh
+from sdflib_tpu_torch.render.camera import Camera as TCamera
+from sdflib_tpu_torch.render.image import to_u8 as t_to_u8, write_png as t_write_png
 from sdflib_tpu_torch.triangle import (
     calculate_mesh_triangle_data as t_calc,
     soa_to_torch,
@@ -78,3 +83,31 @@ def test_load_mesh_and_box_equal(tmp_path):
     bb = b.bounding_box.add_margin(0.1).cubified()
     np.testing.assert_array_equal(ba.min, bb.min)
     np.testing.assert_array_equal(ba.max, bb.max)
+
+
+@pytest.mark.parametrize("cam", [
+    dict(),
+    dict(position=(0.9, 0.7, 1.2), target=(0.0, 0.0, 0.0), fov_y_deg=45.0),
+    dict(position=(-0.3, 2.0, 0.4), target=(0.1, -0.2, 0.05), up=(0.0, 0.0, 1.0),
+         fov_y_deg=30.0, near=0.05),
+])
+def test_camera_rays_equal(cam):
+    """The copied camera gives the same rays, square and wide frames."""
+    for w, h in ((64, 64), (96, 40)):
+        for a, b in zip(JCamera(**cam).rays(w, h), TCamera(**cam).rays(w, h)):
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_png_writer_equal(tmp_path):
+    """The copied PNG writer writes the same bytes for every channel
+    count and input type."""
+    rng = np.random.default_rng(0)
+    images = [rng.uniform(-0.1, 1.1, (17, 23)).astype(np.float32),
+              rng.uniform(0, 1, (8, 5, 1)), rng.uniform(0, 1, (16, 16, 3)).astype(np.float32),
+              rng.integers(0, 256, (9, 7, 4)).astype(np.uint8)]
+    for i, img in enumerate(images):
+        np.testing.assert_array_equal(j_to_u8(img), t_to_u8(img))
+        j_write_png(str(tmp_path / f"j{i}.png"), img)
+        t_write_png(str(tmp_path / f"t{i}.png"), img)
+        assert (tmp_path / f"j{i}.png").read_bytes() == (tmp_path / f"t{i}.png").read_bytes()

@@ -5,7 +5,10 @@ CPU at test size, through the window and the grouped scan, exact against
 the port's own RealSdf within 1e-5, and the row-fetch probes; then both
 approximate builders (rms error against RealSdf below the JAX tests'
 4e-3), the walk against the grid route within 1e-6, and a reference
-``.bin`` golden through the port's io within 5e-5 of the C++ walk."""
+``.bin`` golden through the port's io within 5e-5 of the C++ walk; then
+a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
+1e-3 of the octree's surface, one shading call, a 32^2 plane cut, and a depth-3
+``UniformGridSdf`` with its ``.bin`` round trip, bit-equal."""
 import os
 import subprocess
 import sys
@@ -59,6 +62,30 @@ SCRIPT = textwrap.dedent(
     bin_sdf = load_sdflib_bin("tests/golden/data/octree_torus.bin", device="cpu")
     d = bin_sdf.get_distance(gold["points"][:2000]).numpy()
     assert np.abs(d - gold["dist"][:2000]).max() <= 5e-5
+
+    from sdflib_tpu_torch.render import (Camera, normal_color, render_plane_cut,
+                                         trace_octree)
+    o, d = Camera(position=(0.3, 0.0, 1.2), target=(0.3, 0, 0), fov_y_deg=50).rays(32, 32)
+    res = trace_octree(approx, o, d, eps=1e-4, beam=4)   # grid route, beam on
+    hit = res.hit.numpy()
+    assert 0 < hit.sum() < hit.size and hit[16, 16]
+    # the hits lie on the octree's own surface
+    assert float(approx.get_distance(res.position[res.hit]).abs().max()) <= 1e-3
+    img = normal_color(res.normal, res.hit).numpy()
+    assert img.shape == (32, 32, 3) and 0.0 <= img.min() and img.max() <= 1.0
+    cut = render_plane_cut(approx, resolution=32)
+    assert cut.shape == (32, 32, 3) and np.isfinite(cut).all()
+
+    from sdflib_tpu_torch import UniformGridSdf
+    from sdflib_tpu_torch.io.sdflib_binary import save_sdflib_bin
+    import os
+    import tempfile
+    grid = UniformGridSdf(mesh, box, depth=3, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_sdflib_bin(grid, os.path.join(tmp, "g.bin"))
+        back = load_sdflib_bin(os.path.join(tmp, "g.bin"), device="cpu")
+    assert torch.equal(back.grid, grid.grid) and back.grid_size == (8, 8, 8)
+    assert torch.equal(back.get_distance(pts), grid.get_distance(pts))
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)
