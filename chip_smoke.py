@@ -58,7 +58,30 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   OCTREE init (K1 through a depth-6 exact octree), the two held to each
   other and to ``RealSdf`` at 10k corners, queries timed on 2^22 points
   beside their bound, the GRID ``.bin`` round trip bit-equal, and K2 held
-  against its plain version at 2^21 x 9,216.
+  against its plain version at 2^21 x 9,216;
+* main path F, differentiable queries (``diff_path``): path C's
+  no_continuity octree, ``octree_query_diff`` on 2^22 points (seed 1)
+  bit-equal to the walk route and within 1e-6 of the grid route; the
+  coefficient gradient of mean((d - t)^2) timed with its forward beside
+  their bound from bytes, its scatter timed by the profiler, held to the
+  CPU on 2^16 points (1e-4 relative on the touched rows) and to central
+  differences on 8 coefficients; the point gradient against
+  ``get_distance_and_gradient``; ``render_depth_diff`` on bench.py's
+  1024^2 rays (eps 1e-4, far 4, 256 trips) against path D's trace; and
+  30 Adam steps of ``depth_fit_loss`` (tests/test_diff.py's recipe),
+  whose last loss must fall below half the first;
+* main path G, the exact path's leftovers (``leftovers_path``), on path
+  A's configuration: the EXACT_OCTREE ``.bin`` written, reloaded on the
+  card and held to the 10k oracle gate through K1, the compiled
+  reference's ``builders_exact.bin`` within 2e-5, the copied native
+  library on the port's file within 1e-5; the frame19 and id-only tiers
+  (2^21 points and the oracle gate, each timed beside K1; pinning K1
+  raises); ``set_scan_chunk`` 16 and 128; the lattice, basic, precise and
+  per_vertex builds (seconds, leaves beside JAX's, mean list, bucket
+  bytes, the oracle gate) and the approximate d6 build with the lattice
+  cull held to JAX's words and leaves. Its grid knob runs on path B's
+  structure: the node walk, then ``build_query_grid``, the 2^20 answers
+  unchanged.
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -114,6 +137,28 @@ APPROX_REF = {
 # fits; that moves leaves between depths (no_continuity: 41 of 1,008 at
 # depth 5) and hardly changes the totals (scripts/approx_build_ties.py).
 APPROX_DEPTH_TOL = 0.05
+# The JAX package's exact d6 builds of the bench torus under the other
+# cull strategies, on the CPU (scripts/strategy_reference_jax.py): leaves
+# and mean list length; precise and per_vertex at d5 too. JAX's precise
+# cull keeps every candidate of a node with a padded list (ROADMAP.md,
+# Queue 3), so its leaves hold all 9,216 triangles; the port's are held to
+# no gate of JAX's there. Its approximate d6 lattice build has the words
+# and leaves of APPROX_REF["no_continuity"].
+STRATEGY_REF = {
+    ("lattice", 6): dict(leaves=262_144, mean=122.7928),
+    ("basic", 6): dict(leaves=261_010, mean=159.7711),
+    ("per_vertex", 6): dict(leaves=96_587, mean=24.4552),
+    ("per_vertex", 5): dict(leaves=32_768, mean=36.9453),
+    ("precise", 6): dict(leaves=512, mean=9216.0),
+    ("precise", 5): dict(leaves=512, mean=9216.0),
+}
+# The depth each strategy's build runs at on the card: d6, cut to d5 for
+# a strategy whose d6 build took more than 120 s (PERF.md section 6).
+STRATEGY_DEPTH = {"lattice": 6, "basic": 6, "precise": 6, "per_vertex": 6}
+# The differentiable query's backward, beyond the forward's 280 B a point:
+# the 64 coefficient gradients a point (256 B) that the scatter adds into
+# the gradient array.
+DIFF_BACKWARD_BYTES = 256
 # One query point's bytes through the grid route: the point in, its grid
 # row (8 B), its leaf's 64 coefficients, the distance out; the gradient
 # writes 12 B more.
@@ -747,6 +792,399 @@ def grid_path(dev):
     return launches, k2
 
 
+def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
+    """Path F, differentiable queries at full width: path C's no_continuity
+    octree (built here, its seed lattice through K2; the counts run from
+    the build to the last fit step). ``octree_query_diff`` on ``n_query``
+    points (seed 1) held bit-equal to the walk route and within 1e-6 of
+    the grid route; the coefficient gradient of mean((d - t)^2) timed
+    beside its bound, held to the same code on the CPU on 2^16 points and
+    to central differences; the point gradient held to
+    ``get_distance_and_gradient``; ``render_depth_diff`` on n_rays^2 of
+    bench.py's rays beside path D's trace; and ``fit_steps`` Adam steps of
+    ``depth_fit_loss``. Returns the path's launch counts."""
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf
+    from sdflib_tpu_torch.diff.query import octree_coefficients, octree_query_diff
+    from sdflib_tpu_torch.diff.render import depth_fit_loss, render_depth_diff
+    from sdflib_tpu_torch.render import trace_octree
+    from sdflib_tpu_torch.sdf import octree as oq
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    pts = _uniform(box, n_query, 1, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdf = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+                    init_algorithm="no_continuity", device=dev)
+    torch.cuda.synchronize()
+    print(f"diff path F: octree built in {time.perf_counter() - t0:.3f} s, "
+          f"{sdf.octree_data.shape[0]} words")
+    words = sdf._octree_dev
+    before = words.clone()
+    levels = sdf.max_depth - sdf.start_depth
+    args = (sdf.box.min, sdf.box.size[0], sdf.start_grid_size, sdf.min_border_value)
+    q = dict(levels=levels)
+    n = pts.shape[0]
+    sub = pts[: 1 << 16]
+
+    # 1. forward: the walk route bit for bit, the grid route within 1e-6
+    coeffs = octree_coefficients(words)
+    d = octree_query_diff(words, coeffs, pts, *args, **q)
+    walk = oq._octree_query(words, pts, sdf._box_min, sdf._box_size3, sdf.start_grid_size,
+                            sdf.min_border_value, levels=levels, num_coeff=64,
+                            interpolation="tricubic", with_gradient=False)
+    d_walk_g, g_walk = sdf.get_distance_and_gradient(sub)     # the walk route
+    sdf.build_query_grid()
+    grid_err = float((d - sdf.get_distance(pts)).abs().max())
+    bit_equal = torch.equal(d, walk)
+    print(f"diff forward {n} points: bit-equal to the walk route {bit_equal}, max |d - grid "
+          f"route| {grid_err:.3e}")
+    _check(bit_equal, "octree_query_diff differs from the walk route")
+    _check(grid_err <= 1e-6, f"octree_query_diff differs from the grid route by {grid_err}")
+
+    # 2. the coefficient gradient of mean((d - t)^2), t the octree's own
+    # values plus a seeded offset
+    offset = torch.as_tensor(np.random.default_rng(2).normal(0, 1e-3, n).astype(np.float32),
+                             device=dev)
+    target = d.detach() + offset
+    c = coeffs.clone().requires_grad_(True)
+
+    def loss_of(cc, p, t):
+        return (octree_query_diff(words, cc, p, *args, **q) - t).square().mean()
+
+    def fwd():
+        return octree_query_diff(words, c, pts, *args, **q)
+
+    def fwd_bwd():
+        return torch.autograd.grad(loss_of(c, pts, target), c)[0]
+
+    grad = fwd_bwd()
+    fwd_ms = _cuda_ms(fwd)
+    fb_ms = _cuda_ms(fwd_bwd)
+    bound_f = n * APPROX_POINT_BYTES / PEAK_BYTES * 1e3
+    bound_fb = n * (APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES) / PEAK_BYTES * 1e3
+    touched = int((grad.view(-1, 64) != 0).any(1).sum())
+    print(f"diff forward {n} points (walk route, graph kept): {fwd_ms:.4f} ms, bound "
+          f"{bound_f:.4f} ms (bytes, {APPROX_POINT_BYTES} B a point) = {bound_f / fwd_ms:.1%}; "
+          f"forward + backward {fb_ms:.4f} ms (backward {fb_ms - fwd_ms:.4f} ms), bound "
+          f"{bound_fb:.4f} ms ({APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES} B a point) = "
+          f"{bound_fb / fb_ms:.1%}; {touched} coefficient rows touched, "
+          f"{n / max(touched, 1):.0f} points a row")
+    ev_ms, busy_ms, acts = breakdown(fwd_bwd, f"diff forward + backward, {n} points", top=10)
+    scatter = _device_ms(fwd_bwd, ("index_put", "scatter", "index_add", "indexing_backward"))
+    print(f"diff backward: the coefficient scatter {scatter:.4f} ms of a {ev_ms:.4f} ms "
+          f"forward + backward ({scatter / ev_ms:.1%}); device busy {busy_ms / ev_ms:.1%}, "
+          f"{acts} device activities")
+
+    # the card's gradient against the same code on the CPU, 2^16 points
+    g_card = torch.autograd.grad(loss_of(c, sub, target[: 1 << 16]), c)[0]
+    c_cpu = c.detach().cpu().requires_grad_(True)
+    g_cpu = torch.autograd.grad(loss_of(c_cpu, sub.cpu(), target[: 1 << 16].cpu()), c_cpu)[0]
+    # relative error over the touched rows: the largest difference over
+    # the largest gradient (norm-wise); each row's own relative error too,
+    # which a row whose points' terms cancel inflates
+    rows_k, rows_c = g_card.cpu().view(-1, 64), g_cpu.view(-1, 64)
+    live = (rows_c != 0).any(1)
+    diff_rows = (rows_k[live] - rows_c[live]).abs()
+    rel = float(diff_rows.max() / rows_c[live].abs().max())
+    per_row = (diff_rows.amax(1) / rows_c[live].abs().amax(1)).double()
+    # central differences on 8 touched coefficients: the loss is quadratic
+    # in the coefficients, so they are exact for any step up to rounding
+    # (a step of 0.1, f64 sums); the error is relative to the largest of
+    # the 8 gradients
+    idx = torch.nonzero(g_card)[:, 0]
+    pick = idx[torch.linspace(0, idx.numel() - 1, 8).long()].tolist()
+    tsub = target[: 1 << 16].double()
+    fds = []
+    for i in pick:
+        h = 0.1
+        cp, cm = c.detach().clone(), c.detach().clone()
+        cp[i] += h
+        cm[i] -= h
+        lp = float((octree_query_diff(words, cp, sub, *args, **q).double() - tsub).square().mean())
+        lm = float((octree_query_diff(words, cm, sub, *args, **q).double() - tsub).square().mean())
+        fds.append((lp - lm) / (2 * h))
+    g_pick = g_card[pick].double().cpu().numpy()
+    fd_err = float(np.abs(np.array(fds) - g_pick).max() / np.abs(g_pick).max())
+    print(f"diff gradient checks (2^16 points): card vs CPU on {int(live.sum())} touched "
+          f"rows, relative error {rel:.3e} (each row's own: median "
+          f"{float(per_row.median()):.3e}, q99 {float(torch.quantile(per_row, 0.99)):.3e}, max "
+          f"{float(per_row.max()):.3e}); central differences on 8 touched coefficients, "
+          f"max relative error {fd_err:.3e}")
+    _check(rel <= 1e-4, f"card gradient differs from the CPU's by {rel} (relative)")
+    _check(fd_err <= 1e-3, f"gradient differs from central differences by {fd_err}")
+
+    # 3. the point gradient: autograd and the analytic one, and the latter
+    # normalised against get_distance_and_gradient's (the walk route)
+    x = sub.clone().requires_grad_(True)
+    gx = torch.autograd.grad(octree_query_diff(words, coeffs, x, *args, **q).sum(), x)[0]
+    _, g_an = octree_query_diff(words, coeffs, sub, *args, with_gradient=True, **q)
+    g_scale = float(g_an.abs().max())
+    auto_err = float((gx - g_an).abs().max()) / g_scale
+    g_unit = g_an / g_an.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+    unit_err = float((g_unit - g_walk).abs().max())
+    print(f"diff point gradient (2^16 points): autograd vs analytic max relative error "
+          f"{auto_err:.3e}; normalised vs get_distance_and_gradient {unit_err:.3e}")
+    _check(auto_err <= 1e-5, f"autograd point gradient off by {auto_err}")
+    _check(unit_err <= 1e-5, f"normalised gradient off get_distance_and_gradient's by {unit_err}")
+
+    # 4. render_depth_diff on bench.py's rays, JAX's defaults
+    origins, dirs = _ortho_rays(n_rays, dev)
+    o, dr = origins.reshape(-1, 3), dirs.reshape(-1, 3)
+    kw = dict(levels=levels, eps=1e-4, far=4.0, max_iters=256)
+    depth, hit = render_depth_diff(words, c.detach(), o, dr, *args, **kw)
+    r_ms = _cuda_ms(lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw), reps=2)
+    rb_ms = _cuda_ms(lambda: torch.autograd.grad(
+        render_depth_diff(words, c, o, dr, *args, **kw)[0].sum(), c), reps=2)
+    from sdflib_tpu_torch.render.sphere_trace import sphere_trace
+
+    frozen = c.detach()
+    with torch.no_grad():
+        _, _, _, trips = sphere_trace(
+            lambda p: octree_query_diff(words, frozen, p, *args, **q), o, dr,
+            eps=float(np.float32(1e-4) * np.float32(sdf.box.size[0])),
+            far=float(np.float32(4.0) * np.float32(sdf.box.size[0])), max_iters=256)
+    ev_ms, busy_ms, acts = breakdown(
+        lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw),
+        f"render_depth_diff {n_rays}^2 rays", top=6)
+    ref = trace_octree(sdf, origins, dirs, eps=1e-5, far=4.0, max_iters=1024)
+    rh, rd = ref.hit.reshape(-1), ref.depth.reshape(-1)
+    agree = float((rh == hit).float().mean())
+    both = rh & hit
+    diff = (depth.detach()[both] - rd[both]).abs()
+    # a hit within eps of the surface lies up to eps / |cos| from it along
+    # the ray (cos between the ray and the surface normal): grazing rays
+    # get that allowance, the others 1e-3
+    _, g_hit = octree_query_diff(words, coeffs, ref.position.reshape(-1, 3)[both], *args,
+                                 with_gradient=True, **q)
+    cos = (g_hit * dr[both]).sum(-1).abs() / g_hit.norm(dim=-1).clamp_min(1e-30)
+    eps_world = float(np.float32(1e-4) * np.float32(sdf.box.size[0]))
+    allow = (2 * eps_world / cos.clamp_min(1e-30)).clamp_min(1e-3)
+    over = diff > 1e-3
+    bad = int((diff > allow).sum())
+    print(f"render_depth_diff {n_rays}^2 rays: forward {r_ms:.4f} ms, forward + backward "
+          f"{rb_ms:.4f} ms; march trips {int(trips)} (the longest ray's); device busy "
+          f"{busy_ms / ev_ms:.1%}, {acts} device activities; hits {int(hit.sum())}, masks "
+          f"agree with path D's trace on {agree:.4%}; on {int(both.sum())} common hits max "
+          f"|depth diff| {float(diff.max()):.3e}, {int(over.sum())} above 1e-3 (largest "
+          f"|cos| among them {float(cos[over].max()) if bool(over.any()) else 0.0:.4f}), "
+          f"{bad} beyond max(1e-3, 2 eps / |cos|)")
+    _check(agree > 0.998, f"render_depth_diff hit masks agree with the trace on {agree:.4%}")
+    _check(bad == 0, f"{bad} render_depth_diff depths differ from the trace's beyond "
+           f"max(1e-3, 2 eps / |cos|)")
+
+    # 5. depth_fit_loss: tests/test_diff.py's recipe at full width
+    target_d, target_h = render_depth_diff(words, coeffs, o, dr, *args, **kw)
+    noise = torch.as_tensor(
+        np.random.default_rng(1).normal(0, 1e-3, coeffs.shape).astype(np.float32), device=dev)
+    cf = (coeffs + noise).requires_grad_(True)
+    opt = torch.optim.Adam([cf], lr=2e-4, betas=(0.9, 0.999), eps=1e-9)
+    losses, step_ms = [], []
+    for i in range(fit_steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = depth_fit_loss(words, cf, o, dr, target_d, target_h, *args, **kw)
+        loss.backward()
+        if i < fit_steps:
+            opt.step()
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i % 5 == 0:
+            print(f"depth fit step {i}: loss {losses[-1]:.6e}, {step_ms[-1]:.1f} ms (host clock)")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"depth fit {n_rays}^2 rays: loss {losses[0]:.6e} -> {losses[-1]:.6e} "
+          f"({losses[-1] / losses[0]:.4f} of the first) in {fit_steps} Adam steps, "
+          f"median step {float(np.median(step_ms)):.1f} ms; launches on path F: {launches}")
+    _check(losses[-1] < 0.5 * losses[0], f"the fit's last loss {losses[-1]} is not below half "
+           f"the first {losses[0]}")
+    _check(torch.equal(words, before), "the fit changed the octree's words")
+    _check(launches["nearest"] > 0, "nearest was not launched on path F")
+    del sdf, coeffs, c, cf, opt, pts, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _device_ms(fn, keys) -> float:
+    """Device time a call (ms, over 3 profiled calls) of the kernels whose
+    name holds one of ``keys``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.key.lower() for k in keys)) / 3e3
+
+
+def leftovers_path(dev, root: str):
+    """Path G, the exact path's leftovers at path A's configuration (the
+    bench torus, d6, start depth 2, 32 triangles a node); the counts run
+    over the whole path. The region build to an EXACT_OCTREE .bin and back
+    on the card (the 10k oracle gate through K1), the compiled reference's
+    ``builders_exact.bin``, the copied native library on the port's file;
+    the frame19 and id-only tiers of the same structure (2^21 points and
+    the oracle gate, each timed beside K1, pinning K1 raises); the scan
+    chunk at 16 and 128; and the lattice, basic, precise and per_vertex
+    builds with their oracle gates and JAX's leaf counts, and the
+    approximate d6 build with the lattice cull. Returns the path's launch
+    counts."""
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin, save_sdflib_bin
+    from sdflib_tpu_torch.native import NativeSdf
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    cfg = dict(max_depth=6, start_depth=2, min_triangles_per_node=32)
+    opts = _uniform(box, 10_000, 7, dev)
+    pts = _uniform(box, 1 << 21, 0, dev)
+    reset_counts()
+    oracle = RealSdf(mesh, device=dev)
+    d_ref = oracle.get_distance(opts)
+
+    def gate(sdf, label):
+        err = float((sdf.get_distance(opts) - d_ref).abs().max())
+        _check(err <= ORACLE_TOL, f"oracle max error {err} > {ORACLE_TOL} ({label})")
+        return err
+
+    # 1. the EXACT_OCTREE .bin both ways, on the card
+    sdf = ExactOctreeSdf(mesh, box, **cfg, device=dev)
+    d_k1 = sdf.get_distance(pts)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "d6.bin")
+        t0 = time.perf_counter()
+        save_sdflib_bin(sdf, path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_sdflib_bin(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        native = NativeSdf.load(path)
+        d_nat = native.get_distance(opts.cpu().numpy())
+        native.close()
+    _check(not loaded._sorted_lists and loaded.num_leaves == sdf.num_leaves,
+           "the loaded structure's lists or leaves differ")
+    errs = {}
+    for impl in ("xla", "xla_window"):
+        loaded.set_scan_impl(impl)
+        errs[impl] = gate(loaded, f".bin-loaded, {impl}")
+    nat_err = float(np.abs(d_nat - sdf.get_distance(opts).cpu().numpy()).max())
+    g = np.load(os.path.join(root, GOLDEN, "builders_torus.npz"))
+    gold = load_sdflib_bin(os.path.join(root, GOLDEN, "builders_exact.bin"), device=dev)
+    gp = torch.as_tensor(g["points"], device=dev)
+    gd = torch.as_tensor(g["exact_dist"], device=dev)
+    gg = torch.as_tensor(g["exact_grad"], device=dev)
+    gold_err = float((gold.get_distance(gp) - gd).abs().max())
+    d2, g2 = gold.get_distance_and_gradient(gp)
+    gold_err = max(gold_err, float((d2 - gd).abs().max()))
+    g_bad = float(((g2 - gg).norm(dim=-1) > 1e-3).float().mean())
+    print(f"exact .bin d6: save {save_s:.3f} s, load on the card {load_s:.3f} s, {nbytes} B; "
+          f"oracle gate through K1 on the loaded structure: grouped {errs['xla']:.3e}, window "
+          f"{errs['xla_window']:.3e}; native decode vs the card {nat_err:.3e} on 10000 points; "
+          f"builders_exact.bin ({gold.num_leaves} leaves): max |d - C++| {gold_err:.3e}, "
+          f"gradients off by >1e-3 {g_bad:.2e}")
+    _check(nat_err <= 1e-5, f"the native decode differs from the card by {nat_err}")
+    _check(gold_err <= 2e-5, f"builders_exact.bin differs from the C++ answers by {gold_err}")
+    _check(g_bad < 1e-3, f"builders_exact.bin: {g_bad} of gradients off by >1e-3")
+    del loaded, gold
+
+    # 2. the tiers of the same structure
+    state = sdf._state_arrays()
+    k1_ms = _cuda_ms(lambda: sdf.get_distance(pts))
+    vertex_bytes = sdf.bucket_bytes
+    print(f"tier vertex9 (K1): get_distance 2^21 {k1_ms:.4f} ms, tables {vertex_bytes} B")
+    for tier in ("frame19", "id_only"):
+        st = dict(state)
+        if tier == "id_only":
+            st["bucket_byte_budget"] = np.int64(sdf.bucket_fields.numel() * 4 - 1)
+        other = ExactOctreeSdf.from_jax_state(
+            st, device=dev, bucket_format="frame19" if tier == "frame19" else "auto")
+        _check(other.bucket_tier == tier, f"{other.bucket_tier} taken for {tier}")
+        d = other.get_distance(pts)
+        diff = float((d - d_k1).abs().max())
+        err = gate(other, tier)
+        ms = _cuda_ms(lambda: other.get_distance(pts), reps=1)
+        for impl in ("pallas", "pallas_window"):
+            try:
+                other.set_scan_impl(impl)
+            except ValueError:
+                continue
+            raise RuntimeError(f"chip_smoke: pinning K1 ({impl}) on {tier} did not raise")
+        print(f"tier {tier}: get_distance 2^21 {ms:.4f} ms ({ms / k1_ms:.1f}x K1's), tables "
+              f"{other.bucket_bytes} B, max |d - K1's| {diff:.3e}, oracle gate {err:.3e}, "
+              f"scan {other.last_scan_stats['scan']}; pinning K1 raises")
+        _check(diff <= 1e-6, f"{tier} differs from K1's answers by {diff}")
+        del other
+
+    # 3. the scan chunk: answers unchanged
+    base = sdf.get_distance(opts)
+    for chunk in (16, 128):
+        sdf.set_scan_chunk(chunk)
+        diff = float((sdf.get_distance(opts) - base).abs().max())
+        print(f"set_scan_chunk({chunk}): {sdf.bucket_ids.shape[0]} rows, max |d - chunk 64's| "
+              f"{diff:.3e} on 10000 points")
+        _check(diff <= 1e-6, f"scan chunk {chunk} changed the answers by {diff}")
+    sdf.set_scan_chunk(64)
+    del sdf, state
+
+    # 4. the other strategies
+    for strategy, depth in STRATEGY_DEPTH.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        other = ExactOctreeSdf(mesh, box, **dict(cfg, max_depth=depth), strategy=strategy,
+                               device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        err = gate(other, strategy)
+        ref = STRATEGY_REF[(strategy, depth)]
+        print(f"strategy {strategy} d{depth}: build {build_s:.3f} s, leaves {other.num_leaves} "
+              f"(JAX {ref['leaves']}), mean list {other.leaf_count.mean():.4f} (JAX "
+              f"{ref['mean']}), buckets {other.bucket_bytes} B, oracle gate {err:.3e} "
+              f"({other.last_scan_stats['scan']} scan)")
+        if strategy != "precise":
+            _check(abs(other.num_leaves - ref["leaves"]) <= 0.05 * ref["leaves"],
+                   f"{strategy}: {other.num_leaves} leaves, >5% from JAX's {ref['leaves']}")
+        del other
+        torch.cuda.empty_cache()
+    ref = APPROX_REF["no_continuity"]
+    t0 = time.perf_counter()
+    approx = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+                       init_algorithm="no_continuity", strategy="lattice", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    leaves = {int(k): int(v) for k, v in sorted(approx.build_stats["leaves_per_depth"].items())}
+    words = int(approx.octree_data.shape[0])
+    total, ref_total = sum(leaves.values()), sum(ref["leaves"].values())
+    print(f"approx build no_continuity d6, lattice cull: {build_s:.3f} s, words {words} (JAX "
+          f"{ref['words']}), leaves {leaves} (JAX {ref['leaves']})")
+    _check(abs(words - ref["words"]) <= 0.01 * ref["words"], f"lattice approx: {words} words")
+    _check(abs(total - ref_total) <= 0.01 * ref_total, f"lattice approx: {total} leaves")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"launches on path G (exact leftovers): {launches}")
+    for name in ("nearest", "scan_window", "scan_grouped"):
+        _check(launches[name] > 0, f"{name} was not launched on path G")
+    del approx, oracle, pts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1147,7 +1585,22 @@ def main() -> None:
     print(f"K1w on the same d7 2^20 points: {w_ms7:.4f} ms ({w_ms7 / g_ms7:.2f}x K1g)")
     kernels["scan_grouped"]["err"] = max(g_err6, g_err7)
     kernels["scan_window"]["err"] = max(kernels["scan_window"]["err"], w_err7)
-    del bsdf, big_oracle, big_tris, bpts, bopts
+    # path G's grid knob on this structure: the node walk, then the public
+    # build_query_grid, the 2^20-point answers unchanged
+    bsdf._leaf_grid = None
+    d_walk = bsdf.get_distance(bpts)
+    t0 = time.perf_counter()
+    bsdf.build_query_grid()
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    d_again = bsdf.get_distance(bpts)
+    walk_err = float((d_walk - d).abs().max())
+    print(f"build_query_grid on the d7 structure (path G's knob): {grid_s:.3f} s; 2^20 "
+          f"answers after it equal the first {torch.equal(d_again, d)}, the node walk's "
+          f"within {walk_err:.3e}")
+    _check(torch.equal(d_again, d), "build_query_grid changed the d7 answers")
+    _check(walk_err <= 1e-6, f"the d7 node walk differs from the grid descent by {walk_err}")
+    del bsdf, big_oracle, big_tris, bpts, bopts, d_walk, d_again
     torch.cuda.empty_cache()
 
     # -- main path C, the approximate octree at bench.py's configuration ----
@@ -1160,6 +1613,16 @@ def main() -> None:
     # -- main path E, the uniform grid at depth 7 ---------------------------
     launches["grid"], k2e = grid_path(dev)
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2e[0])
+
+    # -- main path F, differentiable queries at full width -------------------
+    t0 = time.perf_counter()
+    launches["diff"] = diff_path(dev, 1 << 22, 1024, 30)
+    print(f"path F took {time.perf_counter() - t0:.1f} s")
+
+    # -- main path G, the exact path's leftovers at full width --------------
+    t0 = time.perf_counter()
+    launches["leftovers"] = leftovers_path(dev, root)
+    print(f"path G took {time.perf_counter() - t0:.1f} s")
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

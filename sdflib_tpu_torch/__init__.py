@@ -1,6 +1,7 @@
-"""sdflib_tpu_torch: the exact and approximate octrees, the uniform grid
-and the renderer of sdflib_tpu in PyTorch, with hand-written CUDA kernels
-for an NVIDIA Hopper GPU.
+"""sdflib_tpu_torch: the exact and approximate octrees, the uniform grid,
+the renderer, the differentiable queries and the reference's .bin
+formats of sdflib_tpu in PyTorch, with hand-written CUDA kernels for an
+NVIDIA Hopper GPU.
 
 Imports torch and numpy only, never JAX: the JAX package ``sdflib_tpu``
 is the reference this package is held against, in tests that import both.

@@ -31,6 +31,7 @@ __all__ = [
     "sq_dist_packed",
     "signed_dist_from_rows",
     "sq_dist_from_vertex_cols",
+    "sq_dist_naive",
     "gather_triangles",
     "signed_distance_batch",
     "signed_distance_grad_batch",
@@ -438,6 +439,46 @@ def sq_dist_from_vertex_cols(px, py, pz, v):
     ilc = torch.rsqrt(cx2 * cx2 + cy2 * cy2)
     c0, c1 = cx2 * ilc, cy2 * ilc
     return _ladder(ppx, ppy, ppz, v2x, v3x, v3y, b0, b1, c0, c1)
+
+
+def _dot_last(a, b):
+    """Dot product over the trailing axis of 3, as (a * b).sum(-1): never
+    a matmul (TF32 on the card)."""
+    return (a * b).sum(-1)
+
+
+def _cross(a, b):
+    """Cross product over the trailing axis of 3 (``jnp.cross``'s order)."""
+    return torch.stack([
+        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+    ], dim=-1)
+
+
+def sq_dist_naive(p, a, b, c):
+    """The naive 3-vertex squared distance (TriangleUtils.h:383-401), the
+    reference's property-test oracle; broadcasts over the leading dims of
+    the (..., 3) points ``p`` and vertices ``a``, ``b``, ``c``."""
+    ba, pa = b - a, p - a
+    cb, pb = c - b, p - b
+    ac, pc = a - c, p - c
+    normal = _cross(ba, ac)
+
+    def edge(e, rel):
+        t = (_dot_last(e, rel) / _dot_last(e, e)).clamp(0.0, 1.0)
+        d = e * t[..., None] - rel
+        return _dot_last(d, d)
+
+    outside = (
+        torch.sign(_dot_last(_cross(ba, normal), pa))
+        + torch.sign(_dot_last(_cross(cb, normal), pb))
+        + torch.sign(_dot_last(_cross(ac, normal), pc))
+    ) < 2.0
+    edge_d = torch.minimum(torch.minimum(edge(ba, pa), edge(cb, pb)), edge(ac, pc))
+    dn = _dot_last(normal, pa)
+    face_d = dn * dn / _dot_last(normal, normal)
+    return torch.where(outside, edge_d, face_d)
 
 
 # ---------------------------------------------------------------------------

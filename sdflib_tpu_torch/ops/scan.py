@@ -18,6 +18,13 @@ version for CPU tensors.
   ``grouped_rows`` gives each group's row span and ``grouped_row_stream``
   the rows the kernel fetches, in its order.
 
+The kernels read vertex rows (9 floats a slot) of 64 slots. The plain
+versions also take the 19 packed frame fields a slot (the frame19 tier
+of the exact octree) and any row width, and ``scan_id_only`` scans the
+id-only tier, gathering each slot's fields from the triangle table (the
+JAX package's ``_exact_scan`` without dense buckets); these three run in
+plain torch on any device.
+
 Winner rules of both: ids of -1 are masked, within a row the first
 minimal slot wins, across rows a strict <, a row whose minimum is NaN
 never wins, and a point with no rows gets id 0. ``launch_count`` and
@@ -28,10 +35,11 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .point_triangle import sq_dist_from_vertex_cols
+from .point_triangle import NUM_PACKED_FIELDS, sq_dist_from_field_fn, sq_dist_from_vertex_cols
 
 __all__ = [
     "scan_window", "scan_window_plain", "scan_grouped", "scan_grouped_plain",
+    "scan_id_only",
     "grouped_rows", "grouped_row_stream", "launch_count", "grouped_launch_count",
     "WINDOW", "PASS",
 ]
@@ -43,12 +51,26 @@ launch_count = 0
 grouped_launch_count = 0
 
 
+def _row_sqdist(px, py, pz, fld, CH: int):
+    """Squared distances from field-major bucket rows ``fld`` (..., nf *
+    CH): 9 vertex floats a slot (the frame derived on the fly) or the 19
+    packed frame fields."""
+    nf = fld.shape[-1] // CH
+    col = lambda k: fld[..., k * CH : (k + 1) * CH]
+    if nf == 9:
+        return sq_dist_from_vertex_cols(px, py, pz, col)
+    if nf == NUM_PACKED_FIELDS:
+        return sq_dist_from_field_fn(px, py, pz, col)
+    raise ValueError(f"bucket rows hold 9 or {NUM_PACKED_FIELDS} fields a slot, not {nf}")
+
+
 def scan_window_plain(bucket_ids, bucket_fields, points, b0, nc, *,
                       G: int = WINDOW, block: int = 4096):
     """Winner ids (P // G, G) int32 of the leaf-sorted (P, 3) points.
 
-    ``bucket_ids`` (NB, CH) int32, -1 padded; ``bucket_fields`` (NB, 9*CH)
-    f32 world vertices, field-major; ``b0``/``nc`` (P,) int32 each point's
+    ``bucket_ids`` (NB, CH) int32, -1 padded; ``bucket_fields`` (NB, nf*CH)
+    f32, field-major: the slots' world vertices (nf 9) or packed frame
+    fields (nf 19); ``b0``/``nc`` (P,) int32 each point's
     first bucket row and row count (0 for padding). Within a row the
     first minimal slot wins, across rows a strict <; a row whose minimum
     is NaN never wins. ``block`` windows are evaluated per step."""
@@ -71,10 +93,8 @@ def scan_window_plain(bucket_ids, bucket_fields, points, b0, nc, *,
         while bool((row < hi).any()):
             r = row.clamp(0, NB - 1)
             tri = bucket_ids[r]                                # (nw, CH)
-            fld = bucket_fields[r]                             # (nw, 9*CH)
-            sqd = sq_dist_from_vertex_cols(
-                px, py, pz, lambda k: fld[:, None, k * CH : (k + 1) * CH]
-            )                                                  # (nw, G, CH)
+            fld = bucket_fields[r][:, None, :]                 # (nw, 1, nf*CH)
+            sqd = _row_sqdist(px, py, pz, fld, CH)             # (nw, G, CH)
             pvalid = (row[:, None] >= wb0) & (row[:, None] < wend)
             valid = (tri >= 0)[:, None, :] & pvalid[:, :, None]
             sqd = torch.where(valid, sqd, torch.inf)
@@ -161,11 +181,41 @@ def scan_grouped_plain(bucket_ids, bucket_fields, points, point_leaf,
             j = live[c0 : c0 + block]
             r = (b0[j] + i).clamp(0, NB - 1)
             tri = bucket_ids[r]                                # (n, CH)
-            fld = bucket_fields[r]                             # (n, 9*CH)
+            fld = bucket_fields[r]                             # (n, nf*CH)
             pts = points[j]
-            sqd = sq_dist_from_vertex_cols(
-                pts[:, 0:1], pts[:, 1:2], pts[:, 2:3],
-                lambda k: fld[:, k * CH : (k + 1) * CH],
+            sqd = _row_sqdist(pts[:, 0:1], pts[:, 1:2], pts[:, 2:3], fld, CH)  # (n, CH)
+            sqd = torch.where(tri >= 0, sqd, torch.inf)
+            local, amin = sqd.min(dim=1)
+            take = local < best[j]
+            best[j] = torch.where(take, local, best[j])
+            out[j] = torch.where(take, tri.gather(1, amin[:, None])[:, 0], out[j])
+    return out
+
+
+def scan_id_only(bucket_ids, packed_t, points, b0, nc, *, block: int = 1 << 16):
+    """Winner ids (P,) int32 of the (P, 3) points over the id-only tier:
+    point p scans rows [b0[p], b0[p] + nc[p]) of ``bucket_ids`` (NB, CH)
+    int32, -1 padded, each slot's 19 packed fields gathered from the
+    field-major (19, T) ``packed_t``. The winner rules of the scans
+    above. Row step i evaluates, in blocks of ``block`` points, only the
+    points with more than i rows, up to the longest list (one host sync a
+    step)."""
+    P = points.shape[0]
+    NB, CH = bucket_ids.shape
+    dev = points.device
+    out = torch.zeros(P, dtype=torch.int32, device=dev)
+    if P == 0:
+        return out
+    best = torch.full((P,), torch.inf, device=dev)
+    for i in range(int(nc.max())):
+        live = torch.nonzero(nc > i)[:, 0]
+        for c0 in range(0, live.shape[0], block):
+            j = live[c0 : c0 + block]
+            tri = bucket_ids[(b0[j] + i).clamp(0, NB - 1)]     # (n, CH)
+            safe = tri.clamp_min(0).long()
+            pts = points[j]
+            sqd = sq_dist_from_field_fn(
+                pts[:, 0:1], pts[:, 1:2], pts[:, 2:3], lambda k: packed_t[k][safe]
             )                                                  # (n, CH)
             sqd = torch.where(tri >= 0, sqd, torch.inf)
             local, amin = sqd.min(dim=1)

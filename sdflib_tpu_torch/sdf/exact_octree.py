@@ -1,41 +1,49 @@
 """Exact octree SDF: leaves hold culled nearest-triangle candidate lists.
 
 Port of the JAX package's ``sdf/exact_octree.py`` (reference:
-ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320), region cull and
-the window and grouped scans only:
+ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320):
 
 * Build: a level loop over node groups. Each group's candidate lists are
-  culled by the per-node-region influence test (``_region_cull_chunk``,
-  the reference's PerNodeRegionTrianglesInfluence role) in chunks of
-  (C, K) pairs; nodes at ``min_triangles_per_node``, ``max_depth`` or the
-  futility ratio become leaves whose lists are sorted by distance to the
-  leaf centre; the rest subdivide. Leaf lists are stored CSR-style in
-  ``tri_flat``, each span -1 padded to a multiple of 64.
-* Buckets: ``tri_flat`` viewed as 64-slot rows, beside a (rows, 9*64)
-  table of the slots' world vertices (field-major), and per leaf its
-  first row and row count.
-* Query: dense-grid descent (or the node walk past depth 7), a stable
-  sort of the points by leaf carrying the original index, the scan
-  (kernel K1 on a CUDA device), the signed evaluation of each winner,
-  the box fallback outside the domain (box distance + sqrt(3) * box
-  size, ExactOctreeSdf.cpp:44-49), and the unsort. The scan takes fixed
-  windows of 32 sorted points for dense batches and leaf-aligned groups
-  of G points for sparse ones (padded batch < 4 points per leaf, the JAX
-  package's rule), unless ``set_scan_impl`` pins one.
+  culled by the named strategy in chunks of (C, K) pairs: "region" (the
+  per-node-region influence test, the reference's default
+  PerNodeRegionTrianglesInfluence role, ``_region_cull_chunk``),
+  "lattice", "basic", "precise" or "per_vertex" (the reference's other
+  influence strategies; the last three through ``ops.gjk``). Nodes at
+  ``min_triangles_per_node``, ``max_depth`` or the futility ratio become
+  leaves whose lists are sorted by distance to the leaf centre; the rest
+  subdivide. Leaf lists are stored CSR-style in ``tri_flat``, each span
+  -1 padded to a multiple of 64.
+* Buckets: ``tri_flat`` viewed as rows of ``scan_chunk`` slots, beside a
+  table of each slot's fields in one of three tiers (``_make_buckets``),
+  and per leaf its first row and row count.
+* Query: dense-grid descent (or the node walk past depth 7, until
+  ``build_query_grid``), a stable sort of the points by leaf carrying the
+  original index, the scan (kernel K1 on a CUDA device over 64-slot
+  vertex rows, else the plain scans), the signed evaluation of each
+  winner, the box fallback outside the domain (box distance + sqrt(3) *
+  box size, ExactOctreeSdf.cpp:44-49), and the unsort. The scan takes
+  fixed windows of 32 sorted points for dense batches and leaf-aligned
+  groups of G points for sparse ones (padded batch < 4 points per leaf,
+  the JAX package's rule), unless ``set_scan_impl`` pins one; the id-only
+  tier has one scan of its own.
 
 The state round-trips through the ``.npz`` container of the JAX package
-(``from_jax_state``, ``save``, ``SdfFunction.load``).
+(``from_jax_state``, ``save``, ``SdfFunction.load``) and the reference's
+``.bin`` (``io.sdflib_binary``).
 """
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
 from ..ops.box import box_distance, box_distance_gradient
+from ..ops.gjk import box_triangle_distance, corner_sphere_hull_tri_lower
 from ..ops.point_triangle import (
+    NUM_PACKED_FIELDS,
     gather_triangles,
     pack_triangle_fields,
     pack_triangle_full_fields,
@@ -48,6 +56,7 @@ from ..ops.scan import (
     WINDOW,
     scan_grouped,
     scan_grouped_plain,
+    scan_id_only,
     scan_window,
     scan_window_plain,
 )
@@ -88,6 +97,7 @@ _QUERY_BLOCK = 1 << 17   # the JAX package's padding unit for large batches
 # set_scan_impl's names (the JAX package's) -> the scan each pins
 _SCAN_IMPLS = {"xla": "grouped", "pallas": "grouped",
                "xla_window": "window", "pallas_window": "window"}
+_BUCKET_FORMATS = ("auto", "vertex9", "frame19")
 
 
 def _f32(x) -> float:
@@ -95,7 +105,7 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _region_cull_chunk(packed, packed_t, centers, cand_idx, cand_valid, half):
+def _region_cull_chunk(tables, centers, cand_idx, cand_valid, half):
     """Per-node-region influence cull of one (C, K) chunk.
 
     At each of the 27 half-step anchors l of a node, with sub-cube corner
@@ -111,11 +121,11 @@ def _region_cull_chunk(packed, packed_t, centers, cand_idx, cand_valid, half):
     computed analytically as 2 (p - proj) / (2 d), branch by branch of the
     region ladder.
 
-    ``packed`` is the (T, 19) field table, ``packed_t`` its transpose.
-    Returns (keep (C, K) bool, kept counts (C,), squared distance to the
-    node centre (C, K), the leaf-list sort key)."""
+    ``tables`` holds the (T, 19) field table and its transpose. Returns
+    (keep (C, K) bool, kept counts (C,), squared distance to the node
+    centre (C, K), the leaf-list sort key)."""
     idx = cand_idx.long()
-    cols = [packed_t[r][idx] for r in range(packed_t.shape[0])]
+    cols = [tables.packed_t[r][idx] for r in range(tables.packed_t.shape[0])]
     px, py, pz = centers[:, 0:1], centers[:, 1:2], centers[:, 2:3]
     qh = _f32(np.float32(0.5) * np.float32(half))
     s = _f32(_F32_SQRT3 * np.float32(qh))
@@ -141,7 +151,7 @@ def _region_cull_chunk(packed, packed_t, centers, cand_idx, cand_valid, half):
 
         # the anchor's nearest candidate, evaluated at the 8 corners
         b = idx.gather(1, sqd.argmin(dim=1, keepdim=True))[:, 0]
-        fb = packed[b]                                            # (C, 19)
+        fb = tables.packed[b]                                     # (C, 19)
         d_b = sq_dist_from_field_fn(
             lx + q[:, 0], ly + q[:, 1], lz + q[:, 2], lambda r: fb[:, r : r + 1]
         ).sqrt()                                                  # (C, 8)
@@ -157,13 +167,202 @@ def _region_cull_chunk(packed, packed_t, centers, cand_idx, cand_valid, half):
     return keep, keep.sum(dim=1), sqd_center
 
 
-def _cull_group(packed, packed_t, centers, cand, valid, half, C):
-    """The region cull of a node group, in chunks of C nodes."""
+def _lattice_cull_chunk(tables, centers, cand_idx, cand_valid, half):
+    """Lattice-anchored cull (the house variant of the reference's
+    influence strategies, TrianglesInfluence.h:119-860): keep t iff for
+    some half-step anchor l both
+
+        (A) d_lb(t, sub-cube_l) <= min_t' d(t', l) + s,  s = (half / 2) sqrt(3)
+        (B) d(t, l) <= min_t' d(t', l) + 2 s
+
+    hold, d_lb the distance between the triangle's AABB and the anchor's
+    half-size sub-cube. A winner anywhere in the sub-cube passes both
+    (see the JAX package's docstring). ``tables.geo`` holds the (T, 6)
+    triangle AABBs [min, max]."""
+    idx = cand_idx.long()
+    cols = [tables.packed_t[r][idx] for r in range(tables.packed_t.shape[0])]
+    ab = tables.geo[idx]                                          # (C, K, 6)
+    px, py, pz = centers[:, 0:1], centers[:, 1:2], centers[:, 2:3]
+    qh = _f32(np.float32(0.5) * np.float32(half))
+    slack = _f32(_F32_SQRT3 * np.float32(qh))
+    offs = _LATTICE_OFFS * np.float32(half)
+
+    keep = torch.zeros(cand_idx.shape, dtype=torch.bool, device=centers.device)
+    sqd_center = None
+    for l in range(27):
+        ox, oy, oz = (float(v) for v in offs[l])
+        sqd = sq_dist_from_field_fn(px + ox, py + oy, pz + oz, lambda r: cols[r])
+        sqd = torch.where(cand_valid, sqd, torch.inf)
+        if l == 13:
+            sqd_center = sqd
+        min_l = sqd.amin(dim=1).sqrt()                            # (C,)
+        anchor = centers + torch.as_tensor(offs[l], device=centers.device)
+        lo = anchor[:, None, :] - qh
+        hi = anchor[:, None, :] + qh
+        gap = torch.maximum(ab[..., 0:3] - hi, lo - ab[..., 3:6]).clamp_min(0.0)
+        d_lb = (gap * gap).sum(-1).sqrt()                         # (C, K)
+        bound_a = d_lb <= min_l[:, None] + slack
+        cap_b = min_l[:, None] + 2.0 * slack
+        bound_b = sqd <= cap_b * cap_b
+        keep |= bound_a & bound_b
+    keep &= cand_valid
+    return keep, keep.sum(dim=1), sqd_center
+
+
+def _corner_distances(tables, centers, cand_idx, cand_valid, half):
+    """(the candidates' field columns, their squared distance to the node
+    centre (inf where invalid), their distance to the 8 node corners
+    (C, 8, K), inf where invalid)."""
+    idx = cand_idx.long()
+    cols = [tables.packed_t[r][idx] for r in range(tables.packed_t.shape[0])]
+    px, py, pz = centers[:, 0:1], centers[:, 1:2], centers[:, 2:3]
+    sqd_center = torch.where(
+        cand_valid, sq_dist_from_field_fn(px, py, pz, lambda r: cols[r]), torch.inf)
+    corner_d = []
+    for c in range(8):
+        ox, oy, oz = (float(v) for v in _CORNER_OFFS[c] * np.float32(half))
+        sqd = sq_dist_from_field_fn(px + ox, py + oy, pz + oz, lambda r: cols[r])
+        corner_d.append(torch.where(cand_valid, sqd, torch.inf).sqrt())
+    return sqd_center, torch.stack(corner_d, dim=1)
+
+
+def _basic_cull_chunk(tables, centers, cand_idx, cand_valid, half):
+    """The reference's BasicTrianglesInfluence (TrianglesInfluence.h:
+    119-168): keep t iff d(t, node box) <= the largest over the 8 node
+    corners of the corner's nearest-candidate distance. The box-triangle
+    distance is exact (``ops.gjk``). ``tables.geo`` holds the (T, 3, 3)
+    world vertices."""
+    tv = tables.geo[cand_idx.long()]                              # (C, K, 3, 3)
+    sqd_center, D = _corner_distances(tables, centers, cand_idx, cand_valid, half)
+    maxmin = torch.zeros(centers.shape[0], device=centers.device)
+    for c in range(8):
+        maxmin = torch.maximum(maxmin, D[:, c].amin(dim=1))
+    d_box = box_triangle_distance(
+        centers[:, None, :].expand(tv.shape[:-1]),
+        torch.full((3,), _f32(half), device=centers.device),
+        tv,
+    )                                                             # (C, K)
+    keep = (d_box <= maxmin[:, None]) & cand_valid
+    return keep, keep.sum(dim=1), sqd_center
+
+
+def _per_vertex_cull_chunk(tables, centers, cand_idx, cand_valid, half):
+    """The reference's PerVertexTrianglesInfluence<1> (TrianglesInfluence.h:
+    286-476): each node corner's nearest candidate spans a hull of spheres
+    at the 8 corners with radii d(corner_c, nearest_i) - min_c of those; a
+    candidate survives at its closest corner iff it is that corner's own
+    nearest triangle or its hull distance's Frank-Wolfe lower bound
+    (``corner_sphere_hull_tri_lower``) is within the corner's distance.
+    The JAX function's one-hot sums are gathers here."""
+    tv = tables.geo[cand_idx.long()]                              # (C, K, 3, 3)
+    C, K = cand_idx.shape
+    sqd_center, D = _corner_distances(tables, centers, cand_idx, cand_valid, half)
+    nb = D.argmin(dim=2)                                          # (C, 8) corner's nearest
+    # radii[c, i, g] = D[c, g, nb[c, i]]: corner g's distance to corner i's nearest
+    radii = D.gather(2, nb[:, None, :].expand(C, 8, 8)).transpose(1, 2)
+    minv = radii.amin(dim=2)                                      # (C, 8)
+    radii = radii - minv[:, :, None]
+    vid = D.argmin(dim=1)                                         # (C, K) closest corner
+    radii_k = radii.gather(1, vid[:, :, None].expand(C, K, 8))    # (C, K, 8)
+    thr = minv.gather(1, vid)
+    region_tri = nb.gather(1, vid)
+    lower = corner_sphere_hull_tri_lower(
+        centers[:, None, :].expand(C, K, 3), _f32(half), radii_k, tv)
+    own = region_tri == torch.arange(K, device=centers.device)[None, :]
+    keep = (own | (lower <= thr)) & cand_valid
+    return keep, keep.sum(dim=1), sqd_center
+
+
+# The precise cull tests each candidate against the influence regions of
+# the strongest few candidates (smallest corner distance); fewer regions
+# only weaken the cull.
+_PRECISE_MAX_REGIONS = 16
+
+
+def _precise_cull_chunk(tables, centers, cand_idx, cand_valid, half):
+    """The reference's PreciseTrianglesInfluence (TrianglesInfluence.h:
+    191-284): every candidate whose corner distances dip below the node's
+    largest corner minimum spans an influence region (spheres at the
+    corners with radii d(corner_c, tri_j)); a candidate goes iff it lies
+    provably outside another candidate's region hull (the Frank-Wolfe
+    lower bound above 0), over the ``_PRECISE_MAX_REGIONS`` strongest
+    regions. The regions' radii are a gather: the JAX function's one-hot
+    einsum multiplies the inf distances of invalid candidates by 0, which
+    makes every radius NaN, and so culls nothing, in a node whose list has
+    any padding (ROADMAP.md, Queue 3)."""
+    tv = tables.geo[cand_idx.long()]                              # (C, K, 3, 3)
+    C, K = cand_idx.shape
+    R = min(_PRECISE_MAX_REGIONS, K)
+    sqd_center, D = _corner_distances(tables, centers, cand_idx, cand_valid, half)
+    maxmin = D.amin(dim=2).amax(dim=1)                            # (C,)
+    strength = D.amin(dim=1)                                      # (C, K)
+    region_ok = (D < maxmin[:, None, None]).any(dim=1) & cand_valid
+    key = torch.where(region_ok, strength, torch.inf)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :R]    # (C, R)
+    radii_r = D.gather(2, order[:, None, :].expand(C, 8, R)).transpose(1, 2)  # (C, R, 8)
+    valid_r = region_ok.gather(1, order)                          # (C, R)
+    lower = corner_sphere_hull_tri_lower(
+        centers[:, None, None, :], _f32(half), radii_r[:, :, None, :], tv[:, None])  # (C, R, K)
+    not_self = order[:, :, None] != torch.arange(K, device=centers.device)[None, None, :]
+    culled = (valid_r[:, :, None] & not_self & (lower > 0.0)).any(dim=1)
+    keep = ~culled & cand_valid
+    return keep, keep.sum(dim=1), sqd_center
+
+
+_CULL_CHUNKS = {
+    "lattice": _lattice_cull_chunk,
+    "region": _region_cull_chunk,
+    "basic": _basic_cull_chunk,
+    "precise": _precise_cull_chunk,
+    "per_vertex": _per_vertex_cull_chunk,
+}
+_CULL_STRATEGIES = tuple(_CULL_CHUNKS)
+
+
+class CullTables(NamedTuple):
+    """The device tables of a cull strategy: the (T, 19) packed fields,
+    their (19, T) transpose, and the strategy's geometry (the (T, 6)
+    triangle AABBs for "lattice", the (T, 3, 3) world vertices for
+    "basic", "precise" and "per_vertex", None for "region")."""
+    packed: torch.Tensor
+    packed_t: torch.Tensor
+    geo: torch.Tensor | None
+
+
+def prepare_cull_inputs(tris: TriangleDataSoA, strategy: str):
+    """The cull tables of a named strategy on the triangles' device, None
+    for the approximate builders' "distance" rule: one owner of the
+    strategy-to-inputs mapping for the exact and both approximate
+    builders."""
+    if strategy == "distance":
+        return None
+    if strategy not in _CULL_CHUNKS:
+        raise ValueError(f"unknown cull strategy {strategy!r}")
+    packed = pack_triangle_fields(tris)
+    vw = tris.v_world
+    geo = (
+        torch.cat([vw.amin(dim=1), vw.amax(dim=1)], dim=-1) if strategy == "lattice"
+        else None if strategy == "region" else vw
+    )
+    return CullTables(packed, packed.t().contiguous(), geo)
+
+
+def cull_chunk(strategy: str, tables: CullTables, centers, cand_idx, cand_valid, half):
+    """One (C, K) chunk of a strategy's cull: (keep (C, K), kept counts
+    (C,), squared distance to the node centre (C, K), the leaf-list sort
+    key)."""
+    return _CULL_CHUNKS[strategy](tables, centers, cand_idx, cand_valid, half)
+
+
+def _cull_group(strategy, tables, centers, cand, valid, half, C):
+    """A strategy's cull of a node group, in chunks of C nodes (the
+    precise cull's pair state carries a region factor, so its chunks
+    shrink by it)."""
+    if strategy == "precise":
+        C = max(8, C // _PRECISE_MAX_REGIONS)
     parts = [
-        _region_cull_chunk(
-            packed, packed_t, centers[i : i + C], cand[i : i + C],
-            valid[i : i + C], half,
-        )
+        cull_chunk(strategy, tables, centers[i : i + C], cand[i : i + C],
+                   valid[i : i + C], half)
         for i in range(0, centers.shape[0], C)
     ]
     return tuple(torch.cat(x) for x in zip(*parts))
@@ -187,11 +386,11 @@ def _compact_leaf_rows(sqd_center, idx_rows, keep_rows):
 class _ExactBuild:
     """State of one level-synchronous exact build (``_build_exact``)."""
 
-    def __init__(self, packed, min_triangles_per_node, max_depth, futility,
+    def __init__(self, strategy, tables, min_triangles_per_node, max_depth, futility,
                  pair_budget):
-        self.packed = packed
-        self.packed_t = packed.t().contiguous()
-        self.device = packed.device
+        self.strategy = strategy
+        self.tables = tables
+        self.device = tables.packed.device
         self.min_tpn = min_triangles_per_node
         self.max_depth = max_depth
         self.futility = futility
@@ -216,7 +415,7 @@ class _ExactBuild:
         key = f"{C}x{K}"
         shapes = self.stats["cull_shapes"]
         shapes[key] = shapes.get(key, 0) + -(-N // C)
-        return _cull_group(self.packed, self.packed_t, centers, cand, valid, half, C)
+        return _cull_group(self.strategy, self.tables, centers, cand, valid, half, C)
 
     def finish(self, group, culled, depth, half, next_buckets):
         """Turn a culled group into leaves and child groups (syncs once)."""
@@ -310,8 +509,10 @@ def _build_exact(
     pair_budget: int = 1 << 21,
     futility: float | None = 0.8,
     entry_budget: int = 1 << 27,
+    strategy: str = "region",
 ):
-    """Level-synchronous exact build on the triangles' device. Returns
+    """Level-synchronous exact build on the triangles' device, each
+    node's candidates culled by ``strategy`` (``_CULL_CHUNKS``). Returns
     (octree (N,) uint32, leaf_offset, leaf_count, tri_flat (device int32),
     leaf_centers, stats).
 
@@ -323,9 +524,11 @@ def _build_exact(
     built depth first. At most ``_CULL_GROUPS_IN_FLIGHT`` groups' culls
     are enqueued ahead of the host's consumption, which bounds the live
     (N, K) cull outputs."""
+    if strategy not in _CULL_CHUNKS:
+        raise ValueError(f"strategy must be one of {_CULL_STRATEGIES}, got {strategy!r}")
     device = tris.origin.device
-    packed = pack_triangle_fields(tris)
-    T = packed.shape[0]
+    tables = prepare_cull_inputs(tris, strategy)
+    T = tables.packed.shape[0]
     box_min = np.asarray(box_min, np.float32)
 
     s = 1 << start_depth
@@ -345,7 +548,8 @@ def _build_exact(
     cand = torch.where(lane < T, lane, 0).expand(n0, Tp)
     valid = (lane < T).expand(n0, Tp)
 
-    b = _ExactBuild(packed, min_triangles_per_node, max_depth, futility, pair_budget)
+    b = _ExactBuild(strategy, tables, min_triangles_per_node, max_depth, futility,
+                    pair_budget)
     grid_words = -(-n0 // 8) * 8
     b.blocks.append(np.zeros(grid_words, np.uint32))
     b.total_len = grid_words
@@ -438,8 +642,20 @@ class ExactOctreeSdf(SdfFunction):
 
     ``device`` holds the structure and runs the build and the queries;
     query points may come as numpy arrays or tensors on any device and
-    results are tensors on ``device``. Only the "region" cull strategy is
-    ported."""
+    results are tensors on ``device``. ``strategy`` names the build's cull
+    (``_CULL_STRATEGIES``); every one keeps a superset of each node's
+    possible winners, so the answers do not depend on it.
+
+    The scan's bucket tables take one of three tiers, decided from the
+    byte budget before anything is built (the JAX package's
+    ``make_bucket_tables``): "vertex9" (9 world-vertex floats a slot,
+    kernel K1 on a CUDA device), "frame19" (the 19 packed frame fields a
+    slot) and "id_only" (no field table: each slot's fields gathered from
+    the triangle table at query time). ``bucket_format`` "auto" and
+    "vertex9" take the vertex tier where it fits the budget, "frame19" the
+    frame tier; a table over the budget takes the id-only tier. The
+    frame19 and id-only scans run in plain torch on any device. An
+    out-of-memory error while a table is built propagates."""
 
     def __init__(
         self,
@@ -453,20 +669,18 @@ class ExactOctreeSdf(SdfFunction):
         entry_budget: int = 1 << 27,
         bucket_byte_budget: int | None = None,
         *,
+        bucket_format: str = "auto",
         device="cuda",
     ):
-        if strategy != "region":
-            raise NotImplementedError(
-                f"cull strategy {strategy!r} is not ported yet; only 'region' "
-                "is (ROADMAP.md, Queue 1)"
-            )
+        if strategy not in _CULL_CHUNKS:
+            raise ValueError(f"strategy must be one of {_CULL_STRATEGIES}, got {strategy!r}")
         device = resolve_device(device)
         cbox = box.cubified()
         triangles = soa_to_torch(calculate_mesh_triangle_data(mesh), device)
         octree, leaf_offset, leaf_count, tri_flat, leaf_centers, stats = _build_exact(
             triangles, cbox.min, float(cbox.size[0]), int(max_depth),
             int(start_depth), int(min_triangles_per_node),
-            futility=futility, entry_budget=entry_budget,
+            futility=futility, entry_budget=entry_budget, strategy=strategy,
         )
         self._set_state(
             device=device,
@@ -486,11 +700,13 @@ class ExactOctreeSdf(SdfFunction):
                 else int(bucket_byte_budget)
             ),
             triangles=triangles,
+            bucket_format=bucket_format,
         )
         self.build_stats = stats
 
     @classmethod
-    def from_jax_state(cls, state: dict, device="cuda") -> "ExactOctreeSdf":
+    def from_jax_state(cls, state: dict, device="cuda", *,
+                       bucket_format: str = "auto") -> "ExactOctreeSdf":
         """The structure held by a state dict of the JAX package's
         ``ExactOctreeSdf._state_arrays()`` (the ``.npz`` container's
         arrays, ``tri_*`` included), on ``device``."""
@@ -521,6 +737,7 @@ class ExactOctreeSdf(SdfFunction):
                 TriangleDataSoA(*(state[f"tri_{n}"] for n in TriangleDataSoA._fields)),
                 device,
             ),
+            bucket_format=bucket_format,
         )
         self.build_stats = {}
         return self
@@ -528,7 +745,10 @@ class ExactOctreeSdf(SdfFunction):
     def _set_state(self, *, device, box, start_grid_size, max_depth,
                    min_triangles_per_node, strategy, octree_data, leaf_offset,
                    leaf_count, tri_flat, leaf_centers, sorted_lists,
-                   bucket_byte_budget, triangles):
+                   bucket_byte_budget, triangles, bucket_format="auto"):
+        if bucket_format not in _BUCKET_FORMATS:
+            raise ValueError(f"bucket_format must be one of {_BUCKET_FORMATS}, "
+                             f"got {bucket_format!r}")
         self.device = device
         self.box = box
         self.start_grid_size = start_grid_size
@@ -543,6 +763,7 @@ class ExactOctreeSdf(SdfFunction):
         self.leaf_centers = leaf_centers
         self._sorted_lists = sorted_lists
         self.bucket_byte_budget = bucket_byte_budget
+        self.bucket_format = bucket_format
         self.triangles = triangles
         # field-major (37, T): the finish gathers one contiguous column per
         # field (a gathered (P, 37) block would need a transposing copy)
@@ -550,55 +771,127 @@ class ExactOctreeSdf(SdfFunction):
         size = float(box.size[0])
         self._box_min = torch.as_tensor(box.min, device=device)
         self._box_size3 = torch.full((3,), size, device=device)
+        self.scan_chunk = _LEAF_CHUNK
         self._make_buckets()
         self._default_scan_impl()
         self._group_width_cache: dict[int, int] = {}
         self.last_scan_stats: dict = {}
+        self._leaf_grid = None
+        self._octree_dev = torch.as_tensor(octree_data.astype(np.int64), device=device)
         if max_depth <= _AUTO_GRID_DEPTH:
-            grid = _build_leaf_grid(octree_data, start_grid_size, max_depth)
-            lid = (grid[:, 0] & CHILDREN_INDEX_MASK).astype(np.int32)
-            self._leaf_grid = torch.as_tensor(lid, device=device)
-            self._octree_dev = None
-        else:
-            self._leaf_grid = None
-            self._octree_dev = torch.as_tensor(octree_data.astype(np.int64), device=device)
+            self.build_query_grid()
+
+    def build_query_grid(self) -> None:
+        """The dense leaf-id grid at max_depth resolution (4 bytes a finest
+        cell, 8^max_depth cells): descent becomes one gather. Built on its
+        own up to depth 7; deeper structures opt in here."""
+        grid = _build_leaf_grid(self.octree_data, self.start_grid_size, self.max_depth)
+        lid = (grid[:, 0] & CHILDREN_INDEX_MASK).astype(np.int32)
+        self._leaf_grid = torch.as_tensor(lid, device=self.device)
 
     def _make_buckets(self):
-        """The scan's tables: ``bucket_ids`` (NB, 64) int32 (a view of
-        ``tri_flat``), ``bucket_fields`` (NB, 9*64) f32 world vertices of
-        every slot, field-major, and per leaf its first row and row count.
-        A table over ``bucket_byte_budget`` raises: the id-only tier of the
-        JAX package is not ported."""
-        CH = _LEAF_CHUNK
-        if self.tri_flat.numel() % CH:
+        """The scan's tables at ``scan_chunk`` slots a row: ``bucket_ids``
+        (NB, CH) int32 (a view of ``tri_flat`` for CH <= 64, a repacked
+        CSR for 128 or 256), ``bucket_fields`` (NB, nf * CH) f32 with each
+        slot's fields, field-major (nf = 9 vertex floats or the 19 packed
+        frame fields; None in the id-only tier), and per leaf its first
+        row and row count. The tier is decided from the slot count before
+        anything is built (the JAX package's ``make_bucket_tables``)."""
+        CH = self.scan_chunk
+        if self.tri_flat.numel() % _LEAF_CHUNK:
             raise ValueError("tri_flat spans must be 64-slot aligned")
-        ids = self.tri_flat.view(-1, CH)
-        nbytes = ids.numel() * 9 * 4
-        if nbytes > self.bucket_byte_budget:
-            raise MemoryError(
-                f"vertex bucket table needs {nbytes} B, over the budget of "
-                f"{self.bucket_byte_budget} B (the id-only tier is not ported)"
-            )
-        vw_t = self.triangles.v_world.reshape(-1, 9).t().contiguous()   # (9, T)
-        fields = torch.empty((ids.shape[0], 9 * CH), dtype=torch.float32,
-                             device=self.device)
-        step = 1 << 16
-        for i in range(0, ids.shape[0], step):
-            blk = ids[i : i + step]
-            safe = blk.clamp_min(0).long()
-            live = blk >= 0
-            fields[i : i + step] = torch.cat(
-                [torch.where(live, vw_t[r][safe], 0.0) for r in range(9)], dim=1
-            )
         cnt = self.leaf_count.astype(np.int64)
-        spans = -(-np.maximum(cnt, 1) // CH)
-        row0 = np.concatenate([[0], np.cumsum(spans)[:-1]]).astype(np.int32)
+        if CH <= _LEAF_CHUNK:
+            n_slots = self.tri_flat.numel()
+            spans = -(-np.maximum(cnt, 1) // _LEAF_CHUNK) * (_LEAF_CHUNK // CH)
+        else:
+            spans = -(-np.maximum(cnt, 1) // CH)
+            n_slots = int(spans.sum()) * CH
+        fmt, budget = self.bucket_format, self.bucket_byte_budget
+        if fmt in ("auto", "vertex9") and n_slots * 9 * 4 <= budget:
+            tier, nf = "vertex9", 9
+        elif fmt != "vertex9" and n_slots * NUM_PACKED_FIELDS * 4 <= budget:
+            tier, nf = "frame19", NUM_PACKED_FIELDS
+        else:
+            tier, nf = "id_only", 0
+        if CH <= _LEAF_CHUNK:
+            ids = self.tri_flat.view(-1, CH)
+        elif tier == "id_only":
+            raise ValueError("wide scan chunks require a dense bucket tier")
+        else:
+            ids = self._repacked_ids(spans, CH)
+        self.bucket_tier = tier
         self.bucket_ids = ids
-        self.bucket_fields = fields
+        self.bucket_fields = None
+        self._packed_t = None
+        if tier == "vertex9":
+            src_t = self.triangles.v_world.reshape(-1, 9).t().contiguous()   # (9, T)
+        else:
+            src_t = pack_triangle_fields(self.triangles).t().contiguous()    # (19, T)
+            if tier == "id_only":
+                self._packed_t = src_t
+        if tier != "id_only":
+            fields = torch.empty((ids.shape[0], nf * CH), dtype=torch.float32,
+                                 device=self.device)
+            step = max(1, (1 << 22) // CH)
+            for i in range(0, ids.shape[0], step):
+                blk = ids[i : i + step]
+                safe = blk.clamp_min(0).long()
+                live = blk >= 0
+                fields[i : i + step] = torch.cat(
+                    [torch.where(live, src_t[r][safe], 0.0) for r in range(nf)], dim=1
+                )
+            self.bucket_fields = fields
+        row0 = np.concatenate([[0], np.cumsum(spans)[:-1]]).astype(np.int32)
         self.leaf_row0 = torch.as_tensor(row0, device=self.device)
         self.leaf_nchunks = torch.as_tensor(
             (-(-cnt // CH)).astype(np.int32), device=self.device
         )
+
+    def _repacked_ids(self, spans, CH: int):
+        """The CSR repacked into CH-slot spans (CH a multiple of 64; the
+        JAX package's ``make_bucket_tables``), as (rows, CH) int32."""
+        cnts = self.leaf_count.astype(np.int64)
+        tf = self.tri_flat.cpu().numpy()
+        spans64 = -(-np.maximum(cnts, 1) // _LEAF_CHUNK)
+        off64 = np.concatenate([[0], np.cumsum(spans64)[:-1]]) * _LEAF_CHUNK
+        row0w = np.concatenate([[0], np.cumsum(spans)[:-1]])
+        nl = np.repeat(np.arange(len(cnts)), cnts)
+        k = np.arange(int(cnts.sum()), dtype=np.int64) - np.repeat(np.cumsum(cnts) - cnts, cnts)
+        new_flat = np.full(int(spans.sum()) * CH, -1, np.int32)
+        new_flat[row0w[nl] * CH + k] = tf[off64[nl] + k]
+        return torch.as_tensor(new_flat.reshape(-1, CH), device=self.device)
+
+    def set_scan_chunk(self, chunk: int) -> None:
+        """Rebuild the bucket tables at ``chunk`` slots a row: a divisor of
+        the build's 64-slot span alignment, or 128 or 256 (the CSR repacked
+        into wider spans). Kernel K1 takes 64-slot rows only (``kCH`` in
+        ``csrc/scan_window.cu``), so another chunk runs the plain scans at
+        that chunk; the answers do not change."""
+        chunk = int(chunk)
+        if chunk <= 64:
+            if chunk < 1 or 64 % chunk:
+                raise ValueError("scan chunk must divide 64")
+        elif chunk % 64 or chunk > 256:
+            raise ValueError("wide scan chunk must be 128 or 256")
+        if chunk == self.scan_chunk:
+            return
+        if self._pinned_kernel and chunk != _LEAF_CHUNK:
+            raise ValueError("kernel K1 is pinned and takes 64-slot rows only")
+        if chunk > 64:
+            # validate before any state changes: the id-only tier indexes
+            # 64-aligned spans
+            cnts = self.leaf_count.astype(np.int64)
+            slots = int(np.sum(-(-np.maximum(cnts, 1) // chunk))) * chunk
+            nf_est = NUM_PACKED_FIELDS if self.bucket_format == "frame19" else 9
+            if slots * nf_est * 4 > self.bucket_byte_budget:
+                raise ValueError("wide scan chunks require dense vertex buckets "
+                                 "within the byte budget")
+        self.scan_chunk = chunk
+        # drop the old tables before the new ones are built
+        self.bucket_ids = self.bucket_fields = None
+        self._make_buckets()
+        self._group_width_cache.clear()
 
     @property
     def num_leaves(self) -> int:
@@ -606,7 +899,14 @@ class ExactOctreeSdf(SdfFunction):
 
     @property
     def bucket_bytes(self) -> int:
-        return 4 * (self.bucket_ids.numel() + self.bucket_fields.numel())
+        fields = 0 if self.bucket_fields is None else self.bucket_fields.numel()
+        return 4 * (self.bucket_ids.numel() + fields)
+
+    @property
+    def _kernel_tables(self) -> bool:
+        """Whether the tables are the ones kernel K1 reads: vertex rows of
+        64 slots."""
+        return self.bucket_tier == "vertex9" and self.scan_chunk == _LEAF_CHUNK
 
     # -- scan choice ----------------------------------------------------------
 
@@ -614,14 +914,28 @@ class ExactOctreeSdf(SdfFunction):
         """Let each query choose its scan by the batch's density (an
         explicit ``set_scan_impl`` pins the choice)."""
         self._pinned_scan = None
+        self._pinned_kernel = False
 
     def set_scan_impl(self, impl: str) -> None:
         """Pin the candidate scan by the JAX package's names: "xla" and
         "pallas" the grouped scan, "xla_window" and "pallas_window" the
-        window scan (both run kernel K1 on a CUDA device)."""
+        window scan. Either runs kernel K1 on a CUDA device where the tables
+        are K1's (the vertex tier at 64 slots a row), else the plain scan
+        over the tier's tables; "pallas" and "pallas_window" pin K1 itself
+        and raise on other tables, and the window scan raises on the
+        id-only tier, as in the JAX package."""
         if impl not in _SCAN_IMPLS:
             raise ValueError(f"unknown scan impl {impl!r}")
+        if impl == "xla_window" and self.bucket_tier == "id_only":
+            raise ValueError("xla_window scan requires dense field buckets")
+        kernel = impl.startswith("pallas")
+        if kernel and self.bucket_tier != "vertex9":
+            raise ValueError("pallas scan requires vertex-format dense buckets "
+                             f"(kernel K1); this structure has {self.bucket_tier}")
+        if kernel and self.scan_chunk != _LEAF_CHUNK:
+            raise ValueError("kernel K1 takes 64-slot rows; set_scan_chunk(64) first")
         self._pinned_scan = _SCAN_IMPLS[impl]
+        self._pinned_kernel = kernel
 
     @staticmethod
     def _padded_batch(P: int) -> int:
@@ -635,7 +949,9 @@ class ExactOctreeSdf(SdfFunction):
         return -(-max(P, 1) // B) * B
 
     def _choose_scan(self, P: int) -> str:
-        """"grouped" or "window" for a batch of P points."""
+        """"grouped", "window" or "id_only" for a batch of P points."""
+        if self.bucket_tier == "id_only":
+            return "id_only"
         if self._pinned_scan is not None:
             return self._pinned_scan
         sparse = self._padded_batch(P) < _SPARSE_POINTS_PER_LEAF * self.num_leaves
@@ -652,7 +968,12 @@ class ExactOctreeSdf(SdfFunction):
             cell = (rel * g).to(torch.int32).clamp(0, g - 1).long()
             lin = (cell[:, 2] * g + cell[:, 1]) * g + cell[:, 0]
             return self._leaf_grid[lin].long()
-        # node walk (ExactOctreeSdf.cpp:57-66; strict '>' child rounding)
+        # node walk (ExactOctreeSdf.cpp:57-66; strict '>' child rounding).
+        # The position in the child is 2 frac minus the child's bit: a point
+        # at exactly 0.5 goes to the lower child at its upper face (frac 1).
+        # The JAX package's walk takes 2 frac - floor(2 frac), which puts
+        # such a point at the lower child's lower face, and from there into
+        # a leaf that need not contain it (ROADMAP.md, Queue 3).
         s = self.start_grid_size
         cell = self._box_size3 / s
         frac = (pts - self._box_min) / cell
@@ -662,15 +983,11 @@ class ExactOctreeSdf(SdfFunction):
         word = self._octree_dev[ic[:, 2] * (s * s) + ic[:, 1] * s + ic[:, 0]]
         for _ in range(self.max_depth - self.start_depth):
             is_leaf = (word & int(IS_LEAF_MASK)) != 0
-            child = (
-                ((frac[:, 2] > 0.5).long() << 2)
-                + ((frac[:, 1] > 0.5).long() << 1)
-                + (frac[:, 0] > 0.5).long()
-            )
+            bits = frac > 0.5
+            child = (bits[:, 2].long() << 2) + (bits[:, 1].long() << 1) + bits[:, 0].long()
             base = word & int(CHILDREN_INDEX_MASK)
             nxt = self._octree_dev[torch.where(is_leaf, 0, base + child)]
-            nfrac = 2.0 * frac
-            nfrac = nfrac - nfrac.floor()
+            nfrac = 2.0 * frac - bits.to(frac.dtype)
             word = torch.where(is_leaf, word, nxt)
             frac = torch.where(is_leaf[:, None], frac, nfrac)
         return word & int(CHILDREN_INDEX_MASK)
@@ -760,18 +1077,25 @@ class ExactOctreeSdf(SdfFunction):
         flat = pts.reshape(-1, 3).contiguous()
         P = flat.shape[0]
         kind = self._choose_scan(P)
-        if kind == "grouped":
+        kernel = self._kernel_tables and not plain
+        if kind == "id_only":
+            pts_s, lid_s, order = self._sort_by_leaf(flat)
+            win = scan_id_only(self.bucket_ids, self._packed_t, pts_s,
+                               self.leaf_row0[lid_s], self.leaf_nchunks[lid_s])
+            self.last_scan_stats = {"scan": kind, "G": 0, "NG": 0}
+        elif kind == "grouped":
             pts_s, lid_s, start, G, order = self._sorted_groups(flat)
-            scan = scan_grouped_plain if plain else scan_grouped
+            scan = scan_grouped if kernel else scan_grouped_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, lid_s, start,
                        self.leaf_row0, self.leaf_nchunks)
             self.last_scan_stats = {"scan": kind, "G": G, "NG": start.shape[0] - 1}
         else:
             pts_s, b0, nc, order = self._sorted_windows(flat)
-            scan = scan_window_plain if plain else scan_window
+            scan = scan_window if kernel else scan_window_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, b0, nc).reshape(-1)
             self.last_scan_stats = {"scan": kind, "G": WINDOW,
                                     "NG": pts_s.shape[0] // WINDOW}
+        self.last_scan_stats["tier"] = self.bucket_tier
         out = self._finish(pts_s[:P], win[:P], with_gradient)
         if with_gradient:
             d = torch.empty_like(out[0])

@@ -69,11 +69,70 @@ def _finish(pts, coeffs, frac, in_box, box_min, box_size3, min_border_value,
     return torch.where(in_box, d_in, d_out + min_border_value)
 
 
-def _coeff_rows(octree_i32, word, num_coeff):
-    """The coefficients of leaf words, one aligned row each."""
+def _coeff_rows(octree_i32, word, num_coeff, coeffs_f32=None):
+    """The coefficients of leaf words, one aligned row each, read from
+    ``coeffs_f32`` (a flat float32 tensor of the octree's length) or by
+    default from the float32 view of the words."""
     base = (word & _CIDX).long()
-    view = octree_i32.view(torch.float32).view(-1, num_coeff)
-    return view[base // num_coeff]
+    flat = octree_i32.view(torch.float32) if coeffs_f32 is None else coeffs_f32
+    return flat.view(-1, num_coeff)[base // num_coeff]
+
+
+def _octree_walk(octree_i32, points, box_min, box_size3, start_grid_size: int, *,
+                 levels: int, num_coeff: int, fast: bool = True, coeffs_f32=None):
+    """The walk's descent (OctreeSdf.cpp:93-152) of (P, 3) points: (the
+    reached leaf's coefficients (P, num_coeff), the point's position in
+    the leaf in [0, 1)^3, in-box flags, descent steps below the start
+    grid). Coefficients come from ``coeffs_f32`` when given (a flat float32
+    tensor of the words' length, the differentiable query's parameter),
+    else from the float32 view of the words. The fractional position
+    carries the points' autograd graph: its integer offsets are detached,
+    so its derivative is 2^steps / cell, as in the JAX package."""
+    pts = points
+    s = start_grid_size
+    cell = box_size3 / s
+    frac = (pts - box_min) / cell
+    ipos = frac.detach().floor().to(torch.int32)
+    frac = frac - ipos.to(frac.dtype)
+    in_box = ((ipos >= 0) & (ipos < s)).all(dim=-1)
+    ic = ipos.clamp(0, s - 1).long()
+    node_idx = ic[..., 2] * (s * s) + ic[..., 1] * s + ic[..., 0]
+
+    if fast:
+        view8 = octree_i32.view(-1, 8)
+        word = view8[node_idx >> 3].gather(-1, (node_idx & 7)[..., None])[..., 0]
+    else:
+        word = octree_i32[node_idx]
+
+    steps = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    for _ in range(levels):
+        is_leaf = word < 0                                   # bit 31
+        fs = frac.detach()
+        # roundFloat: >= 0.5 (OctreeSdf.cpp:88-91)
+        child = (
+            ((fs[..., 2] >= 0.5).long() << 2)
+            + ((fs[..., 1] >= 0.5).long() << 1)
+            + (fs[..., 0] >= 0.5).long()
+        )
+        base = (word & _CIDX).long()
+        if fast:
+            # children blocks are 8-aligned: one row gather + in-row pick
+            nxt = view8[base >> 3].gather(-1, child[..., None])[..., 0]
+        else:
+            nxt = octree_i32[base + child]
+        nfrac = 2.0 * frac
+        nfrac = nfrac - nfrac.detach().floor()
+        word = torch.where(is_leaf, word, nxt)
+        frac = torch.where(is_leaf[..., None], frac, nfrac)
+        steps = steps + (~is_leaf).to(torch.int32)
+
+    if fast:
+        coeffs = _coeff_rows(octree_i32, word, num_coeff, coeffs_f32)
+    else:
+        base = (word & _CIDX).long()
+        flat = octree_i32.view(torch.float32) if coeffs_f32 is None else coeffs_f32
+        coeffs = flat[base[..., None] + torch.arange(num_coeff, device=pts.device)]
+    return coeffs, frac, in_box, steps
 
 
 def _octree_query(
@@ -100,48 +159,11 @@ def _octree_query(
     coefficients as one row. ``fast=False`` is the layout-agnostic form
     for foreign (reference ``.bin``) arrays. The JAX package's one-hot
     ``_select8`` is an in-row ``gather`` here."""
-    pts = points
-    s = start_grid_size
-    cell = box_size3 / s
-    frac = (pts - box_min) / cell
-    ipos = frac.floor().to(torch.int32)
-    frac = frac - ipos.to(frac.dtype)
-    in_box = ((ipos >= 0) & (ipos < s)).all(dim=-1)
-    ic = ipos.clamp(0, s - 1).long()
-    node_idx = ic[..., 2] * (s * s) + ic[..., 1] * s + ic[..., 0]
-
-    if fast:
-        view8 = octree_i32.view(-1, 8)
-        word = view8[node_idx >> 3].gather(-1, (node_idx & 7)[..., None])[..., 0]
-    else:
-        word = octree_i32[node_idx]
-
-    for _ in range(levels):
-        is_leaf = word < 0                                   # bit 31
-        # roundFloat: >= 0.5 (OctreeSdf.cpp:88-91)
-        child = (
-            ((frac[..., 2] >= 0.5).long() << 2)
-            + ((frac[..., 1] >= 0.5).long() << 1)
-            + (frac[..., 0] >= 0.5).long()
-        )
-        base = (word & _CIDX).long()
-        if fast:
-            # children blocks are 8-aligned: one row gather + in-row pick
-            nxt = view8[base >> 3].gather(-1, child[..., None])[..., 0]
-        else:
-            nxt = octree_i32[base + child]
-        nfrac = 2.0 * frac
-        nfrac = nfrac - nfrac.floor()
-        word = torch.where(is_leaf, word, nxt)
-        frac = torch.where(is_leaf[..., None], frac, nfrac)
-
-    if fast:
-        coeffs = _coeff_rows(octree_i32, word, num_coeff)
-    else:
-        base = (word & _CIDX).long()
-        flat = octree_i32.view(torch.float32)
-        coeffs = flat[base[..., None] + torch.arange(num_coeff, device=pts.device)]
-    return _finish(pts, coeffs, frac, in_box, box_min, box_size3, min_border_value,
+    coeffs, frac, in_box, _ = _octree_walk(
+        octree_i32, points, box_min, box_size3, start_grid_size,
+        levels=levels, num_coeff=num_coeff, fast=fast,
+    )
+    return _finish(points, coeffs, frac, in_box, box_min, box_size3, min_border_value,
                    interpolation, with_gradient)
 
 
@@ -298,7 +320,8 @@ class OctreeSdf(SdfFunction):
     init_algorithm: "uniform" (subdivide everything, OctreeSdf.h:25),
     "no_continuity" (per-node termination) or "continuity" (C0 across
     leaf faces, ``octree_builder_continuity``, the reference's default).
-    Only the "distance" cull strategy is ported. ``device`` holds the
+    ``strategy`` names the builders' cull ("distance" or an exact-octree
+    strategy; the values do not depend on it). ``device`` holds the
     structure and runs the build and the queries; query points may come
     as numpy arrays or tensors, results are tensors on ``device``.
 
@@ -350,7 +373,7 @@ class OctreeSdf(SdfFunction):
         tris = soa_to_torch(calculate_mesh_triangle_data(mesh), device)
         args = (tris, cbox.min, float(cbox.size[0]), int(max_depth), int(start_depth))
         kw = dict(termination_rule=rule, termination_threshold=termination_threshold,
-                  error_decay=error_decay, interpolation=interpolation)
+                  error_decay=error_decay, interpolation=interpolation, strategy=strategy)
         if init_algorithm == "continuity":
             from .octree_builder_continuity import build_octree_continuity
 

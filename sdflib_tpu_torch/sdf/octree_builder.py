@@ -1,7 +1,7 @@
 """Level-synchronous (breadth-first) approximate octree builder.
 
 Port of the JAX package's ``sdf/octree_builder.py`` (reference:
-src/sdf/OctreeSdfDepthFirst.h:31-558), the "distance" cull only. Every
+src/sdf/OctreeSdfDepthFirst.h:31-558). Every
 level is one batched device computation over all active nodes, in chunks
 of at most ``pair_budget`` node-candidate pairs (``_level_chunk``):
 
@@ -11,9 +11,13 @@ of at most ``pair_budget`` node-candidate pairs (``_level_chunk``):
   2. fit the leaf polynomial from the 8 corner values;
   3. evaluate the termination rule: nodes whose error integral is below
      threshold^2 become leaves;
-  4. cull each node's list for its children: keep t iff
-     d(t, centre) <= min_t d(t, centre) + full diagonal, which keeps the
-     nearest triangle of every point of the node.
+  4. cull each node's list for its children: by default ("distance")
+     keep t iff d(t, centre) <= min_t d(t, centre) + full diagonal, which
+     keeps the nearest triangle of every point of the node; or by one of
+     the exact octree's influence strategies ("lattice", "basic",
+     "precise", "per_vertex"), tighter lists for more work. Every cull
+     keeps a safe superset, so the structure's values do not depend on
+     it.
 
 The host epilogue allocates children, compacts the kept candidates to
 the row front (a counting compaction) and hands the children the
@@ -120,6 +124,10 @@ class OctreeBuildResult(NamedTuple):
     stats: dict                  # per-depth build statistics
 
 
+# the precise cull's region factor (the exact octree's _PRECISE_MAX_REGIONS)
+_PRECISE_MAX_REGIONS = 16
+
+
 def _round_pow2(n: int, lo: int = 1) -> int:
     """The smallest power-of-two multiple of ``lo`` that is >= ``n``."""
     p = lo
@@ -128,12 +136,23 @@ def _round_pow2(n: int, lo: int = 1) -> int:
     return p
 
 
+_APPROX_STRATEGIES = ("distance", "lattice", "basic", "precise", "per_vertex")
+
+
 def _check_strategy(strategy: str) -> None:
-    if strategy != "distance":
-        raise NotImplementedError(
-            f"cull strategy {strategy!r} is not ported yet; only 'distance' is "
-            "(ROADMAP.md, Queue 1 item 1.2)"
-        )
+    if strategy not in _APPROX_STRATEGIES:
+        raise ValueError(f"strategy must be one of {_APPROX_STRATEGIES}, got {strategy!r}")
+
+
+def _cull_inputs(tris, strategy: str):
+    """(strategy, its cull tables) for ``_level_chunk``, None for the
+    "distance" rule (the exact octree owns the strategies' culls)."""
+    _check_strategy(strategy)
+    if strategy == "distance":
+        return None
+    from .exact_octree import prepare_cull_inputs   # it imports this module
+
+    return strategy, prepare_cull_inputs(tris, strategy)
 
 
 def _fit(corner_vals, node_size, interpolation):
@@ -155,13 +174,14 @@ def _error(coeffs, mid_f, rule, decay, interpolation):
 
 
 def _level_chunk(tris, packed_t, centers, corner_vals, cand_idx, cand_valid,
-                 half, decay, *, rule, interpolation):
+                 half, decay, *, rule, interpolation, cull=None):
     """One chunk of one level on the device: midpoint sampling, fit, error
     and the children's cull. ``centers`` (C, 3), ``corner_vals`` (C, 8, 8),
     ``cand_idx`` (C, K) int, ``cand_valid`` (C, K) bool, ``packed_t`` the
     (19, T) field-major packed triangle table, ``half`` the node half edge
-    (a float32 value). Returns (mid_vals (C, 19, 8), coeffs, err (C,),
-    keep (C, K), keep_count (C,))."""
+    (a float32 value), ``cull`` None for the "distance" rule or a named
+    strategy and its tables (``_cull_inputs``). Returns (mid_vals
+    (C, 19, 8), coeffs, err (C,), keep (C, K), keep_count (C,))."""
     idx = cand_idx.long()
     cols = [packed_t[r][idx][:, None, :] for r in range(packed_t.shape[0])]  # (C, 1, K)
     offs = torch.as_tensor(MID_OFFSETS, device=centers.device)
@@ -175,10 +195,15 @@ def _level_chunk(tris, packed_t, centers, corner_vals, cand_idx, cand_valid,
     d, g = signed_dist_grad_pair(pts, gather_triangles(tris, win_global))
     mid_vals = torch.cat([d[..., None], g, d.new_zeros(d.shape + (4,))], dim=-1)
 
-    dc = sqd[:, 9, :].sqrt()  # midpoint 9 is the node centre
-    minc = dc.amin(dim=1, keepdim=True)
-    diag = float(np.float32(2.0) * _SQRT3 * np.float32(half))
-    keep = (dc <= minc + diag) & cand_valid
+    if cull is None:
+        dc = sqd[:, 9, :].sqrt()  # midpoint 9 is the node centre
+        minc = dc.amin(dim=1, keepdim=True)
+        diag = float(np.float32(2.0) * _SQRT3 * np.float32(half))
+        keep = (dc <= minc + diag) & cand_valid
+    else:
+        from .exact_octree import cull_chunk
+
+        keep, _, _ = cull_chunk(cull[0], cull[1], centers, cand_idx, cand_valid, half)
 
     coeffs = _fit(corner_vals, float(np.float32(2.0) * np.float32(half)), interpolation)
     err = _error(coeffs, mid_vals[..., 0], rule, decay, interpolation)
@@ -234,14 +259,18 @@ def _chunk_rows(K: int, pair_budget: int) -> int:
 
 
 def _run_level(tris, packed_t, centers, corner_vals, cand_idx, cand_valid,
-               half, error_decay, rule, interpolation, pair_budget, stats=None):
+               half, error_decay, rule, interpolation, pair_budget, stats=None,
+               cull=None):
     """The level kernel over all N nodes, in chunks of ``_chunk_rows``
     nodes (the last one ragged: eager torch builds nothing per shape, so
-    no node is padded in). Inputs are host arrays; returns host arrays
-    (mids, coeffs, errs, keeps (N, K), kcounts)."""
+    no node is padded in; the precise cull's chunks shrink by its region
+    factor). Inputs are host arrays; returns host arrays (mids, coeffs,
+    errs, keeps (N, K), kcounts)."""
     dev = packed_t.device
     N, K = cand_idx.shape
     C = _chunk_rows(K, pair_budget)
+    if cull is not None and cull[0] == "precise":
+        C = max(1, C // _PRECISE_MAX_REGIONS)
     parts = []
     for i in range(0, N, C):
         sl = slice(i, i + C)
@@ -253,7 +282,7 @@ def _run_level(tris, packed_t, centers, corner_vals, cand_idx, cand_valid,
             torch.as_tensor(cand_idx[sl], device=dev),
             torch.as_tensor(cand_valid[sl], device=dev),
             np.float32(half), float(np.float32(error_decay)),
-            rule=rule, interpolation=interpolation,
+            rule=rule, interpolation=interpolation, cull=cull,
         )
         t1 = _time.perf_counter()
         parts.append([t.cpu().numpy() for t in out])
@@ -297,8 +326,9 @@ def build_octree(
     """Build the approximate octree on the device of ``tris`` (a torch
     SoA). ``box`` must already be cubified. Rule "none" subdivides every
     node to ``max_depth`` (the uniform build). Returns the flat uint32
-    array in the reference layout plus leaf metadata."""
-    _check_strategy(strategy)
+    array in the reference layout plus leaf metadata. ``strategy`` names
+    the children's cull ("distance" or an exact-octree strategy)."""
+    cull = _cull_inputs(tris, strategy)
     dev = tris.origin.device
     packed_t = pack_triangle_fields(tris).t().contiguous()
     T = tris.num_triangles
@@ -373,7 +403,7 @@ def build_octree(
 
         mids, coeffs, errs, keeps, kcounts = _run_level(
             tris, packed_t, centers, corner_vals, cand_idx, cand_valid, half,
-            error_decay, termination_rule, interpolation, pair_budget, stats,
+            error_decay, termination_rule, interpolation, pair_budget, stats, cull,
         )
         stats["tris_per_node"][depth] = float(kcounts.mean())
 

@@ -39,7 +39,7 @@ from .octree_builder import (
     OctreeBuildResult,
     _CHILD_OFFSETS,
     _SQRT3,
-    _check_strategy,
+    _cull_inputs,
     _children_lattice,
     _compute_min_border_value,
     _fit_only,
@@ -170,8 +170,9 @@ def build_octree_continuity(
     strategy: str = "distance",
 ) -> OctreeBuildResult:
     """Build the approximate octree with C0 continuity correction on the
-    device of ``tris`` (a torch SoA); ``box`` must be cubified."""
-    _check_strategy(strategy)
+    device of ``tris`` (a torch SoA); ``box`` must be cubified.
+    ``strategy`` names the children's cull (see ``build_octree``)."""
+    cull = _cull_inputs(tris, strategy)
     dev = tris.origin.device
     packed_t = pack_triangle_fields(tris).t().contiguous()
     T = tris.num_triangles
@@ -372,7 +373,7 @@ def build_octree_continuity(
 
         mids, coeffs, errs, keeps, kcounts = _run_level(
             tris, packed_t, centers, corner_vals, cand_idx, cand_valid, half,
-            error_decay, termination_rule, interpolation, pair_budget,
+            error_decay, termination_rule, interpolation, pair_budget, cull=cull,
         )
         stats["tris_per_node"][depth] = float(kcounts.mean())
 

@@ -144,6 +144,29 @@ def test_node_walk_matches_grid_descent(port_sdf, pts):
     )
 
 
+def test_node_walk_on_node_faces(port_sdf, jax_sdf):
+    """Points on node faces (coordinates at box_min + size k / 16 on a
+    random half of the axes): the node walk answers as RealSdf and as the
+    JAX package's grid route within 1e-6. (The JAX package's walk puts a
+    point at exactly 0.5 of a node at the lower child's lower face and
+    misses by up to 0.165 here; ROADMAP.md, Queue 3.)"""
+    rng = np.random.default_rng(3)
+    lo, size = port_sdf.box.min.astype(np.float32), np.float32(port_sdf.box.size[0])
+    faces = (lo + size * (rng.integers(1, 16, (2000, 3)) / 16.0)).astype(np.float32)
+    free = rng.uniform(lo, lo + size, (2000, 3)).astype(np.float32)
+    q = np.where(rng.random((2000, 3)) < 0.5, faces, free).astype(np.float32)
+    walk = ExactOctreeSdf.from_jax_state(port_sdf._state_arrays(), device="cpu")
+    walk._leaf_grid = None
+    d = walk.get_distance(q).numpy()
+    mesh, _ = _mesh_box(make_torus)
+    np.testing.assert_allclose(d, RealSdf(mesh, device="cpu").get_distance(q).numpy(),
+                               rtol=0, atol=1e-6)
+    j = ExactOctreeSdf.from_jax_state(jax_sdf._state_arrays(), device="cpu")
+    j._leaf_grid = None
+    np.testing.assert_allclose(j.get_distance(q).numpy(), _np(jax_sdf.get_distance(q)),
+                               rtol=0, atol=1e-6)
+
+
 def test_query_shapes_and_batches(port_sdf, pts):
     """(..., 3) batches of any size, including a single point and sizes
     off the window width; torch input on the structure's device."""
@@ -157,11 +180,16 @@ def test_query_shapes_and_batches(port_sdf, pts):
 
 
 def test_unported_options_raise(tmp_path):
+    """What the port still refuses: an unknown strategy and bucket format,
+    and the tiled container (ROADMAP.md, Queue 1). The other strategies
+    build, and a bucket table over the budget takes the id-only tier."""
     mesh, box = _mesh_box(make_torus)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExactOctreeSdf(mesh, box, strategy="lattice", **CFG, device="cpu")
-    with pytest.raises(MemoryError):
-        ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG, device="cpu")
+    with pytest.raises(ValueError, match="strategy"):
+        ExactOctreeSdf(mesh, box, strategy="nearest", **CFG, device="cpu")
+    with pytest.raises(ValueError, match="bucket_format"):
+        ExactOctreeSdf(mesh, box, bucket_format="vertex4", **CFG, device="cpu")
+    small = ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG, device="cpu")
+    assert small.bucket_tier == "id_only" and small.bucket_fields is None
     path = str(tmp_path / "tiled.npz")
     np.savez(path, __format__=np.array("octree_tiled"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

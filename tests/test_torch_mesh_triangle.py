@@ -1,7 +1,7 @@
 """The port's numpy host layer (mesh, primitives, triangle precompute,
-the renderer's camera and PNG writer) against the JAX package's: the same
-meshes, per-triangle data, rays and PNG bytes, bit for bit (tolerance:
-exact equality)."""
+the renderer's camera and PNG writer, the native shim's sources) against
+the JAX package's: the same meshes, per-triangle data, rays, PNG bytes
+and sources, bit for bit (tolerance: exact equality)."""
 import os
 import sys
 
@@ -111,3 +111,16 @@ def test_png_writer_equal(tmp_path):
         j_write_png(str(tmp_path / f"j{i}.png"), img)
         t_write_png(str(tmp_path / f"t{i}.png"), img)
         assert (tmp_path / f"j{i}.png").read_bytes() == (tmp_path / f"t{i}.png").read_bytes()
+
+
+@pytest.mark.parametrize("name", ["sdflib_c.cpp", "wrapper"])
+def test_native_copy_equal(name):
+    """The port's native/ is a copy: the C++ source byte for byte, and the
+    wrapper's code below its docstring line for line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, pkg, "native", "sdflib_c.cpp" if name != "wrapper"
+                          else "__init__.py") for pkg in ("sdflib_tpu", "sdflib_tpu_torch")]
+    a, b = (open(p, "rb").read() for p in paths)
+    if name == "wrapper":
+        a, b = (x[x.index(b"from __future__"):] for x in (a, b))
+    assert a == b

@@ -8,7 +8,10 @@ approximate builders (rms error against RealSdf below the JAX tests'
 ``.bin`` golden through the port's io within 5e-5 of the C++ walk; then
 a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
 1e-3 of the octree's surface, one shading call, a 32^2 plane cut, and a depth-3
-``UniformGridSdf`` with its ``.bin`` round trip, bit-equal."""
+``UniformGridSdf`` with its ``.bin`` round trip, bit-equal; then one
+``octree_query_diff`` backward (a finite coefficient gradient that leaves
+the words unchanged), an EXACT_OCTREE ``.bin`` round trip with the same
+answers, and a ``lattice`` exact build within 1e-5 of RealSdf."""
 import os
 import subprocess
 import sys
@@ -86,6 +89,27 @@ SCRIPT = textwrap.dedent(
         back = load_sdflib_bin(os.path.join(tmp, "g.bin"), device="cpu")
     assert torch.equal(back.grid, grid.grid) and back.grid_size == (8, 8, 8)
     assert torch.equal(back.get_distance(pts), grid.get_distance(pts))
+    from sdflib_tpu_torch.diff.query import octree_coefficients, octree_query_diff
+    words = approx._octree_dev.clone()
+    c = octree_coefficients(approx._octree_dev).requires_grad_(True)
+    dq = octree_query_diff(approx._octree_dev, c, q, approx.box.min, approx.box.size[0],
+                           approx.start_grid_size, approx.min_border_value,
+                           levels=approx.max_depth - approx.start_depth)
+    assert float((dq - approx.get_distance(q)).abs().max()) <= 1e-6
+    dq.square().sum().backward()
+    assert bool(torch.isfinite(c.grad).all()) and float(c.grad.abs().sum()) > 0
+    assert torch.equal(approx._octree_dev, words)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_sdflib_bin(sdf, os.path.join(tmp, "e.bin"))
+        ebin = load_sdflib_bin(os.path.join(tmp, "e.bin"), device="cpu")
+    assert ebin.num_leaves == sdf.num_leaves and not ebin._sorted_lists
+    assert float((ebin.get_distance(pts) - sdf.get_distance(pts)).abs().max()) <= 1e-6
+
+    lat = ExactOctreeSdf(mesh, box, max_depth=3, start_depth=1, min_triangles_per_node=16,
+                         strategy="lattice", device="cpu")
+    err = (lat.get_distance(pts) - ref).abs()
+    assert float(err[torch.as_tensor(inside)].max()) <= 1e-5
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)

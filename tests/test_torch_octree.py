@@ -17,8 +17,11 @@ margin 0.14), and against the compiled reference's goldens.
   of them; ``min_border_value`` within 2e-6 (a sum of 64 coefficients).
 * The ``.npz`` container both ways, the reference ``.bin`` goldens
   through the port's ``io`` at the JAX tests' tolerances
-  (test_reference_parity.py:147-157, 206-226), ``.bin`` both ways, and
-  the unported strategies and formats raise.
+  (test_reference_parity.py:147-157, 206-226), ``.bin`` both ways, the
+  four exact-octree strategies as the builders' cull (the same words as
+  the "distance" build) and the builder options beside JAX's builds
+  (simpson, by_distance, error decay, continuity with simpson and with
+  trilinear, start depths 1 and 3).
 """
 import copy
 import os
@@ -204,6 +207,37 @@ def test_port_build_matches_jax_build(variant, jax_sdf, port_sdf, pts):
     assert np.abs(d_p - d_j).max() <= 1e-3
 
 
+# The builder options that the rest of the file does not cover, each on
+# the icosphere beside the JAX build of the same options.
+OPTION_CASES = {
+    "simpson": dict(termination_rule="simpson"),
+    "by_distance": dict(termination_rule="by_distance"),
+    "error_decay_0.5": dict(termination_rule="by_distance", error_decay=0.5),
+    "continuity_simpson": dict(init_algorithm="continuity", termination_rule="simpson"),
+    "continuity_trilinear": dict(init_algorithm="continuity", interpolation="trilinear"),
+    "start_depth_1": dict(start_depth=1, termination_threshold=1e-2),
+    "start_depth_3": dict(start_depth=3),
+}
+
+
+@pytest.mark.parametrize("case", list(OPTION_CASES))
+def test_builder_options_match_jax(case):
+    """Each option against JAX's build: the same leaves per depth and
+    length, ``min_border_value`` within 2e-6, and distances on 4,000
+    points (seed 7) within 2e-6 + 1e-5 |d| (fp32 sums of 64 terms in
+    another order)."""
+    kw = {**CFG, **OPTION_CASES[case]}
+    j = JOctree(*_mesh_box(j_icosphere), **kw)
+    p = OctreeSdf(*_mesh_box(make_icosphere), **kw, device="cpu")
+    assert p.build_stats["leaves_per_depth"] == {
+        int(k): int(v) for k, v in j.build_stats["leaves_per_depth"].items()}
+    assert p.octree_data.shape == _np(j.octree_data).shape
+    assert abs(p.min_border_value - j.min_border_value) <= 2e-6
+    q = np.random.default_rng(7).uniform(-0.48, 0.48, (4000, 3)).astype(np.float32)
+    np.testing.assert_allclose(p.get_distance(q).numpy(), _np(j.get_distance(q)),
+                               rtol=1e-5, atol=2e-6)
+
+
 def test_containers_both_ways(jax_sdf, port_sdf, pts, tmp_path):
     """The .npz container: JAX -> port and port -> JAX answer as the
     writer does, and the port reads its own back bit for bit."""
@@ -287,26 +321,33 @@ def test_bin_both_ways(jax_sdf, port_sdf, pts, tmp_path):
 @pytest.mark.parametrize("what", ["lattice", "basic", "precise", "per_vertex", "grid_bin",
                                   "exact_bin", "save_exact", "save_trilinear"])
 def test_unported_strategies_and_formats_raise(what, tmp_path):
+    """What the port could not do before: the four strategies now build
+    (an unknown one raises), the GRID and EXACT_OCTREE readers reach a
+    header-only file's truncation, an exact octree's .bin round trip
+    keeps its lists; a trilinear octree still has no .bin."""
     mesh, box = _mesh_box(make_icosphere)
     if what in ("lattice", "basic", "precise", "per_vertex"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1.2"):
-            OctreeSdf(mesh, box, **CFG, strategy=what, device="cpu")
+        kw = dict(max_depth=3, start_depth=2, termination_threshold=1e-3)
+        built = OctreeSdf(mesh, box, **kw, strategy=what, device="cpu")
+        ref = OctreeSdf(mesh, box, **kw, device="cpu")
+        np.testing.assert_array_equal(built.octree_data, ref.octree_data)
+        with pytest.raises(ValueError, match="strategy"):
+            OctreeSdf(mesh, box, **kw, strategy=what + "_x", device="cpu")
         return
     path = str(tmp_path / "x.bin")
     if what.endswith("_bin"):
         with open(path, "wb") as f:
             f.write(b"\x01" + np.int32(0 if what == "grid_bin" else 2).tobytes())
-        # GRID is ported: its header-only file now reaches the reader
-        err, match = ((ValueError, "Truncated") if what == "grid_bin"
-                      else (NotImplementedError, "item 4.1"))
-        with pytest.raises(err, match=match):
+        # both formats are ported: a header-only file reaches the reader
+        with pytest.raises(ValueError, match="Truncated"):
             load_sdflib_bin(path, device="cpu")
     elif what == "save_exact":
         torus = make_torus(R=0.3, r=0.12, nu=12, nv=6)
         ex = ExactOctreeSdf(torus, torus.bounding_box.add_margin(0.1), max_depth=2,
                             start_depth=1, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            save_sdflib_bin(ex, path)
+        save_sdflib_bin(ex, path)
+        back = load_sdflib_bin(path, device="cpu")
+        assert isinstance(back, ExactOctreeSdf) and back.num_leaves == ex.num_leaves
     else:
         tri = OctreeSdf(mesh, box, max_depth=3, start_depth=2, interpolation="trilinear",
                         device="cpu")
