@@ -81,7 +81,29 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   bytes, the oracle gate) and the approximate d6 build with the lattice
   cull held to JAX's words and leaves. Its grid knob runs on path B's
   structure: the node walk, then ``build_query_grid``, the 2^20 answers
-  unchanged.
+  unchanged;
+* main path H, the CLI tools and ``parallel`` (``tools_path``): bench.py's
+  torus as a binary PLY through every tool's ``main(argv)`` on the card:
+  ``sdf_export`` at its defaults (approximate d7 to .npz and .bin), exact
+  d6 (lattice, to .npz and .bin) and grid; ``sdf_error`` on 2^22 samples
+  of each octree against the mesh (RMSE below 4e-3; the exact one's max
+  error <= 1e-5); ``sdf_error_compare`` (the .bin row equals the .npz
+  row); ``sdf_render`` at 1024^2 with AO and shadows and from the .bin
+  (equal hit shares); ``sdf_light``; ``sdf_view`` (a 512^2 sweep, a pick
+  in the tube: a non-empty list within 1e-5 of ``RealSdf``);
+  ``image_query_time`` at 1024^2; ``exact_mean_triangles`` (its leaves
+  the structure's); ``interp_params``; ``mesh_preview`` (K2 on every
+  trip); ``scaling_bench``; then ``parallel`` on ``default_mesh()``, on
+  four entries of the card in one call and in four calls (``cuda:0`` and
+  ``cuda`` twice): ``sharded_distance`` (2^22, 2^21 and the
+  10k oracle points), ``sharded_distance_and_gradient`` (2^20) and
+  ``sharded_trace`` (bench.py's 1024^2 rays) bit-equal to the
+  single-device calls, and ten fit steps whose loss falls, the first
+  within 1e-6 of the one-entry step; then the tiled
+  exact octree on eight entries within rtol 1e-6, atol 1e-7 of the
+  replicated one on 2^21 points (0.1 beyond the box), its shard bytes
+  below the replicated table and its round trip, and the tiled d7
+  approximate octree against its grid route on 2^22 points.
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -1185,6 +1207,313 @@ def leftovers_path(dev, root: str):
     return launches
 
 
+# Path H sizes: FULL on the card (what `python3 chip_smoke.py` runs), SMALL for a CPU
+# rehearsal of the same code.
+TOOLS_FULL = dict(
+    oct=[], ex=["-d", "6"], m_err="4.194304", m_cmp="1", frame=1024, view=512,
+    sweep=4, iqt=1024, preview=512, scaling=[], n_oct=1 << 22, n_ex=1 << 21,
+    n_grad=1 << 20, rays=1024, n_fit=1 << 20, fit_steps=10,
+)
+TOOLS_SMALL = dict(
+    oct=["-d", "4"], ex=["-d", "4"], m_err="0.01", m_cmp="0.01", frame=64, view=64,
+    sweep=2, iqt=64, preview=48,
+    scaling=["-m", "0.01", "--rays", "4096", "--depth", "4"], n_oct=4096, n_ex=4096,
+    n_grad=4096, rays=64, n_fit=4096, fit_steps=3,
+)
+
+
+def _write_ply(mesh, path: str) -> None:
+    """A binary little-endian PLY of ``mesh``."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write((
+            "ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {mesh.num_vertices}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {mesh.num_triangles}\n"
+            "property list uchar int vertex_indices\nend_header\n"
+        ).encode())
+        f.write(np.asarray(mesh.vertices, "<f4").tobytes())
+        f.write(b"".join(struct.pack("<B3i", 3, *t) for t in np.asarray(mesh.indices)))
+
+
+def tools_path(dev, root: str, sizes=None):
+    """Path H, the CLI tools and ``parallel`` at full size (``sizes``:
+    ``TOOLS_FULL``; ``TOOLS_SMALL`` rehearses the same code on the CPU).
+    bench.py's torus is written as a binary PLY and every tool runs
+    in-process through its ``main(argv)`` with ``--device`` ``dev``: three
+    exports at the CLI's defaults (approximate d7, exact d6 with the
+    lattice cull, grid), ``sdf_error`` on 2^22 samples (RMSE below 4e-3;
+    the exact export's max error <= 1e-5), ``sdf_error_compare`` (the
+    .bin row equal to the .npz row within 1e-6), ``sdf_render`` at 1024^2
+    from the .npz and the .bin (equal hit shares), ``sdf_light``,
+    ``sdf_view`` (a sweep and a pick inside the tube: a non-empty list,
+    max error <= 1e-5), ``image_query_time``, ``exact_mean_triangles``
+    (its leaves the structure's), ``interp_params``, ``mesh_preview``
+    (K2 on every trip) and ``scaling_bench``; then ``parallel`` on
+    ``default_mesh()`` and on four entries of ``dev``, in one call and in
+    four, bit-equal to the single-device calls, and ten fit steps whose
+    loss falls, the first within 1e-6 of the one-entry step; then the
+    tiled exact octree (8 entries) against the replicated one and its
+    round trip, and the tiled approximate octree against its grid route.
+    Every tool's wall seconds print on a line of their own. Returns the
+    path's launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, SdfFunction, parallel
+    from sdflib_tpu_torch.diff.query import octree_coefficients
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin
+    from sdflib_tpu_torch.ops import nearest
+    from sdflib_tpu_torch.parallel.tiles import TiledExactOctreeSdf, TiledOctreeSdf
+    from sdflib_tpu_torch.render import trace_octree
+    from sdflib_tpu_torch.tools import (
+        exact_mean_triangles,
+        image_query_time,
+        interp_params,
+        mesh_preview,
+        scaling_bench,
+        sdf_error,
+        sdf_error_compare,
+        sdf_export,
+        sdf_light,
+        sdf_render,
+        sdf_view,
+    )
+    from sdflib_tpu_torch.tools.common import prepare_box
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    sz = TOOLS_FULL if sizes is None else sizes
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h_")
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    ply = os.path.join(tmp, "torus.ply")
+    _write_ply(mesh, ply)
+
+    def f(name):
+        return os.path.join(tmp, name)
+
+    def tool(mod, argv, show=8):
+        """Run a tool's main in-process on ``dev``; print its wall seconds
+        and the first ``show`` lines of its output (160 characters each)."""
+        buf = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([*argv, "--device", str(dev)])
+        sync()
+        secs = time.perf_counter() - t0
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"tool {name}: {secs:.3f} s, rc {rc}")
+        _check(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
+        out = buf.getvalue()
+        for ln in out.splitlines()[:show]:
+            print(f"  | {ln[:160]}")
+        return out
+
+    def number(out, key):
+        return float([ln for ln in out.splitlines() if ln.startswith(key)][0].split(":")[1])
+
+    def last_json(out):
+        return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+    reset_counts()
+    # -- exports at the CLI's defaults ------------------------------------
+    for out_name in ("oct.npz", "oct.bin"):
+        tool(sdf_export, [ply, f(out_name), *sz["oct"]])
+    for out_name in ("ex.npz", "ex.bin"):
+        tool(sdf_export, [ply, f(out_name), "--sdf_format", "exact_octree", *sz["ex"]])
+    tool(sdf_export, [ply, f("grid.npz"), "--sdf_format", "grid"])
+
+    # -- error tools --------------------------------------------------------
+    res = last_json(tool(sdf_error, [f("oct.npz"), ply, "-m", sz["m_err"], "--json"]))
+    _check(res["rmse"] < 4e-3, f"sdf_error: the approximate export's RMSE {res['rmse']}")
+    res = last_json(tool(sdf_error, [f("ex.npz"), ply, "-m", sz["m_err"], "--json"]))
+    _check(res["max_error"] <= ORACLE_TOL,
+           f"sdf_error: the exact export's max error {res['max_error']}")
+    rows = last_json(tool(sdf_error_compare, [
+        ply, f("oct.npz"), f("oct.bin"), f("ex.npz"), "-m", sz["m_cmp"], "--json"],
+        show=3))["results"]
+    for key in ("rmse", "mae", "max_error"):
+        _check(abs(rows[0][key] - rows[1][key]) <= 1e-6,
+               f"sdf_error_compare: .bin {key} {rows[1][key]} vs .npz {rows[0][key]}")
+    print(f"sdf_error_compare: RMSE .npz {rows[0]['rmse']:.4e}, .bin {rows[1]['rmse']:.4e}, "
+          f"exact {rows[2]['rmse']:.4e}; max .npz {rows[0]['max_error']:.4e}, exact "
+          f"{rows[2]['max_error']:.4e}")
+
+    # -- renders --------------------------------------------------------------
+    frame = ["--width", str(sz["frame"]), "--height", str(sz["frame"])]
+    hits = []
+    for src, extra in (("oct.npz", ["--ao", "--shadow"]), ("oct.bin", ["--mode", "normal"])):
+        out = tool(sdf_render, [f(src), f(f"render_{src}.png"), *frame, *extra])
+        hits.append(out.split("% hit")[0].rsplit(" ", 1)[1])
+    _check(hits[0] == hits[1], f"sdf_render: hit shares {hits} of the .npz and the .bin")
+    tool(sdf_light, [f("oct.npz"), f("light.png")])
+    tool(sdf_view, [f("oct.npz"), f("view.png"), "--resolution", str(sz["view"]),
+                    "--sweep", str(sz["sweep"]), "--error_vs", ply])
+    out = tool(sdf_view, [f("ex.npz"), "--pick=0.3,0.01,0.013", "--pick_region",
+                          f("region.obj"), "--error_vs", ply])
+    lines = out.splitlines()
+    tris = lines[[i for i, ln in enumerate(lines) if "influence triangles" in ln][0] + 1].split()
+    pick_err = number(out, "Picked-cell max|err|")
+    _check(len(tris) > 0 and pick_err <= ORACLE_TOL,
+           f"sdf_view --pick: {len(tris)} triangles, cell max error {pick_err}")
+    for src in ("oct.npz", "ex.npz"):
+        tool(image_query_time, [f(src), f(f"iqt_{src}"), "-w", str(sz["iqt"]), "--json"])
+    stats = last_json(tool(exact_mean_triangles, [f("ex.npz"), f("emt.png"), "--json"]))
+    ex = SdfFunction.load(f("ex.npz"), device=dev)
+    _check(stats["leaves"] == ex.num_leaves,
+           f"exact_mean_triangles: {stats['leaves']} leaves, the structure {ex.num_leaves}")
+    tool(interp_params, ["--print_c"], show=2)
+    k2_before = nearest.launch_count
+    tool(mesh_preview, [ply, f("preview.png"), "--width", str(sz["preview"]),
+                        "--height", str(sz["preview"])])
+    k2 = nearest.launch_count - k2_before
+    print(f"mesh_preview: {k2 - 1} march trips ({k2} K2 launches: one a trip, one for "
+          "the normals)")
+    tool(scaling_bench, ["--json", *sz["scaling"]])
+    print(f"path H tools: {time.perf_counter() - t_path:.1f} s")
+
+    # -- parallel on one card and on four entries of it -------------------------
+    t_par = time.perf_counter()
+    box = prepare_box(mesh)
+    oct_ = SdfFunction.load(f("oct.npz"), device=dev)
+    t0 = time.perf_counter()
+    oct_.build_query_grid()
+    sync()
+    print(f"parallel: d{oct_.max_depth} octree's build_query_grid {time.perf_counter() - t0:.3f} s")
+    real = RealSdf(mesh, device=dev)
+    bench_box = mesh.bounding_box.add_margin(0.14)
+    p_oct = _uniform(oct_.box, sz["n_oct"], 1, dev)
+    p_ex = _uniform(ex.box, sz["n_ex"], 0, dev)
+    p_orc = _uniform(bench_box, 10_000, 7, dev)
+    p_grad = p_oct[: sz["n_grad"]]
+    o, d = _ortho_rays(sz["rays"], dev)
+    ref = {
+        "oct": oct_.get_distance(p_oct), "ex": ex.get_distance(p_ex),
+        "real": real.get_distance(p_orc), "grad": oct_.get_distance_and_gradient(p_grad),
+        "trace": trace_octree(oct_, o, d, eps=1e-5, far=4.0, max_iters=1024, beam=None),
+    }
+    fit_pts = p_oct[: sz["n_fit"]]
+    fit_tgt = real.get_distance(fit_pts)
+    # "cuda:0" and "cuda" name one card as two torch devices, so the last
+    # list runs every shard as its own call (the per-shard split, the gather
+    # and the fit step's gradient sum across blocks); the first two run
+    # one call on the card
+    split4 = [torch.device(dev.type, 0), torch.device(dev.type)] * 2
+    first_step = None
+    for label, devs in (("default_mesh()", parallel.default_mesh([dev]) if not cuda
+                         else parallel.default_mesh()), ("4 entries", [dev] * 4),
+                        ("4 entries in 4 calls", split4)):
+        eq = {
+            "oct": torch.equal(parallel.sharded_distance(oct_, p_oct, devs), ref["oct"]),
+            "ex": torch.equal(parallel.sharded_distance(ex, p_ex, devs), ref["ex"]),
+            "real": torch.equal(parallel.sharded_distance(real, p_orc, devs), ref["real"]),
+        }
+        dg = parallel.sharded_distance_and_gradient(oct_, p_grad, devs)
+        eq["grad"] = torch.equal(dg[0], ref["grad"][0]) and torch.equal(dg[1], ref["grad"][1])
+        sync()
+        t0 = time.perf_counter()
+        tr = parallel.sharded_trace(oct_, o, d, devs, eps=1e-5, far=4.0, max_iters=1024)
+        sync()
+        t_tr = time.perf_counter() - t0
+        eq["trace"] = all(torch.equal(a, b) for a, b in zip(tr, ref["trace"]))
+        c = octree_coefficients(oct_._octree_dev)
+        losses = []
+        sync()
+        t0 = time.perf_counter()
+        for step in range(sz["fit_steps"]):
+            loss, c = parallel.data_parallel_fit_step(oct_, c, fit_pts, fit_tgt, devs, lr=0.5)
+            losses.append(float(loss))
+            if step == 0:
+                step1 = (float(loss), c[0].to(dev))
+        t_fit = (time.perf_counter() - t0) / sz["fit_steps"]
+        # the first step against the one-entry list's: the loss within 1e-6
+        # relative, the coefficients within 1e-6 of the largest (the blocks'
+        # sums run in another order)
+        first_step = first_step or step1
+        loss_rel = abs(step1[0] - first_step[0]) / abs(first_step[0])
+        coef_rel = float((step1[1] - first_step[1]).abs().max() / first_step[1].abs().max())
+        print(f"parallel on {label} ({len(devs)} entries, {len(set(devs))} devices): "
+              f"bit-equal to the single-device calls {eq}; sharded_trace {sz['rays']}^2 "
+              f"{t_tr:.3f} s, hits {int(tr.hit.sum())}; fit loss {losses[0]:.6e} -> "
+              f"{losses[-1]:.6e} in {sz['fit_steps']} steps, {t_fit * 1e3:.1f} ms a step; "
+              f"first step against one entry's: loss {loss_rel:.3e} relative, "
+              f"coefficients {coef_rel:.3e} of the largest")
+        _check(all(eq.values()), f"parallel on {label}: not bit-equal {eq}")
+        _check(losses[-1] < losses[0], f"parallel on {label}: fit loss {losses}")
+        _check(loss_rel <= 1e-6 and coef_rel <= 1e-6,
+               f"parallel on {label}: the first fit step departs from one entry's")
+    print(f"path H parallel: {time.perf_counter() - t_par:.1f} s")
+
+    # -- tiles on eight entries ------------------------------------------------
+    t_tiles = time.perf_counter()
+    eight = [dev] * 8
+    sync()
+    t0 = time.perf_counter()
+    tiled = TiledExactOctreeSdf(mesh, box, max_depth=ex.max_depth, start_depth=2,
+                                min_triangles_per_node=32, strategy="lattice",
+                                device_mesh=eight)
+    sync()
+    t_build = time.perf_counter() - t0
+    lo, hi = np.asarray(ex.box.min) - 0.1, np.asarray(ex.box.max) + 0.1
+    p_out = torch.as_tensor(np.random.default_rng(3).uniform(lo, hi, (sz["n_ex"], 3))
+                            .astype(np.float32), device=dev)
+    d_rep, d_til = ex.get_distance(p_out), tiled.get_distance(p_out)
+    tile_ms = _cuda_ms(lambda: tiled.get_distance(p_out)) if cuda else float("nan")
+    rep_ms = _cuda_ms(lambda: ex.get_distance(p_out)) if cuda else float("nan")
+    err = (d_til - d_rep).abs()
+    within = bool((err <= 1e-7 + 1e-6 * d_rep.abs()).all())
+    shard_bytes = tiled.per_chip_bucket_bytes()
+    print(f"TiledExactOctreeSdf on 8 entries: built in {t_build:.3f} s; {sz['n_ex']} points "
+          f"(0.1 beyond the box): max |tiled - replicated| {float(err.max()):.3e}, within "
+          f"rtol 1e-6 atol 1e-7 {within}; {tile_ms:.4f} ms vs replicated {rep_ms:.4f} ms; "
+          f"shard bucket bytes {shard_bytes} (replicated {ex.bucket_bytes})")
+    _check(within, "the tiled exact octree departs from the replicated one")
+    _check(max(shard_bytes) < ex.bucket_bytes, "a shard's buckets are not below the replicated")
+    t0 = time.perf_counter()
+    tiled.save(f("tiled.npz"))
+    back = SdfFunction.load(f("tiled.npz"), device=dev, device_mesh=eight)
+    same = torch.equal(back.get_distance(p_out), d_til)
+    print(f"tiled exact save + load {time.perf_counter() - t0:.3f} s "
+          f"({os.path.getsize(f('tiled.npz'))} B), answers equal {same}")
+    _check(same, "the tiled exact octree's round trip changed its answers")
+    del tiled, back
+    t_oct = TiledOctreeSdf(_octree=oct_, device_mesh=eight)
+    lo, hi = np.asarray(oct_.box.min) - 0.1, np.asarray(oct_.box.max) + 0.1
+    p_out = torch.as_tensor(np.random.default_rng(4).uniform(lo, hi, (sz["n_oct"], 3))
+                            .astype(np.float32), device=dev)
+    dr, gr = oct_.get_distance_and_gradient(p_out)
+    dt, gt = t_oct.get_distance_and_gradient(p_out)
+    d_ok = bool((( t_oct.get_distance(p_out) - oct_.get_distance(p_out)).abs()
+                 <= 1e-7 + 1e-6 * dr.abs()).all())
+    g_ok = bool(((gt - gr).abs() <= 1e-5 + 1e-5 * gr.abs()).all())
+    print(f"TiledOctreeSdf on 8 entries (d{oct_.max_depth} fused rows): {sz['n_oct']} points, "
+          f"distances within rtol 1e-6 atol 1e-7 of the grid route {d_ok} (max "
+          f"{float((dt - dr).abs().max()):.3e}), gradients within 1e-5 {g_ok}; slab bytes "
+          f"{t_oct.per_chip_grid_bytes()}")
+    _check(d_ok and g_ok, "the tiled octree departs from its grid route")
+    print(f"path H tiles: {time.perf_counter() - t_tiles:.1f} s")
+    sync()
+    launches = read_counts()
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"path H took {time.perf_counter() - t_path:.1f} s; launches on path H: {launches}")
+    for name in ("nearest", "scan_window", "scan_grouped"):
+        _check(launches[name] > 0 or not cuda, f"{name} was not launched on path H")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1623,6 +1952,9 @@ def main() -> None:
     t0 = time.perf_counter()
     launches["leftovers"] = leftovers_path(dev, root)
     print(f"path G took {time.perf_counter() - t0:.1f} s")
+
+    # -- main path H, the CLI tools and parallel at full size ---------------
+    launches["tools"] = tools_path(dev, root)
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

@@ -1,0 +1,34 @@
+"""Multi-device execution: shard query points / rays over a device list.
+
+Port of the JAX package's ``parallel/``. The reference parallelizes with
+OpenMP threads inside one host (reference: src/sdf/
+OctreeSdfDepthFirst.h:417-527) and has no distributed backend (SURVEY.md
+S2.4). The scaling model (SURVEY.md S5.7-5.8): query points / rays are
+pure data parallel over devices, SDF structures are replicated when they
+fit (or tiled, ``tiles.py``), and coefficient gradients are summed over
+the devices. The JAX package's 1-D ``"rays"`` mesh is a list of
+``torch.device``s driven by one process (``mesh.py``).
+"""
+from .mesh import (
+    default_mesh,
+    initialize_distributed,
+    pad_to_shards,
+    replicated,
+    sharded_rays,
+)
+from .query import sharded_distance, sharded_distance_and_gradient
+from .render import sharded_trace
+from .fit import data_parallel_fit_step, fit_step
+
+__all__ = [
+    "default_mesh",
+    "initialize_distributed",
+    "pad_to_shards",
+    "replicated",
+    "sharded_rays",
+    "sharded_distance",
+    "sharded_distance_and_gradient",
+    "sharded_trace",
+    "data_parallel_fit_step",
+    "fit_step",
+]

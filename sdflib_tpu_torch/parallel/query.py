@@ -1,0 +1,82 @@
+"""Sharded SDF queries: points data-parallel, structure replicated.
+
+Port of the JAX package's ``parallel/query.py``. Works with every
+structure of the port (``OctreeSdf``, ``ExactOctreeSdf``,
+``UniformGridSdf``, ``RealSdf``): the point batch is padded to a multiple
+of the device list's length and split into contiguous shards, the shards
+of each device (``sharded_rays(mesh).put``) are queried against a replica of
+the structure there, and the answers are concatenated on the first
+entry's device. Each point takes the arithmetic of a single-device query,
+so the answers equal ``sdf.get_distance`` bit for bit.
+"""
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from .mesh import default_mesh, pad_to_shards, per_device, sharded_rays
+
+__all__ = ["sharded_distance", "sharded_distance_and_gradient"]
+
+
+def _device_put_structure(sdf, device):
+    """A shallow copy of the structure whose tensors sit on ``device``;
+    the caller's object is never changed. Every tensor attribute moves
+    (the JAX list's arrays by the port's names: ``_octree_dev``,
+    ``leaf_row0``, ``leaf_nchunks``, ``tri_flat``, ``bucket_ids``,
+    ``bucket_fields``, ``_packed_t``, ``_full_fields_t``, ``fields``,
+    ``_leaf_grid``, ``_query_grid``, ``_fat_grid``, ``grid`` and the box
+    tensors), with ``triangles``; host arrays (``octree_data``,
+    ``leaf_offset``, ``leaf_count``, ``leaf_centers``) stay shared, and the
+    structure's dict caches are copied so queries through the replica
+    leave the caller's untouched."""
+    out = copy.copy(sdf)
+    for name, val in vars(sdf).items():
+        if isinstance(val, torch.Tensor):
+            setattr(out, name, val.to(device))
+        elif isinstance(val, dict):
+            setattr(out, name, dict(val))
+    tris = getattr(sdf, "triangles", None)
+    if tris is not None:
+        out.triangles = type(tris)(*(t.to(device) for t in tris))
+    if hasattr(sdf, "device"):
+        out.device = device
+    return out
+
+
+def _replicas(sdf, mesh) -> dict:
+    """One replica for each distinct device of the list (its tensors are
+    the structure's own where it already sits there)."""
+    return per_device(mesh, lambda d: _device_put_structure(sdf, d))
+
+
+def _blocks(points, mesh):
+    """(per-device blocks of the padded batch, the batch's shape, its
+    point count)."""
+    pts = torch.as_tensor(points, dtype=torch.float32)
+    flat = pts.reshape(-1, 3)
+    P_ = flat.shape[0]
+    flat = torch.nn.functional.pad(flat, (0, 0, 0, pad_to_shards(P_, mesh) - P_))
+    return sharded_rays(mesh).put(flat), pts.shape, P_
+
+
+def sharded_distance(sdf, points, mesh=None):
+    """Distances for a point batch sharded over the device list, on its
+    first entry's device."""
+    mesh = default_mesh(mesh)
+    blocks, shape, P_ = _blocks(points, mesh)
+    reps = _replicas(sdf, mesh)
+    d = torch.cat([reps[dev].get_distance(b).to(mesh[0]) for dev, b in blocks])
+    return d[:P_].reshape(shape[:-1])
+
+
+def sharded_distance_and_gradient(sdf, points, mesh=None):
+    """Distances + gradients, points sharded over the device list."""
+    mesh = default_mesh(mesh)
+    blocks, shape, P_ = _blocks(points, mesh)
+    reps = _replicas(sdf, mesh)
+    outs = [reps[dev].get_distance_and_gradient(b) for dev, b in blocks]
+    d = torch.cat([o[0].to(mesh[0]) for o in outs])
+    g = torch.cat([o[1].to(mesh[0]) for o in outs])
+    return d[:P_].reshape(shape[:-1]), g[:P_].reshape(shape)

@@ -3,11 +3,15 @@ ambient occlusion, soft shadows, iteration heatmaps.
 
 Port of the JAX package's ``render/shading.py`` (reference:
 shaders/sdfOctreeRender.comp: getAO :258-271, softshadow :273-309,
-Cook-Torrance mapColor :329-389, palette :410-427). Every function runs
-as batched torch ops on the device of its first tensor argument (the
-normals, positions or iteration counts); numpy inputs join it there. AO
-and soft shadows re-march the SDF through a distance callable, as the
-reference does.
+Cook-Torrance mapColor :329-389, palette :410-427), as batched torch
+ops. AO and soft shadows re-march the SDF through a distance callable,
+as the reference does.
+
+Every function runs on the device of its first tensor argument (the
+normals, positions, hits, iteration counts or shading terms); non-tensor
+arguments join it there. A call with no tensor argument runs on its
+``device``: the card unless the caller passes the CPU (through
+``resolve_device``, so without a card it raises).
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..sdf.sdf_function import resolve_device
 
 __all__ = ["normal_color", "shade_lambert", "shade_pbr", "ambient_occlusion",
            "soft_shadow", "iteration_heatmap"]
@@ -36,10 +42,18 @@ ITER_PALETTE = torch.tensor(
 
 def _t(x, device, dtype=torch.float32):
     """``x`` (tensor, array or sequence) as a ``dtype`` tensor on
-    ``device`` (a tensor's own device for None); arrays are copied."""
+    ``device``; arrays are copied."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _device(*args, device) -> torch.device:
+    """The device of the first tensor among ``args``, else ``device``."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return resolve_device(device)
 
 
 def _unit(v):
@@ -51,9 +65,9 @@ def _normalize(v):
     return v / (v * v).sum(-1, keepdim=True).sqrt().clamp_min(1e-9)
 
 
-def normal_color(normal, hit, background=(0.9, 0.9, 0.9)):
+def normal_color(normal, hit, background=(0.9, 0.9, 0.9), *, device="cuda"):
     """Classic 0.5*(n+1) normal visualization for hit pixels."""
-    normal = _t(normal, None)
+    normal = _t(normal, _device(normal, hit, device=device))
     hit = _t(hit, normal.device, torch.bool)
     col = 0.5 * (normal + 1.0)
     return torch.where(hit[..., None], col, _t(background, normal.device))
@@ -72,12 +86,14 @@ def shade_lambert(
     ao=None,
     shadow=None,
     background=(0.9, 0.9, 0.9),
+    *,
+    device="cuda",
 ):
     """Lambert + Blinn specular with optional AO/shadow modulation: the
     role of mapColor (comp shader :329-389) without the Cook-Torrance
     microfacet terms. Without ``view_dir`` there is no specular term."""
-    normal = _t(normal, None)
-    dev = normal.device
+    dev = _device(position, normal, hit, view_dir, ao, shadow, device=device)
+    normal = _t(normal, dev)
     hit = _t(hit, dev, torch.bool)
     l = _unit(_t(light_dir, dev))
     diffuse = (normal * l).sum(-1).clamp_min(0.0)
@@ -110,12 +126,14 @@ def shade_pbr(
     ao=None,
     shadow=None,
     background=(0.9, 0.9, 0.9),
+    *,
+    device="cuda",
 ):
     """Cook-Torrance microfacet shading (GGX distribution, Smith geometry,
     Fresnel-Schlick): the reference compute shader's mapColor pipeline
     (sdfOctreeRender.comp:82-121 BRDF terms, :329-389 composition)."""
-    n = _t(normal, None)
-    dev = n.device
+    dev = _device(position, normal, hit, view_dir, ao, shadow, device=device)
+    n = _t(normal, dev)
     hit = _t(hit, dev, torch.bool)
     v = _normalize(-_t(view_dir, dev))
     l = _unit(_t(light_dir, dev))
@@ -160,10 +178,10 @@ def shade_pbr(
     return torch.where(hit[..., None], col, _t(background, dev))
 
 
-def ambient_occlusion(distance_fn, position, normal, *, taps: int = 8):
+def ambient_occlusion(distance_fn, position, normal, *, taps: int = 8, device="cuda"):
     """8-tap AO along the normal (comp shader getAO :258-271):
     occ += max(h - d(p + n*h), 0) for h = 0.002 + 0.1*i/8; 1 - 1.9*occ."""
-    position = _t(position, None)
+    position = _t(position, _device(position, normal, device=device))
     normal = _t(normal, position.device)
     occ = torch.zeros(position.shape[:-1], dtype=torch.float32, device=position.device)
     for i in range(taps):
@@ -174,10 +192,11 @@ def ambient_occlusion(distance_fn, position, normal, *, taps: int = 8):
 
 
 def soft_shadow(distance_fn, position, light_dir, *, k: float = 8.0,
-                t_min: float = 0.005, t_max: float = 5.0, steps: int = 64):
+                t_min: float = 0.005, t_max: float = 5.0, steps: int = 64,
+                device="cuda"):
     """Improved soft shadow march toward the light
     (comp shader softshadow :273-309 semantics, fixed step count)."""
-    position = _t(position, None)
+    position = _t(position, _device(position, light_dir, device=device))
     dev = position.device
     l = _unit(_t(light_dir, dev))
     shape = position.shape[:-1]
@@ -194,9 +213,9 @@ def soft_shadow(distance_fn, position, light_dir, *, k: float = 8.0,
     return res.clamp(0.0, 1.0)
 
 
-def iteration_heatmap(iterations, max_iters: int):
+def iteration_heatmap(iterations, max_iters: int, *, device="cuda"):
     """Map march-iteration counts through the 5-color palette."""
-    iterations = _t(iterations, None)
+    iterations = _t(iterations, _device(iterations, device=device))
     t = (iterations / max_iters).clamp(0.0, 1.0)
     idx = (t * 4.0).clamp(0.0, 3.999)
     i0 = idx.to(torch.int64)

@@ -30,6 +30,7 @@ from ..sdf.octree import (
     _octree_query_fat,
     _octree_query_grid,
 )
+from ..sdf.sdf_function import resolve_device
 
 __all__ = ["TraceResult", "sphere_trace", "trace_octree"]
 
@@ -214,11 +215,18 @@ def sphere_trace(
     eps: float = 1e-5,
     far: float = 10.0,
     max_iters: int = 1024,
+    device="cuda",
 ):
     """Generic batched ray march from fresh origins, on the device of
-    ``origins`` (numpy inputs: the CPU). Returns (hit, position, depth,
-    iterations), iterations the last trip with an active ray."""
-    origins = torch.as_tensor(origins, dtype=torch.float32)
+    ``origins`` where it is a tensor, else on ``device`` (the card unless
+    the caller passes the CPU; without a card a CUDA device raises).
+    Returns (hit, position, depth, iterations), iterations the last trip
+    with an active ray."""
+    if isinstance(origins, torch.Tensor):
+        origins = origins.to(torch.float32)
+    else:
+        origins = torch.as_tensor(origins, dtype=torch.float32,
+                                  device=resolve_device(device))
     shape = origins.shape[:-1]
     zeros = torch.zeros(shape, dtype=torch.float32, device=origins.device)
     init = (origins, zeros, torch.full_like(zeros, torch.inf), torch.ones_like(zeros))
@@ -325,6 +333,7 @@ def trace_octree(
     beam: int | None = 4,
     pyramid: bool = True,
     stats_out: dict | None = None,
+    active=None,
 ) -> TraceResult:
     """Sphere-trace rays against an ``OctreeSdf`` on its device. eps and
     far are in normalized octree space (box edge = 1), as in the
@@ -349,7 +358,9 @@ def trace_octree(
 
     ``iterations`` is each ray's own count of march steps, as the
     reference shader's heatmap shows it. ``stats_out["rounds"]`` receives
-    (iters, marched, still_active) per round."""
+    (iters, marched, still_active) per round. ``active`` (one bool a
+    ray, default all) marks the rays that march; the others keep their
+    origin, depth 0 and no hit (``parallel.sharded_trace``'s padding)."""
     del block_size, pyramid
     dev = octree.device
     origins = torch.as_tensor(origins, dtype=torch.float32, device=dev)
@@ -416,7 +427,9 @@ def trace_octree(
     last_d = torch.full((R,), torch.inf, device=dev)
     iterations = torch.zeros(R, dtype=torch.int32, device=dev)
     cur = torch.arange(R, device=dev)
-    sub = (pos, acc, last_d, torch.ones(R, device=dev))
+    live0 = (torch.ones(R, device=dev) if active is None
+             else torch.as_tensor(active, device=dev).reshape(R).to(torch.float32))
+    sub = (pos, acc, last_d, live0)
     sub_dirs = d
     n_cur, remaining = R, max_iters
     round_iters = min(_FIRST_ROUND_ITERS, max_iters)

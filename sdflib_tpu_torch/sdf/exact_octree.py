@@ -510,6 +510,8 @@ def _build_exact(
     futility: float | None = 0.8,
     entry_budget: int = 1 << 27,
     strategy: str = "region",
+    seed_cells: tuple[int, int] | None = None,
+    shared_tables: CullTables | None = None,
 ):
     """Level-synchronous exact build on the triangles' device, each
     node's candidates culled by ``strategy`` (``_CULL_CHUNKS``). Returns
@@ -523,11 +525,18 @@ def _build_exact(
     ``entry_budget`` candidate entries, the parents split into slices
     built depth first. At most ``_CULL_GROUPS_IN_FLIGHT`` groups' culls
     are enqueued ahead of the host's consumption, which bounds the live
-    (N, K) cull outputs."""
+    (N, K) cull outputs.
+
+    ``seed_cells`` = (lo, hi) builds only the start cells [lo, hi) of the
+    z-major start grid (a shard of ``parallel.TiledExactOctreeSdf``): the
+    global build's subtrees of those cells, in a flat array of their own
+    whose start block holds the hi - lo cells, padded to a multiple of 8
+    words so every child octet stays 8-aligned. ``shared_tables`` reuses
+    one ``prepare_cull_inputs(tris, strategy)`` across such builds."""
     if strategy not in _CULL_CHUNKS:
         raise ValueError(f"strategy must be one of {_CULL_STRATEGIES}, got {strategy!r}")
     device = tris.origin.device
-    tables = prepare_cull_inputs(tris, strategy)
+    tables = prepare_cull_inputs(tris, strategy) if shared_tables is None else shared_tables
     T = tables.packed.shape[0]
     box_min = np.asarray(box_min, np.float32)
 
@@ -542,6 +551,8 @@ def _build_exact(
         ],
         axis=-1,
     ).astype(np.float32)
+    if seed_cells is not None:
+        centers_np = centers_np[seed_cells[0] : seed_cells[1]]
     n0 = centers_np.shape[0]
     Tp = _round_pow2(T, 8)
     lane = torch.arange(Tp, dtype=torch.int32, device=device)
@@ -979,8 +990,7 @@ class ExactOctreeSdf(SdfFunction):
         frac = (pts - self._box_min) / cell
         ipos = frac.floor().to(torch.int32)
         frac = frac - ipos
-        ic = ipos.clamp(0, s - 1).long()
-        word = self._octree_dev[ic[:, 2] * (s * s) + ic[:, 1] * s + ic[:, 0]]
+        word = self._octree_dev[self._start_index(ipos.clamp(0, s - 1).long())]
         for _ in range(self.max_depth - self.start_depth):
             is_leaf = (word & int(IS_LEAF_MASK)) != 0
             bits = frac > 0.5
@@ -991,6 +1001,11 @@ class ExactOctreeSdf(SdfFunction):
             word = torch.where(is_leaf, word, nxt)
             frac = torch.where(is_leaf[:, None], frac, nfrac)
         return word & int(CHILDREN_INDEX_MASK)
+
+    def _start_index(self, ic):
+        """The flat word index of each (P, 3) start cell (z-major)."""
+        s = self.start_grid_size
+        return ic[:, 2] * (s * s) + ic[:, 1] * s + ic[:, 0]
 
     def _sort_by_leaf(self, pts):
         """(points sorted by leaf (stable), their leaf ids (int64), the

@@ -72,8 +72,12 @@ class SdfFunction(abc.ABC):
         np.savez(path, **state)
 
     @staticmethod
-    def load(path: str, device="cuda") -> "SdfFunction":
-        """Load a container written by either package onto ``device``."""
+    def load(path: str, device="cuda", device_mesh=None) -> "SdfFunction":
+        """Load a container written by either package onto ``device``. A
+        tiled container loads onto ``device_mesh`` (a device list as long
+        as the file's shard count); without one, onto every visible card
+        for a CUDA ``device`` without an index, else onto ``device``
+        alone."""
         device = resolve_device(device)
         with np.load(path, allow_pickle=False) as f:
             state = {k: f[k] for k in f.files}
@@ -94,6 +98,13 @@ class SdfFunction(abc.ABC):
             from .octree import OctreeSdf
 
             return OctreeSdf.from_jax_state(state, device=device)
-        raise NotImplementedError(
-            f"format {fmt.value!r} is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        if fmt in (SdfFormat.EXACT_OCTREE_TILED, SdfFormat.OCTREE_TILED):
+            from ..parallel.mesh import default_mesh
+            from ..parallel.tiles import TiledExactOctreeSdf, TiledOctreeSdf
+
+            if device_mesh is None:
+                whole = device.type == "cuda" and device.index is None
+                device_mesh = default_mesh() if whole else [device]
+            cls = TiledExactOctreeSdf if fmt == SdfFormat.EXACT_OCTREE_TILED else TiledOctreeSdf
+            return cls(_state=state, device_mesh=device_mesh)
+        raise ValueError(f"{path!r} holds no structure (format {fmt.value!r})")

@@ -180,9 +180,11 @@ def test_query_shapes_and_batches(port_sdf, pts):
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still refuses: an unknown strategy and bucket format,
-    and the tiled container (ROADMAP.md, Queue 1). The other strategies
-    build, and a bucket table over the budget takes the id-only tier."""
+    """What the port refuses: an unknown strategy and bucket format, and a
+    container of the "none" format, which holds no structure (the tiled
+    containers load since the tiles were ported: tests/
+    test_torch_parallel_tiles.py). The other strategies build, and a
+    bucket table over the budget takes the id-only tier."""
     mesh, box = _mesh_box(make_torus)
     with pytest.raises(ValueError, match="strategy"):
         ExactOctreeSdf(mesh, box, strategy="nearest", **CFG, device="cpu")
@@ -190,9 +192,9 @@ def test_unported_options_raise(tmp_path):
         ExactOctreeSdf(mesh, box, bucket_format="vertex4", **CFG, device="cpu")
     small = ExactOctreeSdf(mesh, box, bucket_byte_budget=1024, **CFG, device="cpu")
     assert small.bucket_tier == "id_only" and small.bucket_fields is None
-    path = str(tmp_path / "tiled.npz")
-    np.savez(path, __format__=np.array("octree_tiled"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    path = str(tmp_path / "none.npz")
+    np.savez(path, __format__=np.array("none"))
+    with pytest.raises(ValueError, match="no structure"):
         SdfFunction.load(path, device="cpu")
 
 

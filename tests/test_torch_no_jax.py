@@ -11,7 +11,10 @@ a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
 ``UniformGridSdf`` with its ``.bin`` round trip, bit-equal; then one
 ``octree_query_diff`` backward (a finite coefficient gradient that leaves
 the words unchanged), an EXACT_OCTREE ``.bin`` round trip with the same
-answers, and a ``lattice`` exact build within 1e-5 of RealSdf."""
+answers, and a ``lattice`` exact build within 1e-5 of RealSdf; then
+every module of ``tools/`` and ``parallel/`` imports, and ``sdf_export``
+writes an exact octree of an ASCII PLY that ``sdf_error`` holds within
+1e-5 of the mesh's ``RealSdf``, end to end on the CPU."""
 import os
 import subprocess
 import sys
@@ -110,6 +113,35 @@ SCRIPT = textwrap.dedent(
                          strategy="lattice", device="cpu")
     err = (lat.get_distance(pts) - ref).abs()
     assert float(err[torch.as_tensor(inside)].max()) <= 1e-5
+    import importlib
+    import io
+    import contextlib
+    import pkgutil
+    import sdflib_tpu_torch.parallel
+    import sdflib_tpu_torch.tools
+    for pkg in (sdflib_tpu_torch.tools, sdflib_tpu_torch.parallel):
+        names = [m.name for m in pkgutil.iter_modules(pkg.__path__)]
+        assert len(names) == {"sdflib_tpu_torch.tools": 12,
+                              "sdflib_tpu_torch.parallel": 5}[pkg.__name__], names
+        for name in names:
+            importlib.import_module(f"{pkg.__name__}.{name}")
+    from sdflib_tpu_torch.tools import sdf_error, sdf_export
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "torus.ply")
+        with open(ply, "w") as f:
+            f.write("ply\\nformat ascii 1.0\\nelement vertex %d\\nproperty float x\\n"
+                    "property float y\\nproperty float z\\nelement face %d\\n"
+                    "property list uchar int vertex_indices\\nend_header\\n"
+                    % (mesh.num_vertices, mesh.num_triangles))
+            f.writelines("%r %r %r\\n" % tuple(map(float, v)) for v in mesh.vertices)
+            f.writelines("3 %d %d %d\\n" % tuple(t) for t in mesh.indices)
+        out = os.path.join(tmp, "e.npz")
+        assert sdf_export.main([ply, out, "--sdf_format", "exact_octree", "-d", "3",
+                                "--start_depth", "1", "--device", "cpu"]) == 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert sdf_error.main([out, ply, "-m", "0.002", "--device", "cpu"]) == 0
+        assert float(buf.getvalue().split("Max error:")[1]) <= 1e-5, buf.getvalue()
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)

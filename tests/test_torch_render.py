@@ -115,7 +115,7 @@ def test_sphere_trace_analytic_and_miss():
     dirs = -origins / np.linalg.norm(origins, axis=-1, keepdims=True)
     dirs[3] = (0.0, 0.0, 1.0)                     # the miss
     hit, pos, depth, it = sphere_trace(lambda p: p.norm(dim=-1) - 0.5, origins, dirs,
-                                       eps=1e-5, far=8.0)
+                                       eps=1e-5, far=8.0, device="cpu")
     hj, _, dj, itj = j_sphere_trace(lambda p: jnp.linalg.norm(p, axis=-1) - 0.5,
                                     origins, dirs, eps=1e-5, far=8.0)
     np.testing.assert_array_equal(hit.numpy(), [True, True, True, False])
@@ -124,6 +124,26 @@ def test_sphere_trace_analytic_and_miss():
     np.testing.assert_allclose(pos.norm(dim=-1).numpy()[:3], 0.5, atol=1e-3)
     np.testing.assert_allclose(depth.numpy(), np.asarray(dj), rtol=0, atol=1e-6)
     assert int(it) == int(itj)
+
+
+def test_sphere_trace_placement():
+    """Numpy rays march on the card unless the caller passes the CPU:
+    without a card the default raises; ``device="cpu"`` gives the answers
+    of CPU tensors bit for bit."""
+    origins = np.array([[0, 0, 2.0], [0, 2.0, 0], [2.0, 2.0, 2.0]], np.float32)
+    dirs = -origins / np.linalg.norm(origins, axis=-1, keepdims=True)
+    dirs[2] = (0.0, 0.0, 1.0)
+
+    def fn(p):
+        return p.norm(dim=-1) - 0.5
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sphere_trace(fn, origins, dirs, eps=1e-5, far=8.0)
+    a = sphere_trace(fn, origins, dirs, eps=1e-5, far=8.0, device="cpu")
+    b = sphere_trace(fn, torch.from_numpy(origins), dirs, eps=1e-5, far=8.0)
+    for x, y in zip(a, b):
+        assert x.device.type == "cpu" and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("beam", [4, None])
@@ -180,24 +200,60 @@ def test_shading_matches_jax(shaded_inputs, fn):
     r, d = shaded_inputs
     ao = np.linspace(0.2, 1.0, 64 * 64, dtype=np.float32).reshape(64, 64)
     shadow = ao[::-1].copy()
+    def kw(m):
+        """The port runs numpy inputs on the CPU only when asked."""
+        return {"device": "cpu"} if m is ps else {}
+
     args = {
-        "normal_color": lambda m: m.normal_color(r["normal"], r["hit"]),
+        "normal_color": lambda m: m.normal_color(r["normal"], r["hit"], **kw(m)),
         "shade_lambert": lambda m: m.shade_lambert(r["position"], r["normal"], r["hit"],
-                                                   view_dir=d, ao=ao, shadow=shadow),
+                                                   view_dir=d, ao=ao, shadow=shadow, **kw(m)),
         # without a view direction there is no specular term; the JAX
         # function raises there (ROADMAP.md, Queue 3), so its value is
         # JAX's with specular=0
         "shade_lambert_plain": lambda m: (
-            m.shade_lambert(r["position"], r["normal"], r["hit"])
+            m.shade_lambert(r["position"], r["normal"], r["hit"], **kw(m))
             if m is ps else m.shade_lambert(r["position"], r["normal"], r["hit"],
                                             view_dir=d, specular=0.0)),
         "shade_pbr": lambda m: m.shade_pbr(r["position"], r["normal"], r["hit"], d, ao=ao,
-                                           shadow=shadow, metallic=0.3),
-        "iteration_heatmap": lambda m: m.iteration_heatmap(r["iterations"], 256),
+                                           shadow=shadow, metallic=0.3, **kw(m)),
+        "iteration_heatmap": lambda m: m.iteration_heatmap(r["iterations"], 256, **kw(m)),
     }[fn]
     out = args(ps)
     assert isinstance(out, torch.Tensor) and out.shape == (64, 64, 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(args(js)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["normal_color", "shade_lambert", "shade_pbr",
+                                "ambient_occlusion", "soft_shadow", "iteration_heatmap"])
+def test_shading_placement(shaded_inputs, fn):
+    """Numpy inputs shade on the card unless the caller passes the CPU:
+    without a card the default raises; ``device="cpu"`` gives the answers
+    of CPU tensors bit for bit."""
+    r, d = shaded_inputs
+    ao = np.linspace(0.2, 1.0, 64 * 64, dtype=np.float32).reshape(64, 64)
+
+    def sphere(p):
+        return p.norm(dim=-1) - 0.5
+
+    call = {
+        "normal_color": lambda f, **k: ps.normal_color(f(r["normal"]), f(r["hit"]), **k),
+        "shade_lambert": lambda f, **k: ps.shade_lambert(
+            f(r["position"]), f(r["normal"]), f(r["hit"]), view_dir=f(d), ao=f(ao), **k),
+        "shade_pbr": lambda f, **k: ps.shade_pbr(
+            f(r["position"]), f(r["normal"]), f(r["hit"]), f(d), ao=f(ao), **k),
+        "ambient_occlusion": lambda f, **k: ps.ambient_occlusion(
+            sphere, f(r["position"]), f(r["normal"]), **k),
+        "soft_shadow": lambda f, **k: ps.soft_shadow(
+            sphere, f(r["position"]), (0.577, 0.577, 0.577), **k),
+        "iteration_heatmap": lambda f, **k: ps.iteration_heatmap(f(r["iterations"]), 256, **k),
+    }[fn]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(np.asarray)
+    a = call(np.asarray, device="cpu")
+    b = call(torch.tensor)
+    assert a.device.type == "cpu" and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("fn", ["ambient_occlusion", "soft_shadow"])
@@ -207,11 +263,11 @@ def test_ao_and_shadow_match_jax(octrees, shaded_inputs, fn):
     r, _ = shaded_inputs
     pos, n = r["position"], r["normal"]
     if fn == "ambient_occlusion":
-        out = ps.ambient_occlusion(p.get_distance, pos, n)
+        out = ps.ambient_occlusion(p.get_distance, pos, n, device="cpu")
         ref = js.ambient_occlusion(j.get_distance, jnp.asarray(pos), jnp.asarray(n))
     else:
         light = (0.577, 0.577, 0.577)
-        out = ps.soft_shadow(p.get_distance, pos, light)
+        out = ps.soft_shadow(p.get_distance, pos, light, device="cpu")
         ref = js.soft_shadow(j.get_distance, jnp.asarray(pos), light)
     assert out.shape == (64, 64)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
