@@ -46,10 +46,16 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
 * main path D, the sphere tracer at bench.py's configuration
   (bench.py:151-187): path C's no_continuity octree after
   ``build_query_grid``, 1024^2 rays from z = -1.2 along +z,
-  ``max_iters=1024``, eps 1e-5, far 4; rays/s (best of 3 after a warmup)
-  beside the frame's bound from bytes, the hits, rounds, ray-trips, the
-  device activities and a ``breakdown`` of a frame; the hits held to a
-  plain host march through ``get_distance`` on every 16th ray, to
+  ``max_iters=1024``, eps 1e-5, far 4. The frame takes the static
+  pyramid as captured CUDA graphs: the first frame's seconds (its
+  captures), a second frame that replays without capturing, both
+  bit-equal to the eager schedule; then the graph path and the dynamic
+  scheduler (``pyramid=False``) each timed (best of 3 after a warmup)
+  with rays/s, a ``breakdown`` (device activities, busy share, host syncs
+  and graph launches from the profiler), useful against marched
+  ray-trips and the bound from bytes; the two held to each other (hit
+  masks on >= 99.8%, depths within 1e-3); the graph path's hits held to
+  a plain host march through ``get_distance`` on every 16th ray, to
   ``RealSdf`` (q95 below 8e-3) and to the trace without a beam; then a
   512^2 camera frame in sdf_render's defaults shaded five ways (written
   as PNGs to a temporary directory) and a 512^2 plane cut;
@@ -97,13 +103,16 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   four entries of the card in one call and in four calls (``cuda:0`` and
   ``cuda`` twice): ``sharded_distance`` (2^22, 2^21 and the
   10k oracle points), ``sharded_distance_and_gradient`` (2^20) and
-  ``sharded_trace`` (bench.py's 1024^2 rays) bit-equal to the
+  ``sharded_trace`` (bench.py's 1024^2 rays, each list twice: the first
+  call of a shard shape captures its graphs) bit-equal to the
   single-device calls, and ten fit steps whose loss falls, the first
   within 1e-6 of the one-entry step; then the tiled
   exact octree on eight entries within rtol 1e-6, atol 1e-7 of the
   replicated one on 2^21 points (0.1 beyond the box), its shard bytes
   below the replicated table and its round trip, and the tiled d7
-  approximate octree against its grid route on 2^22 points.
+  approximate octree against its grid route on 2^22 points; K2 against
+  its plain version at the tools' shapes, 2^22 and 262,144 points x
+  9,216 triangles (after the path's launch counts are read).
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -321,11 +330,19 @@ def k2_vs_plain(pts, fields, tris, label, n_check=None):
     return err, ms, plain_ms, bound
 
 
-def breakdown(fn, label, top=6):
+# Host-side profiler events that wait for the device (a tensor read as a
+# Python number, a nonzero's size) and that launch a CUDA graph.
+SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::nonzero")
+GRAPH_LAUNCH_EVENTS = ("cudaGraphLaunch",)
+
+
+def breakdown(fn, label, top=6, counts=None):
     """Where a call's time goes: CUDA-event time, device and host time
     per call from torch.profiler over 3 calls, the busy share, and the
     kernels with the most device time. Returns (CUDA-event ms, device
-    busy ms, device activities a call)."""
+    busy ms, device activities a call). ``counts``, a dict of event
+    names, receives each name's calls a call (summed over the names of a
+    tuple key)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -347,7 +364,51 @@ def breakdown(fn, label, top=6):
           f"{sum(e.count for e in on_dev) // 3} device activities a call")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
+    for names in counts or {}:
+        counts[names] = sum(e.count for e in avgs if e.key in names) / 3
     return ev_ms, busy_ms, sum(e.count for e in on_dev) // 3
+
+
+def device_timeline(fn, label, long_us: float = 20.0):
+    """One call of ``fn`` under torch.profiler, read as a timeline: the
+    union of the device activities' intervals over the span from the
+    first one's start to the last one's end (one call, so the share
+    cannot pass 100%), and the idle gaps in that span, split at
+    ``long_us``: short gaps between queued kernels (a graph's nodes, or
+    launches ahead of the device) and long ones, where the device waited
+    on the host. Returns (span ms, busy ms, short-gap ms, long gaps,
+    long-gap ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy = short = long_sum = 0.0
+    gaps = []
+    lo, hi = spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            gaps.append(start - hi)
+            lo = start
+        hi = max(hi, end)
+    busy += hi - lo
+    span = hi - spans[0][0]
+    long_gaps = [g for g in gaps if g >= long_us]
+    short, long_sum = sum(gaps) - sum(long_gaps), sum(long_gaps)
+    print(f"timeline, {label}: {len(spans)} device activities over {span / 1e3:.4f} ms, "
+          f"busy {busy / 1e3:.4f} ms ({busy / span:.1%}); idle {short / 1e3:.4f} ms in "
+          f"{len(gaps) - len(long_gaps)} gaps under {long_us:.0f} us (mean "
+          f"{short / max(len(gaps) - len(long_gaps), 1):.3f} us), {long_sum / 1e3:.4f} ms in "
+          f"{len(long_gaps)} gaps of {long_us:.0f} us or more (largest "
+          f"{sorted(long_gaps, reverse=True)[:5]} us)")
+    return span / 1e3, busy / 1e3, short / 1e3, len(long_gaps), long_sum / 1e3
 
 
 def _uniform(box, n: int, seed: int, dev):
@@ -574,10 +635,13 @@ def trace_path(dev, n_rays: int):
     (bench.py:151-187): path C's no_continuity octree (built here, its
     seed lattice through K2) after ``build_query_grid``, n_rays^2 rays on
     z = -1.2 marching +z, ``max_iters=1024``, eps 1e-5, far 4. The counts
-    run from the build to the first frame. Then the frame is timed, its
-    bound printed, its hits held to a plain host march, to ``RealSdf`` and
-    to the trace without a beam; then a 512^2 camera frame shaded five
-    ways and a 512^2 plane cut. Returns the path's launch counts."""
+    run from the build to the first frame, which captures the pyramid's
+    CUDA graphs. A second frame replays them; both equal the eager
+    schedule bit for bit. Then the graph path and the dynamic scheduler
+    are timed and broken down, held to each other, the graph path's hits
+    held to a plain host march, to ``RealSdf`` and to the trace without a
+    beam; then a 512^2 camera frame shaded five ways and a 512^2 plane
+    cut. Returns the path's launch counts."""
     import tempfile
 
     import torch
@@ -594,6 +658,7 @@ def trace_path(dev, n_rays: int):
         trace_octree,
         write_png,
     )
+    from sdflib_tpu_torch.render.sphere_trace import _trace
     from sdflib_tpu_torch.utils.primitives import make_torus
 
     mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
@@ -611,8 +676,11 @@ def trace_path(dev, n_rays: int):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     stats = {}
-    res = trace_octree(sdf, origins, dirs, stats_out=stats, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = trace_octree(sdf, origins, dirs, stats_out=stats, **kw)    # captures the graphs
     torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
     launches = read_counts()
     print(f"trace path D: octree and query grid built in {build_s:.3f} s; launches on "
           f"main path D: {launches}")
@@ -624,25 +692,68 @@ def trace_path(dev, n_rays: int):
     _check(res.depth.shape == (n_rays, n_rays) and bool(torch.isfinite(res.depth).all())
            and bool(torch.isfinite(res.normal[hit]).all()), "trace outputs are not finite")
     _check(0 < n_hit < R, f"{n_hit} of {R} rays hit")
-    ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
+    sched = stats["rounds"][0][1]
+    print(f"trace d6 {n_rays}^2 rays, the graph path's first frame: {capture_s:.3f} s (host "
+          f"clock, the warm-up runs and captures included); {stats['graphs_captured']} graphs "
+          f"captured, {stats['host_syncs']} host syncs; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; pyramid {sched} "
+          f"({sum(k * n for k, n in sched)} prefix ray-trips offered)")
+    _check(stats["graphs_captured"] > 0, "the pyramid frame captured no graph")
+    again = {}
+    res2 = trace_octree(sdf, origins, dirs, stats_out=again, **kw)
+    _check(again["graphs_captured"] == 0 and again["graphs_replayed"] > 0,
+           f"the second frame did not replay its graphs: {again}")
+    eager = _trace(sdf, origins, dirs, block_size=None, beam=4, pyramid=True, stats_out=None,
+                   active=None, graphs=False, **kw)
+    same = [torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(res, res2, eager)]
+    print(f"graph frames against the eager schedule, bit-equal by field: {same}")
+    _check(all(same), "the graph frame departs from the eager schedule")
+    del res2, eager
+
+    # both ways timed, each with its device activities, busy share, host
+    # syncs and graph launches from the profiler
+    dstats = {}
+    dyn = trace_octree(sdf, origins, dirs, pyramid=False, stats_out=dstats, **kw)
+    offered = {"graphs": stats["marched_ray_trips"],
+               "dynamic": sum(k * n for k, n, _ in dstats["rounds"])}
     bound = trips * TRACE_STEP_BYTES / PEAK_BYTES * 1e3
-    print(f"trace d6 {n_rays}^2 rays (beam 4, fused rows): {ms:.4f} ms a frame, "
-          f"{R / ms * 1e3:.6e} rays/s; hits {n_hit}; ray-trips (sum of iterations) "
-          f"{trips}, max {int(res.iterations.max())} a ray; rounds (iters, marched, "
-          f"still active) {stats['rounds']}; bound {bound:.4f} ms (bytes, "
-          f"{TRACE_STEP_BYTES} B a ray-trip) = {bound / ms:.2%} of the frame")
-    # the frame split: 8 trips over every ray (and the normals) with and
-    # without the beam prepass, the later rounds the rest of the frame
+    frame_ms = {}
+    for way, extra in (("graphs", {}), ("dynamic", {"pyramid": False})):
+        def frame():
+            return trace_octree(sdf, origins, dirs, **extra, **kw)
+
+        ms = frame_ms[way] = _cuda_ms(frame)
+        counts = {SYNC_EVENTS: 0, GRAPH_LAUNCH_EVENTS: 0}
+        ev_ms, busy_ms, acts = breakdown(frame, f"trace d6 {n_rays}^2 rays, {way}", top=8,
+                                         counts=counts)
+        print(f"trace d6 {n_rays}^2 rays (beam 4, fused rows), {way}: {ms:.4f} ms a frame, "
+              f"{R / ms * 1e3:.6e} rays/s; {acts} device activities, device busy "
+              f"{busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}); host syncs {counts[SYNC_EVENTS]:.0f}, "
+              f"graph launches {counts[GRAPH_LAUNCH_EVENTS]:.0f} a frame (profiler); useful "
+              f"ray-trips (sum of iterations) {trips} against {offered[way]} marched; bound "
+              f"{bound:.4f} ms (bytes, {TRACE_STEP_BYTES} B a useful ray-trip) = "
+              f"{bound / ms:.2%} of the frame")
+        device_timeline(frame, f"trace d6 {n_rays}^2 rays, {way}")
+    print(f"trace frames: graphs {frame_ms['graphs']:.4f} ms against dynamic "
+          f"{frame_ms['dynamic']:.4f} ms ({frame_ms['dynamic'] / frame_ms['graphs']:.2f}x); "
+          f"hits {n_hit}, max {int(res.iterations.max())} iterations a ray; graph stats "
+          f"{again}; dynamic rounds (iters, marched, still active) {dstats['rounds']}")
+    agree = float((dyn.hit == hit).float().mean())
+    both = dyn.hit & hit
+    d_err = float((dyn.depth[both] - res.depth[both]).abs().max())
+    print(f"pyramid against dynamic: hit masks agree on {agree:.6%}, max |depth diff| "
+          f"{d_err:.3e}; bit-equal by field {[torch.equal(a, b) for a, b in zip(res, dyn)]}")
+    _check(agree >= 0.998, f"pyramid and dynamic hit masks agree on {agree:.4%}")
+    _check(d_err <= 1e-3, f"pyramid and dynamic depths differ by {d_err}")
+    del dyn
+    # the dynamic frame's split: 8 trips over every ray (and the normals)
+    # with and without the beam prepass, the later rounds the rest
     first_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **dict(kw, max_iters=8)))
     round1_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, beam=None,
                                               **dict(kw, max_iters=8)))
-    print(f"trace frame split: beam prepass {first_ms - round1_ms:.4f} ms; the first round "
+    print(f"dynamic frame split: beam prepass {first_ms - round1_ms:.4f} ms; the first round "
           f"(8 trips over all {R} rays) and the normals {round1_ms:.4f} ms; the later "
-          f"rounds {ms - first_ms:.4f} ms")
-    ev_ms, busy_ms, acts = breakdown(lambda: trace_octree(sdf, origins, dirs, **kw),
-                                     f"trace d6 {n_rays}^2 rays", top=10)
-    print(f"trace d6 {n_rays}^2 rays: {acts} device activities a frame, device busy "
-          f"{busy_ms / ev_ms:.1%}")
+          f"rounds {frame_ms['dynamic'] - first_ms:.4f} ms")
 
     # the hits against RealSdf (the fit gate of path C) and a plain host
     # march through get_distance (grid route, beam off) on every 16th ray
@@ -674,7 +785,8 @@ def trace_path(dev, n_rays: int):
     agree = float((nob.hit == hit).float().mean())
     both = nob.hit & hit
     d_err = float((nob.depth[both] - res.depth[both]).abs().max())
-    print(f"trace without the beam: {nob_s * 1e3:.4f} ms (host clock), ray-trips "
+    print(f"trace without the beam: {nob_s * 1e3:.4f} ms (host clock, its graphs captured), "
+          f"ray-trips "
           f"{int(nob.iterations.sum(dtype=torch.int64))}; hit masks agree with beam 4 on "
           f"{agree:.6%} ({int((nob.hit != hit).sum())} rays differ), max |depth diff| "
           f"{d_err:.3e}")
@@ -715,7 +827,8 @@ def trace_path(dev, n_rays: int):
                    f"{name} image is not finite in [0, 1]")
             write_png(os.path.join(tmp, f"{name}.png"), img)
         sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
-    print(f"camera frame 512^2 (sdf_render defaults): {cam_s * 1e3:.3f} ms (host clock), "
+    print(f"camera frame 512^2 (sdf_render defaults): {cam_s * 1e3:.3f} ms (host clock, its "
+          f"graphs captured), "
           f"hits {int(cres.hit.sum())}, ray-trips {int(cres.iterations.sum(dtype=torch.int64))}; "
           f"shaded and written: {sizes}")
     print(f"plane cut 512^2: {cut_s * 1e3:.3f} ms (host clock, image to numpy included)")
@@ -1256,9 +1369,11 @@ def tools_path(dev, root: str, sizes=None):
     four, bit-equal to the single-device calls, and ten fit steps whose
     loss falls, the first within 1e-6 of the one-entry step; then the
     tiled exact octree (8 entries) against the replicated one and its
-    round trip, and the tiled approximate octree against its grid route.
-    Every tool's wall seconds print on a line of their own. Returns the
-    path's launch counts."""
+    round trip, and the tiled approximate octree against its grid route;
+    then, after the path's launch counts are read, K2 against its plain
+    version at the tools' shapes (2^22 and 262,144 points). Every tool's
+    wall seconds print on a line of their own. Returns the path's launch
+    counts and K2's largest difference from its plain version."""
     import contextlib
     import io
     import shutil
@@ -1423,12 +1538,14 @@ def tools_path(dev, root: str, sizes=None):
         }
         dg = parallel.sharded_distance_and_gradient(oct_, p_grad, devs)
         eq["grad"] = torch.equal(dg[0], ref["grad"][0]) and torch.equal(dg[1], ref["grad"][1])
-        sync()
-        t0 = time.perf_counter()
-        tr = parallel.sharded_trace(oct_, o, d, devs, eps=1e-5, far=4.0, max_iters=1024)
-        sync()
-        t_tr = time.perf_counter() - t0
-        eq["trace"] = all(torch.equal(a, b) for a, b in zip(tr, ref["trace"]))
+        t_tr = []
+        for _ in range(2):     # the first call of a shard shape captures its graphs
+            sync()
+            t0 = time.perf_counter()
+            tr = parallel.sharded_trace(oct_, o, d, devs, eps=1e-5, far=4.0, max_iters=1024)
+            sync()
+            t_tr.append(time.perf_counter() - t0)
+            eq["trace"] = all(torch.equal(a, b) for a, b in zip(tr, ref["trace"]))
         c = octree_coefficients(oct_._octree_dev)
         losses = []
         sync()
@@ -1447,7 +1564,8 @@ def tools_path(dev, root: str, sizes=None):
         coef_rel = float((step1[1] - first_step[1]).abs().max() / first_step[1].abs().max())
         print(f"parallel on {label} ({len(devs)} entries, {len(set(devs))} devices): "
               f"bit-equal to the single-device calls {eq}; sharded_trace {sz['rays']}^2 "
-              f"{t_tr:.3f} s, hits {int(tr.hit.sum())}; fit loss {losses[0]:.6e} -> "
+              f"{t_tr[0]:.3f} s, again {t_tr[1]:.3f} s, hits {int(tr.hit.sum())}; fit loss "
+              f"{losses[0]:.6e} -> "
               f"{losses[-1]:.6e} in {sz['fit_steps']} steps, {t_fit * 1e3:.1f} ms a step; "
               f"first step against one entry's: loss {loss_rel:.3e} relative, "
               f"coefficients {coef_rel:.3e} of the largest")
@@ -1511,7 +1629,19 @@ def tools_path(dev, root: str, sizes=None):
     print(f"path H took {time.perf_counter() - t_path:.1f} s; launches on path H: {launches}")
     for name in ("nearest", "scan_window", "scan_grouped"):
         _check(launches[name] > 0 or not cuda, f"{name} was not launched on path H")
-    return launches
+    # K2 alone at the tools' two shapes, after the path's counts were read:
+    # sdf_error's RealSdf (2^22 samples) and one mesh_preview trip
+    # (262,144 points), each x the torus's 9,216 triangles
+    k2_err = 0.0
+    if cuda:
+        samples = _uniform(bench_box, 1 << 22, 5, dev)
+        for pts, label in ((samples, "sdf_error's RealSdf, 2^22 samples"),
+                           (samples[: 1 << 18], "a mesh_preview trip, 262,144 points")):
+            err = k2_vs_plain(pts, real.fields, real.triangles, f"{label}, checked on 2^16",
+                              n_check=1 << 16)[0]
+            k2_err = max(k2_err, err)
+        del samples
+    return launches, k2_err
 
 
 def main() -> None:
@@ -1954,7 +2084,8 @@ def main() -> None:
     print(f"path G took {time.perf_counter() - t0:.1f} s")
 
     # -- main path H, the CLI tools and parallel at full size ---------------
-    launches["tools"] = tools_path(dev, root)
+    launches["tools"], k2h = tools_path(dev, root)
+    kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2h)
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

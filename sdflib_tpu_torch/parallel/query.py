@@ -12,6 +12,7 @@ so the answers equal ``sdf.get_distance`` bit for bit.
 from __future__ import annotations
 
 import copy
+import weakref
 
 import torch
 
@@ -45,10 +46,34 @@ def _device_put_structure(sdf, device):
     return out
 
 
+# Each structure's replicas by device, with the tensors they were copied
+# from; dropped with the structure (weak keys).
+_KEPT: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _sources(sdf) -> tuple:
+    """(tensor, its version counter) for each tensor of the structure,
+    the triangles' too (an inference tensor keeps no counter)."""
+    tensors = [v for v in vars(sdf).values() if isinstance(v, torch.Tensor)]
+    tensors += list(getattr(sdf, "triangles", None) or ())
+    return tuple((t, None if t.is_inference() else t._version) for t in tensors)
+
+
 def _replicas(sdf, mesh) -> dict:
     """One replica for each distinct device of the list (its tensors are
-    the structure's own where it already sits there)."""
-    return per_device(mesh, lambda d: _device_put_structure(sdf, d))
+    the structure's own where it already sits there). The replicas are
+    kept until a tensor of the structure is replaced (as
+    ``build_query_grid`` does) or written in place, so later calls reuse
+    their copies, and the tracer's frames on another card, keyed on the
+    copies' addresses, replay there."""
+    src = _sources(sdf)
+    kept, reps = _KEPT.get(sdf, ((), {}))
+    if len(kept) != len(src) or any(a is not b or u != v
+                                    for (a, u), (b, v) in zip(kept, src)):
+        reps = {}
+    out = per_device(mesh, lambda d: reps[d] if d in reps else _device_put_structure(sdf, d))
+    _KEPT[sdf] = (src, {**reps, **out})
+    return out
 
 
 def _blocks(points, mesh):

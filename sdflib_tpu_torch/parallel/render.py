@@ -4,19 +4,19 @@ Port of the JAX package's ``parallel/render.py``. The reference
 dispatches one GL compute workgroup per 16x16 pixel tile on a single GPU
 (reference: src/render_engine/RenderSdf.cpp:187); here the ray batch is
 split into contiguous shards and each device marches its entries' shards
-(``sharded_rays(mesh).put``) against a replica of the octree with the
-port's ``trace_octree``. The JAX module
-shard-maps ``_trace_rays_fused``, its TPU whole-frame program, which the
-port does not carry (ROADMAP.md, "Not ported"); each shard here runs the
-port's own round scheduler, with no traffic between shards until the
-results are gathered on the first entry's device.
+(``sharded_rays(mesh).put``) against a replica of the octree through the
+whole-frame trace, as the JAX module shard-maps ``_trace_rays_fused``:
+the beam prepass, the static march pyramid where the block is wide
+enough, the straggler march, the unsort and the normals, on the card as
+captured CUDA graphs. No traffic passes between shards until the results
+are gathered on the first entry's device.
 """
 from __future__ import annotations
 
 import torch
 
-from ..render.sphere_trace import TraceResult, trace_octree
-from .mesh import default_mesh, pad_to_shards, sharded_rays
+from ..render.sphere_trace import _TRACE_BLOCK, TraceResult, _trace_rays
+from .mesh import default_mesh, sharded_rays
 from .query import _replicas
 
 __all__ = ["sharded_trace"]
@@ -34,7 +34,7 @@ def sharded_trace(
     beam: int | None = None,
 ) -> TraceResult:
     """``trace_octree`` with rays sharded over the device list; each
-    device's block of shards runs the whole march schedule there.
+    device's block of shards runs the whole-frame trace there.
 
     The beam prepass defaults OFF here, as in the JAX package: its
     per-tile reductions group consecutive rays of the local shard, so
@@ -43,15 +43,19 @@ def sharded_trace(
     otherwise guarantees against ``trace_octree(..., beam=None)``. Pass
     beam=4 to trade that for the empty-space skip.
 
-    The rays are padded to whole shards; a padding ray has a unit
-    direction and starts inactive, so it never marches."""
+    The shards are sized as the JAX package's: ``ceil(R / entries)`` rays
+    rounded up to whole blocks of B, the smaller of 2^17 and the power of
+    two at or above that count. A padding ray has a unit direction and
+    starts inactive, so it never marches."""
     mesh = default_mesh(mesh)
     o = torch.as_tensor(origins, dtype=torch.float32)
     shape = o.shape[:-1]
     o = o.reshape(-1, 3)
     d = torch.as_tensor(dirs, dtype=torch.float32, device=o.device).reshape(-1, 3)
     R = o.shape[0]
-    Rp = pad_to_shards(R, mesh)
+    Rl0 = -(-R // len(mesh))
+    B = min(_TRACE_BLOCK, 1 << max(Rl0 - 1, 1).bit_length())
+    Rp = -(-Rl0 // B) * B * len(mesh)
     live = torch.arange(Rp, device=o.device) < R
     o = torch.nn.functional.pad(o, (0, 0, 0, Rp - R))
     d = torch.where(live[:, None], torch.nn.functional.pad(d, (0, 0, 0, Rp - R)),
@@ -59,15 +63,14 @@ def sharded_trace(
     reps = _replicas(octree, mesh)
     split = sharded_rays(mesh)
     parts = [
-        trace_octree(reps[dev], o_k, d_k, eps=eps, far=far, max_iters=max_iters,
-                     beam=beam, active=a_k)
+        _trace_rays(reps[dev], o_k, d_k, a_k.to(torch.float32), o_k.shape, eps=eps, far=far,
+                    max_iters=max_iters, B=B, beam=beam, graphs=dev.type == "cuda")
         for (dev, o_k), (_, d_k), (_, a_k) in zip(
             split.put(o), split.put(d), split.put(live))
     ]
     dev0 = mesh[0]
     hit, pos, acc, normal, iters = (
-        torch.cat([getattr(p, f).to(dev0) for p in parts])[:R]
-        for f in TraceResult._fields
+        torch.cat([p[i].to(dev0) for p in parts])[:R] for i in range(len(TraceResult._fields))
     )
     return TraceResult(
         hit.reshape(shape),

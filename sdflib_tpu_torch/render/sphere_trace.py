@@ -11,12 +11,17 @@ The march step is ``_grid_distance_and_step``: one row of the dense leaf
 grid (the fused row where ``build_query_grid`` built it), the leaf
 polynomial or the box fallback, and in cells flagged surface-free a step
 to the leaf exit or the free-radius box exit. A beam prepass starts every
-ray at a depth proven safe for its tile. The march then runs in rounds
-over the still-active rays, compacted between rounds. Every step is a
+ray at a depth proven safe for its tile. Large frames then march the JAX
+package's static pyramid of rounds over shrinking prefixes (``_Frame``),
+on the card as captured CUDA graphs that one host loop replays; small
+frames and ``pyramid=False`` march rounds over the still-active rays,
+compacted between rounds with one host sync each. Every step is a
 sequence of full-batch torch ops; no module here has a kernel of its own.
 """
 from __future__ import annotations
 
+import warnings
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -149,26 +154,34 @@ class TraceResult(NamedTuple):
     iterations: torch.Tensor  # (...,) int32 march steps of each ray
 
 
-def _march(step_fn, state, dirs, eps: float, far: float, trips: int):
+def _trip(step_fn, pos, acc, last_d, active, its, dirs, eps: float, far: float):
+    """One march step of every ray, written in place: step by
+    ``step_fn(pos, dirs)``'s step where active (float 0/1), count the
+    step in ``its``, hit at d <= eps, stop past ``far``."""
+    d, step = step_fn(pos, dirs)
+    moved = step * active
+    pos.add_(dirs * moved[..., None])
+    acc.add_(moved)
+    live = active > 0
+    torch.where(live, d, last_d, out=last_d)
+    its.add_(live)
+    active.mul_((last_d > eps) & (acc < far))
+
+
+def _march(step_fn, state, dirs, eps: float, far: float, trips: int,
+           fixed_trips: bool = False):
     """``trips`` march steps of ``state`` = (pos, acc, last_d, active),
-    active as float 0/1: step by ``step_fn(pos, dirs)``'s step where
-    active, hit at d <= eps, stop past ``far``. Returns each ray's count
-    of steps taken and the new state (new tensors: the inputs are not
-    written). Stops early, once every ray is done, at a check every
-    ``_CHECK_EVERY`` trips; the state no longer changes by then."""
-    pos, acc, last_d, active = state
+    active as float 0/1 (``_trip``). Returns each ray's count of steps
+    taken and the new state (new tensors: the inputs are not written).
+    Stops early, once every ray is done, at a check every ``_CHECK_EVERY``
+    trips (the state no longer changes by then); ``fixed_trips`` runs
+    every trip with no check, so no host sync."""
+    pos, acc, last_d, active = (x.clone() for x in state)
     its = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
     for i in range(trips):
-        if i and i % _CHECK_EVERY == 0 and not bool(active.any()):
+        if not fixed_trips and i and i % _CHECK_EVERY == 0 and not bool(active.any()):
             break
-        d, step = step_fn(pos, dirs)
-        moved = step * active
-        pos = pos + dirs * moved[..., None]
-        acc = acc + moved
-        live = active > 0
-        last_d = torch.where(live, d, last_d)
-        its = its + live
-        active = active * (last_d > eps) * (acc < far)
+        _trip(step_fn, pos, acc, last_d, active, its, dirs, eps, far)
     return its, (pos, acc, last_d, active)
 
 
@@ -181,6 +194,7 @@ def sphere_trace_state(
     far: float = 10.0,
     max_iters: int = 1024,
     distance_step_fn=None,
+    fixed_trips: bool = False,
 ):
     """Resumable batched ray march. ``state`` = (pos, acc, last_d, active)
     per ray, ``active`` float 0/1; returns the last trip that had an
@@ -192,7 +206,9 @@ def sphere_trace_state(
     larger than d; the hit test always uses d. Runs on the device of
     ``state``; the trip count stays on the device (a ray's own count is
     the trips it was active, and rays never wake up, so the last trip
-    with an active ray is the largest count)."""
+    with an active ray is the largest count). ``fixed_trips=True`` runs
+    exactly ``max_iters`` trips with no early-exit check, so no host sync;
+    the state and the count are those of the early-exiting march."""
     pos = state[0]
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=pos.device)
     if distance_step_fn is None:
@@ -202,7 +218,7 @@ def sphere_trace_state(
     else:
         def step_fn(p, _):
             return distance_step_fn(p)
-    its, state = _march(step_fn, state, dirs, eps, far, max_iters)
+    its, state = _march(step_fn, state, dirs, eps, far, max_iters, fixed_trips)
     it = its.max() if its.numel() else its.new_zeros(())
     return it, state
 
@@ -288,37 +304,479 @@ def _beam_setup(o_t, d_t, mask):
     return o_c, d_c, spread(o_t, o_c), spread(d_t, d_c)
 
 
-def _beam_prepass(dist_fn, origins, dirs, r0, rd, margin: float, far: float,
-                  max_iters: int = _BEAM_ITERS):
-    """March one ray per tile with the hit test widened by the tile
-    radius r(t) = r0 + t * rd, stepping by (d - r(t) - margin) / (1 + rd)
-    or by ``dist_fn``'s tube-safe exit step, whichever is longer. Every
-    member ray stays within r(t) of the beam ray and the true SDF is
-    1-Lipschitz, so no member hits before the returned depth, where the
-    members then start (the reference renderer's per-tile coherence,
-    RenderSdf.cpp:187, as an explicit two-level schedule).
+def _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin: float, far: float):
+    """One step of the beam prepass, written in place: each beam ray's
+    hit test is widened by its tile radius r(t) = r0 + t * rd; it steps
+    by (d - r(t) - margin) / (1 + rd) or by ``beam_step``'s tube-safe
+    exit step, whichever is longer (the divisor: the radius keeps growing
+    over the step). A beam stops on proximity (a step of at most half the
+    margin), past ``far``, and on stagnation: a grazing beam skimming the
+    silhouette would crawl in sub-margin steps for hundreds of trips, and
+    stopping early is always safe since the stop depth bounds every
+    member's first hit wherever it is."""
+    radius = r0 + acc * rd
+    d, fstep = beam_step(pos, dirs, (radius + margin, rd))
+    dstep = ((d - radius - margin) / (1.0 + rd)).clamp_min(0.0)
+    step = torch.maximum(dstep, fstep)
+    moved = step * active
+    pos.add_(dirs * moved[..., None])
+    acc.add_(moved)
+    active.mul_((step > 0.5 * margin) & (acc < far))
 
-    A beam stops on proximity (step 0), past ``far``, and on stagnation,
-    a step below half the margin: a grazing beam skimming the silhouette
-    would crawl in sub-margin steps for hundreds of trips, and stopping
-    early is always safe since the stop depth bounds every member's first
-    hit wherever it is."""
-    pos = origins
+
+def _beam_prepass(beam_step, origins, dirs, r0, rd, margin: float, far: float,
+                  max_iters: int = _BEAM_ITERS):
+    """March one ray per tile (``_beam_trip``) and return its stopping
+    depth. Every member ray stays within r(t) of the beam ray and the true
+    SDF is 1-Lipschitz, so no member hits before that depth, where the
+    members then start (the reference renderer's per-tile coherence,
+    RenderSdf.cpp:187, as an explicit two-level schedule)."""
+    pos = origins.clone()
     acc = torch.zeros_like(r0)
     active = torch.ones_like(r0)
     for i in range(max_iters):
         if i and i % _CHECK_EVERY == 0 and not bool(active.any()):
             break
-        radius = r0 + acc * rd
-        d, fstep = dist_fn(pos, dirs, radius)
-        # /(1 + rd): the radius keeps growing over the step
-        dstep = ((d - radius - margin) / (1.0 + rd)).clamp_min(0.0)
-        step = torch.maximum(dstep, fstep)
-        moved = step * active
-        pos = pos + dirs * moved[..., None]
-        acc = acc + moved
-        active = active * (step > 0.5 * margin) * (acc < far)
+        _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin, far)
     return acc
+
+
+class _Route(NamedTuple):
+    step: object      # (pos, dirs) -> (d, step)
+    beam_step: object  # (pos, dirs, shrink) -> (d, tube-safe exit step or -inf)
+    normals: object   # pos -> normalized gradient
+    margin: float     # the beam's safety margin, world units
+    key: tuple        # the route and the arrays it reads
+
+
+def _route(octree: OctreeSdf, eps: float) -> _Route:
+    """The distance route of ``octree`` at hit threshold ``eps``
+    (normalized): the fused rows if ``build_query_grid`` built them, else
+    the thin leaf grid, else the walk; the grids (and their free-cell
+    steps) only for eps <= ``OctreeSdf._FREE_CELL_MARGIN``, the margin the
+    free flags were proven with. The normals ride the fused rows where
+    built (one gather a ray), else the thin grid, else the walk. The
+    beam's margin is the hit threshold plus a fit-error budget: the
+    Lipschitz argument runs through the true distance, which the
+    polynomial tracks within the build's termination threshold."""
+    box_args = (octree._box_min, octree._box_size3)
+    mbv = octree.min_border_value
+    words = octree._octree_dev
+    statics = dict(num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
+    walk = dict(levels=octree.max_depth - octree.start_depth, fast=octree._fast_layout,
+                **statics)
+    fat, thin = octree._fat_grid, octree._query_grid
+    sgs, depth = octree.start_grid_size, octree.max_depth
+    grid = fat if fat is not None else thin
+    if grid is not None and eps > OctreeSdf._FREE_CELL_MARGIN:
+        grid = None
+
+    def distance(p):
+        return _octree_query(words, p, *box_args, sgs, mbv,
+                             with_gradient=False, **walk)
+
+    if grid is not None:
+        def step(p, u, shrink=None):
+            return _grid_distance_and_step(
+                words, grid, p, u, *box_args, mbv, grid_depth=depth,
+                grid_fat=grid is fat, shrink=shrink, **statics)
+        beam_step = step
+    else:
+        def step(p, _):
+            dist = distance(p)
+            return dist, dist.clamp_min(0.0)
+
+        def beam_step(p, _, shrink):
+            dist = distance(p)
+            return dist, torch.full_like(dist, -torch.inf)
+
+    def normals(pos):
+        if fat is not None:
+            return _octree_query_fat(fat, pos, *box_args, mbv, grid_depth=depth,
+                                     with_gradient=True, **statics)[1]
+        if thin is not None:
+            return _octree_query_grid(words, thin, pos, *box_args, mbv,
+                                      grid_depth=depth, with_gradient=True,
+                                      **statics)[1]
+        return _octree_query(words, pos, *box_args, sgs, mbv,
+                             with_gradient=True, **walk)[1]
+
+    box_size = float(octree.box.size[0])
+    margin = eps * box_size + 4.0 * octree.termination_threshold
+    # what the closures read: the arrays by address (a frame holds its
+    # route, so an address names one array while the frame is cached)
+    # and the scalars
+    arrays = tuple(None if a is None else (a.device, a.data_ptr(), tuple(a.shape))
+                   for a in (words, grid, fat, thin, *box_args))
+    key = (arrays, grid is fat, mbv, margin, sgs, depth, tuple(sorted(walk.items())))
+    return _Route(step, beam_step, normals, margin, key)
+
+
+# -- the whole-frame trace: the static pyramid --------------------------------
+
+# Rays a march block holds in the JAX package (a TPU VMEM unit); here it
+# only rounds the pyramid's prefixes, and pads a frame to whole blocks.
+_TRACE_BLOCK = 1 << 17
+# Frames of at least this many (padded) rays and trips take the pyramid.
+_PYRAMID_MIN_RAYS = 1 << 15
+_PYRAMID_MIN_ITERS = 64
+# Prefixes this wide run their round's trips with no early-exit check:
+# they are sized to the active count, so they never converge inside it.
+_FIXED_WIDTH = 1 << 16
+# The compaction's width floor over the marched prefix, so that actives
+# beyond the prefix keep draining into the later rounds.
+_SORT_FLOOR = 1 << 15
+# The straggler march's least width: a power of two at least this
+# (the dynamic scheduler's least prefix) holds the active rays.
+_STRAGGLER_FLOOR = 1 << 10
+# Frames (fixed buffers and captured graphs) kept on one card.
+_MAX_FRAMES = 4
+
+
+def _build_pyramid_schedule(
+    Rp: int, max_iters: int, B: int, dense: bool = False
+) -> tuple:
+    """Static ((iters, prefix), ...) pyramid, the JAX package's: rounds
+    grow geometrically in iterations (8, 16, ... 256) while their
+    prefixes shrink with the measured geometric decay of active rays.
+
+    dense=True slows the prefix shrink, for beam-less traces: without the
+    prepass most rays are still marching the empty-space approach after
+    the first rounds. Both pad tail rounds at the final divisor until the
+    whole iteration budget is covered: a padded round is a small prefix,
+    and every ray it retires skips the full-width straggler march."""
+    divs = (1, 1, 2, 4, 8, 16, 32, 64) if dense else (1, 8, 32, 128, 256, 512)
+    schedule = []
+    k, rem = min(_FIRST_ROUND_ITERS, max_iters), max_iters
+    i = 0
+    while rem > 0:
+        div = divs[min(i, len(divs) - 1)]
+        nbk = max(Rp // div, min(1 << 10, Rp))
+        if nbk >= B:
+            nbk = min(-(-nbk // B) * B, Rp)   # whole B-blocks
+        else:
+            nbk = 1 << (max(nbk - 1, 1)).bit_length()  # pow2 <= B
+        schedule.append((min(k, rem), nbk))
+        rem -= k
+        k = min(k * 2, _MAX_ROUND_ITERS)
+        i += 1
+    return tuple(schedule)
+
+
+def _compact(active, tensors, W: int) -> None:
+    """Stable two-way partition of the first W rows of ``tensors`` in
+    place: the rows whose ``active`` > 0 first, each group in its order
+    (the JAX package's stable sort on the key active <= 0). An active row
+    goes to its count of actives up to it, less one; an inactive row
+    after all actives, at its count of inactives up to it, less one."""
+    a = active[:W] > 0
+    before = a.cumsum(0)
+    dest = torch.where(a, before - 1,
+                       before[-1] + torch.arange(W, device=a.device) - before)
+    for x in tensors:
+        head = x[:W]
+        head.copy_(torch.empty_like(head).index_copy_(0, dest, head))
+
+
+class _Runner:
+    """Runs the pieces of a frame, each a function that writes the frame's
+    fixed buffers in place: eagerly, or (``graphs``) each as a CUDA graph
+    captured at its first run and replayed from then on. A first run is
+    the capture's warm-up: the piece runs eagerly on a side stream, and
+    that run is the frame's work; then its kernels are recorded without
+    running. A host sync or a host-to-device copy inside a piece makes
+    the capture raise, as does a capture that records nothing. The
+    graphs share one memory pool: they run one at a time on one stream,
+    and the buffers that carry data between them are allocated outside
+    every capture, so only their temporaries overlap. Made on the
+    frame's card (``torch.cuda.graph``'s default capture stream sits on
+    the card of its first use). Counts what it did since ``reset``."""
+
+    def __init__(self, graphs: bool):
+        self.graphs = {} if graphs else None
+        if graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.side = torch.cuda.Stream()
+            self.capture = torch.cuda.Stream()
+        self.reset()
+
+    def reset(self) -> None:
+        self.captured = self.replayed = self.syncs = 0
+
+    def __call__(self, key, piece) -> None:
+        if self.graphs is None:
+            piece()
+            return
+        graph = self.graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            self.replayed += 1
+            return
+        stream = torch.cuda.current_stream()
+        self.side.wait_stream(stream)
+        with torch.cuda.stream(self.side):
+            piece()
+        stream.wait_stream(self.side)
+        graph = torch.cuda.CUDAGraph()
+        with warnings.catch_warnings():
+            # an empty graph: the piece's kernels went to another stream
+            warnings.filterwarnings("error", "The CUDA Graph is empty")
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.capture):
+                piece()
+        self.graphs[key] = graph
+        self.captured += 1
+
+    def any_active(self, active) -> bool:
+        """Whether a flag is set: one of the frame's host syncs."""
+        self.syncs += 1
+        return bool(active.any())
+
+    def count_active(self, active) -> int:
+        """How many flags are set: one of the frame's host syncs."""
+        self.syncs += 1
+        return int((active > 0).sum())
+
+
+class _Frame:
+    """The whole-frame trace of one ray count (the JAX package's
+    ``_trace_rays_fused``) over fixed buffers that its pieces write in
+    place: the beam prepass, the static pyramid of march rounds over
+    shrinking prefixes with a compaction of the active rays to the front
+    after each, a full-width straggler march, the unsort and the normals.
+
+    The rays are padded to ``Rp``: a padding ray points along unit x and
+    starts inactive. A round marches the prefix ``[:n]`` for its trips in
+    segments of ``_CHECK_EVERY``; a prefix narrower than ``_FIXED_WIDTH``
+    checks for an active ray before each segment (a host sync) and ends
+    the round when none is left, as the JAX while_loop exits. Then each
+    ray's count is added at ``perm[:n]`` and the first W rows compacted:
+    W is the prefix with a floor of ``_SORT_FLOOR``, and ``Rp`` on the
+    last round so that the straggler march finds every active ray at the
+    front. The straggler march gives every ray still active the budget of
+    all rounds but the first (a ray that overflowed every prefix was only
+    offered the first) and ends when none is left; it marches the
+    power-of-two prefix that holds the active rays (one host sync reads
+    their count), where the JAX march takes the full width: the rows past
+    it are inactive and would not change. A ray's march depends
+    on the ray alone, so a ray that converges within its budget ends
+    where the round scheduler of ``trace_octree(pyramid=False)`` ends it,
+    in as many steps. The B-ray blocks of the JAX march (TPU VMEM units)
+    are not carried: a prefix marches as one batch, and B only rounds the
+    schedule's prefixes."""
+
+    def __init__(self, octree: OctreeSdf, shape, R: int, Rp: int, B: int, *, eps: float,
+                 far: float, max_iters: int, beam, graphs: bool):
+        dev = octree.device
+        box_size = float(octree.box.size[0])
+        self.R, self.Rp, self.shape, self.beam = R, Rp, tuple(shape), beam
+        self.eps_w = float(np.float32(eps) * np.float32(box_size))
+        self.far_w = float(np.float32(far) * np.float32(box_size))
+        self.beam_far = far * box_size
+        self.route = _route(octree, eps)
+        self.beam_on = beam is not None and R >= beam * beam
+        self.schedule, self.remaining = (), max_iters
+        if Rp >= _PYRAMID_MIN_RAYS and max_iters >= _PYRAMID_MIN_ITERS:
+            self.schedule = _build_pyramid_schedule(Rp, max_iters, B, dense=not self.beam_on)
+            self.remaining = max(max_iters - self.schedule[0][0], 0)
+
+        def f32(*size):
+            return torch.zeros(size, dtype=torch.float32, device=dev)
+
+        self.o_in, self.d_in, self.live_in = f32(R, 3), f32(R, 3), f32(R)
+        self.pos, self.dirs, self.out_pos = f32(Rp, 3), f32(Rp, 3), f32(Rp, 3)
+        self.acc, self.last_d, self.active = f32(Rp), f32(Rp), f32(Rp)
+        self.out_acc, self.out_last, self.out_normal = f32(Rp), f32(Rp), f32(R, 3)
+        self.out_hit = torch.zeros(R, dtype=torch.bool, device=dev)
+        self.perm = torch.arange(Rp, device=dev)
+        self.iters = torch.zeros(Rp, dtype=torch.int32, device=dev)
+        self.its = torch.zeros_like(self.iters)
+        if self.beam_on:
+            o_t, _, _, self.per_ray = _beam_tiles(self.o_in, self.d_in, self.shape, beam)
+            nt = o_t.shape[0]
+            self.b_pos, self.b_dirs = f32(nt, 3), f32(nt, 3)
+            self.b_r0, self.b_rd, self.b_acc, self.b_active = f32(nt), f32(nt), f32(nt), f32(nt)
+        self.runner = _Runner(graphs)
+        self.marched = 0
+
+    # -- the pieces ----------------------------------------------------------
+
+    def _setup(self) -> None:
+        R = self.R
+        self.dirs[:R].copy_(self.d_in)
+        self.dirs[R:].zero_()
+        self.dirs[R:, 0].fill_(1.0)
+        if self.beam_on:
+            o_t, d_t, mask, _ = _beam_tiles(self.o_in, self.d_in, self.shape, self.beam)
+            for buf, val in zip((self.b_pos, self.b_dirs, self.b_r0, self.b_rd),
+                                _beam_setup(o_t, d_t, mask)):
+                buf.copy_(val)
+            self.b_acc.zero_()
+            self.b_active.fill_(1.0)
+
+    def _beam_piece(self, trips: int):
+        def piece():
+            for _ in range(trips):
+                _beam_trip(self.route.beam_step, self.b_pos, self.b_acc, self.b_active,
+                           self.b_dirs, self.b_r0, self.b_rd, self.route.margin,
+                           self.beam_far)
+        return piece
+
+    def _start(self) -> None:
+        R = self.R
+        if self.beam_on:
+            start_t = self.per_ray(self.b_acc)
+        else:
+            start_t = torch.zeros_like(self.live_in)
+        self.pos[:R].copy_(self.o_in + self.d_in * start_t[:, None])
+        self.pos[R:].zero_()
+        self.acc[:R].copy_(start_t)
+        self.acc[R:].zero_()
+        self.last_d.fill_(torch.inf)
+        self.active[:R].copy_(self.live_in)
+        self.active[R:].zero_()
+        self.perm.copy_(torch.arange(self.Rp, device=self.perm.device))
+        self.iters.zero_()
+        self.its.zero_()
+
+    def _march_piece(self, n: int, trips: int):
+        state = (self.pos[:n], self.acc[:n], self.last_d[:n], self.active[:n],
+                 self.its[:n], self.dirs[:n])
+
+        def piece():
+            for _ in range(trips):
+                _trip(self.route.step, *state, self.eps_w, self.far_w)
+        return piece
+
+    def _round_end(self, n: int, W: int):
+        def piece():
+            self.iters.index_add_(0, self.perm[:n], self.its[:n])
+            self.its[:n].zero_()
+            _compact(self.active, (self.pos, self.acc, self.last_d, self.active, self.dirs,
+                                   self.perm), W)
+        return piece
+
+    def _finish(self) -> None:
+        R = self.R
+        self.iters.index_add_(0, self.perm, self.its)    # the straggler march's steps
+        for src, dst in ((self.pos, self.out_pos), (self.acc, self.out_acc),
+                         (self.last_d, self.out_last)):
+            dst.index_copy_(0, self.perm, src)
+        torch.le(self.out_last[:R], self.eps_w, out=self.out_hit)
+        self.out_normal.copy_(self.route.normals(self.out_pos[:R]))
+
+    # -- the host loop --------------------------------------------------------
+
+    def _march_round(self, n: int, trips: int, check: bool) -> None:
+        done = 0
+        while done < trips:
+            if check and not self.runner.any_active(self.active[:n]):
+                break
+            t = min(_CHECK_EVERY, trips - done)
+            self.runner(("march", n, t), self._march_piece(n, t))
+            done += t
+        self.marched += n * done
+
+    def run(self, o, d, live):
+        """The frame of (R, 3) rays ``o``, ``d`` whose ``live`` (R,) flag
+        is 1.0: (hit, position, depth, normal, iterations), flat, in new
+        tensors."""
+        run = self.runner
+        run.reset()
+        self.marched = 0
+        self.o_in.copy_(o)
+        self.d_in.copy_(d)
+        self.live_in.copy_(live)
+        run("setup", self._setup)
+        if self.beam_on:
+            for i in range(0, _BEAM_ITERS, _CHECK_EVERY):
+                if i and not run.any_active(self.b_active):
+                    break
+                t = min(_CHECK_EVERY, _BEAM_ITERS - i)
+                run(("beam", t), self._beam_piece(t))
+        run("start", self._start)
+        for i, (k, n) in enumerate(self.schedule):
+            W = self.Rp if i == len(self.schedule) - 1 else min(self.Rp, max(n, _SORT_FLOOR))
+            self._march_round(n, k, check=n < _FIXED_WIDTH)
+            run(("round", n, W), self._round_end(n, W))
+        if self.remaining:
+            n = run.count_active(self.active) if self.schedule else self.Rp
+            if n:
+                # past the last full-width compaction every active ray sits
+                # in the first n rows, and the rows past them do not change
+                w = self.Rp if not self.schedule else min(
+                    self.Rp, max(_STRAGGLER_FLOOR, 1 << (n - 1).bit_length()))
+                self._march_round(w, self.remaining, check=True)
+        run("finish", self._finish)
+        R = self.R
+        return (self.out_hit.clone(), self.out_pos[:R].clone(), self.out_acc[:R].clone(),
+                self.out_normal.clone(), self.iters[:R].clone())
+
+
+class _FrameCache:
+    """The frames traced on each card, the most recent last, at most
+    ``_MAX_FRAMES`` a card, keyed by their shape, knobs and route key. A
+    structure with new grids (``build_query_grid``), another structure
+    or a replica on another card keys new frames; a dropped structure's
+    frames stay until evicted."""
+
+    def __init__(self):
+        self.frames: dict = {}    # device -> OrderedDict(key -> _Frame)
+
+    def get(self, device, key, make) -> _Frame:
+        frames = self.frames.setdefault(device, OrderedDict())
+        frame = frames.pop(key, None)
+        if frame is None:
+            if len(frames) >= _MAX_FRAMES:
+                # a replay still queued reads the buffers and pool dropped here
+                torch.cuda.synchronize(device)
+                while len(frames) >= _MAX_FRAMES:
+                    frames.popitem(last=False)
+            frame = make()
+        frames[key] = frame
+        return frame
+
+
+_FRAMES = _FrameCache()
+
+
+def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
+                max_iters: int, B: int, beam, graphs: bool, stats_out: dict | None = None):
+    """The whole-frame trace (``_Frame``) of (R, 3) rays on the octree's
+    device, padded to whole B-blocks; ``live`` (R,) float marks the rays
+    that march. With ``graphs`` (a CUDA octree) the frame runs as CUDA
+    graphs on the rays' card, captured on its first call and replayed on
+    later ones with the same key (``_FRAMES``); else eagerly. Returns the
+    flat outputs of ``_Frame.run``."""
+    R = o.shape[0]
+    Rp = -(-R // B) * B
+
+    def make():
+        return _Frame(octree, shape, R, Rp, B, eps=eps, far=far, max_iters=max_iters,
+                      beam=beam, graphs=graphs)
+
+    if graphs:
+        # the shape matters only to the beam's tiles
+        tiles = tuple(shape) if beam is not None and R >= beam * beam else None
+        key = (R, tiles, Rp, B, eps, far, max_iters, beam, _route(octree, eps).key)
+        # the side stream, the pool, the captures and the replays belong
+        # to the octree's card, whichever card is current
+        with torch.cuda.device(o.device):
+            frame = _FRAMES.get(o.device, key, make)
+            out = frame.run(o, d, live)
+    else:
+        frame = make()
+        out = frame.run(o, d, live)
+    if stats_out is not None:
+        run = frame.runner
+        stats_out.update(
+            rounds=[("pyramid", frame.schedule, 0)],
+            graphs_captured=run.captured, graphs_replayed=run.replayed,
+            host_syncs=run.syncs, marched_ray_trips=frame.marched,
+        )
+    return out
+
+
+# -- the entry ----------------------------------------------------------------
 
 
 def trace_octree(
@@ -337,31 +795,41 @@ def trace_octree(
 ) -> TraceResult:
     """Sphere-trace rays against an ``OctreeSdf`` on its device. eps and
     far are in normalized octree space (box edge = 1), as in the
-    reference shader.
-
-    The distance route: the fused rows if ``build_query_grid`` built
-    them, else the thin leaf grid, else the walk; the grids (and their
-    free-cell steps) only for eps <= ``OctreeSdf._FREE_CELL_MARGIN``, the
-    margin the free flags were proven with.
+    reference shader. The distance route and the normals: ``_route``.
 
     Schedule: a beam prepass (one radius-widened ray per beam x beam
     tile: pixel tiles for (H, W, 3) inputs whose sides beam divides, runs
     of beam^2 consecutive rays otherwise; ``beam=None`` disables it) gives
-    each ray a safe start depth. Then the march runs in rounds of 8, 16,
-    ... up to 256 trips over the rays still active, each round ending
-    with one host sync (the active count) and one compaction of the
-    active rays to the front, as the JAX package's dynamic scheduler.
-    ``pyramid`` and ``block_size`` are accepted for the JAX signature and
-    take this one scheduler: the JAX static pyramid and its fixed blocks
-    work around the TPU's lack of per-ray divergence and give the same
-    hits and depths (its own tests pin the pyramid to the dynamic path).
+    each ray a safe start depth. A frame of at least 2^15 rays, padded to
+    whole blocks of ``block_size`` (default 2^17, at most the ray count),
+    with ``max_iters`` >= 64 then marches the JAX package's static
+    pyramid (``_Frame``): on a CUDA octree as captured CUDA graphs that
+    one host loop replays, kept for later frames of the same shape on the
+    same structure (at most four a card); on the CPU eagerly. ``stats_out["rounds"]`` receives
+    ``[("pyramid", schedule, 0)]``, and ``graphs_captured``,
+    ``graphs_replayed``, ``host_syncs`` and ``marched_ray_trips`` what
+    the frame did. Smaller frames and ``pyramid=False`` take the dynamic
+    scheduler: rounds of 8, 16, ... up to 256 trips over the rays still
+    active, each round ending with one host sync (the active count) and
+    one compaction of the active rays to the front;
+    ``stats_out["rounds"]`` receives (iters, marched, still_active) per
+    round. Both give the same hits, depths and iterations for every ray
+    that converges within ``max_iters``.
 
     ``iterations`` is each ray's own count of march steps, as the
-    reference shader's heatmap shows it. ``stats_out["rounds"]`` receives
-    (iters, marched, still_active) per round. ``active`` (one bool a
-    ray, default all) marks the rays that march; the others keep their
+    reference shader's heatmap shows it. ``active`` (one bool a ray,
+    default all) marks the rays that march; the others keep their
     origin, depth 0 and no hit (``parallel.sharded_trace``'s padding)."""
-    del block_size, pyramid
+    return _trace(octree, origins, dirs, eps=eps, far=far, max_iters=max_iters,
+                  block_size=block_size, beam=beam, pyramid=pyramid, stats_out=stats_out,
+                  active=active, graphs=octree.device.type == "cuda")
+
+
+def _trace(octree: OctreeSdf, origins, dirs, *, eps, far, max_iters, block_size, beam,
+           pyramid, stats_out, active, graphs: bool) -> TraceResult:
+    """``trace_octree`` with the pyramid's ``graphs`` given: False runs
+    its eager schedule on a CUDA octree too, which the card's tests hold
+    the graphs against."""
     dev = octree.device
     origins = torch.as_tensor(origins, dtype=torch.float32, device=dev)
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
@@ -369,55 +837,37 @@ def trace_octree(
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
     R = o.shape[0]
+    live = (torch.ones(R, device=dev) if active is None
+            else torch.as_tensor(active, device=dev).reshape(R).to(torch.float32))
+    B = min(block_size or _TRACE_BLOCK, max(R, 1))
+    if pyramid and -(-R // B) * B >= _PYRAMID_MIN_RAYS and max_iters >= _PYRAMID_MIN_ITERS:
+        out = _trace_rays(octree, o, d, live, shape, eps=eps, far=far, max_iters=max_iters,
+                          B=B, beam=beam, graphs=graphs, stats_out=stats_out)
+    else:
+        out = _trace_dynamic(octree, o, d, live, shape, eps=eps, far=far,
+                             max_iters=max_iters, beam=beam, stats_out=stats_out)
+    lead = shape[:-1]
+    return TraceResult(*(x.reshape(lead + x.shape[1:]) for x in out))
 
+
+def _trace_dynamic(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
+                   max_iters: int, beam, stats_out: dict | None):
+    """The dynamic scheduler of (R, 3) rays (``trace_octree``): the beam
+    prepass, then rounds over the compacted active rays, one host sync a
+    round. Returns the flat outputs."""
+    dev = octree.device
+    R = o.shape[0]
     box_size = float(octree.box.size[0])
     eps_w = float(np.float32(eps) * np.float32(box_size))
     far_w = float(np.float32(far) * np.float32(box_size))
-    box_args = (octree._box_min, octree._box_size3)
-    mbv = octree.min_border_value
-    statics = dict(num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
-    walk = dict(levels=octree.max_depth - octree.start_depth, fast=octree._fast_layout,
-                **statics)
-
-    grid = octree._fat_grid
-    grid_fat = grid is not None
-    if grid is None:
-        grid = octree._query_grid
-    if grid is not None and eps > OctreeSdf._FREE_CELL_MARGIN:
-        grid = None    # the free flags hold only for hit thresholds below the margin
-
-    def distance(p):
-        return _octree_query(octree._octree_dev, p, *box_args, octree.start_grid_size, mbv,
-                             with_gradient=False, **walk)
-
-    def grid_step(p, u, shrink=None):
-        return _grid_distance_and_step(
-            octree._octree_dev, grid, p, u, *box_args, mbv, grid_depth=octree.max_depth,
-            grid_fat=grid_fat, shrink=shrink, **statics)
-
-    if grid is not None:
-        step_fn = grid_step
-    else:
-        def step_fn(p, _):
-            dist = distance(p)
-            return dist, dist.clamp_min(0.0)
+    route = _route(octree, eps)
 
     start_t = torch.zeros(R, dtype=torch.float32, device=dev)
     if beam is not None and R >= beam * beam:
         o_t, d_t, mask, per_ray = _beam_tiles(o, d, shape, beam)
         o_c, d_c, r0, rd = _beam_setup(o_t, d_t, mask)
-        # hit threshold + fit-error budget: the Lipschitz argument runs
-        # through the true distance, which the polynomial tracks within
-        # the octree build's termination threshold
-        margin = eps * box_size + 4.0 * octree.termination_threshold
-        if grid is not None:
-            def beam_fn(p, u, radius):
-                return grid_step(p, u, shrink=(radius + margin, rd))
-        else:
-            def beam_fn(p, u, radius):
-                dist = distance(p)
-                return dist, torch.full_like(dist, -torch.inf)
-        start_t = per_ray(_beam_prepass(beam_fn, o_c, d_c, r0, rd, margin, far * box_size))
+        start_t = per_ray(_beam_prepass(route.beam_step, o_c, d_c, r0, rd, route.margin,
+                                        far * box_size))
 
     # The frame's state (tensors of this call, never the caller's), written
     # back in place after each round; a round marches the compacted active
@@ -427,16 +877,14 @@ def trace_octree(
     last_d = torch.full((R,), torch.inf, device=dev)
     iterations = torch.zeros(R, dtype=torch.int32, device=dev)
     cur = torch.arange(R, device=dev)
-    live0 = (torch.ones(R, device=dev) if active is None
-             else torch.as_tensor(active, device=dev).reshape(R).to(torch.float32))
-    sub = (pos, acc, last_d, live0)
+    sub = (pos, acc, last_d, live)
     sub_dirs = d
     n_cur, remaining = R, max_iters
     round_iters = min(_FIRST_ROUND_ITERS, max_iters)
     rounds_log = []
     while remaining > 0 and n_cur > 0:
         k = min(round_iters, remaining)
-        its, sub = _march(step_fn, sub, sub_dirs, eps_w, far_w, k)
+        its, sub = _march(route.step, sub, sub_dirs, eps_w, far_w, k)
         for full, part in zip((pos, acc, last_d), sub):
             full.index_copy_(0, cur, part)
         iterations.index_add_(0, cur, its)    # integer adds at distinct rays
@@ -450,21 +898,4 @@ def trace_octree(
         round_iters = min(round_iters * 2, _MAX_ROUND_ITERS)
     if stats_out is not None:
         stats_out["rounds"] = rounds_log
-
-    hit = last_d <= eps_w
-    # normals ride the fused rows where built (one gather a ray), else the
-    # thin grid, else the walk
-    if octree._fat_grid is not None:
-        _, normal = _octree_query_fat(octree._fat_grid, pos, *box_args, mbv,
-                                      grid_depth=octree.max_depth, with_gradient=True,
-                                      **statics)
-    elif octree._query_grid is not None:
-        _, normal = _octree_query_grid(octree._octree_dev, octree._query_grid, pos, *box_args,
-                                       mbv, grid_depth=octree.max_depth, with_gradient=True,
-                                       **statics)
-    else:
-        _, normal = _octree_query(octree._octree_dev, pos, *box_args, octree.start_grid_size,
-                                  mbv, with_gradient=True, **walk)
-    lead = shape[:-1]
-    return TraceResult(hit.reshape(lead), pos.reshape(shape), acc.reshape(lead),
-                       normal.reshape(shape), iterations.reshape(lead))
+    return last_d <= eps_w, pos, acc, route.normals(pos), iterations
