@@ -106,13 +106,21 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   ``sharded_trace`` (bench.py's 1024^2 rays, each list twice: the first
   call of a shard shape captures its graphs) bit-equal to the
   single-device calls, and ten fit steps whose loss falls, the first
-  within 1e-6 of the one-entry step; then the tiled
+  within 1e-6 of the one-entry step (the four calls run on two worker
+  threads of the card, ``parallel.mesh.run_blocks``); then the tiled
   exact octree on eight entries within rtol 1e-6, atol 1e-7 of the
   replicated one on 2^21 points (0.1 beyond the box), its shard bytes
   below the replicated table and its round trip, and the tiled d7
   approximate octree against its grid route on 2^22 points; K2 against
   its plain version at the tools' shapes, 2^22 and 262,144 points x
-  9,216 triangles (after the path's launch counts are read).
+  9,216 triangles (after the path's launch counts are read);
+* with two cards or more (``multicard_path``; one card prints that it
+  had one): bench.py's 1024^2 ``sharded_trace``, the 2^22-point
+  approximate, 2^21-point exact and 10k-point ``RealSdf``
+  ``sharded_distance`` on one card, two and every card, bit-equal to the
+  single-device calls, with their rates and efficiencies, and each
+  every-card call's span on each card (``card_spans``, CUDA events) and
+  device timeline split by card (``card_timeline``).
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -124,11 +132,13 @@ standard output is one JSON object:
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1523,9 +1533,10 @@ def tools_path(dev, root: str, sizes=None):
     fit_pts = p_oct[: sz["n_fit"]]
     fit_tgt = real.get_distance(fit_pts)
     # "cuda:0" and "cuda" name one card as two torch devices, so the last
-    # list runs every shard as its own call (the per-shard split, the gather
-    # and the fit step's gradient sum across blocks); the first two run
-    # one call on the card
+    # list runs every shard as its own call on two workers of the card
+    # (the per-shard split, the gather, twin frames of one shape and the
+    # fit step's gradient sum across blocks); the first two run one call
+    # on the card
     split4 = [torch.device(dev.type, 0), torch.device(dev.type)] * 2
     first_step = None
     for label, devs in (("default_mesh()", parallel.default_mesh([dev]) if not cuda
@@ -1642,6 +1653,399 @@ def tools_path(dev, root: str, sizes=None):
             k2_err = max(k2_err, err)
         del samples
     return launches, k2_err
+
+
+MULTI_FULL = dict(n_approx=1 << 22, n_exact=1 << 21, n_real=10_000, rays=1024, depth=6)
+MULTI_SMALL = dict(n_approx=4096, n_exact=4096, n_real=512, rays=64, depth=4)
+
+
+def _devices_ms(fn, devs, reps: int = 3, warm: int = 1) -> float:
+    """Best of ``reps`` calls (after ``warm`` calls), ms on the host
+    clock, each call ended by a synchronise of every card of ``devs``."""
+    import torch
+
+    cards = sorted({torch.device("cuda", d.index or 0) for d in devs if d.type == "cuda"},
+                   key=str)
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    for _ in range(warm):
+        fn()
+    sync()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def card_timeline(fn, label):
+    """One call of ``fn`` (after a warm call) under torch.profiler, its
+    device activities split by card: each card's first start and last
+    end, in ms from the call's first device activity, and its busy time
+    (the union of its activities); then the time during which at least k
+    cards were busy at once, k = 1 .. cards. Returns ({card: (start, end,
+    busy)}, {k: ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    fn()
+    sync()
+    # device activities only: recording the host's ops would slow the
+    # workers' launches and stagger the cards
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    spans: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            spans.setdefault(e.device_index(), []).append((e.start_ns(), e.end_ns()))
+    _check(len(spans) > 0, f"timeline, {label}: no device activity traced")
+    t0 = min(a for iv in spans.values() for a, _ in iv)
+    cards, edges = {}, []
+    for card, iv in sorted(spans.items()):
+        iv.sort()
+        busy, (lo, hi) = 0, iv[0]
+        for a, b in iv[1:]:
+            if a > hi:
+                busy += hi - lo
+                edges += [(lo, 1), (hi, -1)]
+                lo = a
+            hi = max(hi, b)
+        busy += hi - lo
+        edges += [(lo, 1), (hi, -1)]
+        cards[card] = ((iv[0][0] - t0) / 1e6, (max(b for _, b in iv) - t0) / 1e6, busy / 1e6)
+    at_least = {k: 0.0 for k in range(1, len(cards) + 1)}
+    level, last = 0, None
+    for t, step in sorted(edges, key=lambda x: (x[0], -x[1])):
+        if last is not None and level > 0:
+            for k in range(1, level + 1):
+                at_least[k] += (t - last) / 1e6
+        level, last = level + step, t
+    print(f"card timeline, {label}: " + "; ".join(
+        f"card {c} busy {b:.4f} ms from {a:.4f} to {z:.4f} ms" for c, (a, z, b) in cards.items()))
+    print(f"card timeline, {label}: at least k cards busy at once, ms: " + ", ".join(
+        f"k={k} {v:.4f}" for k, v in at_least.items()))
+    return cards, at_least
+
+
+def card_spans(call, devs, label):
+    """When each card ran its block of one unprofiled ``call(devs)``
+    (after a warm call): CUDA events recorded on each card's stream when
+    its worker starts and ends the block, in ms from an event every card
+    recorded as the call began (recorded from the host one card after
+    another, microseconds apart). Returns {card: (start, end)}."""
+    import importlib
+
+    import torch
+
+    from sdflib_tpu_torch.parallel import mesh as pmesh
+
+    mods = [importlib.import_module(f"sdflib_tpu_torch.parallel.{m}") for m in ("query", "render")]
+    marks: dict = {}
+
+    def spy(blocks, fn):
+        def timed(dev, block):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(dev, block)
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            marks[dev] = (a, b)
+            return out
+
+        return pmesh.run_blocks(blocks, timed)
+
+    call(devs)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    origin = {}
+    for d in devs:
+        origin[d] = torch.cuda.Event(enable_timing=True)
+        origin[d].record(torch.cuda.current_stream(d))
+    for m in mods:
+        m.run_blocks = spy
+    try:
+        call(devs)
+    finally:
+        for m in mods:
+            m.run_blocks = pmesh.run_blocks
+    for d in devs:
+        torch.cuda.synchronize(d)
+    spans = {d.index: (origin[d].elapsed_time(a), origin[d].elapsed_time(b))
+             for d, (a, b) in marks.items()}
+    print(f"card spans, {label}, unprofiled: " + "; ".join(
+        f"card {c} {a:.4f} to {b:.4f} ms" for c, (a, b) in sorted(spans.items())))
+    return spans
+
+
+def _multicard_work(dev, sz):
+    """``multicard_path``'s calls by name: (count, unit, the call on a
+    device list, the single-device call), over structures built on
+    ``dev``."""
+    from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, parallel
+    from sdflib_tpu_torch.render import trace_octree
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    oct_ = OctreeSdf(mesh, box, max_depth=sz["depth"], start_depth=2,
+                     termination_threshold=1e-3, device=dev)
+    oct_.build_query_grid()
+    ex = ExactOctreeSdf(mesh, box, max_depth=sz["depth"], start_depth=2,
+                        min_triangles_per_node=32, device=dev)
+    real = RealSdf(mesh, device=dev)
+    o, d = _ortho_rays(sz["rays"], dev)
+    work = {
+        "sharded_trace": (sz["rays"] ** 2, "rays",
+                          lambda m: parallel.sharded_trace(oct_, o, d, m, eps=1e-5, far=4.0,
+                                                           max_iters=1024),
+                          lambda: trace_octree(oct_, o, d, eps=1e-5, far=4.0, max_iters=1024,
+                                               beam=None)),
+    }
+    for name, sdf, n, seed in (("approximate", oct_, sz["n_approx"], 1),
+                               ("exact", ex, sz["n_exact"], 0),
+                               ("RealSdf", real, sz["n_real"], 7)):
+        pts = _uniform(box if sdf is real else sdf.box, n, seed, dev)
+        work[f"sharded_distance {name}"] = (
+            n, "points", lambda m, s=sdf, p=pts: parallel.sharded_distance(s, p, m),
+            lambda s=sdf, p=pts: s.get_distance(p))
+    return work
+
+
+class _FifoLock:
+    """A lock handed to its waiters in the order they asked for it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._queue = collections.deque()
+        self._held = False
+
+    def acquire(self):
+        with self._cond:
+            me = object()
+            self._queue.append(me)
+            while self._held or self._queue[0] is not me:
+                self._cond.wait()
+            self._queue.popleft()
+            self._held = True
+        return True
+
+    def release(self):
+        with self._cond:
+            self._held = False
+            self._cond.notify_all()
+
+
+def runner_probe(devs=None, sizes=None, rounds: int = 2):
+    """What holds ``parallel``'s workers back on several cards: peer
+    access between the cards; each ``multicard_path`` call on every card
+    (best of 3, host clock) from the workers taking turns (as they run),
+    taking turns handed over in arrival order (``_FifoLock``), each of
+    those with the interpreter's switch interval at 10 us (its default
+    is 5 ms), from the workers all issuing at once (the turn lock a
+    no-op) at 5 ms, 1 ms and 10 us, and one card after another from the
+    caller, every mode ``rounds`` times in turn; ``run_blocks`` of an
+    empty function; and the one-card trace's device timeline."""
+    import importlib
+
+    import torch
+
+    from sdflib_tpu_torch import parallel
+    from sdflib_tpu_torch.parallel import mesh as pmesh
+
+    class NoLock:
+        def acquire(self):
+            return True
+
+        def release(self):
+            pass
+
+    devs = parallel.default_mesh(devs)
+    sz = MULTI_FULL if sizes is None else sizes
+    cards = [d.index for d in devs if d.type == "cuda"]
+    print("peer access: " + ", ".join(
+        f"{a}->{b} {torch.cuda.can_device_access_peer(a, b)}"
+        for a in cards for b in cards if a != b))
+    work = _multicard_work(devs[0], sz)
+    mods = [importlib.import_module(f"sdflib_tpu_torch.parallel.{m}") for m in ("query", "render")]
+    turn, run = pmesh._TURN, pmesh.run_blocks
+
+    def serial():
+        for m in mods:
+            m.run_blocks = lambda blocks, fn: [fn(d, b) for d, b in blocks]
+
+    modes = [  # (label, patch, switch interval or None)
+        ("the workers taking turns", lambda: None, None),
+        ("the workers taking turns", lambda: None, 1e-5),
+        ("the workers taking turns in arrival order",
+         lambda: setattr(pmesh, "_TURN", _FifoLock()), None),
+        ("the workers taking turns in arrival order",
+         lambda: setattr(pmesh, "_TURN", _FifoLock()), 1e-5),
+        ("the workers all at once", lambda: setattr(pmesh, "_TURN", NoLock()), None),
+        ("the workers all at once", lambda: setattr(pmesh, "_TURN", NoLock()), 1e-3),
+        ("the workers all at once", lambda: setattr(pmesh, "_TURN", NoLock()), 1e-5),
+        ("one card after another from the caller", serial, None),
+    ]
+    switch = sys.getswitchinterval()
+    for r in range(rounds):
+        for label, patch, interval in modes:
+            patch()
+            if interval is not None:
+                sys.setswitchinterval(interval)
+            try:
+                print(f"round {r}, {label}, switch interval "
+                      f"{(interval or switch) * 1e6:g} us, {len(devs)} devices: " + "; ".join(
+                          f"{name} {_devices_ms(lambda c=call: c(devs), devs):.4f} ms"
+                          for name, (_, _, call, _) in work.items()))
+            finally:
+                sys.setswitchinterval(switch)
+                pmesh._TURN = turn
+                for m in mods:
+                    m.run_blocks = run
+    empty = [(d, None) for d in devs]
+    print(f"run_blocks of an empty function on {len(devs)} devices: "
+          f"{_devices_ms(lambda: pmesh.run_blocks(empty, lambda d, b: None), devs, 20):.4f} ms")
+    if devs[0].type == "cuda":
+        card_timeline(lambda: work["sharded_trace"][2](devs[:1]),
+                      f"sharded_trace {sz['rays']}^2 on one card")
+
+
+def launch_probe(devs=None, n_ops: int = 55, size: int = 1 << 20):
+    """How fast ``n_ops`` small torch launches a card (``x.add_(1)`` on
+    ``size`` floats) go out from ``parallel``'s workers, against the same
+    launches one card after another from the caller: best of 5, host
+    clock, every card synchronised; each worker's median and largest gap
+    between launches; the same with torch's intra-op threads at 1; then
+    an interpreter-only loop of the same length."""
+    import contextlib
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from sdflib_tpu_torch import parallel
+    from sdflib_tpu_torch.parallel import mesh as pmesh
+
+    devs = parallel.default_mesh(devs)
+    xs = {d: torch.zeros(size, device=d) for d in devs}
+    gaps: dict = {}
+
+    def launches(dev, _):
+        x, t = xs[dev], [time.perf_counter()]
+        for _ in range(n_ops):
+            x.add_(1.0)
+            t.append(time.perf_counter())
+        gaps[dev] = [(b - a) * 1e6 for a, b in zip(t, t[1:])]
+
+    def serial():
+        for d in devs:
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                launches(d, None)
+
+    blocks = [(d, None) for d in devs]
+    threaded = lambda: pmesh.run_blocks(blocks, launches)   # noqa: E731
+    # plain threads that only make their card current: no stream context
+    pools = {d: ThreadPoolExecutor(1) for d in devs}
+
+    def on_card(d):
+        if d.type == "cuda":
+            torch.cuda.set_device(d)
+        launches(d, None)
+
+    def bare():
+        for f in [pools[d].submit(on_card, d) for d in pools]:
+            f.result()
+
+    for threads in (torch.get_num_threads(), 1):
+        saved = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            t_ser = _devices_ms(serial, devs, reps=5)
+            ser_gaps = {d: list(g) for d, g in gaps.items()}
+            t_bare = _devices_ms(bare, devs, reps=5)
+            t_thr = _devices_ms(threaded, devs, reps=5)
+        finally:
+            torch.set_num_threads(saved)
+        print(f"launch probe, intra-op threads {threads}: {n_ops} launches a card on "
+              f"{len(devs)} cards: one card after another {t_ser:.4f} ms (gaps median "
+              f"{statistics.median(ser_gaps[devs[0]]):.1f} us), plain threads "
+              f"{t_bare:.4f} ms, the workers {t_thr:.4f} ms; worker gaps (median, max, "
+              "us): " + ", ".join(f"{d} {statistics.median(g):.1f} {max(g):.1f}"
+                                  for d, g in gaps.items()))
+    for pool in pools.values():
+        pool.shutdown()
+
+    def spin(dev, _):
+        return sum(i * i for i in range(n_ops * 200))
+
+    t_ser = _devices_ms(lambda: [spin(d, None) for d in devs], devs, reps=5)
+    t_thr = _devices_ms(lambda: pmesh.run_blocks(blocks, spin), devs, reps=5)
+    print(f"launch probe, interpreter only: one after another {t_ser:.4f} ms, "
+          f"from the workers {t_thr:.4f} ms")
+
+
+def multicard_path(devs=None, sizes=None):
+    """``parallel`` over several cards: bench.py's 1024^2 ``sharded_trace``
+    (beam off, max_iters 1024) and the 2^22-point ``sharded_distance`` on
+    the d6 approximate octree after ``build_query_grid``, the 2^21-point
+    d6 exact ``sharded_distance`` (K1w) and the 10k-point ``RealSdf`` (K2),
+    on the first card alone, on two cards where there are four or more,
+    and on every card of ``devs`` (default: every card). Each list's
+    answers are bit-equal to the single-device call; each is timed (best
+    of 5 after 3 warm calls, the host clock, every card synchronised) with
+    its rate and its efficiency against the first card's (rate over
+    cards x the one-card rate). Then one every-card call of each with
+    each card's span from CUDA events (``card_spans``), and one under the
+    profiler, split by card (``card_timeline``). With one card
+    it prints that and returns None; else the rows."""
+    import torch
+
+    from sdflib_tpu_torch import parallel
+
+    devs = parallel.default_mesh(devs)
+    sz = MULTI_FULL if sizes is None else sizes
+    if len(set(devs)) < 2:
+        print(f"multi-card rows: {len(devs)} entry on one device ({devs[0]}"
+              + (f", {torch.cuda.get_device_name(devs[0])}" if devs[0].type == "cuda" else "")
+              + "): not run")
+        return None
+    t_path = time.perf_counter()
+    work = _multicard_work(devs[0], sz)
+    lists = [devs[:1]] + ([devs[:2]] if len(devs) >= 4 else []) + [devs]
+    rows = []
+    for name, (n, unit, call, single) in work.items():
+        ref = single()
+        base = None
+        for m in lists:
+            out = call(m)
+            same = (all(torch.equal(a, b) for a, b in zip(out, ref)) if name == "sharded_trace"
+                    else torch.equal(out, ref))
+            _check(same, f"{name} on {len(m)} cards differs from the single-device call")
+            # the first calls of a new list capture and upload its frames
+            ms = _devices_ms(lambda: call(m), m, reps=5, warm=3)
+            rate = n / ms * 1e3
+            base = base or rate
+            eff = rate / (base * len(m))
+            rows.append(dict(work=name, cards=len(m), ms=ms, rate=rate, efficiency=eff))
+            print(f"multi-card {name}, {n} {unit} on {len(m)} card(s) {[str(x) for x in m]}: "
+                  f"{ms:.4f} ms, {rate:.6e} {unit}/s, {rate / base:.4f}x one card, "
+                  f"efficiency {eff:.4f}; bit-equal to the single-device call")
+    if devs[0].type == "cuda":
+        for name, (n, _, call, _) in work.items():
+            card_spans(call, devs, f"{name}, {n} on {len(devs)} cards")
+            card_timeline(lambda: call(devs), f"{name}, {n} on {len(devs)} cards")
+    print(f"multi-card path: {time.perf_counter() - t_path:.1f} s")
+    return rows
 
 
 def main() -> None:
@@ -2086,6 +2490,11 @@ def main() -> None:
     # -- main path H, the CLI tools and parallel at full size ---------------
     launches["tools"], k2h = tools_path(dev, root)
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2h)
+
+    # -- parallel over every card, where there are several ------------------
+    reset_counts()
+    if multicard_path() is not None:
+        launches["multi"] = read_counts()
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

@@ -9,7 +9,8 @@ rebuilds, an unchanged one loads the existing file, and ptxas's report
 of each kernel's registers and spills lies beside it (``ptxas_report``).
 Each entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
-``check`` turns a non-zero code into an exception.
+``check`` turns a non-zero code into an exception. The wrappers count
+their launches through ``count_launch``.
 
 Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
@@ -21,9 +22,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["library", "library_path", "check", "ptxas_report", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "check", "count_launch", "ptxas_report", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -63,6 +65,8 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _so: Path | None = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -76,48 +80,50 @@ def _nvcc() -> str:
     return found
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, compiled on the first call of the process when
-    no build of the current sources exists yet."""
-    global _lib, _so
-    if _lib is not None:
-        return _lib
+def _compile() -> Path:
+    """The library file of the current sources and flags, compiled when
+    it does not exist yet."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(_CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     so = _BUILD / f"libsdf_kernels-{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-        jobs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    if so.exists():
+        return so
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    jobs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    outs = [(job, *job.communicate()) for job in jobs]
+    try:
+        for job, out, err in outs:
+            if job.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({job.returncode}):\n{out}\n{err}")
+        so.with_suffix(".ptxas.txt").write_text("".join(out + err for _, out, err in outs))
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
             )
-            for src, obj in zip(sources, objs)
-        ]
-        outs = [(job, *job.communicate()) for job in jobs]
-        try:
-            for job, out, err in outs:
-                if job.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({job.returncode}):\n{out}\n{err}")
-            so.with_suffix(".ptxas.txt").write_text("".join(out + err for _, out, err in outs))
-            res = subprocess.run(
-                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                capture_output=True, text=True,
-            )
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-                )
-        finally:
-            for obj in objs:
-                obj.unlink(missing_ok=True)
-        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    os.replace(tmp, so)
+    return so
+
+
+def _load(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -125,8 +131,19 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sdf_error_string.argtypes = [ctypes.c_int]
     lib.sdf_error_string.restype = ctypes.c_char_p
-    _lib, _so = lib, so
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, compiled on the first call of the process when
+    no build of the current sources exists yet. Threads that make the
+    first call together wait for one build."""
+    global _lib, _so
+    with _LIB_LOCK:
+        if _lib is None:
+            so = _compile()
+            _lib, _so = _load(so), so
+    return _lib
 
 
 def library_path() -> Path:
@@ -153,3 +170,11 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().sdf_error_string(code).decode()
         raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")
+
+
+def count_launch(counters: dict, name: str) -> None:
+    """Add one to a wrapper's launch counter ``counters[name]`` (its
+    module's ``globals()``): ``parallel``'s workers launch from several
+    threads, and ``+= 1`` on a global is not atomic."""
+    with _COUNT_LOCK:
+        counters[name] += 1

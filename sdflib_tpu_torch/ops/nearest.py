@@ -122,7 +122,6 @@ def morton_codes(pts, lo, hi):
             raise ValueError(f"expected f32 {shape} on {pts.device}")
     if pts.device.type == "cpu":
         return morton_codes_plain(pts, lo, hi)
-    global morton_launch_count
     codes = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
     lib = build.library()
     with torch.cuda.device(pts.device):
@@ -131,7 +130,7 @@ def morton_codes(pts, lo, hi):
             codes.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, "sdf_nearest_morton")
-    morton_launch_count += 1
+    build.count_launch(globals(), "morton_launch_count")
     return codes
 
 
@@ -147,7 +146,7 @@ def _launch(pts, fld, order):
     """The kernel over contiguous f32 CUDA points and fields, taking the
     points in ``order`` with the branching ladder, or as given with the
     select ladder (``order`` None); results in the points' order."""
-    global launch_count, last_grid
+    global last_grid
     P, T = pts.shape[0], fld.shape[0]
     best = torch.empty(P, dtype=torch.float32, device=pts.device)
     idx = torch.empty(P, dtype=torch.int32, device=pts.device)
@@ -167,6 +166,6 @@ def _launch(pts, fld, order):
             best.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, "sdf_nearest_triangle")
-    launch_count += 1
+    build.count_launch(globals(), "launch_count")
     last_grid = grid
     return best, idx

@@ -63,7 +63,6 @@ def row_min_block(table, rows):
     """K3a: (N,) row minima, one warp a row."""
     if not _check(table, rows):
         return row_min_plain(table, rows)
-    global block_launch_count
     table, rows = table.contiguous(), rows.contiguous()
     out = torch.empty(rows.shape[0], dtype=torch.float32, device=table.device)
     lib = build.library()
@@ -74,7 +73,7 @@ def row_min_block(table, rows):
             rows.shape[0], out.data_ptr(), stream,
         )
     build.check(code, "sdf_row_min_block")
-    block_launch_count += 1
+    build.count_launch(globals(), "block_launch_count")
     return out
 
 
@@ -85,7 +84,6 @@ def row_min_tile(table, rows, *, tile: int = 512):
         raise ValueError(f"N = {rows.shape[0]} is not a multiple of tile = {tile}")
     if not _check(table, rows):
         return row_min_plain(table, rows)
-    global tile_launch_count
     table, rows = table.contiguous(), rows.contiguous()
     lib = build.library()
     if lib.sdf_row_min_tile_smem(table.shape[1]) > _MAX_SMEM:
@@ -98,7 +96,7 @@ def row_min_tile(table, rows, *, tile: int = 512):
             rows.shape[0], tile, out.data_ptr(), stream,
         )
     build.check(code, "sdf_row_min_tile")
-    tile_launch_count += 1
+    build.count_launch(globals(), "tile_launch_count")
     return out
 
 

@@ -136,7 +136,6 @@ def scan_window(bucket_ids, bucket_fields, points, b0, nc, *, G: int = WINDOW):
         raise ValueError(f"unsupported device {points.device}")
     if G != WINDOW or CH != 64:
         raise ValueError("the kernel takes windows of 32 points and 64-slot rows")
-    global launch_count
     args = [t.contiguous() for t in (bucket_ids, bucket_fields, points, b0, nc)]
     win = torch.empty((P // G, G), dtype=torch.int32, device=points.device)
     lib = build.library()
@@ -148,7 +147,7 @@ def scan_window(bucket_ids, bucket_fields, points, b0, nc, *, G: int = WINDOW):
             stream,
         )
     build.check(code, "sdf_scan_window")
-    launch_count += 1
+    build.count_launch(globals(), "launch_count")
     return win
 
 
@@ -289,7 +288,6 @@ def scan_grouped(bucket_ids, bucket_fields, points, point_leaf, group_start,
         raise ValueError("the kernel takes 64-slot rows")
     if NG == 0 or P == 0:
         return torch.zeros(P, dtype=torch.int32, device=points.device)
-    global grouped_launch_count
     args = [t.contiguous() for t in (bucket_ids, bucket_fields, points, point_leaf,
                                      group_start, leaf_row0, leaf_nrows)]
     win = torch.empty(P, dtype=torch.int32, device=points.device)
@@ -302,5 +300,5 @@ def scan_grouped(bucket_ids, bucket_fields, points, point_leaf, group_start,
             args[6].data_ptr(), win.data_ptr(), stream,
         )
     build.check(code, "sdf_scan_grouped")
-    grouped_launch_count += 1
+    build.count_launch(globals(), "grouped_launch_count")
     return win

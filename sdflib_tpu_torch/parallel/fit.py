@@ -4,8 +4,9 @@ Port of the JAX package's ``parallel/fit.py``. Query points shard over
 the device list; every entry holds a replica of the octree coefficient
 tensor. Each device's block of shards (``sharded_rays(mesh).put``) takes
 its weighted squared error over the whole batch's weight through
-``octree_query_diff`` and autograd there; the blocks' coefficient
-gradients are summed on the first entry's device (the all-reduce, in
+``octree_query_diff`` and autograd there, every device at the same time
+on its worker (``run_blocks``); the blocks' coefficient gradients are
+summed on the first entry's device (the all-reduce, in
 entry order) and one SGD step is taken there. On one device the step is
 ``fit_step``'s, bit for bit.
 """
@@ -14,7 +15,14 @@ from __future__ import annotations
 import torch
 
 from ..diff.query import octree_query_diff
-from .mesh import default_mesh, device_runs, pad_to_shards, replicated, sharded_rays
+from .mesh import (
+    default_mesh,
+    device_runs,
+    pad_to_shards,
+    replicated,
+    run_blocks,
+    sharded_rays,
+)
 
 __all__ = ["data_parallel_fit_step", "fit_step"]
 
@@ -103,16 +111,24 @@ def data_parallel_fit_step(
     )
     dev0 = mesh[0]
     n = weights.sum().clamp_min(1.0)
+
+    def block_grad(dev, block):
+        words_k, c_k, p_k, t_k, w_k, n_k = block
+        c = c_k.requires_grad_(True)
+        loss_k = _weighted_sse(words_k, c, p_k, t_k, w_k, octree.box.min,
+                               octree.box.size[0], octree.min_border_value,
+                               **statics) / n_k
+        (g,) = torch.autograd.grad(loss_k, c)
+        return loss_k.detach(), g
+
+    # the copies to each device are made here, on the caller's streams
+    blocks = [(dev, (words[first], c_list[first].detach().to(dev), p_k, t_k, w_k, n.to(dev)))
+              for (dev, first, _), (_, p_k), (_, t_k), (_, w_k) in zip(
+                  device_runs(mesh), split.put(pts), split.put(tgt), split.put(weights))]
     loss = torch.zeros((), device=dev0)
     grad = torch.zeros_like(c_list[0], device=dev0)
-    for (dev, first, _), (_, p_k), (_, t_k), (_, w_k) in zip(
-            device_runs(mesh), split.put(pts), split.put(tgt), split.put(weights)):
-        c = c_list[first].detach().to(dev).requires_grad_(True)
-        loss_k = _weighted_sse(words[first], c, p_k, t_k, w_k, octree.box.min,
-                               octree.box.size[0], octree.min_border_value,
-                               **statics) / n.to(dev)
-        (g,) = torch.autograd.grad(loss_k, c)
-        loss = loss + loss_k.detach().to(dev0)
+    for loss_k, g in run_blocks(blocks, block_grad):
+        loss = loss + loss_k.to(dev0)
         grad = grad + g.to(dev0)
     new = c_list[0].detach().to(dev0) - lr * grad
     return loss, rep.put(new)

@@ -5,18 +5,20 @@ structure of the port (``OctreeSdf``, ``ExactOctreeSdf``,
 ``UniformGridSdf``, ``RealSdf``): the point batch is padded to a multiple
 of the device list's length and split into contiguous shards, the shards
 of each device (``sharded_rays(mesh).put``) are queried against a replica of
-the structure there, and the answers are concatenated on the first
-entry's device. Each point takes the arithmetic of a single-device query,
+the structure there, every device's block at the same time on its worker
+(``run_blocks``), and the answers are concatenated on the first entry's
+device. Each point takes the arithmetic of a single-device query,
 so the answers equal ``sdf.get_distance`` bit for bit.
 """
 from __future__ import annotations
 
 import copy
+import threading
 import weakref
 
 import torch
 
-from .mesh import default_mesh, pad_to_shards, per_device, sharded_rays
+from .mesh import default_mesh, pad_to_shards, per_device, run_blocks, sharded_rays
 
 __all__ = ["sharded_distance", "sharded_distance_and_gradient"]
 
@@ -49,6 +51,7 @@ def _device_put_structure(sdf, device):
 # Each structure's replicas by device, with the tensors they were copied
 # from; dropped with the structure (weak keys).
 _KEPT: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_KEPT_LOCK = threading.Lock()
 
 
 def _sources(sdf) -> tuple:
@@ -67,12 +70,14 @@ def _replicas(sdf, mesh) -> dict:
     their copies, and the tracer's frames on another card, keyed on the
     copies' addresses, replay there."""
     src = _sources(sdf)
-    kept, reps = _KEPT.get(sdf, ((), {}))
-    if len(kept) != len(src) or any(a is not b or u != v
-                                    for (a, u), (b, v) in zip(kept, src)):
-        reps = {}
-    out = per_device(mesh, lambda d: reps[d] if d in reps else _device_put_structure(sdf, d))
-    _KEPT[sdf] = (src, {**reps, **out})
+    with _KEPT_LOCK:
+        kept, reps = _KEPT.get(sdf, ((), {}))
+        if len(kept) != len(src) or any(a is not b or u != v
+                                        for (a, u), (b, v) in zip(kept, src)):
+            reps = {}
+        out = per_device(mesh, lambda d: reps[d] if d in reps
+                         else _device_put_structure(sdf, d))
+        _KEPT[sdf] = (src, {**reps, **out})
     return out
 
 
@@ -82,7 +87,8 @@ def _blocks(points, mesh):
     pts = torch.as_tensor(points, dtype=torch.float32)
     flat = pts.reshape(-1, 3)
     P_ = flat.shape[0]
-    flat = torch.nn.functional.pad(flat, (0, 0, 0, pad_to_shards(P_, mesh) - P_))
+    if P_ % len(mesh):
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, pad_to_shards(P_, mesh) - P_))
     return sharded_rays(mesh).put(flat), pts.shape, P_
 
 
@@ -92,7 +98,8 @@ def sharded_distance(sdf, points, mesh=None):
     mesh = default_mesh(mesh)
     blocks, shape, P_ = _blocks(points, mesh)
     reps = _replicas(sdf, mesh)
-    d = torch.cat([reps[dev].get_distance(b).to(mesh[0]) for dev, b in blocks])
+    parts = run_blocks(blocks, lambda dev, b: reps[dev].get_distance(b))
+    d = torch.cat([p.to(mesh[0]) for p in parts])
     return d[:P_].reshape(shape[:-1])
 
 
@@ -101,7 +108,7 @@ def sharded_distance_and_gradient(sdf, points, mesh=None):
     mesh = default_mesh(mesh)
     blocks, shape, P_ = _blocks(points, mesh)
     reps = _replicas(sdf, mesh)
-    outs = [reps[dev].get_distance_and_gradient(b) for dev, b in blocks]
+    outs = run_blocks(blocks, lambda dev, b: reps[dev].get_distance_and_gradient(b))
     d = torch.cat([o[0].to(mesh[0]) for o in outs])
     g = torch.cat([o[1].to(mesh[0]) for o in outs])
     return d[:P_].reshape(shape[:-1]), g[:P_].reshape(shape)

@@ -5,7 +5,8 @@ dispatches one GL compute workgroup per 16x16 pixel tile on a single GPU
 (reference: src/render_engine/RenderSdf.cpp:187); here the ray batch is
 split into contiguous shards and each device marches its entries' shards
 (``sharded_rays(mesh).put``) against a replica of the octree through the
-whole-frame trace, as the JAX module shard-maps ``_trace_rays_fused``:
+whole-frame trace, every device at the same time on its worker
+(``run_blocks``), as the JAX module shard-maps ``_trace_rays_fused``:
 the beam prepass, the static march pyramid where the block is wide
 enough, the straggler march, the unsort and the normals, on the card as
 captured CUDA graphs. No traffic passes between shards until the results
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..render.sphere_trace import _TRACE_BLOCK, TraceResult, _trace_rays
-from .mesh import default_mesh, sharded_rays
+from .mesh import default_mesh, run_blocks, sharded_rays
 from .query import _replicas
 
 __all__ = ["sharded_trace"]
@@ -62,12 +63,15 @@ def sharded_trace(
                     torch.tensor([1.0, 0.0, 0.0], device=o.device))
     reps = _replicas(octree, mesh)
     split = sharded_rays(mesh)
-    parts = [
-        _trace_rays(reps[dev], o_k, d_k, a_k.to(torch.float32), o_k.shape, eps=eps, far=far,
-                    max_iters=max_iters, B=B, beam=beam, graphs=dev.type == "cuda")
-        for (dev, o_k), (_, d_k), (_, a_k) in zip(
-            split.put(o), split.put(d), split.put(live))
-    ]
+
+    def trace(dev, block):
+        o_k, d_k, a_k = block
+        return _trace_rays(reps[dev], o_k, d_k, a_k.to(torch.float32), o_k.shape, eps=eps,
+                           far=far, max_iters=max_iters, B=B, beam=beam,
+                           graphs=dev.type == "cuda")
+
+    parts = run_blocks([(dev, (o_k, d_k, a_k)) for (dev, o_k), (_, d_k), (_, a_k)
+                        in zip(split.put(o), split.put(d), split.put(live))], trace)
     dev0 = mesh[0]
     hit, pos, acc, normal, iters = (
         torch.cat([p[i].to(dev0) for p in parts])[:R] for i in range(len(TraceResult._fields))

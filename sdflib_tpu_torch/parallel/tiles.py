@@ -22,7 +22,10 @@ Shared query pattern:
   * each in-box point is answered by exactly one entry, out-of-box points
     (the box fallback) by entry 0, and the answers are scattered into
     one output on the first entry's device: each point is written once,
-    the counterpart of the JAX package's single psum.
+    the counterpart of the JAX package's single psum;
+  * every device answers its entries' points at the same time, on its
+    worker (``mesh.run_blocks``). The build runs the entries one after
+    another.
 
 Both classes are full SdfFunction citizens with the JAX package's
 container keys: distance and gradient queries, ``save()`` and
@@ -45,7 +48,7 @@ from ..sdf.octree import _finish, _grid_cells, _leaf_frac
 from ..sdf.octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK
 from ..sdf.sdf_function import SdfFormat, SdfFunction
 from ..triangle import TriangleDataSoA, calculate_mesh_triangle_data, soa_to_torch
-from .mesh import default_mesh, per_device, replicated
+from .mesh import default_mesh, per_device, replicated, run_blocks, waiting
 
 __all__ = ["TiledExactOctreeSdf", "TiledOctreeSdf"]
 
@@ -108,16 +111,26 @@ class _ExactShard(ExactOctreeSdf):
         return mine | ~in_box if first else mine
 
 
-def _scatter_answers(shards, copies, owns, query, P, dev0, with_gradient):
-    """Each shard answers the points it owns; the answers are scattered
-    into one output on ``dev0``."""
+def _scatter_answers(mesh, shards, copies, owns, query, P, dev0, with_gradient):
+    """Each shard answers the points it owns, every entry's device at the
+    same time on its worker (``run_blocks``; the shards of one device in
+    entry order); the answers are scattered into one output on ``dev0``
+    in shard order."""
+
+    def answer(dev, block):
+        k, shard, pts = block
+        mine = owns(k, shard, pts)
+        with waiting():            # nonzero waits for the count
+            idx = mine.nonzero().squeeze(1)
+        return idx, (query(k, shard, pts[idx]) if idx.numel() else None)
+
+    parts = run_blocks([(dev, (k, shard, pts)) for k, (dev, shard, pts)
+                        in enumerate(zip(mesh, shards, copies))], answer)
     d_out = torch.zeros(P, device=dev0)
     g_out = torch.zeros((P, 3), device=dev0) if with_gradient else None
-    for k, (shard, pts) in enumerate(zip(shards, copies)):
-        idx = owns(k, shard, pts).nonzero().squeeze(1)
-        if idx.numel() == 0:
+    for idx, res in parts:
+        if res is None:
             continue
-        res = query(k, shard, pts[idx])
         i0 = idx.to(dev0)
         if with_gradient:
             d_out[i0] = res[0].to(dev0)
@@ -217,7 +230,7 @@ class TiledExactOctreeSdf(SdfFunction):
         pts = torch.as_tensor(points, dtype=torch.float32)
         flat = pts.reshape(-1, 3)
         d, g = _scatter_answers(
-            self.shards, replicated(self.device_mesh).put(flat),
+            self.device_mesh, self.shards, replicated(self.device_mesh).put(flat),
             lambda k, sh, p: sh.owns(p, k == 0),
             lambda k, sh, q: sh._query(q, with_gradient),
             flat.shape[0], dev0, with_gradient,
@@ -388,14 +401,14 @@ class TiledOctreeSdf(SdfFunction):
         rpc, depth, nc = self.rows_per_chip, self.max_depth, self.num_coeff
 
         def owns(k, slab, p):
-            box_min, size3 = self._box[slab.device]
+            box_min, size3 = self._box[self.device_mesh[k]]
             _, in_box, lin = _grid_cells(p, box_min, size3, depth)
             local = lin - k * rpc
             mine = in_box & (local >= 0) & (local < rpc)
             return mine | ~in_box if k == 0 else mine
 
         def query(k, slab, q):
-            box_min, size3 = self._box[slab.device]
+            box_min, size3 = self._box[self.device_mesh[k]]
             rel, in_box, lin = _grid_cells(q, box_min, size3, depth)
             row = slab[(lin - k * rpc).clamp(0, rpc - 1)]
             frac = _leaf_frac(rel, row[..., 1])
@@ -404,7 +417,7 @@ class TiledOctreeSdf(SdfFunction):
                            self.min_border_value, self.interpolation, with_gradient)
 
         d, g = _scatter_answers(
-            self.slabs, replicated(self.device_mesh).put(flat), owns, query,
+            self.device_mesh, self.slabs, replicated(self.device_mesh).put(flat), owns, query,
             flat.shape[0], dev0, with_gradient,
         )
         if with_gradient:

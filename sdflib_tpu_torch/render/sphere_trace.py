@@ -20,6 +20,7 @@ sequence of full-batch torch ops; no module here has a kernel of its own.
 """
 from __future__ import annotations
 
+import threading
 import warnings
 from collections import OrderedDict
 from typing import NamedTuple
@@ -490,7 +491,13 @@ class _Runner:
     and the buffers that carry data between them are allocated outside
     every capture, so only their temporaries overlap. Made on the
     frame's card (``torch.cuda.graph``'s default capture stream sits on
-    the card of its first use). Counts what it did since ``reset``."""
+    the card of its first use). Counts what it did since ``reset``.
+
+    ``parallel`` traces several cards at once from worker threads, so a
+    capture is thread-local (another thread's host syncs and allocations
+    neither break it nor fail), and one capture runs at a time in the
+    process (``_CAPTURE_LOCK``): entering one synchronises its card and
+    empties the allocator's cache of every card."""
 
     def __init__(self, graphs: bool):
         self.graphs = {} if graphs else None
@@ -521,20 +528,35 @@ class _Runner:
         with warnings.catch_warnings():
             # an empty graph: the piece's kernels went to another stream
             warnings.filterwarnings("error", "The CUDA Graph is empty")
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.capture):
+            with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self.pool, stream=self.capture,
+                                                 capture_error_mode="thread_local"):
                 piece()
         self.graphs[key] = graph
         self.captured += 1
 
     def any_active(self, active) -> bool:
-        """Whether a flag is set: one of the frame's host syncs."""
+        """Whether a flag is set: one of the frame's host syncs, during
+        which a ``parallel`` worker gives up its turn."""
         self.syncs += 1
-        return bool(active.any())
+        flag = active.any()
+        with _waiting():
+            return bool(flag)
 
     def count_active(self, active) -> int:
-        """How many flags are set: one of the frame's host syncs."""
+        """How many flags are set: one of the frame's host syncs, during
+        which a ``parallel`` worker gives up its turn."""
         self.syncs += 1
-        return int((active > 0).sum())
+        count = (active > 0).sum()
+        with _waiting():
+            return int(count)
+
+
+def _waiting():
+    """``parallel.mesh.waiting`` (imported at the call: ``parallel``
+    imports this module)."""
+    from ..parallel.mesh import waiting
+
+    return waiting()
 
 
 class _Frame:
@@ -713,30 +735,52 @@ class _Frame:
 
 
 class _FrameCache:
-    """The frames traced on each card, the most recent last, at most
-    ``_MAX_FRAMES`` a card, keyed by their shape, knobs and route key. A
-    structure with new grids (``build_query_grid``), another structure
-    or a replica on another card keys new frames; a dropped structure's
-    frames stay until evicted."""
+    """The idle frames traced on each card, at most ``_MAX_FRAMES`` a card,
+    the most recently used key last, keyed by their shape, knobs and
+    route key. A structure with new grids (``build_query_grid``), another
+    structure or a replica on another card keys new frames; a dropped
+    structure's frames stay until evicted. A frame is out of the cache
+    while it runs (``take``, then ``put`` back), so two threads never
+    share one: a second thread with the same key (two workers on one
+    card) makes a twin, and both stay under the key."""
 
     def __init__(self):
-        self.frames: dict = {}    # device -> OrderedDict(key -> _Frame)
+        self.frames: dict = {}    # device -> OrderedDict(key -> [idle _Frame])
+        self._lock = threading.Lock()
 
-    def get(self, device, key, make) -> _Frame:
-        frames = self.frames.setdefault(device, OrderedDict())
-        frame = frames.pop(key, None)
-        if frame is None:
-            if len(frames) >= _MAX_FRAMES:
-                # a replay still queued reads the buffers and pool dropped here
+    def take(self, device, key, make) -> _Frame:
+        """An idle frame of ``key`` on ``device``, else ``make()``."""
+        with self._lock:
+            idle = self.frames.get(device, {}).get(key)
+            if idle:
+                frame = idle.pop()
+                if not idle:
+                    del self.frames[device][key]
+                return frame
+        return make()
+
+    def put(self, device, key, frame: _Frame) -> None:
+        """Return a frame that ran to its end; the card's least recently
+        used frames go past ``_MAX_FRAMES``."""
+        dropped = []
+        with self._lock:
+            frames = self.frames.setdefault(device, OrderedDict())
+            frames.setdefault(key, []).append(frame)
+            frames.move_to_end(key)
+            while sum(map(len, frames.values())) > _MAX_FRAMES:
+                old_key, old = next(iter(frames.items()))
+                dropped.append(old.pop(0))
+                if not old:
+                    del frames[old_key]
+        if dropped and device.type == "cuda":
+            # a replay still queued reads the buffers and pool dropped here;
+            # no capture runs while the card drains
+            with _CAPTURE_LOCK:
                 torch.cuda.synchronize(device)
-                while len(frames) >= _MAX_FRAMES:
-                    frames.popitem(last=False)
-            frame = make()
-        frames[key] = frame
-        return frame
 
 
 _FRAMES = _FrameCache()
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
@@ -761,7 +805,7 @@ def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
         # the side stream, the pool, the captures and the replays belong
         # to the octree's card, whichever card is current
         with torch.cuda.device(o.device):
-            frame = _FRAMES.get(o.device, key, make)
+            frame = _FRAMES.take(o.device, key, make)
             out = frame.run(o, d, live)
     else:
         frame = make()
@@ -773,6 +817,8 @@ def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
             graphs_captured=run.captured, graphs_replayed=run.replayed,
             host_syncs=run.syncs, marched_ray_trips=frame.marched,
         )
+    if graphs:
+        _FRAMES.put(o.device, key, frame)
     return out
 
 

@@ -34,6 +34,7 @@ The state round-trips through the ``.npz`` container of the JAX package
 from __future__ import annotations
 
 import collections
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -85,6 +86,7 @@ _SLAB_ROWS = 256      # tri_flat pads to whole slabs, as the JAX build does
 _AUTO_GRID_DEPTH = 7  # dense leaf grid up to this depth (4 B per cell)
 _CULL_GROUPS_IN_FLIGHT = 2
 _DEFAULT_BUCKET_BYTES = 4 << 30
+_GROUP_WIDTH_LOCK = threading.Lock()
 # Sparse-batch switch: below this many padded points per leaf the query
 # takes the grouped scan (the JAX package's rule, exact_octree.py:2213).
 # Kept after measuring both scans on an H100 (chip_smoke.py, PERF.md
@@ -1028,15 +1030,18 @@ class ExactOctreeSdf(SdfFunction):
     def _pick_group_width(self, lid_s, Pp: int) -> int:
         """Group width from the points per touched leaf of the padded batch
         (the JAX package pads with points at the origin), cached per padded
-        size: G = min(64, max(8, round_pow2(Pp // touched)))."""
-        G = self._group_width_cache.get(Pp)
-        if G is None:
-            touched = int((lid_s[1:] != lid_s[:-1]).sum()) + 1 if len(lid_s) else 0
-            if Pp > len(lid_s):
-                origin = self._descend(torch.zeros((1, 3), device=self.device))
-                touched += int(not bool((lid_s == origin).any()))
-            G = min(64, max(8, _round_pow2(max(1, Pp // max(touched, 1)), 1)))
-            self._group_width_cache[Pp] = G
+        size: G = min(64, max(8, round_pow2(Pp // touched))). The first
+        batch of a size sets it, under a lock: parallel's workers may query
+        one structure at once."""
+        with _GROUP_WIDTH_LOCK:
+            G = self._group_width_cache.get(Pp)
+            if G is None:
+                touched = int((lid_s[1:] != lid_s[:-1]).sum()) + 1 if len(lid_s) else 0
+                if Pp > len(lid_s):
+                    origin = self._descend(torch.zeros((1, 3), device=self.device))
+                    touched += int(not bool((lid_s == origin).any()))
+                G = min(64, max(8, _round_pow2(max(1, Pp // max(touched, 1)), 1)))
+                self._group_width_cache[Pp] = G
         return G
 
     def _sorted_groups(self, pts):
@@ -1097,20 +1102,20 @@ class ExactOctreeSdf(SdfFunction):
             pts_s, lid_s, order = self._sort_by_leaf(flat)
             win = scan_id_only(self.bucket_ids, self._packed_t, pts_s,
                                self.leaf_row0[lid_s], self.leaf_nchunks[lid_s])
-            self.last_scan_stats = {"scan": kind, "G": 0, "NG": 0}
+            stats = {"scan": kind, "G": 0, "NG": 0}
         elif kind == "grouped":
             pts_s, lid_s, start, G, order = self._sorted_groups(flat)
             scan = scan_grouped if kernel else scan_grouped_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, lid_s, start,
                        self.leaf_row0, self.leaf_nchunks)
-            self.last_scan_stats = {"scan": kind, "G": G, "NG": start.shape[0] - 1}
+            stats = {"scan": kind, "G": G, "NG": start.shape[0] - 1}
         else:
             pts_s, b0, nc, order = self._sorted_windows(flat)
             scan = scan_window if kernel else scan_window_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, b0, nc).reshape(-1)
-            self.last_scan_stats = {"scan": kind, "G": WINDOW,
-                                    "NG": pts_s.shape[0] // WINDOW}
-        self.last_scan_stats["tier"] = self.bucket_tier
+            stats = {"scan": kind, "G": WINDOW, "NG": pts_s.shape[0] // WINDOW}
+        # one assignment: parallel's workers may query one structure at once
+        self.last_scan_stats = {**stats, "tier": self.bucket_tier}
         out = self._finish(pts_s[:P], win[:P], with_gradient)
         if with_gradient:
             d = torch.empty_like(out[0])

@@ -1,6 +1,7 @@
 """Procedural test meshes (numpy only).
 
-The icosphere and torus of the JAX package's ``utils/primitives`` (the
+The icosphere, cube, plane and torus of the JAX package's
+``utils/primitives`` (the
 reference's PrimitivesFactory role, src/utils/PrimitivesFactory.cpp),
 copied so the port builds the same meshes without importing JAX. The
 repo carries no mesh assets: the bench and the tests use these.
@@ -11,7 +12,7 @@ import numpy as np
 
 from ..mesh import Mesh
 
-__all__ = ["make_icosphere", "make_torus"]
+__all__ = ["make_icosphere", "make_cube", "make_plane", "make_torus"]
 
 
 def make_icosphere(subdivisions: int = 2, radius: float = 0.5, center=(0, 0, 0)) -> Mesh:
@@ -58,6 +59,47 @@ def make_icosphere(subdivisions: int = 2, radius: float = 0.5, center=(0, 0, 0))
 
     verts = verts * radius + np.asarray(center, np.float64)
     return Mesh(verts.astype(np.float32), faces.astype(np.uint32))
+
+
+def make_cube(size: float = 1.0, center=(0, 0, 0)) -> Mesh:
+    """Axis-aligned cube of edge ``size``: 8 corners, 12 triangles."""
+    h = 0.5 * size
+    c = np.asarray(center, np.float64)
+    corners = np.array(
+        [[x, y, z] for z in (-h, h) for y in (-h, h) for x in (-h, h)],
+        dtype=np.float64,
+    ) + c
+    # 12 triangles, outward winding (CCW seen from outside)
+    faces = np.array(
+        [
+            (0, 2, 1), (1, 2, 3),  # z = -h
+            (4, 5, 6), (5, 7, 6),  # z = +h
+            (0, 1, 4), (1, 5, 4),  # y = -h
+            (2, 6, 3), (3, 6, 7),  # y = +h
+            (0, 4, 2), (2, 4, 6),  # x = -h
+            (1, 3, 5), (3, 7, 5),  # x = +h
+        ],
+        dtype=np.uint32,
+    )
+    return Mesh(corners.astype(np.float32), faces)
+
+
+def make_plane(size: float = 1.0, center=(0, 0, 0), res: int = 1) -> Mesh:
+    """Flat z=0 quad grid (open surface, exercises boundary pseudonormals)."""
+    xs = np.linspace(-0.5 * size, 0.5 * size, res + 1)
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([gx, gy, np.zeros_like(gx)], axis=-1).reshape(-1, 3)
+    verts = verts + np.asarray(center, np.float64)
+    faces = []
+    for i in range(res):
+        for j in range(res):
+            a = i * (res + 1) + j
+            b = a + 1
+            cidx = a + (res + 1)
+            d = cidx + 1
+            # wound so face normals point +z
+            faces += [(a, cidx, b), (b, cidx, d)]
+    return Mesh(verts.astype(np.float32), np.asarray(faces, np.uint32))
 
 
 def make_torus(R: float = 0.35, r: float = 0.15, nu: int = 48, nv: int = 24) -> Mesh:

@@ -13,6 +13,7 @@ import sdflib_tpu.mesh as jmesh
 from sdflib_tpu.render.camera import Camera as JCamera
 from sdflib_tpu.render.image import to_u8 as j_to_u8, write_png as j_write_png
 from sdflib_tpu.triangle import calculate_mesh_triangle_data as j_calc
+from sdflib_tpu.utils import primitives as jprim
 from sdflib_tpu.utils.primitives import make_icosphere as j_ico, make_torus as j_torus
 import sdflib_tpu_torch.mesh as tmesh
 from sdflib_tpu_torch.render.camera import Camera as TCamera
@@ -21,6 +22,7 @@ from sdflib_tpu_torch.triangle import (
     calculate_mesh_triangle_data as t_calc,
     soa_to_torch,
 )
+from sdflib_tpu_torch.utils import primitives as tprim
 from sdflib_tpu_torch.utils.primitives import make_icosphere as t_ico, make_torus as t_torus
 
 torch.set_num_threads(1)
@@ -45,6 +47,18 @@ def test_make_torus_equal(args):
 @pytest.mark.parametrize("sub", [0, 2, 3])
 def test_make_icosphere_equal(sub):
     a, b = j_ico(subdivisions=sub, radius=0.42), t_ico(subdivisions=sub, radius=0.42)
+    np.testing.assert_array_equal(a.vertices, b.vertices)
+    np.testing.assert_array_equal(a.indices, b.indices)
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("make_cube", dict()), ("make_cube", dict(size=0.7, center=(0.1, -0.2, 0.05))),
+    ("make_plane", dict()), ("make_plane", dict(size=1.3, center=(0.0, 0.1, -0.3), res=4)),
+])
+def test_make_cube_and_plane_equal(name, kw):
+    a, b = getattr(jprim, name)(**kw), getattr(tprim, name)(**kw)
+    assert name in tprim.__all__
+    assert a.vertices.dtype == b.vertices.dtype and a.indices.dtype == b.indices.dtype
     np.testing.assert_array_equal(a.vertices, b.vertices)
     np.testing.assert_array_equal(a.indices, b.indices)
 

@@ -12,7 +12,8 @@ a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
 ``octree_query_diff`` backward (a finite coefficient gradient that leaves
 the words unchanged), an EXACT_OCTREE ``.bin`` round trip with the same
 answers, and a ``lattice`` exact build within 1e-5 of RealSdf; then
-every module of ``tools/`` and ``parallel/`` imports, and ``sdf_export``
+every module of ``tools/`` and ``parallel/`` imports, ``sharded_distance``
+on ``[cpu, cpu:0] * 2`` (two workers) equals the one call, and ``sdf_export``
 writes an exact octree of an ASCII PLY that ``sdf_error`` holds within
 1e-5 of the mesh's ``RealSdf``, end to end on the CPU."""
 import os
@@ -142,6 +143,10 @@ SCRIPT = textwrap.dedent(
         with contextlib.redirect_stdout(buf):
             assert sdf_error.main([out, ply, "-m", "0.002", "--device", "cpu"]) == 0
         assert float(buf.getvalue().split("Max error:")[1]) <= 1e-5, buf.getvalue()
+    # the workers of parallel/ on two devices, bit-equal to one call
+    mixed = [torch.device("cpu"), torch.device("cpu", 0)] * 2
+    assert torch.equal(sdflib_tpu_torch.parallel.sharded_distance(sdf, pts, mixed),
+                       sdf.get_distance(pts))
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)

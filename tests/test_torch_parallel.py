@@ -17,7 +17,18 @@ same words.
 * The device-list conventions: the default list is every card (raising
   without one), entries may repeat, and ``initialize_distributed`` only
   acts when the environment names a world.
+* The workers (``mesh.run_blocks``): on ``[cpu, cpu:0] * 4`` two worker
+  threads, neither the caller, one per device, results in entry order,
+  one issuing at a time, their waits overlapping;
+  every sharded call goes through them, bit-equal to the single-device
+  call and within the JAX tolerances above; a block's error raises from
+  the call after the other worker finishes, and the next call works.
+  Eight threads at once: one kernel-library build (the build mocked),
+  one frame never shared by two threads, no lost launch count.
 """
+import importlib
+import sys
+import threading
 import time
 
 import jax
@@ -270,3 +281,264 @@ def test_device_list_conventions(octrees, monkeypatch):
     monkeypatch.setattr(dist, "init_process_group", fail)
     with pytest.raises(RuntimeError, match="rendezvous failed"):
         parallel.initialize_distributed(backend="gloo")
+
+
+# -- the workers -----------------------------------------------------------------
+
+
+def test_run_blocks_one_worker_per_device():
+    """Two devices, eight blocks: two worker threads, neither the caller's,
+    the blocks of a device on its one thread, results in entry order; a
+    list naming one device is one block, one call; one worker issues at
+    a time, and the two devices' waits (``waiting``) overlap."""
+    seen = []
+
+    def fn(dev, block):
+        seen.append((dev, threading.get_ident()))
+        return block.clone()
+
+    x = torch.arange(16.0)
+    out = parallel.mesh.run_blocks(parallel.sharded_rays(MIXED8).put(x), fn)
+    assert torch.equal(torch.cat(out), x)
+    threads = {dev: {t for d, t in seen if d == dev} for dev, _ in seen}
+    assert len(seen) == 8 and all(len(t) == 1 for t in threads.values())
+    ids = {t for ts in threads.values() for t in ts}
+    assert len(ids) == 2 and threading.get_ident() not in ids
+    seen.clear()
+    (one,) = parallel.mesh.run_blocks(parallel.sharded_rays(CPU8).put(x), fn)
+    assert torch.equal(one, x) and len(seen) == 1
+    # one worker at a time holds the turn; a worker that waits gives it
+    # up, so the two devices' waits overlap: each waits for the other
+    busy, peak, lock = [0], [0], threading.Lock()
+
+    def turn(dev, block):
+        with lock:
+            busy[0] += 1
+            peak[0] = max(peak[0], busy[0])
+        time.sleep(0.01)
+        with lock:
+            busy[0] -= 1
+        with parallel.mesh.waiting():
+            return meet.wait() is not None
+
+    meet = threading.Barrier(2, timeout=30)
+    out = parallel.mesh.run_blocks(parallel.sharded_rays(MIXED8).put(x), turn)
+    assert out == [True] * 8 and peak[0] == 1
+
+
+def test_run_blocks_refuses_a_call_from_a_block():
+    """A block that calls ``run_blocks`` raises (two workers would wait on
+    each other), the error reaches the caller, and the next call works."""
+    x = torch.arange(8.0)
+    blocks = parallel.sharded_rays(MIXED8[:2]).put(x)
+
+    def outer(dev, block):
+        return parallel.mesh.run_blocks(blocks, lambda d, b: b)
+
+    with pytest.raises(RuntimeError, match="inside a block"):
+        parallel.mesh.run_blocks(blocks, outer)
+    out = parallel.mesh.run_blocks(blocks, lambda d, b: b + 1)
+    assert torch.equal(torch.cat(out), x + 1)
+
+
+def test_run_blocks_raises_a_block_error(octrees, monkeypatch):
+    """A block that raises: the call raises it once the other worker has
+    run all its blocks (the failing worker stops there), returns nothing,
+    retries nothing; the next call works. The same through a sharded
+    query whose replica on one device fails."""
+    seen = []
+
+    def fn(dev, block):
+        seen.append(int(block[0]))
+        if int(block[0]) == 6:                      # entry 3, on cpu:0
+            raise ValueError("block 3 failed")
+        return block * 2
+
+    x = torch.arange(16.0)
+    with pytest.raises(ValueError, match="block 3 failed"):
+        parallel.mesh.run_blocks(parallel.sharded_rays(MIXED8).put(x), fn)
+    assert sorted(seen) == [0, 2, 4, 6, 8, 12]
+    out = parallel.mesh.run_blocks(parallel.sharded_rays(MIXED8).put(x), lambda d, b: b * 2)
+    assert torch.equal(torch.cat(out), x * 2)
+
+    _, p = octrees
+    pts = np.random.default_rng(9).uniform(-0.3, 0.3, (64, 3)).astype(np.float32)
+    real = OctreeSdf.get_distance
+    calls = []
+
+    def failing(self, points):
+        calls.append(self.device)
+        if self.device == torch.device("cpu", 0):
+            raise RuntimeError("replica failed")
+        return real(self, points)
+
+    with monkeypatch.context() as m:
+        m.setattr(OctreeSdf, "get_distance", failing)
+        with pytest.raises(RuntimeError, match="replica failed"):
+            parallel.sharded_distance(p, pts, MIXED8)
+    assert len(calls) == 8 - 3      # cpu:0 stopped at its first block
+    assert torch.equal(parallel.sharded_distance(p, pts, MIXED8), p.get_distance(pts))
+
+
+def _spy(monkeypatch, module_name):
+    """Wrap the ``run_blocks`` a parallel module calls: each call's block
+    count and the (device, thread) of each block."""
+    module = importlib.import_module(module_name)
+    real, calls = module.run_blocks, []
+
+    def spy(blocks, fn):
+        seen = []
+        calls.append((len(blocks), seen))
+
+        def rec(dev, block):
+            seen.append((dev, threading.get_ident()))
+            return fn(dev, block)
+
+        return real(blocks, rec)
+
+    monkeypatch.setattr(module, "run_blocks", spy)
+    return calls
+
+
+@pytest.mark.parametrize("what", ["distance", "gradient", "exact", "real", "trace", "fit"])
+def test_sharded_calls_run_on_the_workers(octrees, exacts, sphere, jmesh8, monkeypatch, what):
+    """Every sharded call on ``[cpu, cpu:0] * 4`` runs its eight blocks on
+    two worker threads, bit-equal to the single-device call and within
+    the tolerances above of the JAX package's on eight devices."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.35, 0.35, (1003, 3)).astype(np.float32)
+    module = {"trace": "render", "fit": "fit"}.get(what, "query")
+    calls = _spy(monkeypatch, f"sdflib_tpu_torch.parallel.{module}")
+    j, p = exacts if what == "exact" else octrees
+    if what in ("distance", "exact"):
+        d = parallel.sharded_distance(p, pts, MIXED8)
+        assert torch.equal(d, p.get_distance(pts))
+        np.testing.assert_allclose(_np(d), np.asarray(jpar.sharded_distance(j, pts, jmesh8)),
+                                   rtol=0, atol=1e-6)
+    elif what == "real":
+        real = RealSdf(sphere, device="cpu")
+        d = parallel.sharded_distance(real, pts, MIXED8)
+        assert torch.equal(d, real.get_distance(pts))
+        jreal = JReal(j_icosphere(subdivisions=2, radius=0.35))
+        np.testing.assert_allclose(_np(d), np.asarray(jpar.sharded_distance(jreal, pts, jmesh8)),
+                                   rtol=0, atol=1e-6)
+    elif what == "gradient":
+        d, g = parallel.sharded_distance_and_gradient(p, pts, MIXED8)
+        d0, g0 = p.get_distance_and_gradient(pts)
+        assert torch.equal(d, d0) and torch.equal(g, g0)
+        dj, gj = jpar.sharded_distance_and_gradient(j, pts, jmesh8)
+        np.testing.assert_allclose(_np(d), np.asarray(dj), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(g), np.asarray(gj), rtol=0, atol=1e-5)
+    elif what == "trace":
+        n = 211
+        origins = np.tile([[0.0, 0.0, -1.2]], (n, 1)).astype(np.float32)
+        dirs = rng.normal(size=(n, 3)).astype(np.float32)
+        dirs[:, 2] = np.abs(dirs[:, 2]) + 2.0
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        r1 = parallel.sharded_trace(p, origins, dirs, MIXED8, max_iters=128)
+        for a, b in zip(trace_octree(p, origins, dirs, max_iters=128, beam=None), r1):
+            assert torch.equal(a, b)
+        rj = jpar.sharded_trace(j, origins, dirs, jmesh8, max_iters=128)
+        hj, hp = np.asarray(rj.hit), _np(r1.hit)
+        assert (hj == hp).mean() >= 0.998 and hp.any()
+        both = hj & hp
+        assert np.abs(np.asarray(rj.depth)[both] - _np(r1.depth)[both]).max() <= 1e-3
+    else:
+        pts = pts[:1000]
+        targets = (np.linalg.norm(pts, axis=-1) - 0.35).astype(np.float32)
+        c0 = octree_coefficients(p.octree_data)
+        loss, c1 = parallel.data_parallel_fit_step(p, c0, pts, targets, MIXED8, lr=1e-2)
+        # the reference: the same blocks run one after another in the caller
+        monkeypatch.setattr(parallel.fit, "run_blocks",
+                            lambda blocks, fn: [fn(d, b) for d, b in blocks])
+        l_ser, c_ser = parallel.data_parallel_fit_step(p, c0, pts, targets, MIXED8, lr=1e-2)
+        assert torch.equal(loss, l_ser) and torch.equal(c1[0], c_ser[0])
+        jl, jc = jpar.data_parallel_fit_step(j, j_coefficients(j.octree_data), pts, targets,
+                                             jmesh8, lr=1e-2)
+        assert abs(float(loss) - float(jl)) <= 1e-6 * abs(float(jl))
+        jc = np.asarray(jc)
+        assert np.abs(_np(c1[0]) - jc).max() <= 1e-6 * np.abs(jc).max()
+    n_blocks, seen = calls[0]
+    assert n_blocks == 8 and len(seen) == 8
+    ids = {t for _, t in seen}
+    assert len(ids) == 2 and threading.get_ident() not in ids
+
+
+def _together(n, fn):
+    """``fn(i)`` on ``n`` threads released at once, with a short switch
+    interval; every thread joined within 60 s; their results."""
+    barrier = threading.Barrier(n)
+    out = [None] * n
+
+    def run(i):
+        barrier.wait()
+        out[i] = fn(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    return out
+
+
+def test_first_calls_from_eight_threads(monkeypatch):
+    """Eight threads at once: the kernel library is built once and every
+    thread gets the one library (the build mocked: no nvcc here); the
+    frame cache never hands one frame to two threads and keeps at most
+    ``_MAX_FRAMES`` idle frames a device; launch counts lose no update."""
+    from sdflib_tpu_torch.kernels import build
+    from sdflib_tpu_torch.ops import scan
+
+    builds, lib = [], object()
+
+    def compile_():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return build._BUILD / "mock.so"
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_so", None)
+    monkeypatch.setattr(build, "_compile", compile_)
+    monkeypatch.setattr(build, "_load", lambda so: lib)
+    assert all(x is lib for x in _together(8, lambda i: build.library()))
+    assert len(builds) == 1
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    cache, made, busy, lock = st._FrameCache(), [], set(), threading.Lock()
+    dev = torch.device("cpu")
+
+    def make():
+        frame = object()
+        made.append(frame)
+        return frame
+
+    def use(i):
+        for r in range(20):
+            key = ("frame", (i + r) % 3)
+            frame = cache.take(dev, key, make)
+            with lock:
+                assert id(frame) not in busy
+                busy.add(id(frame))
+            time.sleep(1e-4)
+            with lock:
+                busy.discard(id(frame))
+            cache.put(dev, key, frame)
+        return True
+
+    assert all(_together(8, use))
+    assert 3 <= len(made) <= 8 * 20
+    assert sum(map(len, cache.frames[dev].values())) <= st._MAX_FRAMES
+    kept = [f for idle in cache.frames[dev].values() for f in idle]
+    assert len({id(f) for f in kept}) == len(kept)
+
+    monkeypatch.setattr(scan, "launch_count", 0)
+    _together(8, lambda i: [build.count_launch(vars(scan), "launch_count")
+                            for _ in range(2000)])
+    assert scan.launch_count == 8 * 2000

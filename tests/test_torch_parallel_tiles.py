@@ -20,8 +20,14 @@ min_triangles_per_node=16``), and what only the port has:
   port on eight entries and answers within the tolerance of JAX's
   answers and of the port's replicated structure;
 * ``_build_exact(seed_cells=...)``: a shard's leaves are the global
-  build's leaves of those cells, list for list.
+  build's leaves of those cells, list for list;
+* both tiled classes on ``[cpu, cpu:0] * 4``: every entry's shard answers
+  on its device's worker thread (two threads, neither the caller), the
+  distances and gradients bit-equal to the same structure on ``[cpu] *
+  8`` and within the tolerances above of JAX's tiled structure.
 """
+import threading
+
 import jax
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data, soa_to_torch
 from sdflib_tpu_torch.utils.primitives import make_torus
 
 CPU8 = [torch.device("cpu")] * 8
+MIXED8 = [torch.device("cpu"), torch.device("cpu", 0)] * 4
 KW = dict(max_depth=4, start_depth=2, min_triangles_per_node=16)
 TOL = dict(rtol=1e-6, atol=1e-7)
 
@@ -231,3 +238,45 @@ def test_tiled_classes_need_a_card_by_default(setup):
     oct_ = OctreeSdf(mesh, box, max_depth=3, start_depth=1, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TiledOctreeSdf(_octree=oct_)
+
+
+@pytest.mark.parametrize("kind", ["exact", "octree"])
+def test_tiled_queries_run_on_the_workers(setup, jax_tiled, monkeypatch, kind):
+    """A tiled structure on ``[cpu, cpu:0] * 4`` answers on two worker
+    threads, one a device, bit-equal to the same structure on ``[cpu] *
+    8``, within TOL of JAX's tiled structure (the exact kind) or of the
+    replicated grid route (the octree kind, as above)."""
+    from sdflib_tpu_torch.parallel import tiles
+
+    mesh, box, rep, tiled = setup
+    if kind == "exact":
+        mixed = TiledExactOctreeSdf(mesh, box, **KW, device_mesh=MIXED8)
+        ref = tiled
+    else:
+        rep = OctreeSdf(mesh, mesh.bounding_box.add_margin(0.14), max_depth=4,
+                        start_depth=1, termination_threshold=1e-3, device="cpu")
+        rep.build_query_grid()
+        mixed = TiledOctreeSdf(_octree=rep, device_mesh=MIXED8)
+        ref = TiledOctreeSdf(_octree=rep, device_mesh=CPU8)
+    seen = []
+    real = tiles.run_blocks
+
+    def spy(blocks, fn):
+        def rec(dev, block):
+            seen.append((dev, threading.get_ident()))
+            return fn(dev, block)
+        return real(blocks, rec)
+
+    monkeypatch.setattr(tiles, "run_blocks", spy)
+    pts = _points(rep.box, 4096, 19)
+    d, (d_g, g) = mixed.get_distance(pts), mixed.get_distance_and_gradient(pts)
+    assert len(seen) == 16
+    ids = {dev: {t for v, t in seen if v == dev} for dev in MIXED8}
+    assert all(len(t) == 1 for t in ids.values())
+    assert len(set.union(*ids.values())) == 2 and threading.get_ident() not in set.union(*ids.values())
+    d_r, g_r = ref.get_distance_and_gradient(pts)
+    assert torch.equal(d, ref.get_distance(pts)) and torch.equal(d_g, d_r) and torch.equal(g, g_r)
+    if kind == "exact":
+        np.testing.assert_allclose(_np(d), np.asarray(jax_tiled.get_distance(pts)), **TOL)
+    else:
+        np.testing.assert_allclose(_np(d), _np(rep.get_distance(pts)), **TOL)

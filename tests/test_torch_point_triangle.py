@@ -12,11 +12,14 @@ import torch
 
 from sdflib_tpu.ops import point_triangle as J
 from sdflib_tpu.triangle import TriangleDataSoA as JSoA, calculate_mesh_triangle_data
-from sdflib_tpu.utils.primitives import make_icosphere, make_torus
+from sdflib_tpu.utils.primitives import make_cube as j_cube, make_icosphere, make_plane as j_plane
+from sdflib_tpu.utils.primitives import make_torus
 from sdflib_tpu_torch import RealSdf
 from sdflib_tpu_torch.mesh import Mesh
 from sdflib_tpu_torch.ops import point_triangle as P
 from sdflib_tpu_torch.triangle import TriangleDataSoA as TSoA
+from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data as t_calc, soa_to_torch
+from sdflib_tpu_torch.utils.primitives import make_cube, make_plane
 
 torch.set_num_threads(1)
 ATOL = 1e-6
@@ -125,6 +128,37 @@ def test_degenerate_triangle_vertex_rows_match_jax():
     np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
     assert np.isnan(t[:, :2]).all()
     np.testing.assert_allclose(t[:, 2], j[:, 2], atol=ATOL)
+
+
+def _both_batches(t_mesh, j_mesh, points):
+    """The port's ``signed_distance_batch`` on its own mesh and the JAX
+    package's on its own, numpy out."""
+    t = P.signed_distance_batch(torch.as_tensor(points),
+                                soa_to_torch(t_calc(t_mesh), "cpu")).numpy()
+    jsoa = jax.tree.map(jnp.asarray, calculate_mesh_triangle_data(j_mesh))
+    return t, np.asarray(J.signed_distance_batch(jnp.asarray(points), jsoa))
+
+
+def test_cube_signed_distance_matches_jax():
+    """tests/test_point_triangle.py's cube case: 512 points of [-1, 1]^3
+    against the unit cube, the port within 1e-6 of JAX and both within
+    the analytic box distance's tolerance there (rtol 1e-4, atol 1e-5)."""
+    points = np.random.default_rng(3).uniform(-1, 1, size=(512, 3)).astype(np.float32)
+    t, j = _both_batches(make_cube(size=1.0), j_cube(size=1.0), points)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    q = np.abs(points) - 0.5
+    expected = np.linalg.norm(np.maximum(q, 0), axis=-1) + np.minimum(q.max(axis=-1), 0)
+    np.testing.assert_allclose(t, expected, rtol=1e-4, atol=1e-5)
+
+
+def test_open_surface_plane_matches_jax():
+    """tests/test_point_triangle.py's open-surface case: a z=0 quad of 2x2
+    cells, a point above, one below, and one past the edge whose sign
+    comes from the face normal (boundary pseudonormal)."""
+    points = np.array([[0.0, 0.0, 0.3], [0.1, -0.1, -0.25], [0.8, 0.0, 0.05]], np.float32)
+    t, j = _both_batches(make_plane(size=1.0, res=2), j_plane(size=1.0, res=2), points)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    np.testing.assert_allclose(t, [0.3, -0.25, np.sqrt(0.3**2 + 0.05**2)], atol=1e-5)
 
 
 def _golden_mesh(name):
