@@ -120,7 +120,19 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   ``sharded_distance`` on one card, two and every card, bit-equal to the
   single-device calls, with their rates and efficiencies, and each
   every-card call's span on each card (``card_spans``, CUDA events) and
-  device timeline split by card (``card_timeline``).
+  device timeline split by card (``card_timeline``);
+* ``parallel`` across processes (``process_path``): on one card two
+  ranks on it under gloo, on two cards or more one rank a card under
+  NCCL, started with ``torch.multiprocessing`` (spawn) and a ``file://``
+  rendezvous; each rank loads path A's d6 exact structure, path C's d6
+  octree and a tiled exact octree of two shards a rank, runs the
+  2^21-point exact query (K1w), the 10k oracle points through the exact
+  query (K1g) and ``RealSdf`` (K2), the 2^22-point approximate query,
+  the gradients on 2^20 points, the 1024^2 trace, the fit step on 2^20
+  points and the tiled query over a ``ProcessMesh``, each bit-equal to
+  its call on the rank's one device (the fit step's loss and new
+  coefficients within 1e-6),
+  timed between barriers; the ranks' launch counts join the kernels'.
 
 Each kernel is held against its plain torch version on the card and
 timed beside it with CUDA events (best of 3 after a warmup). Launch
@@ -136,8 +148,10 @@ import collections
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2048,6 +2062,228 @@ def multicard_path(devs=None, sizes=None):
     return rows
 
 
+PROC = dict(n_exact=1 << 21, n_real=10_000, n_approx=1 << 22, n_grad=1 << 20, rays=1024,
+            n_fit=1 << 20, n_tiles=1 << 21, depth=6)
+PROC_DEADLINE = 600.0
+
+
+def _process_rank(rank, world, backend, tmp):
+    """One rank of ``process_path``: its group (``file://`` rendezvous in
+    ``tmp``), the structures the parent saved, every sharded call on a
+    ``ProcessMesh`` of one entry a rank (the tiles: two) with its rate,
+    then the same calls on this rank's one device, each held bit-equal.
+    Writes ``rank<r>.json``: the rates, the one-device times (rank 0
+    alone, the others waiting), the checks and the kernels' launch counts
+    of the sharded calls."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from sdflib_tpu_torch import RealSdf, SdfFunction, parallel
+    from sdflib_tpu_torch.diff.query import octree_coefficients
+    from sdflib_tpu_torch.render import trace_octree
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    sz = PROC
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        geo = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+        box = geo.bounding_box.add_margin(0.14)
+        ex = SdfFunction.load(os.path.join(tmp, "exact.npz"), device=card)
+        oct_ = SdfFunction.load(os.path.join(tmp, "octree.npz"), device=card)
+        oct_.build_query_grid()
+        real = RealSdf(geo, device=card)
+        one = parallel.process_mesh([card])
+        two = parallel.process_mesh([card, card])
+        tiled = SdfFunction.load(os.path.join(tmp, "tiled.npz"), device=card, device_mesh=two)
+        tiled_one = SdfFunction.load(os.path.join(tmp, "tiled.npz"), device=card,
+                                     device_mesh=[card] * len(two))
+        p_ex = _uniform(ex.box, sz["n_exact"], 0, card)
+        p_orc = _uniform(box, sz["n_real"], 7, card)
+        p_oct = _uniform(oct_.box, sz["n_approx"], 1, card)
+        p_grad, p_fit = p_oct[: sz["n_grad"]], p_oct[: sz["n_fit"]]
+        t_fit = real.get_distance(p_fit)
+        o, d = _ortho_rays(sz["rays"], card)
+        lo, hi = np.asarray(ex.box.min) - 0.1, np.asarray(ex.box.max) + 0.1
+        p_tile = torch.as_tensor(np.random.default_rng(3).uniform(lo, hi, (sz["n_tiles"], 3))
+                                 .astype(np.float32), device=card)
+        c0 = octree_coefficients(oct_._octree_dev)
+        trace_kw = dict(eps=1e-5, far=4.0, max_iters=1024)
+        # name: (count, unit, the call over the processes, the call on this rank's device)
+        work = {
+            "sharded_distance exact": (
+                sz["n_exact"], "points", lambda: parallel.sharded_distance(ex, p_ex, one),
+                lambda: ex.get_distance(p_ex)),
+            "sharded_distance exact, oracle points": (
+                sz["n_real"], "points", lambda: parallel.sharded_distance(ex, p_orc, one),
+                lambda: ex.get_distance(p_orc)),
+            "sharded_distance RealSdf": (
+                sz["n_real"], "points", lambda: parallel.sharded_distance(real, p_orc, one),
+                lambda: real.get_distance(p_orc)),
+            "sharded_distance approximate": (
+                sz["n_approx"], "points", lambda: parallel.sharded_distance(oct_, p_oct, one),
+                lambda: oct_.get_distance(p_oct)),
+            "sharded_distance_and_gradient": (
+                sz["n_grad"], "points",
+                lambda: parallel.sharded_distance_and_gradient(oct_, p_grad, one),
+                lambda: oct_.get_distance_and_gradient(p_grad)),
+            "sharded_trace": (
+                sz["rays"] ** 2, "rays",
+                lambda: parallel.sharded_trace(oct_, o, d, one, **trace_kw),
+                lambda: trace_octree(oct_, o, d, beam=None, **trace_kw)),
+            "data_parallel_fit_step": (
+                sz["n_fit"], "points",
+                lambda: parallel.data_parallel_fit_step(oct_, c0, p_fit, t_fit, one, lr=0.5),
+                lambda: parallel.data_parallel_fit_step(oct_, c0, p_fit, t_fit, [card], lr=0.5)),
+            "tiled exact": (
+                sz["n_tiles"], "points", lambda: tiled.get_distance(p_tile),
+                lambda: tiled_one.get_distance(p_tile)),
+        }
+
+        def settle():
+            torch.cuda.synchronize(card)
+            dist.barrier()
+
+        def best_ms(fn, sync):
+            fn()
+            sync()
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            return best * 1e3
+
+        reset_counts()
+        outs, rows = {}, {}
+        for name, (n, unit, call, _) in work.items():
+            outs[name] = call()
+            rows[name] = dict(n=n, unit=unit, ms=best_ms(call, settle))
+        counts = read_counts()
+        # the fit: three steps from c0, the loss falling
+        losses, c = [], c0
+        for _ in range(3):
+            loss, c = parallel.data_parallel_fit_step(oct_, c, p_fit, t_fit, one, lr=0.5)
+            losses.append(float(loss))
+        same = {}
+        for name, (_, _, _, single) in work.items():
+            ref, out = single(), outs[name]
+            if name == "data_parallel_fit_step":
+                # one entry's step: the loss and the new coefficients within 1e-6
+                # relative (the blocks' sums run in another order)
+                fit_coeffs = float((out[1][0] - ref[1][0]).abs().max() / ref[1][0].abs().max())
+                same[name] = (abs(float(out[0]) - float(ref[0])) <= 1e-6 * abs(float(ref[0]))
+                              and fit_coeffs <= 1e-6)
+            elif isinstance(out, tuple):
+                same[name] = all(torch.equal(a, b) for a, b in zip(out, ref))
+            else:
+                same[name] = torch.equal(out, ref)
+            if rank == 0:
+                rows[name]["one_device_ms"] = best_ms(single,
+                                                      lambda: torch.cuda.synchronize(card))
+            dist.barrier()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(rank=rank, device=str(card), rows=rows, same=same, counts=counts,
+                           fit_losses=losses, fit_coefficients=fit_coeffs), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def process_path(dev, tmp: str, threaded=None):
+    """``parallel`` across processes: on one card two ranks on it under
+    gloo, on two cards or more one rank a card under NCCL. The parent saves the d6
+    exact structure (``exact.npz`` in ``tmp``, path A's where main saved
+    it, else built here), path C's d6 no_continuity octree and a tiled
+    exact octree of two shards a rank (built on ``dev``), then spawns the
+    ranks (``torch.multiprocessing``, spawn). Each rank runs the
+    2^21-point exact ``sharded_distance`` (K1w), the exact query and
+    ``RealSdf`` (K2) on the 10k oracle points (K1g), the 2^22-point
+    approximate query after ``build_query_grid``,
+    ``sharded_distance_and_gradient`` on 2^20 points, bench.py's 1024^2
+    ``sharded_trace`` (beam off), the fit step on 2^20 points (three
+    steps, the loss falling) and the tiled exact octree (2^21 points up
+    to 0.1 beyond the box), each on a ``ProcessMesh``, timed on the host
+    clock between barriers (best of 3 after a warm call), and holds each
+    bit-equal to its call on the rank's one device (the fit step's loss
+    and new coefficients within 1e-6 of one entry's, max |d| / max |c|). Prints every rank's rates beside the
+    one-device times and ``threaded`` (``multicard_path``'s rows). A rank
+    that fails fails the path. Returns the ranks' summed launch counts."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf
+    from sdflib_tpu_torch.parallel.tiles import TiledExactOctreeSdf
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    sz = PROC
+    t_path = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards >= 2 else (2, "gloo")
+    geo = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = geo.bounding_box.add_margin(0.14)
+    kw = dict(max_depth=sz["depth"], start_depth=2)
+    if not os.path.exists(os.path.join(tmp, "exact.npz")):
+        ExactOctreeSdf(geo, box, **kw, min_triangles_per_node=32, device=dev).save(
+            os.path.join(tmp, "exact.npz"))
+    OctreeSdf(geo, box, **kw, termination_threshold=1e-3, device=dev).save(
+        os.path.join(tmp, "octree.npz"))
+    TiledExactOctreeSdf(geo, box, **kw, min_triangles_per_node=32,
+                        device_mesh=[dev] * (2 * world)).save(os.path.join(tmp, "tiled.npz"))
+    print(f"process path: {world} ranks under {backend} on "
+          f"{'cuda:0' if backend == 'gloo' else f'{world} cards'}; structures saved in "
+          f"{time.perf_counter() - t_path:.1f} s")
+    t_spawn = time.perf_counter()
+    ctx = mp.start_processes(_process_rank, args=(world, backend, tmp),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            _check(time.perf_counter() - t_spawn < PROC_DEADLINE,
+                   f"process path: the ranks were not done in {PROC_DEADLINE} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    widest: dict = {}          # multicard_path's every-card row of each call
+    for row in threaded or []:
+        if row["cards"] >= widest.get(row["work"], {}).get("cards", 0):
+            widest[row["work"]] = row
+    for name, row0 in ranks[0]["rows"].items():
+        n, unit = row0["n"], row0["unit"]
+        per = "; ".join(f"rank {rk['rank']} ({rk['device']}) {rk['rows'][name]['ms']:.4f} ms, "
+                        f"{n / rk['rows'][name]['ms'] * 1e3:.6e} {unit}/s" for rk in ranks)
+        one_ms = row0["one_device_ms"]
+        slowest = max(rk["rows"][name]["ms"] for rk in ranks)
+        line = (f"process rows, {name}, {n} {unit} over {world} ranks: {per}; one device "
+                f"alone {one_ms:.4f} ms ({one_ms / slowest:.4f}x)")
+        if name in widest:
+            t = widest[name]
+            line += f"; threaded on {t['cards']} cards {t['ms']:.4f} ms"
+        print(line)
+    for rk in ranks:
+        print(f"process rank {rk['rank']}: bit-equal to its one-device calls {rk['same']}; "
+              f"fit losses {rk['fit_losses']}, coefficients max |d| / max |c| "
+              f"{rk['fit_coefficients']:.3e}; launches {rk['counts']}")
+        _check(all(rk["same"].values()), f"process rank {rk['rank']}: not equal {rk['same']}")
+        losses = rk["fit_losses"]
+        _check(losses[-1] < losses[0], f"process rank {rk['rank']}: fit loss {losses}")
+    counts = {k: sum(rk["counts"][k] for rk in ranks) for k in ranks[0]["counts"]}
+    print(f"process path took {time.perf_counter() - t_path:.1f} s; launches in the ranks: "
+          f"{counts}")
+    for name in ("nearest", "scan_window", "scan_grouped"):
+        _check(counts[name] > 0, f"{name} was not launched in the process path's ranks")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2387,6 +2623,9 @@ def main() -> None:
     print(f"K1w achieved row-fetch bound: {fetch_ms:.4f} ms for its {rows} rows "
           f"(faster probe, scaled to the unpadded stream) vs K1w {k1_ms:.4f} ms "
           f"({fetch_ms / k1_ms:.1%} of its time)")
+    # path A's structure for the process path's ranks
+    proc_tmp = tempfile.mkdtemp(prefix="sdf_proc_")
+    sdf.save(os.path.join(proc_tmp, "exact.npz"))
     del sdf, oracle, pts, pts_s, b0, nc, stream, k1_stream
     torch.cuda.empty_cache()
 
@@ -2493,8 +2732,15 @@ def main() -> None:
 
     # -- parallel over every card, where there are several ------------------
     reset_counts()
-    if multicard_path() is not None:
+    threaded = multicard_path()
+    if threaded is not None:
         launches["multi"] = read_counts()
+
+    # -- parallel across processes: two ranks on one card, or one a card ---
+    try:
+        launches["process"] = process_path(dev, proc_tmp, threaded=threaded)
+    finally:
+        shutil.rmtree(proc_tmp, ignore_errors=True)
 
     meta = {
         "nearest": ("sdflib_tpu_torch/csrc/nearest.cu",

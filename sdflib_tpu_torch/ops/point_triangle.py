@@ -197,7 +197,12 @@ def signed_dist_grad_pair(points, tri: TriangleDataSoA):
 
     normals = (n_v1, n_v2, n_v3, n_e1, n_e2, n_e3, tn)
     sel = _select_by_code(code[..., None], normals)
-    grad = torch.where((code == FACE)[..., None], tn, sign[..., None] * sel)
+    # a point on an edge or vertex of the triangle (sign 0 at distance 0)
+    # takes the face normal, not 0: which of the tied triangles wins there
+    # depends on the last ulp, and the face normal is the answer of the
+    # face region beside it
+    on_rim = (code != FACE) & (sign == 0.0) & (sq == 0.0)
+    grad = torch.where(((code == FACE) | on_rim)[..., None], tn, sign[..., None] * sel)
     return dist, grad
 
 

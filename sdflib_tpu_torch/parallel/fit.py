@@ -8,23 +8,55 @@ its weighted squared error over the whole batch's weight through
 on its worker (``run_blocks``); the blocks' coefficient gradients are
 summed on the first entry's device (the all-reduce, in
 entry order) and one SGD step is taken there. On one device the step is
-``fit_step``'s, bit for bit.
+``fit_step``'s, bit for bit. Over a ``ProcessMesh`` every rank gathers
+every block's loss and gradient (``_gather_runs``, an ``all_gather``) and
+sums them in the same entry order, so each rank takes the one-process
+step bit for bit; an ``all_reduce`` would sum in the collective's own
+order.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from ..diff.query import octree_query_diff
 from .mesh import (
+    ProcessMesh,
+    _gather_ranks,
+    _runs,
     default_mesh,
     device_runs,
+    local_devices,
+    local_entries,
     pad_to_shards,
     replicated,
     run_blocks,
     sharded_rays,
+    takes_part,
 )
 
 __all__ = ["data_parallel_fit_step", "fit_step"]
+
+
+def _gather_runs(mesh, parts) -> list:
+    """One tensor for each run of the whole list, in entry order, on the
+    first local entry's device: ``parts`` are this process's, one a run of
+    ``device_runs(mesh)``, every part of one shape. Of a ``ProcessMesh``,
+    one ``all_gather`` of each rank's parts stacked, padded to the rank
+    with the most runs. Called on the caller's thread."""
+    if not isinstance(mesh, ProcessMesh):
+        return [p.to(mesh[0]) for p in parts]
+    home = local_devices(mesh)[0]
+    runs = _runs(mesh)
+    got = _gather_ranks(mesh, torch.stack([p.to(home) for p in parts]),
+                        Counter(e.rank for e, _, _ in runs))
+    taken: Counter = Counter()
+    out = []
+    for e, _, _ in runs:
+        out.append(got[e.rank][taken[e.rank]])
+        taken[e.rank] += 1
+    return out
 
 
 def _weighted_sse(octree_words, coeffs, points, targets, weights, box_min, box_size,
@@ -83,8 +115,11 @@ def data_parallel_fit_step(
     returned. points/targets shard over the entries, padding points (the
     box center) at weight 0. Returns (loss, new_coeffs): the loss on the
     first entry's device, new_coeffs one replica per entry (one tensor
-    per distinct device)."""
+    per distinct device); over a ``ProcessMesh``, per local entry, on
+    every rank of the list (None on a rank without entries)."""
     mesh = default_mesh(mesh)
+    if not takes_part(mesh):
+        return None
     rep, split = replicated(mesh), sharded_rays(mesh)
 
     pts = torch.as_tensor(points, dtype=torch.float32).reshape(-1, 3)
@@ -99,8 +134,10 @@ def data_parallel_fit_step(
 
     c_list = (list(coeffs) if isinstance(coeffs, (list, tuple))
               else rep.put(torch.as_tensor(coeffs)))
-    if len(c_list) != len(mesh):
-        raise ValueError(f"{len(c_list)} coefficient replicas for {len(mesh)} entries")
+    local = local_entries(mesh)
+    if len(c_list) != len(local):
+        raise ValueError(f"{len(c_list)} coefficient replicas for {len(local)} entries")
+    at = {i: j for j, (i, _) in enumerate(local)}
     words = rep.put(octree._octree_dev)
     statics = dict(
         start_grid_size=octree.start_grid_size,
@@ -109,7 +146,7 @@ def data_parallel_fit_step(
         interpolation=octree.interpolation,
         fast=octree._fast_layout,
     )
-    dev0 = mesh[0]
+    dev0 = local_devices(mesh)[0]
     n = weights.sum().clamp_min(1.0)
 
     def block_grad(dev, block):
@@ -122,13 +159,17 @@ def data_parallel_fit_step(
         return loss_k.detach(), g
 
     # the copies to each device are made here, on the caller's streams
-    blocks = [(dev, (words[first], c_list[first].detach().to(dev), p_k, t_k, w_k, n.to(dev)))
+    blocks = [(dev, (words[at[first]], c_list[at[first]].detach().to(dev), p_k, t_k, w_k,
+                     n.to(dev)))
               for (dev, first, _), (_, p_k), (_, t_k), (_, w_k) in zip(
                   device_runs(mesh), split.put(pts), split.put(tgt), split.put(weights))]
+    # each block's loss rides in front of its gradient: one gather a step
+    parts = [torch.cat([loss_k.reshape(1), g.reshape(-1)])
+             for loss_k, g in run_blocks(blocks, block_grad)]
     loss = torch.zeros((), device=dev0)
     grad = torch.zeros_like(c_list[0], device=dev0)
-    for loss_k, g in run_blocks(blocks, block_grad):
-        loss = loss + loss_k.to(dev0)
-        grad = grad + g.to(dev0)
+    for part in _gather_runs(mesh, parts):
+        loss = loss + part[0]
+        grad = grad + part[1:].view_as(grad)
     new = c_list[0].detach().to(dev0) - lr * grad
     return loss, rep.put(new)

@@ -7,8 +7,10 @@ of the device list's length and split into contiguous shards, the shards
 of each device (``sharded_rays(mesh).put``) are queried against a replica of
 the structure there, every device's block at the same time on its worker
 (``run_blocks``), and the answers are concatenated on the first entry's
-device. Each point takes the arithmetic of a single-device query,
-so the answers equal ``sdf.get_distance`` bit for bit.
+device (``gather_blocks``; over a ``ProcessMesh``, on every rank of the
+list, on its first local entry's device). Each point takes the arithmetic
+of a single-device query, so the answers equal ``sdf.get_distance`` bit
+for bit.
 """
 from __future__ import annotations
 
@@ -18,7 +20,16 @@ import weakref
 
 import torch
 
-from .mesh import default_mesh, pad_to_shards, per_device, run_blocks, sharded_rays
+from .mesh import (
+    default_mesh,
+    gather_blocks,
+    local_devices,
+    pad_to_shards,
+    per_device,
+    run_blocks,
+    sharded_rays,
+    takes_part,
+)
 
 __all__ = ["sharded_distance", "sharded_distance_and_gradient"]
 
@@ -94,21 +105,25 @@ def _blocks(points, mesh):
 
 def sharded_distance(sdf, points, mesh=None):
     """Distances for a point batch sharded over the device list, on its
-    first entry's device."""
+    first entry's device (None on a rank without entries)."""
     mesh = default_mesh(mesh)
+    if not takes_part(mesh):
+        return None
     blocks, shape, P_ = _blocks(points, mesh)
-    reps = _replicas(sdf, mesh)
+    reps = _replicas(sdf, local_devices(mesh))
     parts = run_blocks(blocks, lambda dev, b: reps[dev].get_distance(b))
-    d = torch.cat([p.to(mesh[0]) for p in parts])
+    d = gather_blocks(mesh, parts)
     return d[:P_].reshape(shape[:-1])
 
 
 def sharded_distance_and_gradient(sdf, points, mesh=None):
     """Distances + gradients, points sharded over the device list."""
     mesh = default_mesh(mesh)
+    if not takes_part(mesh):
+        return None
     blocks, shape, P_ = _blocks(points, mesh)
-    reps = _replicas(sdf, mesh)
+    reps = _replicas(sdf, local_devices(mesh))
     outs = run_blocks(blocks, lambda dev, b: reps[dev].get_distance_and_gradient(b))
-    d = torch.cat([o[0].to(mesh[0]) for o in outs])
-    g = torch.cat([o[1].to(mesh[0]) for o in outs])
+    d = gather_blocks(mesh, [o[0] for o in outs])
+    g = gather_blocks(mesh, [o[1] for o in outs])
     return d[:P_].reshape(shape[:-1]), g[:P_].reshape(shape)

@@ -17,7 +17,14 @@ from __future__ import annotations
 import torch
 
 from ..render.sphere_trace import _TRACE_BLOCK, TraceResult, _trace_rays
-from .mesh import default_mesh, run_blocks, sharded_rays
+from .mesh import (
+    default_mesh,
+    gather_blocks,
+    local_devices,
+    run_blocks,
+    sharded_rays,
+    takes_part,
+)
 from .query import _replicas
 
 __all__ = ["sharded_trace"]
@@ -47,8 +54,12 @@ def sharded_trace(
     The shards are sized as the JAX package's: ``ceil(R / entries)`` rays
     rounded up to whole blocks of B, the smaller of 2^17 and the power of
     two at or above that count. A padding ray has a unit direction and
-    starts inactive, so it never marches."""
+    starts inactive, so it never marches. The sizes come from the whole
+    list, so every rank of a ``ProcessMesh`` pads alike; a rank without
+    entries returns None."""
     mesh = default_mesh(mesh)
+    if not takes_part(mesh):
+        return None
     o = torch.as_tensor(origins, dtype=torch.float32)
     shape = o.shape[:-1]
     o = o.reshape(-1, 3)
@@ -61,7 +72,7 @@ def sharded_trace(
     o = torch.nn.functional.pad(o, (0, 0, 0, Rp - R))
     d = torch.where(live[:, None], torch.nn.functional.pad(d, (0, 0, 0, Rp - R)),
                     torch.tensor([1.0, 0.0, 0.0], device=o.device))
-    reps = _replicas(octree, mesh)
+    reps = _replicas(octree, local_devices(mesh))
     split = sharded_rays(mesh)
 
     def trace(dev, block):
@@ -72,9 +83,8 @@ def sharded_trace(
 
     parts = run_blocks([(dev, (o_k, d_k, a_k)) for (dev, o_k), (_, d_k), (_, a_k)
                         in zip(split.put(o), split.put(d), split.put(live))], trace)
-    dev0 = mesh[0]
     hit, pos, acc, normal, iters = (
-        torch.cat([p[i].to(dev0) for p in parts])[:R] for i in range(len(TraceResult._fields))
+        gather_blocks(mesh, [p[i] for p in parts])[:R] for i in range(len(TraceResult._fields))
     )
     return TraceResult(
         hit.reshape(shape),

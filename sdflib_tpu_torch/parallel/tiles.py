@@ -26,6 +26,11 @@ Shared query pattern:
   * every device answers its entries' points at the same time, on its
     worker (``mesh.run_blocks``). The build runs the entries one after
     another.
+  * over a ``ProcessMesh`` a rank builds (or loads) only its own
+    entries' shards, the memory per device that tiling buys; each rank's
+    answers and their indices come back through ``_gather_ranks`` and are
+    placed, never summed (``-0.0 + 0.0`` is ``+0.0``), on every rank of
+    the list. Only a process that holds every shard writes a container.
 
 Both classes are full SdfFunction citizens with the JAX package's
 container keys: distance and gradient queries, ``save()`` and
@@ -48,7 +53,18 @@ from ..sdf.octree import _finish, _grid_cells, _leaf_frac
 from ..sdf.octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK
 from ..sdf.sdf_function import SdfFormat, SdfFunction
 from ..triangle import TriangleDataSoA, calculate_mesh_triangle_data, soa_to_torch
-from .mesh import default_mesh, per_device, replicated, run_blocks, waiting
+from .mesh import (
+    ProcessMesh,
+    _gather_ranks,
+    default_mesh,
+    local_devices,
+    local_entries,
+    per_device,
+    replicated,
+    run_blocks,
+    takes_part,
+    waiting,
+)
 
 __all__ = ["TiledExactOctreeSdf", "TiledOctreeSdf"]
 
@@ -112,10 +128,13 @@ class _ExactShard(ExactOctreeSdf):
 
 
 def _scatter_answers(mesh, shards, copies, owns, query, P, dev0, with_gradient):
-    """Each shard answers the points it owns, every entry's device at the
-    same time on its worker (``run_blocks``; the shards of one device in
-    entry order); the answers are scattered into one output on ``dev0``
-    in shard order."""
+    """Each of this process's shards (``local_entries``) answers the
+    points it owns, every entry's device at the same time on its worker
+    (``run_blocks``; the shards of one device in entry order); the
+    answers are scattered into one output on ``dev0`` in shard order.
+    Over a ``ProcessMesh`` each rank's indices and answers (as int32
+    bits) are gathered first (``_gather_ranks``) and every rank places
+    them all."""
 
     def answer(dev, block):
         k, shard, pts = block
@@ -124,10 +143,12 @@ def _scatter_answers(mesh, shards, copies, owns, query, P, dev0, with_gradient):
             idx = mine.nonzero().squeeze(1)
         return idx, (query(k, shard, pts[idx]) if idx.numel() else None)
 
-    parts = run_blocks([(dev, (k, shard, pts)) for k, (dev, shard, pts)
-                        in enumerate(zip(mesh, shards, copies))], answer)
+    parts = run_blocks([(dev, (k, shard, pts)) for (k, dev), shard, pts
+                        in zip(local_entries(mesh), shards, copies)], answer)
     d_out = torch.zeros(P, device=dev0)
     g_out = torch.zeros((P, 3), device=dev0) if with_gradient else None
+    if isinstance(mesh, ProcessMesh):
+        parts = _exchange(mesh, parts, dev0, with_gradient)
     for idx, res in parts:
         if res is None:
             continue
@@ -140,6 +161,37 @@ def _scatter_answers(mesh, shards, copies, owns, query, P, dev0, with_gradient):
     return d_out, g_out
 
 
+def _exchange(mesh, parts, dev0, with_gradient):
+    """Every rank's (indices, answers) of ``_scatter_answers``: this
+    rank's packed as int32 rows (the index, then the answers' bits), one
+    ``_gather_ranks`` over the list's ranks, unpacked on ``dev0``."""
+    width = 5 if with_gradient else 2
+    rows = []
+    for idx, res in parts:
+        if res is None:
+            continue
+        vals = torch.cat([res[0][:, None], res[1]], 1) if with_gradient else res[:, None]
+        rows.append(torch.cat([idx.to(dev0, torch.int32)[:, None],
+                               vals.to(dev0).view(torch.int32)], 1))
+    mine = torch.cat(rows) if rows else torch.zeros((0, width), dtype=torch.int32, device=dev0)
+    out = []
+    for got in _gather_ranks(mesh, mine).values():
+        if got.shape[0]:
+            vals = got[:, 1:].contiguous().view(torch.float32)
+            out.append((got[:, 0].long(), (vals[:, 0], vals[:, 1:]) if with_gradient
+                        else vals[:, 0]))
+    return out
+
+
+def _holds_every_shard(mesh) -> None:
+    """Raises unless this process holds every shard of the list."""
+    if isinstance(mesh, ProcessMesh) and len(mesh.ranks) > 1:
+        raise ValueError(
+            f"this process holds the shards of {len(mesh.local)} of {len(mesh)} entries; "
+            "a tiled container is written only by a process that holds every shard"
+        )
+
+
 class TiledExactOctreeSdf(SdfFunction):
     """ExactOctreeSdf with the structure sharded by start-grid tiles.
 
@@ -150,7 +202,9 @@ class TiledExactOctreeSdf(SdfFunction):
     shard takes another tier. The triangle tables are held once per
     distinct device. Queries accept any (..., 3) batch and return the
     replicated structure's distances and gradients on the first entry's
-    device.
+    device. Over a ``ProcessMesh`` a rank holds its entries' shards
+    (``shards``, ``shard_nodes`` and ``per_chip_bucket_bytes`` are
+    theirs) and its queries return None where it holds none.
     """
 
     _STACK_FILL = (
@@ -197,12 +251,13 @@ class TiledExactOctreeSdf(SdfFunction):
         self.cells_per_chip = n0 // N
 
         soa = calculate_mesh_triangle_data(mesh)
-        tris = per_device(self.device_mesh, lambda d: soa_to_torch(soa, d))
+        local = local_entries(self.device_mesh)
+        tris = per_device(local_devices(self.device_mesh), lambda d: soa_to_torch(soa, d))
         # one set of cull tables per device, reused by every shard build
-        tables = per_device(self.device_mesh,
-                             lambda d: prepare_cull_inputs(tris[d], self.strategy))
+        tables = per_device(local_devices(self.device_mesh),
+                            lambda d: prepare_cull_inputs(tris[d], self.strategy))
         shards = []
-        for k, dev in enumerate(self.device_mesh):
+        for k, dev in local:
             lo = k * self.cells_per_chip
             octree, loff, lcnt, tflat, lcen, _stats = _build_exact(
                 tris[dev], cbox.min, float(cbox.size[0]), self.max_depth,
@@ -221,12 +276,15 @@ class TiledExactOctreeSdf(SdfFunction):
                 bucket_byte_budget=_DEFAULT_BUCKET_BYTES,
             ))
         self.shards = shards
-        self.triangles = tris[self.device_mesh[0]]
+        self.triangles = tris[local[0][1]] if local else None
         self.shard_nodes = [int(sh.octree_data.shape[0]) for sh in shards]
-        self.max_leaf_count = max(int(sh.leaf_count.max(initial=1)) for sh in shards)
+        self.max_leaf_count = max((int(sh.leaf_count.max(initial=1)) for sh in shards),
+                                  default=1)
 
     def _query(self, points, with_gradient: bool):
-        dev0 = self.device_mesh[0]
+        if not takes_part(self.device_mesh):
+            return None
+        dev0 = local_devices(self.device_mesh)[0]
         pts = torch.as_tensor(points, dtype=torch.float32)
         flat = pts.reshape(-1, 3)
         d, g = _scatter_answers(
@@ -262,7 +320,9 @@ class TiledExactOctreeSdf(SdfFunction):
         """The JAX package's keys: the shards' arrays stacked along a
         leading shard axis, padded to the largest (rows to a multiple of
         64). ``bucket_cmin`` (the JAX scan's early-exit key, which the
-        port's scans do not read) is written as 0, a valid lower bound."""
+        port's scans do not read) is written as 0, a valid lower bound.
+        Raises in a process that does not hold every shard."""
+        _holds_every_shard(self.device_mesh)
         per = []
         for sh in self.shards:
             rows = sh.bucket_ids.shape[0]
@@ -312,9 +372,10 @@ class TiledExactOctreeSdf(SdfFunction):
         self.shard_nodes = [int(x) for x in state["shard_nodes"]]
         self.max_leaf_count = int(state["max_leaf_count"])
         soa = TriangleDataSoA(*(state[f"tri_{n}"] for n in TriangleDataSoA._fields))
-        tris = per_device(self.device_mesh, lambda d: soa_to_torch(soa, d))
+        local = local_entries(self.device_mesh)
+        tris = per_device(local_devices(self.device_mesh), lambda d: soa_to_torch(soa, d))
         shards = []
-        for k, dev in enumerate(self.device_mesh):
+        for k, dev in local:
             octree = np.asarray(state["shard_octree"][k], np.uint32)[: self.shard_nodes[k]]
             # the leaves the shard's words name; the rest is stack padding
             leaf = octree[(octree & IS_LEAF_MASK) != 0] & CHILDREN_INDEX_MASK
@@ -333,7 +394,8 @@ class TiledExactOctreeSdf(SdfFunction):
                 triangles=tris[dev], bucket_byte_budget=_DEFAULT_BUCKET_BYTES,
             ))
         self.shards = shards
-        self.triangles = tris[self.device_mesh[0]]
+        self.shard_nodes = [self.shard_nodes[k] for k, _ in local]
+        self.triangles = tris[local[0][1]] if local else None
 
 
 class TiledOctreeSdf(SdfFunction):
@@ -347,7 +409,9 @@ class TiledOctreeSdf(SdfFunction):
     points go to entry 0. Built from an ``OctreeSdf`` (``_octree=``, or
     built here on the first entry's device from ``mesh``, ``box`` and
     ``octree_kwargs``); sharding the BUILD itself is the exact octree's
-    game.
+    game. Over a ``ProcessMesh`` a rank keeps its entries' slabs
+    (``slabs``), builds on its first local entry's device, and its
+    queries return None where it holds none.
     """
 
     def __init__(
@@ -367,7 +431,8 @@ class TiledOctreeSdf(SdfFunction):
             return
         if _octree is None:
             assert mesh is not None and box is not None
-            _octree = OctreeSdf(mesh, box, device=self.device_mesh[0], **octree_kwargs)
+            _octree = OctreeSdf(mesh, box, device=local_devices(self.device_mesh)[0],
+                                **octree_kwargs)
         if _octree._fat_grid is None:
             _octree.build_query_grid()
         if _octree._fat_grid is None:
@@ -381,34 +446,38 @@ class TiledOctreeSdf(SdfFunction):
         self._shard_fat(_octree._fat_grid)
 
     def _shard_fat(self, fat: torch.Tensor) -> None:
-        """Each entry's slab of the (g^3, width) int32 fused rows on its
-        device (a view where the grid already sits there)."""
+        """Each local entry's slab of the (g^3, width) int32 fused rows on
+        its device (a view where the grid already sits there)."""
         N = len(self.device_mesh)
         g = 1 << self.max_depth
         if (g * g * g) % N:
             raise ValueError(f"grid ({g}^3 cells) must divide evenly over {N} entries")
         rpc = fat.shape[0] // N
         self.rows_per_chip = rpc
-        self.slabs = [fat[k * rpc : (k + 1) * rpc].to(d) for k, d in enumerate(self.device_mesh)]
+        self.slabs = [fat[k * rpc : (k + 1) * rpc].to(d)
+                      for k, d in local_entries(self.device_mesh)]
         size3 = float(self.box.size[0])
-        self._box = per_device(self.device_mesh, lambda d: (
+        self._box = per_device(local_devices(self.device_mesh), lambda d: (
             torch.as_tensor(self.box.min, device=d), torch.full((3,), size3, device=d)))
 
     def _query(self, points, with_gradient: bool):
-        dev0 = self.device_mesh[0]
+        if not takes_part(self.device_mesh):
+            return None
+        dev0 = local_devices(self.device_mesh)[0]
         pts = torch.as_tensor(points, dtype=torch.float32)
         flat = pts.reshape(-1, 3)
         rpc, depth, nc = self.rows_per_chip, self.max_depth, self.num_coeff
+        on = dict(local_entries(self.device_mesh))
 
         def owns(k, slab, p):
-            box_min, size3 = self._box[self.device_mesh[k]]
+            box_min, size3 = self._box[on[k]]
             _, in_box, lin = _grid_cells(p, box_min, size3, depth)
             local = lin - k * rpc
             mine = in_box & (local >= 0) & (local < rpc)
             return mine | ~in_box if k == 0 else mine
 
         def query(k, slab, q):
-            box_min, size3 = self._box[self.device_mesh[k]]
+            box_min, size3 = self._box[on[k]]
             rel, in_box, lin = _grid_cells(q, box_min, size3, depth)
             row = slab[(lin - k * rpc).clamp(0, rpc - 1)]
             frac = _leaf_frac(rel, row[..., 1])
@@ -442,6 +511,7 @@ class TiledOctreeSdf(SdfFunction):
     # -- serialization ------------------------------------------------------
 
     def _state_arrays(self) -> dict:
+        _holds_every_shard(self.device_mesh)
         fat = torch.cat([s.cpu() for s in self.slabs]).numpy().view(np.uint32)
         return {
             "box_min": np.asarray(self.box.min, np.float32),

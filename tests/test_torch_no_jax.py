@@ -13,7 +13,8 @@ a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
 the words unchanged), an EXACT_OCTREE ``.bin`` round trip with the same
 answers, and a ``lattice`` exact build within 1e-5 of RealSdf; then
 every module of ``tools/`` and ``parallel/`` imports, ``sharded_distance``
-on ``[cpu, cpu:0] * 2`` (two workers) equals the one call, and ``sdf_export``
+on ``[cpu, cpu:0] * 2`` (two workers) and on a ``ProcessMesh`` of a
+one-rank gloo group equals the one call, and ``sdf_export``
 writes an exact octree of an ASCII PLY that ``sdf_error`` holds within
 1e-5 of the mesh's ``RealSdf``, end to end on the CPU."""
 import os
@@ -147,6 +148,20 @@ SCRIPT = textwrap.dedent(
     mixed = [torch.device("cpu"), torch.device("cpu", 0)] * 2
     assert torch.equal(sdflib_tpu_torch.parallel.sharded_distance(sdf, pts, mixed),
                        sdf.get_distance(pts))
+    import torch.distributed as dist
+    from sdflib_tpu_torch.parallel import ProcessMesh, gather_blocks, process_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp, "rdv"),
+                                rank=0, world_size=1)
+        try:
+            pm = process_mesh(mixed[:2])
+            assert isinstance(pm, ProcessMesh) and [e.rank for e in pm] == [0, 0]
+            assert torch.equal(sdflib_tpu_torch.parallel.sharded_distance(sdf, pts, pm),
+                               sdf.get_distance(pts))
+            assert torch.equal(gather_blocks(pm, [torch.ones(2), torch.zeros(2)]),
+                               torch.tensor([1.0, 1.0, 0.0, 0.0]))
+        finally:
+            dist.destroy_process_group()
     assert not any(m == "jax" or m.startswith(("jax.", "sdflib_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NO_JAX_OK", sdf.num_leaves)

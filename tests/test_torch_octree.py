@@ -22,6 +22,12 @@ margin 0.14), and against the compiled reference's goldens.
   the "distance" build) and the builder options beside JAX's builds
   (simpson, by_distance, error decay, continuity with simpson and with
   trilinear, start depths 1 and 3).
+* On a flat open sheet (``make_plane(size=1.0, res=4)``, margin 0.14,
+  max depth 4, start depth 1), both builders: the port's interior rms
+  against the true distance z no worse than JAX's build (samples on the
+  sheet tie between triangles at distance 0, and an edge or vertex
+  winner takes the face normal as its gradient), the JAX-built
+  structure still answering as JAX does, ``RealSdf`` as JAX's.
 """
 import copy
 import os
@@ -36,12 +42,14 @@ from sdflib_tpu.io.sdflib_binary import load_sdflib_bin as j_load_bin
 from sdflib_tpu.io.sdflib_binary import save_sdflib_bin as j_save_bin
 from sdflib_tpu.sdf.octree import OctreeSdf as JOctree
 from sdflib_tpu.sdf.sdf_function import SdfFunction as JSdfFunction
+from sdflib_tpu.sdf.real import RealSdf as JRealSdf
 from sdflib_tpu.utils.primitives import make_icosphere as j_icosphere
-from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, SdfFunction
+from sdflib_tpu.utils.primitives import make_plane as j_plane
+from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, SdfFunction
 from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin, save_sdflib_bin
 from sdflib_tpu_torch.sdf import octree as po
 from sdflib_tpu_torch.sdf.octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK
-from sdflib_tpu_torch.utils.primitives import make_icosphere, make_torus
+from sdflib_tpu_torch.utils.primitives import make_icosphere, make_plane, make_torus
 
 torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(__file__), "golden", "data")
@@ -353,3 +361,34 @@ def test_unported_strategies_and_formats_raise(what, tmp_path):
                         device="cpu")
         with pytest.raises(ValueError, match="tricubic"):
             save_sdflib_bin(tri, path)
+
+
+@pytest.mark.parametrize("alg", ["no_continuity", "continuity"])
+def test_plane_ties_at_zero_distance(alg):
+    """The flat sheet: 40,000 interior points (seed 5, |x|, |y| <= 0.45,
+    |z| <= 0.14), where the distance is z. The port's build is no worse
+    than JAX's in rms; JAX's structure through ``from_jax_state`` answers
+    within 1e-6 of JAX; ``RealSdf`` within 1e-6 of JAX's. Both builds'
+    words and rms are printed (``pytest -s``)."""
+    kw = dict(max_depth=4, start_depth=1, termination_threshold=1e-3, init_algorithm=alg)
+    jm, pm = j_plane(size=1.0, res=4), make_plane(size=1.0, res=4)
+    j = JOctree(jm, jm.bounding_box.add_margin(0.14), **kw)
+    p = OctreeSdf(pm, pm.bounding_box.add_margin(0.14), **kw, device="cpu")
+    q = np.random.default_rng(5).uniform([-0.45, -0.45, -0.14], [0.45, 0.45, 0.14],
+                                         (40_000, 3)).astype(np.float32)
+    d_j = _np(j.get_distance(jnp.asarray(q)))
+    d_p = p.get_distance(q).numpy()
+    rms_j = float(np.sqrt(np.mean((d_j - q[:, 2]) ** 2)))
+    rms_p = float(np.sqrt(np.mean((d_p - q[:, 2]) ** 2)))
+    told = (f"{alg}: words port {p.octree_data.shape[0]}, JAX {j.octree_data.shape[0]}; "
+            f"interior rms port {rms_p:.6e}, JAX {rms_j:.6e}; max port "
+            f"{np.abs(d_p - q[:, 2]).max():.6e}, JAX {np.abs(d_j - q[:, 2]).max():.6e}")
+    print(told)
+    assert rms_p <= rms_j, told
+    d_l = OctreeSdf.from_jax_state(j._state_arrays(), device="cpu").get_distance(q).numpy()
+    d_r = RealSdf(pm, device="cpu").get_distance(q).numpy()
+    d_jr = _np(JRealSdf(jm).get_distance(jnp.asarray(q)))
+    print(f"{alg}: max |port - JAX| of JAX's structure in the port {np.abs(d_l - d_j).max():.3e}, "
+          f"of RealSdf {np.abs(d_r - d_jr).max():.3e}")
+    np.testing.assert_allclose(d_l, d_j, **D_TOL)
+    np.testing.assert_allclose(d_r, d_jr, **D_TOL)

@@ -16,18 +16,27 @@ tests/test_torch_parallel_tiles.py.
   given up its turn, as the tracer's syncs do, and started after card 1
   may have begun a capture): the capture is thread-local, so neither
   side fails, and the captured frame equals the eager schedule.
+* Two ranks on two cards under NCCL (``torch.multiprocessing`` spawn, a
+  ``file://`` rendezvous): over the ``ProcessMesh`` of one card a rank,
+  the sharded exact query equals each rank's one-card query bit for bit;
+  the fit step's loss equals the one-process step over two entries of
+  one card (``[cuda:r, cuda]``, the same two blocks) bit for bit, its
+  coefficients within 1e-6 of the largest (the scatter-add's atomics).
 
 No JAX here: the GPU machine runs this file with
 ``python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py``.
 """
+import datetime
 import importlib
+import json
+import os
 import threading
 import time
 
 import pytest
 import torch
 
-from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, parallel
+from sdflib_tpu_torch import ExactOctreeSdf, OctreeSdf, RealSdf, SdfFunction, parallel
 from sdflib_tpu_torch.diff.query import octree_coefficients
 from sdflib_tpu_torch.render.sphere_trace import trace_octree
 from sdflib_tpu_torch.utils.primitives import make_torus
@@ -153,3 +162,69 @@ def test_capture_on_card_1_while_card_0_syncs(structs):
                       beam=4, pyramid=True, stats_out=None, active=None, graphs=False)
     for a, b in zip(out, eager):
         assert a.device == torch.device("cuda", 1) and torch.equal(a, b)
+
+
+def _nccl_rank(rank, tmp):
+    """One of two NCCL ranks, on card ``rank``: the structures the parent
+    saved, the sharded exact query and the fit step over the processes
+    and on its card; the comparisons go to ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    card = torch.device("cuda", rank)
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+                            rank=rank, world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        ex = SdfFunction.load(os.path.join(tmp, "exact.npz"), device=card)
+        oct_ = SdfFunction.load(os.path.join(tmp, "octree.npz"), device=card)
+        pts = torch.load(os.path.join(tmp, "points.pt")).to(card)
+        mesh = parallel.process_mesh([card])
+        d = parallel.sharded_distance(ex, pts, mesh)
+        p, t = pts[:4096], RealSdf(make_torus(R=0.3, r=0.12, nu=48, nv=24),
+                                   device=card).get_distance(pts[:4096])
+        c0 = octree_coefficients(oct_._octree_dev)
+        lp, cp = parallel.data_parallel_fit_step(oct_, c0, p, t, mesh, lr=0.5)
+        l1, c1 = parallel.data_parallel_fit_step(oct_, c0, p, t, [card, torch.device("cuda")],
+                                                 lr=0.5)
+        res = dict(
+            distance=torch.equal(d, ex.get_distance(pts)), loss=torch.equal(lp, l1),
+            coefficients=float((cp[0] - c1[0]).abs().max() / c1[0].abs().max()),
+            replicas=len(cp), device=str(d.device))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_nccl_ranks_equal_one_card(tmp_path):
+    """Two processes, one card each, under NCCL."""
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_torus(R=0.3, r=0.12, nu=48, nv=24)
+    box = mesh.bounding_box.add_margin(0.14)
+    ExactOctreeSdf(mesh, box, max_depth=5, start_depth=2, device="cuda:0").save(
+        str(tmp_path / "exact.npz"))
+    OctreeSdf(mesh, box, max_depth=5, start_depth=2, termination_threshold=1e-3,
+              device="cuda:0").save(str(tmp_path / "octree.npz"))
+    g = torch.Generator().manual_seed(0)
+    lo, hi = torch.as_tensor(box.min), torch.as_tensor(box.max)
+    torch.save(lo + (hi - lo) * torch.rand((1 << 18, 3), generator=g), tmp_path / "points.pt")
+    ctx = mp.start_processes(_nccl_rank, args=(str(tmp_path),), nprocs=2, join=False,
+                             start_method="spawn")
+    end = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1.0):
+            assert time.monotonic() < end, "the ranks were not done in 300 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["distance"] and res["loss"], res
+        assert res["coefficients"] <= 1e-6 and res["replicas"] == 1, res
+        assert res["device"] == f"cuda:{r}", res
