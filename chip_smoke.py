@@ -41,15 +41,23 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   ``get_distance_and_gradient`` timed on 2^22 uniform points (seed 1)
   beside their bound from bytes; and the compiled reference's goldens
   (its walk over ``octree_torus.bin``, its two builders' ``.bin``) loaded
-  through the port's ``io`` and queried on the card. K2 is held against
-  its plain version at the seed lattice's shape (125 x 9,216);
+  through the port's ``io`` and queried on the card. K4, the grid query
+  kernel, is held against its plain version on the 2^22 points on both
+  grid routes, with and without the gradient (1e-6 in distance, 1e-5 in
+  gradient), and timed beside its bound (``k4_vs_plain``). K2 is held
+  against its plain version at the seed lattice's shape (125 x 9,216);
 * main path D, the sphere tracer at bench.py's configuration
   (bench.py:151-187): path C's no_continuity octree after
   ``build_query_grid``, 1024^2 rays from z = -1.2 along +z,
   ``max_iters=1024``, eps 1e-5, far 4. The frame takes the static
   pyramid as captured CUDA graphs: the first frame's seconds (its
   captures), a second frame that replays without capturing, both
-  bit-equal to the eager schedule; then the graph path and the dynamic
+  bit-equal to the eager schedule; the kernel frame (K4's normals, K5's
+  march segments, K6's beam segments) against the frame with the plain
+  step pinned (hit masks on >= 99.9%, q99 of |depth diff| on common hits
+  <= 1e-4 of the box); K6 and K5 against their plain versions at the
+  frame's first beam and march segments, timed beside their bounds
+  (``segments_vs_plain``); then the graph path and the dynamic
   scheduler (``pyramid=False``) each timed (best of 3 after a warmup)
   with rays/s, a ``breakdown`` (device activities, busy share, host syncs
   and graph launches from the profiler), useful against marched
@@ -226,6 +234,20 @@ GOLDEN = os.path.join("tests", "golden", "data")
 # header (8 B) and 64 coefficients (256 B), and the state written back:
 # position 12, accumulated distance 4, last distance 4, active flag 4.
 TRACE_STEP_BYTES = 12 + 12 + 8 + 64 * 4 + 12 + 4 + 4 + 4
+# Flops counted from csrc/leaf_eval.cuh and csrc/march.cu: a tricubic
+# query point (its cell, the position in the leaf, 32 lanes of 6 and the
+# 31-add tree) ~250, with the normalized gradient ~900; a march trip (the
+# value, the free-box exit, the move and the tests) ~290, a beam trip
+# ~320.
+FLOPS_K4 = 250
+FLOPS_K4_GRAD = 900
+FLOPS_MARCH_TRIP = 290
+FLOPS_BEAM_TRIP = 320
+# A ray's march state: pos 12, acc 4, last_d 4, active 4, its 4 read and
+# written, dirs 12 read; a beam's: pos 12, acc 4, active 4 read and
+# written, dirs 12, r0 4 and rd 4 read.
+MARCH_STATE_BYTES = 2 * 28 + 12
+BEAM_STATE_BYTES = 2 * 20 + 20
 # One uniform-grid query point: the point in and the distance out (the
 # gradient writes 12 B more); the grid itself counts once per call.
 GRID_POINT_BYTES = 12 + 4
@@ -288,16 +310,19 @@ def _sass_branches(so_path, short: str) -> str:
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    from sdflib_tpu_torch.ops import nearest, row_gather, scan
+    from sdflib_tpu_torch.ops import march, nearest, octree_query, row_gather, scan
 
     scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
     nearest.morton_launch_count = 0
     row_gather.block_launch_count = row_gather.tile_launch_count = 0
+    octree_query.launch_count = march.launch_count = march.beam_launch_count = 0
 
 
 def read_counts():
-    """Every kernel wrapper's launch count, by kernel name."""
-    from sdflib_tpu_torch.ops import nearest, row_gather, scan
+    """Every kernel wrapper's launch count, by kernel name. A frame's
+    captured pieces count their kernels at the warm-up run and at the
+    capture; replays launch them without the wrapper."""
+    from sdflib_tpu_torch.ops import march, nearest, octree_query, row_gather, scan
 
     return {
         "nearest": nearest.launch_count,
@@ -306,6 +331,9 @@ def read_counts():
         "scan_grouped": scan.grouped_launch_count,
         "row_min_block": row_gather.block_launch_count,
         "row_min_tile": row_gather.tile_launch_count,
+        "octree_query": octree_query.launch_count,
+        "march": march.launch_count,
+        "beam": march.beam_launch_count,
     }
 
 
@@ -360,13 +388,14 @@ SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::nonzero")
 GRAPH_LAUNCH_EVENTS = ("cudaGraphLaunch",)
 
 
-def breakdown(fn, label, top=6, counts=None):
+def breakdown(fn, label, top=6, counts=None, device_ms=None):
     """Where a call's time goes: CUDA-event time, device and host time
     per call from torch.profiler over 3 calls, the busy share, and the
     kernels with the most device time. Returns (CUDA-event ms, device
     busy ms, device activities a call). ``counts``, a dict of event
     names, receives each name's calls a call (summed over the names of a
-    tuple key)."""
+    tuple key); ``device_ms``, a dict of name parts, the device ms a call
+    of the activities whose names hold each part."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -390,6 +419,8 @@ def breakdown(fn, label, top=6, counts=None):
         print(f"    {us / 1e3:.4f} ms ({us / 1e3 / ev_ms:.1%})  {key[:90]}")
     for names in counts or {}:
         counts[names] = sum(e.count for e in avgs if e.key in names) / 3
+    for part in device_ms or {}:
+        device_ms[part] = sum(us for key, us in dev_us.items() if part in key) / 1e3
     return ev_ms, busy_ms, sum(e.count for e in on_dev) // 3
 
 
@@ -446,12 +477,166 @@ def _uniform(box, n: int, seed: int, dev):
     )
 
 
+def _cuda_ms_prep(prep, fn, reps: int = 3) -> float:
+    """Best of ``reps`` calls of ``fn`` (CUDA events, after one warmup),
+    each after ``prep()``, which runs before the start event: ms of ``fn``
+    alone."""
+    import torch
+
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        prep()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def k4_vs_plain(sdf, pts):
+    """K4 against its plain version on both grid routes of ``sdf`` (thin
+    grid, fused rows), with and without the gradient: max |d diff| <=
+    1e-6, gradient components within 1e-5. Each timed, kernel and plain,
+    beside its bound: the points in and the outputs out once, each touched
+    grid row and coefficient row (or fused row) once, and the kernel's
+    flops. Returns {(fat, grad): (max err, ms, plain ms, bound)}."""
+    import torch
+
+    from sdflib_tpu_torch.ops import octree_query as oq
+
+    n, nc = pts.shape[0], sdf.num_coefficients
+    _, in_box, lin = oq._grid_cells(pts, sdf._box_min, sdf._box_size3, sdf.max_depth)
+    cells = torch.unique(lin[in_box])
+    coeff_rows = int(torch.unique((sdf._query_grid[cells, 0] & 0x3FFFFFFF) // nc).numel())
+    row_bytes = {False: cells.numel() * 8 + coeff_rows * nc * 4,
+                 True: cells.numel() * (2 + nc) * 4}
+    out = {}
+    for fat in (False, True):
+        grid = sdf._leaf_grid(fat)
+        for grad in (False, True):
+            got = oq.grid_query(grid, pts, grad)
+            ref = oq.grid_query_plain(grid, pts, grad)
+            if not grad:
+                got, ref = (got,), (ref,)
+            d_err = float((got[0] - ref[0]).abs().max())
+            g_err = float((got[1] - ref[1]).abs().max()) if grad else 0.0
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            del got, ref
+            label = f"{'fused rows' if fat else 'thin grid'}{', gradient' if grad else ''}"
+            _check(d_err <= 1e-6, f"K4 distances differ from the plain version's by {d_err} "
+                                  f"({label})")
+            _check(g_err <= 1e-5, f"K4 gradients differ from the plain version's by {g_err} "
+                                  f"({label})")
+            ms = _cuda_ms(lambda: oq.grid_query(grid, pts, grad))
+            plain_ms = _cuda_ms(lambda: oq.grid_query_plain(grid, pts, grad))
+            bound = _bound(n * (16 + (12 if grad else 0)) + row_bytes[fat],
+                           n * (FLOPS_K4_GRAD if grad else FLOPS_K4))
+            print(f"K4 grid query vs plain ({label}, {n} points): max |d diff| {d_err:.3e}, "
+                  f"max |g diff| {g_err:.3e}, bit-equal {same}; kernel {ms:.4f} ms "
+                  f"({n / ms * 1e3:.4e} q/s), plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
+                  f"({bound[1]}; {cells.numel()} cells, {coeff_rows} coefficient rows "
+                  f"touched) = {bound[0] / ms:.1%} of the kernel's time")
+            out[(fat, grad)] = (max(d_err, g_err), ms, plain_ms, bound)
+    return out
+
+
+def segments_vs_plain(sdf, origins, dirs, kw):
+    """K6 and K5 against their plain versions at the frame's first
+    segments: the 16-trip beam segment of every beam from its setup, then
+    (the beams marched to their end by K6) the first round's 8-trip march
+    segment of every ray from its start. The end states are compared
+    (active flags, step counts, depths), then each segment is timed from
+    the same start state (restored before the start event), beside its
+    bound: the state read and written once, each touched fused row once
+    (the plain version's cells, trip by trip), and the kernel's flops a
+    useful trip. Returns {"beam": ..., "march": ...}, each (max |depth
+    diff|, ms, plain ms, bound)."""
+    import importlib
+
+    import torch
+
+    from sdflib_tpu_torch.ops import march as om
+    from sdflib_tpu_torch.ops import octree_query as oq
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    R = origins.shape[0] * origins.shape[1]
+    frame = st._Frame(sdf, origins.shape, R, R, R, beam=4, graphs=False, **kw)
+    frame.o_in.copy_(origins.reshape(-1, 3))
+    frame.d_in.copy_(dirs.reshape(-1, 3))
+    frame.live_in.fill_(1.0)
+    frame._setup()
+    grid = sdf._leaf_grid(True)
+    box = float(sdf.box.size[0])
+
+    def run(name, segment, plain, bufs, consts, trips, state_bytes, flops):
+        start = [b.clone() for b in bufs]
+        ref = [b.clone() for b in start]
+        cells, useful = [], 0
+        for _ in range(trips):       # the plain version trip by trip: its cells
+            live = ref[-1 if name == "beam" else 3] > 0
+            _, in_box, lin = oq._grid_cells(ref[0][live], grid.box_min, grid.box_size3,
+                                            grid.depth)
+            cells.append(lin[in_box])
+            useful += int(live.sum())
+            plain(grid, *ref, *consts, 1)
+        got = [b.clone() for b in start]
+        segment(grid, *got, *consts, trips)
+        act = 2 if name == "beam" else 3
+        agree = float((got[act] == ref[act]).float().mean())
+        d_err = float((got[1] - ref[1]).abs().max())
+        its_eq = float((got[4] == ref[4]).float().mean()) if name == "march" else 1.0
+        _check(agree >= 0.999 and its_eq >= 0.999,
+               f"{name}: active flags agree on {agree:.4%}, step counts on {its_eq:.4%}")
+        _check(float(torch.quantile((got[1] - ref[1]).abs(), 0.99)) <= 1e-4 * box,
+               f"{name}: depths differ from the plain version's, q99 above 1e-4 of the box")
+
+        def restore():
+            for b, s in zip(bufs, start):
+                b.copy_(s)
+
+        ms = _cuda_ms_prep(restore, lambda: segment(grid, *bufs, *consts, trips))
+        plain_ms = _cuda_ms_prep(restore, lambda: plain(grid, *bufs, *consts, trips))
+        rows = int(torch.unique(torch.cat(cells)).numel())
+        n = bufs[0].shape[0]
+        bound = _bound(n * state_bytes + rows * (2 + sdf.num_coefficients) * 4, useful * flops)
+        print(f"{name} segment vs plain ({n} rays, {trips} trips, {useful} useful trips, "
+              f"{rows} fused rows touched): active flags agree on {agree:.6%}, step counts on "
+              f"{its_eq:.6%}, max |depth diff| {d_err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) = "
+              f"{bound[0] / ms:.1%} of the kernel's time")
+        restore()
+        segment(grid, *bufs, *consts, trips)
+        return d_err, ms, plain_ms, bound
+
+    out = {"beam": run("beam", om.beam_segment, om.beam_segment_plain,
+                       [frame.b_pos, frame.b_acc, frame.b_active],
+                       (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin,
+                        frame.beam_far), 16, BEAM_STATE_BYTES, FLOPS_BEAM_TRIP)}
+    for _ in range(16, st._BEAM_ITERS, 16):
+        frame.route.beam(frame.b_pos, frame.b_acc, frame.b_active, frame.b_dirs, frame.b_r0,
+                         frame.b_rd, frame.route.margin, frame.beam_far, 16)
+    frame._start()
+    out["march"] = run("march", om.march_segment, om.march_segment_plain,
+                       [frame.pos, frame.acc, frame.last_d, frame.active, frame.its],
+                       (frame.dirs, frame.eps_w, frame.far_w), frame.schedule[0][0],
+                       MARCH_STATE_BYTES, FLOPS_MARCH_TRIP)
+    del frame
+    return out
+
+
 def approx_path(dev, root: str, n_query: int):
     """Main path C: the approximate octree at bench.py's configuration on
     ``dev``. The counts run from the first build to the last golden
     query; then the routes are held to each other, the queries timed on
     ``n_query`` points and K2 checked at the seed lattice's shape.
-    Returns (the path's launch counts, K2's check there)."""
+    Returns (the path's launch counts, K2's check there, K4's checks at
+    ``n_query`` points, ``k4_vs_plain``)."""
     import torch
 
     from sdflib_tpu_torch import OctreeSdf, RealSdf
@@ -548,7 +733,8 @@ def approx_path(dev, root: str, n_query: int):
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"launches on main path C (approximate octree): {launches}")
-    _check(launches["nearest"] > 0, "nearest was not launched on path C")
+    for name in ("nearest", "octree_query"):
+        _check(launches[name] > 0, f"{name} was not launched on path C")
 
     # the three routes on the first 2^16 points, JAX's tolerances
     # (tests/test_octree.py:205-207)
@@ -575,6 +761,7 @@ def approx_path(dev, root: str, n_query: int):
         print(f"approx routes on 2^16 points: {name} vs the aligned walk: max |d| diff "
               f"{dd:.3e}, max |g| diff {gd:.3e}")
         _check(dd <= 1e-6 and gd <= 1e-4, f"route {name} differs from the walk")
+    k4 = k4_vs_plain(sdf, pts)
 
     # the query on n_query points: each route timed, then the profiler
     n = pts.shape[0]
@@ -614,7 +801,7 @@ def approx_path(dev, root: str, n_query: int):
     k2 = k2_vs_plain(lattice, oracle.fields, oracle.triangles, "approx seed lattice")
     del built, sdf, routes
     torch.cuda.empty_cache()
-    return launches, k2
+    return launches, k2, k4
 
 
 def _ortho_rays(n: int, dev):
@@ -661,11 +848,15 @@ def trace_path(dev, n_rays: int):
     z = -1.2 marching +z, ``max_iters=1024``, eps 1e-5, far 4. The counts
     run from the build to the first frame, which captures the pyramid's
     CUDA graphs. A second frame replays them; both equal the eager
-    schedule bit for bit. Then the graph path and the dynamic scheduler
-    are timed and broken down, held to each other, the graph path's hits
-    held to a plain host march, to ``RealSdf`` and to the trace without a
-    beam; then a 512^2 camera frame shaded five ways and a 512^2 plane
-    cut. Returns the path's launch counts."""
+    schedule bit for bit. The kernel frame (K4-K6) is held to the frame
+    with the plain step pinned (``_plain``). Then the graph path and the
+    dynamic scheduler are timed and broken down (with K4-K6's device time
+    a frame), K5 and K6 held to their plain versions at the frame's first
+    segments (``segments_vs_plain``), the two ways held to each other, the
+    graph path's hits held to a plain host march, to ``RealSdf`` and to
+    the trace without a beam; then a 512^2 camera frame shaded five ways
+    and a 512^2 plane cut. Returns (the path's launch counts, the
+    segments' checks)."""
     import tempfile
 
     import torch
@@ -708,7 +899,8 @@ def trace_path(dev, n_rays: int):
     launches = read_counts()
     print(f"trace path D: octree and query grid built in {build_s:.3f} s; launches on "
           f"main path D: {launches}")
-    _check(launches["nearest"] > 0, "nearest was not launched on path D")
+    for name in ("nearest", "octree_query", "march", "beam"):
+        _check(launches[name] > 0, f"{name} was not launched on path D")
 
     hit = res.hit
     n_hit = int(hit.sum())
@@ -734,6 +926,26 @@ def trace_path(dev, n_rays: int):
     _check(all(same), "the graph frame departs from the eager schedule")
     del res2, eager
 
+    # the kernel frame (K4-K6) against the frame with the plain step pinned
+    box_size = float(sdf.box.size[0])
+    sdf._plain = True
+    try:
+        plain = trace_octree(sdf, origins, dirs, **kw)        # captures its own graphs
+        plain_frame_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
+    finally:
+        sdf._plain = False
+    agree = float((plain.hit == hit).float().mean())
+    both = plain.hit & hit
+    dd = (plain.depth[both] - res.depth[both]).abs()
+    q99 = float(torch.quantile(dd, 0.99))
+    print(f"kernel frame against the plain frame ({plain_frame_ms:.4f} ms a frame): hit masks "
+          f"agree on {agree:.6%}, |depth diff| on {int(both.sum())} common hits q99 {q99:.3e}, "
+          f"max {float(dd.max()):.3e} (box {box_size:.4f}); iterations equal on "
+          f"{float((plain.iterations == res.iterations).float().mean()):.6%}")
+    _check(agree >= 0.999, f"kernel and plain frames' hit masks agree on {agree:.4%}")
+    _check(q99 <= 1e-4 * box_size, f"kernel and plain frames' depths differ, q99 {q99}")
+    del plain, dd
+
     # both ways timed, each with its device activities, busy share, host
     # syncs and graph launches from the profiler
     dstats = {}
@@ -741,23 +953,29 @@ def trace_path(dev, n_rays: int):
     offered = {"graphs": stats["marched_ray_trips"],
                "dynamic": sum(k * n for k, n, _ in dstats["rounds"])}
     bound = trips * TRACE_STEP_BYTES / PEAK_BYTES * 1e3
-    frame_ms = {}
+    frame_ms, kernel_ms = {}, {}
     for way, extra in (("graphs", {}), ("dynamic", {"pyramid": False})):
         def frame():
             return trace_octree(sdf, origins, dirs, **extra, **kw)
 
         ms = frame_ms[way] = _cuda_ms(frame)
         counts = {SYNC_EVENTS: 0, GRAPH_LAUNCH_EVENTS: 0}
+        kernel_ms[way] = {"octree_query_kernel": 0.0, "march_kernel": 0.0, "beam_kernel": 0.0}
         ev_ms, busy_ms, acts = breakdown(frame, f"trace d6 {n_rays}^2 rays, {way}", top=8,
-                                         counts=counts)
+                                         counts=counts, device_ms=kernel_ms[way])
         print(f"trace d6 {n_rays}^2 rays (beam 4, fused rows), {way}: {ms:.4f} ms a frame, "
               f"{R / ms * 1e3:.6e} rays/s; {acts} device activities, device busy "
               f"{busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}); host syncs {counts[SYNC_EVENTS]:.0f}, "
               f"graph launches {counts[GRAPH_LAUNCH_EVENTS]:.0f} a frame (profiler); useful "
               f"ray-trips (sum of iterations) {trips} against {offered[way]} marched; bound "
               f"{bound:.4f} ms (bytes, {TRACE_STEP_BYTES} B a useful ray-trip) = "
-              f"{bound / ms:.2%} of the frame")
+              f"{bound / ms:.2%} of the frame; device ms a frame of K4 (normals) "
+              f"{kernel_ms[way]['octree_query_kernel']:.4f}, K5 (march) "
+              f"{kernel_ms[way]['march_kernel']:.4f} (the bound is "
+              f"{bound / max(kernel_ms[way]['march_kernel'], 1e-9):.2%} of it), K6 (beam) "
+              f"{kernel_ms[way]['beam_kernel']:.4f}")
         device_timeline(frame, f"trace d6 {n_rays}^2 rays, {way}")
+    segments = segments_vs_plain(sdf, origins, dirs, kw)
     print(f"trace frames: graphs {frame_ms['graphs']:.4f} ms against dynamic "
           f"{frame_ms['dynamic']:.4f} ms ({frame_ms['dynamic'] / frame_ms['graphs']:.2f}x); "
           f"hits {n_hit}, max {int(res.iterations.max())} iterations a ray; graph stats "
@@ -858,7 +1076,7 @@ def trace_path(dev, n_rays: int):
     print(f"plane cut 512^2: {cut_s * 1e3:.3f} ms (host clock, image to numpy included)")
     del sdf, res, cres, images, oracle
     torch.cuda.empty_cache()
-    return launches
+    return launches, segments
 
 
 def grid_path(dev):
@@ -2319,7 +2537,8 @@ def main() -> None:
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     report = build.ptxas_report()
     for short in ("nearest_kernel", "merge_kernel", "morton_kernel", "scan_window_kernel",
-                  "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel"):
+                  "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel",
+                  "octree_query_kernel", "march_kernel", "beam_kernel"):
         lines = [(_instance(k), v) for k, v in report.items() if short in k]
         for tag, line in lines or [("", "not reported")]:
             print(f"ptxas {short}{tag}: {line}")
@@ -2706,11 +2925,17 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- main path C, the approximate octree at bench.py's configuration ----
-    launches["approx"], k2c = approx_path(dev, root, 1 << 22)
+    launches["approx"], k2c, k4 = approx_path(dev, root, 1 << 22)
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2c[0])
+    _, k4_ms, k4_plain_ms, k4_bound = k4[(False, False)]     # get_distance's route
+    kernels["octree_query"] = dict(err=max(e for e, _, _, _ in k4.values()), ms=k4_ms,
+                                   plain_ms=k4_plain_ms, bound=k4_bound)
 
     # -- main path D, the sphere tracer at bench.py's configuration --------
-    launches["trace"] = trace_path(dev, 1024)
+    launches["trace"], segments = trace_path(dev, 1024)
+    for name in ("march", "beam"):
+        err, ms, plain_ms, bound = segments[name]
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
 
     # -- main path E, the uniform grid at depth 7 ---------------------------
     launches["grid"], k2e = grid_path(dev)
@@ -2755,6 +2980,13 @@ def main() -> None:
                           "scripts/perf_pallas_gather.py:56"),
         "row_min_tile": ("sdflib_tpu_torch/csrc/row_gather.cu",
                          "scripts/perf_pallas_gather.py:80"),
+        # kernels for XLA-fused code (no pl.pallas_call): the JAX functions
+        "octree_query": ("sdflib_tpu_torch/csrc/octree_query.cu",
+                         "sdflib_tpu/sdf/octree.py:183"),
+        "march": ("sdflib_tpu_torch/csrc/march.cu",
+                  "sdflib_tpu/render/sphere_trace.py:411"),
+        "beam": ("sdflib_tpu_torch/csrc/march.cu",
+                 "sdflib_tpu/render/sphere_trace.py:541"),
     }
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -1,0 +1,307 @@
+// The approximate octree's leaf evaluation on its dense leaf grid, shared by
+// K4 (octree_query.cu) and K5/K6 (march.cu): a point's finest cell, the
+// cell's leaf row (the thin grid's [leaf word, depth | flags] and the
+// coefficient row the word names, or one fused row holding both words and
+// the coefficients), the position in the leaf, the tricubic or trilinear
+// polynomial and its gradient, and the box fallback outside the box.
+//
+// Every expression keeps the operand order of the torch version
+// (sdf/octree.py _grid_cells, _leaf_frac, _finish; ops/interpolation.py;
+// ops/box.py), and the library builds with --fmad=false, so both round
+// alike. A sum over the last axis takes the order of torch's CUDA
+// reduction of a contiguous axis: 64 terms as 32 lanes, lane t adding
+// terms t and t + 32, then a pairwise tree over the lanes; 3 terms as
+// (x0 + x2) + x1. Where torch's order differs on some build, the two
+// still agree to a few ulps of the largest term.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace leaf {
+
+constexpr int kIndexMask = 0x3FFFFFFF;  // CHILDREN_INDEX_MASK
+
+// What a query or a march step reads.
+struct Grid {
+  const int* rows;         // (g^3, width) int32 rows, z-major cells
+  int width;               // words a row: 2 (thin grid) or the fused width
+  const float* coeffs;     // thin grid: the float view of the octree words;
+                           // null: fused rows, coefficients from word 2
+  int num_words;           // thin grid: words of the octree
+  int depth;               // grid depth d: g = 2^d cells an axis
+  int tricubic;            // 1: 64 coefficients; 0: trilinear, 8
+  const float* box_min;    // (3,) on the device
+  const float* box_size3;  // (3,) on the device
+  float min_border;        // min_border_value, added to the box fallback
+};
+
+// The box's constants, read once a thread.
+struct Box {
+  float mn[3], sz[3], ctr[3], half[3];
+  float cell;  // box_size3[0] / g, a finest cell's edge
+};
+
+// torch.maximum, torch.minimum, clamp_min and amin keep a NaN.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+__device__ __forceinline__ Box load_box(const Grid& G) {
+  Box b;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.mn[a] = G.box_min[a];
+    b.sz[a] = G.box_size3[a];
+    b.half[a] = 0.5f * b.sz[a];
+    b.ctr[a] = b.mn[a] + b.half[a];
+  }
+  b.cell = b.sz[0] / static_cast<float>(1 << G.depth);
+  return b;
+}
+
+// _grid_cells: the point's position in box units and whether it lies in
+// the box; inside, its finest cell. The cast runs on in-box values only,
+// rel * g in [0, g), where C's float-to-int cast is defined.
+__device__ __forceinline__ bool grid_cell(const Grid& G, const Box& b,
+                                          const float p[3], float rel[3],
+                                          int c[3]) {
+  bool in_box = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    rel[a] = (p[a] - b.mn[a]) / b.sz[a];
+    in_box = in_box && rel[a] >= 0.0f && rel[a] < 1.0f;
+  }
+  if (in_box) {
+    const int g = 1 << G.depth;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      c[a] = min(max(static_cast<int>(rel[a] * static_cast<float>(g)), 0), g - 1);
+    }
+  }
+  return in_box;
+}
+
+// The cell's leaf row: its depth word, and the 16-byte aligned start of
+// the words that hold its coefficients: the coefficient row (thin grid;
+// the coefficients from word 0) or the fused row itself (from word 2).
+// Null when a thin grid's word names a row past the octree's end.
+__device__ __forceinline__ const float4* leaf_row(const Grid& G, const int c[3],
+                                                  int* dw) {
+  const int g = 1 << G.depth;
+  const size_t lin = (static_cast<size_t>(c[2]) * g + c[1]) * g + c[0];
+  const int* row = G.rows + lin * G.width;
+  if (G.coeffs == nullptr) {
+    *dw = __ldg(row + 1);
+    return reinterpret_cast<const float4*>(row);
+  }
+  const int2 wd = __ldg(reinterpret_cast<const int2*>(row));
+  *dw = wd.y;
+  const int nc = G.tricubic ? 64 : 8;
+  const int r = (wd.x & kIndexMask) / nc;
+  if (static_cast<long long>(r + 1) * nc > G.num_words) return nullptr;
+  return reinterpret_cast<const float4*>(G.coeffs + static_cast<size_t>(r) * nc);
+}
+
+// N coefficients from S words into the 16-byte aligned base, as float4
+// loads: each lane of a warp reads its own row, so a load's cost is the
+// lines it touches, and a float4 touches as many as a float.
+template <int S, int N>
+__device__ __forceinline__ void load_coeffs(const float4* __restrict__ base, float (&c)[N]) {
+#pragma unroll
+  for (int q = 0; q < (S + N + 3) / 4; ++q) {
+    const float4 v = __ldg(base + q);
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 4 * q + e - S;
+      if (m >= 0 && m < N) c[m] = w[e];
+    }
+  }
+}
+
+// A pairwise tree over lanes [Lo, Lo + N) of (value, gx, gy, gz) sums.
+template <int Lo, int N>
+struct Tree {
+  template <class Lane>
+  __device__ __forceinline__ static float4 sum(const Lane& lane) {
+    const float4 a = Tree<Lo, N / 2>::sum(lane);
+    const float4 b = Tree<Lo + N / 2, N / 2>::sum(lane);
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+
+template <int Lo>
+struct Tree<Lo, 1> {
+  template <class Lane>
+  __device__ __forceinline__ static float4 sum(const Lane& lane) {
+    return lane(Lo);
+  }
+};
+
+// tricubic_interpolate and, with Grad, tricubic_gradient (unit-cube
+// coordinates): sums of c[m] * monomial m, m = i + 4j + 16k for
+// x^i y^j z^k, each monomial (x_i * y_j) * z_k.
+template <bool Grad>
+__device__ __forceinline__ float4 tricubic(const float (&c)[64], float fx, float fy,
+                                           float fz) {
+  const float xv[4] = {1.0f, fx, fx * fx, fx * fx * fx};
+  const float yv[4] = {1.0f, fy, fy * fy, fy * fy * fy};
+  const float zv[4] = {1.0f, fz, fz * fz, fz * fz * fz};
+  const float dxv[4] = {0.0f, 1.0f, 2.0f * fx, 3.0f * fx * fx};
+  const float dyv[4] = {0.0f, 1.0f, 2.0f * fy, 3.0f * fy * fy};
+  const float dzv[4] = {0.0f, 1.0f, 2.0f * fz, 3.0f * fz * fz};
+  // lane t: terms t and t + 32 (the same i and j, k and k + 2)
+  auto lane = [&](int t) -> float4 {
+    const int i = t & 3, j = (t >> 2) & 3, k = t >> 4;
+    const float c0 = c[t], c1 = c[t + 32];
+    const float xy = xv[i] * yv[j];
+    float4 s;
+    s.x = c0 * (xy * zv[k]) + c1 * (xy * zv[k + 2]);
+    if (Grad) {
+      const float dxy = dxv[i] * yv[j];
+      const float xdy = xv[i] * dyv[j];
+      s.y = c0 * (dxy * zv[k]) + c1 * (dxy * zv[k + 2]);
+      s.z = c0 * (xdy * zv[k]) + c1 * (xdy * zv[k + 2]);
+      s.w = c0 * (xy * dzv[k]) + c1 * (xy * dzv[k + 2]);
+    } else {
+      s.y = s.z = s.w = 0.0f;
+    }
+    return s;
+  };
+  return Tree<0, 32>::sum(lane);
+}
+
+// trilinear_interpolate and, with Grad, trilinear_gradient.
+template <bool Grad>
+__device__ __forceinline__ float4 trilinear(const float (&v)[8], float fx, float fy,
+                                            float fz) {
+  const float ux = 1.0f - fx, uy = 1.0f - fy, uz = 1.0f - fz;
+  float4 s;
+  {
+    const float d00 = v[0] * ux + v[1] * fx;
+    const float d01 = v[2] * ux + v[3] * fx;
+    const float d10 = v[4] * ux + v[5] * fx;
+    const float d11 = v[6] * ux + v[7] * fx;
+    const float d0 = d00 * uy + d01 * fy;
+    const float d1 = d10 * uy + d11 * fy;
+    s.x = d0 * uz + d1 * fz;
+    if (Grad) {
+      s.z = (d01 * uz + d11 * fz) - (d00 * uz + d10 * fz);
+      s.w = (d10 * uy + d11 * fy) - (d00 * uy + d01 * fy);
+    } else {
+      s.z = s.w = 0.0f;
+    }
+  }
+  if (Grad) {
+    const float d00 = v[0] * uy + v[2] * fy;
+    const float d01 = v[1] * uy + v[3] * fy;
+    const float d10 = v[4] * uy + v[6] * fy;
+    const float d11 = v[5] * uy + v[7] * fy;
+    s.y = (d01 * uz + d11 * fz) - (d00 * uz + d10 * fz);
+  } else {
+    s.y = 0.0f;
+  }
+  return s;
+}
+
+// The polynomial of N coefficients from S words into base, at f.
+template <bool Grad, int S, int N>
+__device__ __forceinline__ float4 poly(const float4* base, const float f[3]) {
+  float c[N];
+  load_coeffs<S, N>(base, c);
+  if constexpr (N == 64) {
+    return tricubic<Grad>(c, f[0], f[1], f[2]);
+  } else {
+    return trilinear<Grad>(c, f[0], f[1], f[2]);
+  }
+}
+
+// The leaf polynomial at an in-box point of the cell with depth word dw,
+// its coefficients from leaf_row: (d, and with Grad the normalized
+// gradient). NaN where the row is missing.
+template <bool Grad>
+__device__ __forceinline__ float4 leaf_value(const Grid& G, const float4* base,
+                                             const float rel[3], int dw) {
+  if (base == nullptr) return make_float4(NAN, NAN, NAN, NAN);
+  const float scale = static_cast<float>(1 << (dw & 0xFFFF));
+  float f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float s = rel[a] * scale;
+    f[a] = s - floorf(s);
+  }
+  const bool fused = G.coeffs == nullptr;
+  float4 v = G.tricubic ? (fused ? poly<Grad, 2, 64>(base, f) : poly<Grad, 0, 64>(base, f))
+                        : (fused ? poly<Grad, 2, 8>(base, f) : poly<Grad, 0, 8>(base, f));
+  if (Grad) {
+    const float norm = nan_max(sqrtf((v.y * v.y + v.w * v.w) + v.z * v.z), 1e-30f);
+    v.y = v.y / norm;
+    v.z = v.z / norm;
+    v.w = v.w / norm;
+  }
+  return v;
+}
+
+// box_distance about the box's centre, plus min_border_value.
+__device__ __forceinline__ float box_value(const Box& b, const float p[3],
+                                           float min_border) {
+  float q[3], o[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    q[a] = fabsf(p[a] - b.ctr[a]) - b.half[a];
+    o[a] = nan_max(q[a], 0.0f);
+  }
+  const float outside = sqrtf((o[0] * o[0] + o[2] * o[2]) + o[1] * o[1]);
+  const float inside = nan_min(nan_max(nan_max(q[0], q[1]), q[2]), 0.0f);
+  return (outside + inside) + min_border;
+}
+
+// box_distance_gradient's gradient: the reference's formula over the raw
+// point and the full size (utils/Mesh.h:50).
+__device__ __forceinline__ void box_gradient(const Box& b, const float p[3],
+                                             float g[3]) {
+  float a[3], bb[3], sg[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a[k] = fabsf(p[k]) - b.sz[k];
+    bb[k] = nan_max(a[k], 0.0f);
+    sg[k] = p[k] >= 0.0f ? 1.0f : -1.0f;
+  }
+  const int k = a[0] > a[1] ? 0 : 1;
+  const int l = a[2] > a[k] ? 2 : k;
+  const float c = nan_max(sqrtf((bb[0] * bb[0] + bb[2] * bb[2]) + bb[1] * bb[1]), 1e-30f);
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    g[m] = a[l] < 0.0f ? (l == m ? 1.0f : 0.0f) * sg[m]
+                       : (a[m] > 0.0f ? bb[m] / c * sg[m] : 0.0f);
+  }
+}
+
+// _octree_query_grid / _octree_query_fat at one point: d, and with Grad
+// the gradient in g. Out-of-box points read no row.
+template <bool Grad>
+__device__ __forceinline__ float query(const Grid& G, const Box& b, const float p[3],
+                                       float g[3]) {
+  float rel[3];
+  int c[3];
+  if (!grid_cell(G, b, p, rel, c)) {
+    if (Grad) box_gradient(b, p, g);
+    return box_value(b, p, G.min_border);
+  }
+  int dw;
+  const float4* base = leaf_row(G, c, &dw);
+  const float4 v = leaf_value<Grad>(G, base, rel, dw);
+  if (Grad) {
+    g[0] = v.y;
+    g[1] = v.z;
+    g[2] = v.w;
+  }
+  return v.x;
+}
+
+}  // namespace leaf

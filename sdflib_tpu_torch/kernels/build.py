@@ -41,7 +41,11 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the leaf grid's leading arguments (ops/octree_query.py grid_args): rows,
+# width, coefficients, words, depth, tricubic, box_min, box_size3,
+# min_border
+_GRID = [_P, _I, _P, _I, _I, _I, _P, _P, _F]
 _SIGNATURES = {
     # (points, P, lo, hi, codes, stream)
     "sdf_nearest_morton": [_P, _I, _P, _P, _P, _P],
@@ -61,6 +65,13 @@ _SIGNATURES = {
     "sdf_row_min_tile": [_P, _I, _I, _P, _I, _I, _P, _P],
     # (w) -> shared-memory bytes of the tile kernel
     "sdf_row_min_tile_smem": [_I],
+    # (grid..., points, n, d, g or null, stream)
+    "sdf_octree_query": [*_GRID, _P, _I, _P, _P, _P],
+    # (grid..., pos, acc, last_d, active, its, dirs, n, eps, far, trips, stream)
+    "sdf_march": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P],
+    # (grid..., pos, acc, active, dirs, r0, rd, n, margin, half margin, far,
+    #  trips, stream)
+    "sdf_beam": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -43,13 +43,13 @@ import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
+from ..ops.octree_query import _finish, _grid_cells, _leaf_frac
 from ..sdf.exact_octree import (
     _DEFAULT_BUCKET_BYTES,
     ExactOctreeSdf,
     _build_exact,
     prepare_cull_inputs,
 )
-from ..sdf.octree import _finish, _grid_cells, _leaf_frac
 from ..sdf.octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK
 from ..sdf.sdf_function import SdfFormat, SdfFunction
 from ..triangle import TriangleDataSoA, calculate_mesh_triangle_data, soa_to_torch

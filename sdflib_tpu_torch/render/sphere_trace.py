@@ -15,27 +15,33 @@ ray at a depth proven safe for its tile. Large frames then march the JAX
 package's static pyramid of rounds over shrinking prefixes (``_Frame``),
 on the card as captured CUDA graphs that one host loop replays; small
 frames and ``pyramid=False`` march rounds over the still-active rays,
-compacted between rounds with one host sync each. Every step is a
-sequence of full-batch torch ops; no module here has a kernel of its own.
+compacted between rounds with one host sync each. On the card a march
+segment (up to 16 trips of every ray of a prefix) and a beam segment are
+one launch each of K5 and K6 (``ops/march.py``), and the normals one of
+K4 (``ops/octree_query.py``); on the CPU, and on the walk route, the
+same trips run as torch ops.
 """
 from __future__ import annotations
 
 import threading
 import warnings
 from collections import OrderedDict
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..sdf.octree import (
-    OctreeSdf,
-    _coeff_rows,
-    _finish,
-    _octree_query,
-    _octree_query_fat,
-    _octree_query_grid,
+from ..ops.march import (
+    beam_segment,
+    beam_segment_plain,
+    beam_trips,
+    march_segment,
+    march_segment_plain,
+    march_trips,
 )
+from ..ops.octree_query import grid_query, grid_query_plain
+from ..sdf.octree import OctreeSdf, _octree_query
 from ..sdf.sdf_function import resolve_device
 
 __all__ = ["TraceResult", "sphere_trace", "trace_octree"]
@@ -51,102 +57,6 @@ _MAX_ROUND_ITERS = 256
 _BEAM_ITERS = 256
 
 
-def _grid_distance_and_step(
-    octree_i32,
-    grid_i32,
-    pts,
-    dirs,
-    box_min,
-    box_size3,
-    min_border_value: float,
-    *,
-    grid_depth: int,
-    num_coeff: int,
-    interpolation: str,
-    grid_fat: bool = False,
-    shrink=None,
-):
-    """Distance and safe step of (P, 3) points moving along (P, 3) unit
-    ``dirs``, in one pass over the dense leaf grid.
-
-    ``grid_i32`` holds one row per finest cell: [leaf word, depth | flags]
-    (``_query_grid``) or, with ``grid_fat``, the fused row with the leaf's
-    coefficients after those two words (``_fat_grid``). The depth word is
-    int32: depth in bits 0-15, the surface-free flag in bit 16, the free
-    radius in bits 17-21. No flag reaches bit 31, so the arithmetic right
-    shift of the int32 word reads them as the JAX package's logical shift
-    of its uint32 word does.
-
-    In a free cell the step extends to the exit of the free-radius box of
-    (2 rad + 1)^3 finest cells around the point, plus 1e-3 of a finest
-    cell, where that is farther than d; elsewhere it is max(d, 0). Outside the box the distance is the box fallback, itself a
-    lower bound.
-
-    ``shrink`` = (radius, growth) makes the exit step safe for a beam of
-    that radius: each wall of the free box moves in by the radius, the
-    exit comes where the first contracted wall gap closes (each gap is
-    linear in t), and the step is -inf unless the centre already sits
-    ``radius`` inside every wall. Then the distance and that exit-only
-    step are returned, for the beam prepass to combine."""
-    g = 1 << grid_depth
-    dtype = pts.dtype
-    box_size = box_size3[0]
-    rel = (pts - box_min) / box_size3
-    in_box = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
-    cell = (rel * g).to(torch.int32).clamp(0, g - 1)
-    lin = ((cell[..., 2] * g + cell[..., 1]) * g + cell[..., 0]).long()
-
-    if grid_fat:
-        # only the two words and the coefficients of the fused row
-        row = grid_i32[:, : 2 + num_coeff][lin]
-        coeffs = row[..., 2:].view(torch.float32)
-    else:
-        row = grid_i32[lin]
-        coeffs = _coeff_rows(octree_i32, row[..., 0], num_coeff)
-    dw = row[..., 1]
-    free = ((dw >> 16) & 1) == 1
-    scale = (1 << (dw & 0xFFFF)).to(dtype)
-    f = rel * scale[..., None]
-    d = _finish(pts, coeffs, f - f.floor(), in_box, box_min, box_size3,
-                min_border_value, interpolation, False)
-
-    if shrink is not None:
-        sh = shrink[0][..., None]      # tube radius at the current point
-        gr = shrink[1][..., None]      # radius growth per unit arclength
-
-    def box_exit(bmin, bsize):
-        if shrink is None:
-            far_face = bmin + (dirs > 0).to(dtype) * bsize
-            t_ax = torch.where(dirs != 0.0, (far_face - pts) / dirs, torch.inf)
-            return t_ax.amin(-1)
-        gap_n = pts - bmin - sh
-        gap_f = bmin + bsize - pts - sh
-        contained = ((gap_n >= 0.0) & (gap_f >= 0.0)).all(dim=-1)
-        rate_n = gr - dirs             # > 0 where the near gap shrinks
-        rate_f = gr + dirs
-        t_n = torch.where(rate_n > 0.0, gap_n / rate_n.clamp_min(1e-20), torch.inf)
-        t_f = torch.where(rate_f > 0.0, gap_f / rate_f.clamp_min(1e-20), torch.inf)
-        t = torch.minimum(t_n.amin(-1), t_f.amin(-1))
-        return torch.where(contained, t, -torch.inf)
-
-    # The free-radius box (bits 17-21): every finest cell within Chebyshev
-    # distance rad of this one is proven free, so its exit is safe; in
-    # float32 as (cell - rad) * cell_size. The JAX function also takes the
-    # exit of the leaf's own box, which the flag of one finest cell does
-    # not prove free: a coarse leaf can hold the surface in another of its
-    # cells (ROADMAP.md, Queue 3). The overshoot stays at finest-cell scale.
-    cell_size = box_size / g
-    rad = ((dw >> 17) & 0x1F).to(dtype)
-    rbox_min = box_min + (cell.to(dtype) - rad[..., None]) * cell_size
-    rbox_size = (2.0 * rad + 1.0)[..., None] * cell_size
-    t_exit = box_exit(rbox_min, rbox_size) + 1e-3 * cell_size
-
-    free_in = free & in_box
-    if shrink is not None:
-        return d, torch.where(free_in, t_exit, -torch.inf)
-    return d, torch.where(free_in, torch.maximum(d, t_exit), d.clamp_min(0.0))
-
-
 class TraceResult(NamedTuple):
     hit: torch.Tensor         # (...,) bool
     position: torch.Tensor    # (..., 3) world hit position (last march point)
@@ -155,34 +65,23 @@ class TraceResult(NamedTuple):
     iterations: torch.Tensor  # (...,) int32 march steps of each ray
 
 
-def _trip(step_fn, pos, acc, last_d, active, its, dirs, eps: float, far: float):
-    """One march step of every ray, written in place: step by
-    ``step_fn(pos, dirs)``'s step where active (float 0/1), count the
-    step in ``its``, hit at d <= eps, stop past ``far``."""
-    d, step = step_fn(pos, dirs)
-    moved = step * active
-    pos.add_(dirs * moved[..., None])
-    acc.add_(moved)
-    live = active > 0
-    torch.where(live, d, last_d, out=last_d)
-    its.add_(live)
-    active.mul_((last_d > eps) & (acc < far))
-
-
-def _march(step_fn, state, dirs, eps: float, far: float, trips: int,
+def _march(segment, state, dirs, eps: float, far: float, trips: int,
            fixed_trips: bool = False):
     """``trips`` march steps of ``state`` = (pos, acc, last_d, active),
-    active as float 0/1 (``_trip``). Returns each ray's count of steps
-    taken and the new state (new tensors: the inputs are not written).
-    Stops early, once every ray is done, at a check every ``_CHECK_EVERY``
-    trips (the state no longer changes by then); ``fixed_trips`` runs
-    every trip with no check, so no host sync."""
-    pos, acc, last_d, active = (x.clone() for x in state)
+    active as float 0/1, by ``segment`` (pos, acc, last_d, active, its,
+    dirs, eps, far, trips), which runs trips in place (``_Route.march``,
+    ``march_trips``). Returns each ray's count of steps taken and the new
+    state (new tensors: the inputs are not written). Stops early, once
+    every ray is done, at a check before each segment of ``_CHECK_EVERY``
+    trips but the first (the state no longer changes by then);
+    ``fixed_trips`` runs every trip with no check, so no host sync."""
+    pos, acc, last_d, active = (x.clone(memory_format=torch.contiguous_format)
+                                for x in state)
     its = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
-    for i in range(trips):
-        if not fixed_trips and i and i % _CHECK_EVERY == 0 and not bool(active.any()):
+    for i in range(0, trips, _CHECK_EVERY):
+        if not fixed_trips and i and not bool(active.any()):
             break
-        _trip(step_fn, pos, acc, last_d, active, its, dirs, eps, far)
+        segment(pos, acc, last_d, active, its, dirs, eps, far, min(_CHECK_EVERY, trips - i))
     return its, (pos, acc, last_d, active)
 
 
@@ -219,7 +118,8 @@ def sphere_trace_state(
     else:
         def step_fn(p, _):
             return distance_step_fn(p)
-    its, state = _march(step_fn, state, dirs, eps, far, max_iters, fixed_trips)
+    its, state = _march(partial(march_trips, step_fn), state, dirs, eps, far, max_iters,
+                        fixed_trips)
     it = its.max() if its.numel() else its.new_zeros(())
     return it, state
 
@@ -305,47 +205,30 @@ def _beam_setup(o_t, d_t, mask):
     return o_c, d_c, spread(o_t, o_c), spread(d_t, d_c)
 
 
-def _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin: float, far: float):
-    """One step of the beam prepass, written in place: each beam ray's
-    hit test is widened by its tile radius r(t) = r0 + t * rd; it steps
-    by (d - r(t) - margin) / (1 + rd) or by ``beam_step``'s tube-safe
-    exit step, whichever is longer (the divisor: the radius keeps growing
-    over the step). A beam stops on proximity (a step of at most half the
-    margin), past ``far``, and on stagnation: a grazing beam skimming the
-    silhouette would crawl in sub-margin steps for hundreds of trips, and
-    stopping early is always safe since the stop depth bounds every
-    member's first hit wherever it is."""
-    radius = r0 + acc * rd
-    d, fstep = beam_step(pos, dirs, (radius + margin, rd))
-    dstep = ((d - radius - margin) / (1.0 + rd)).clamp_min(0.0)
-    step = torch.maximum(dstep, fstep)
-    moved = step * active
-    pos.add_(dirs * moved[..., None])
-    acc.add_(moved)
-    active.mul_((step > 0.5 * margin) & (acc < far))
-
-
-def _beam_prepass(beam_step, origins, dirs, r0, rd, margin: float, far: float,
+def _beam_prepass(beam, origins, dirs, r0, rd, margin: float, far: float,
                   max_iters: int = _BEAM_ITERS):
-    """March one ray per tile (``_beam_trip``) and return its stopping
-    depth. Every member ray stays within r(t) of the beam ray and the true
-    SDF is 1-Lipschitz, so no member hits before that depth, where the
-    members then start (the reference renderer's per-tile coherence,
-    RenderSdf.cpp:187, as an explicit two-level schedule)."""
-    pos = origins.clone()
+    """March one ray per tile by ``beam`` (pos, acc, active, dirs, r0, rd,
+    margin, far, trips), which runs beam trips (``_beam_trip``) in place,
+    and return its stopping depth. Every member ray stays within r(t) of
+    the beam ray and the true SDF is 1-Lipschitz, so no member hits before
+    that depth, where the members then start (the reference renderer's
+    per-tile coherence, RenderSdf.cpp:187, as an explicit two-level
+    schedule). Checks for a live beam before each segment of
+    ``_CHECK_EVERY`` trips but the first."""
+    pos = origins.clone(memory_format=torch.contiguous_format)
     acc = torch.zeros_like(r0)
     active = torch.ones_like(r0)
-    for i in range(max_iters):
-        if i and i % _CHECK_EVERY == 0 and not bool(active.any()):
+    for i in range(0, max_iters, _CHECK_EVERY):
+        if i and not bool(active.any()):
             break
-        _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin, far)
+        beam(pos, acc, active, dirs, r0, rd, margin, far, min(_CHECK_EVERY, max_iters - i))
     return acc
 
 
 class _Route(NamedTuple):
-    step: object      # (pos, dirs) -> (d, step)
-    beam_step: object  # (pos, dirs, shrink) -> (d, tube-safe exit step or -inf)
-    normals: object   # pos -> normalized gradient
+    march: object     # (pos, acc, last_d, active, its, dirs, eps, far, trips), in place
+    beam: object      # (pos, acc, active, dirs, r0, rd, margin, far, trips), in place
+    normals: object   # (pos, out=None) -> normalized gradient (into out[1])
     margin: float     # the beam's safety margin, world units
     key: tuple        # the route and the arrays it reads
 
@@ -355,33 +238,30 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     (normalized): the fused rows if ``build_query_grid`` built them, else
     the thin leaf grid, else the walk; the grids (and their free-cell
     steps) only for eps <= ``OctreeSdf._FREE_CELL_MARGIN``, the margin the
-    free flags were proven with. The normals ride the fused rows where
-    built (one gather a ray), else the thin grid, else the walk. The
-    beam's margin is the hit threshold plus a fit-error budget: the
-    Lipschitz argument runs through the true distance, which the
-    polynomial tracks within the build's termination threshold."""
+    free flags were proven with. On a grid the march and the beam are K5
+    and K6 segments, in torch on the CPU or where ``octree._plain`` pins
+    the plain versions; the walk runs its trips in torch. The normals ride
+    the fused rows where built (one gather a ray), else the thin grid
+    (K4 on either), else the walk. The beam's margin is the hit threshold
+    plus a fit-error budget: the Lipschitz argument runs through the true
+    distance, which the polynomial tracks within the build's termination
+    threshold."""
     box_args = (octree._box_min, octree._box_size3)
     mbv = octree.min_border_value
     words = octree._octree_dev
-    statics = dict(num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
     walk = dict(levels=octree.max_depth - octree.start_depth, fast=octree._fast_layout,
-                **statics)
+                num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
     fat, thin = octree._fat_grid, octree._query_grid
-    sgs, depth = octree.start_grid_size, octree.max_depth
-    grid = fat if fat is not None else thin
-    if grid is not None and eps > OctreeSdf._FREE_CELL_MARGIN:
-        grid = None
+    sgs, depth, plain = octree.start_grid_size, octree.max_depth, octree._plain
+    shade = None if fat is None and thin is None else octree._leaf_grid(fat is not None)
+    grid = shade if eps <= OctreeSdf._FREE_CELL_MARGIN else None
 
     def distance(p):
-        return _octree_query(words, p, *box_args, sgs, mbv,
-                             with_gradient=False, **walk)
+        return _octree_query(words, p, *box_args, sgs, mbv, with_gradient=False, **walk)
 
     if grid is not None:
-        def step(p, u, shrink=None):
-            return _grid_distance_and_step(
-                words, grid, p, u, *box_args, mbv, grid_depth=depth,
-                grid_fat=grid is fat, shrink=shrink, **statics)
-        beam_step = step
+        march = partial(march_segment_plain if plain else march_segment, grid)
+        beam = partial(beam_segment_plain if plain else beam_segment, grid)
     else:
         def step(p, _):
             dist = distance(p)
@@ -391,16 +271,14 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
             dist = distance(p)
             return dist, torch.full_like(dist, -torch.inf)
 
-    def normals(pos):
-        if fat is not None:
-            return _octree_query_fat(fat, pos, *box_args, mbv, grid_depth=depth,
-                                     with_gradient=True, **statics)[1]
-        if thin is not None:
-            return _octree_query_grid(words, thin, pos, *box_args, mbv,
-                                      grid_depth=depth, with_gradient=True,
-                                      **statics)[1]
-        return _octree_query(words, pos, *box_args, sgs, mbv,
-                             with_gradient=True, **walk)[1]
+        march, beam = partial(march_trips, step), partial(beam_trips, beam_step)
+
+    def normals(pos, out=None):
+        if shade is not None and not plain:
+            return grid_query(shade, pos, True, out)[1]
+        g = (grid_query_plain(shade, pos, True) if shade is not None else
+             _octree_query(words, pos, *box_args, sgs, mbv, with_gradient=True, **walk))[1]
+        return g if out is None else out[1].copy_(g)
 
     box_size = float(octree.box.size[0])
     margin = eps * box_size + 4.0 * octree.termination_threshold
@@ -408,9 +286,10 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     # route, so an address names one array while the frame is cached)
     # and the scalars
     arrays = tuple(None if a is None else (a.device, a.data_ptr(), tuple(a.shape))
-                   for a in (words, grid, fat, thin, *box_args))
-    key = (arrays, grid is fat, mbv, margin, sgs, depth, tuple(sorted(walk.items())))
-    return _Route(step, beam_step, normals, margin, key)
+                   for a in (words, fat, thin, *box_args))
+    key = (arrays, grid is not None, plain, mbv, margin, sgs, depth,
+           tuple(sorted(walk.items())))
+    return _Route(march, beam, normals, margin, key)
 
 
 # -- the whole-frame trace: the static pyramid --------------------------------
@@ -608,6 +487,7 @@ class _Frame:
         self.pos, self.dirs, self.out_pos = f32(Rp, 3), f32(Rp, 3), f32(Rp, 3)
         self.acc, self.last_d, self.active = f32(Rp), f32(Rp), f32(Rp)
         self.out_acc, self.out_last, self.out_normal = f32(Rp), f32(Rp), f32(R, 3)
+        self.out_d = f32(R)      # the normals' distances, unused
         self.out_hit = torch.zeros(R, dtype=torch.bool, device=dev)
         self.perm = torch.arange(Rp, device=dev)
         self.iters = torch.zeros(Rp, dtype=torch.int32, device=dev)
@@ -637,10 +517,8 @@ class _Frame:
 
     def _beam_piece(self, trips: int):
         def piece():
-            for _ in range(trips):
-                _beam_trip(self.route.beam_step, self.b_pos, self.b_acc, self.b_active,
-                           self.b_dirs, self.b_r0, self.b_rd, self.route.margin,
-                           self.beam_far)
+            self.route.beam(self.b_pos, self.b_acc, self.b_active, self.b_dirs, self.b_r0,
+                            self.b_rd, self.route.margin, self.beam_far, trips)
         return piece
 
     def _start(self) -> None:
@@ -665,8 +543,7 @@ class _Frame:
                  self.its[:n], self.dirs[:n])
 
         def piece():
-            for _ in range(trips):
-                _trip(self.route.step, *state, self.eps_w, self.far_w)
+            self.route.march(*state, self.eps_w, self.far_w, trips)
         return piece
 
     def _round_end(self, n: int, W: int):
@@ -684,7 +561,7 @@ class _Frame:
                          (self.last_d, self.out_last)):
             dst.index_copy_(0, self.perm, src)
         torch.le(self.out_last[:R], self.eps_w, out=self.out_hit)
-        self.out_normal.copy_(self.route.normals(self.out_pos[:R]))
+        self.route.normals(self.out_pos[:R], (self.out_d, self.out_normal))
 
     # -- the host loop --------------------------------------------------------
 
@@ -880,11 +757,11 @@ def _trace(octree: OctreeSdf, origins, dirs, *, eps, far, max_iters, block_size,
     origins = torch.as_tensor(origins, dtype=torch.float32, device=dev)
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
     shape = origins.shape
-    o = origins.reshape(-1, 3)
-    d = dirs.reshape(-1, 3)
+    o = origins.reshape(-1, 3).contiguous()
+    d = dirs.reshape(-1, 3).contiguous()
     R = o.shape[0]
     live = (torch.ones(R, device=dev) if active is None
-            else torch.as_tensor(active, device=dev).reshape(R).to(torch.float32))
+            else torch.as_tensor(active, device=dev).reshape(R).to(torch.float32).contiguous())
     B = min(block_size or _TRACE_BLOCK, max(R, 1))
     if pyramid and -(-R // B) * B >= _PYRAMID_MIN_RAYS and max_iters >= _PYRAMID_MIN_ITERS:
         out = _trace_rays(octree, o, d, live, shape, eps=eps, far=far, max_iters=max_iters,
@@ -912,7 +789,7 @@ def _trace_dynamic(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: flo
     if beam is not None and R >= beam * beam:
         o_t, d_t, mask, per_ray = _beam_tiles(o, d, shape, beam)
         o_c, d_c, r0, rd = _beam_setup(o_t, d_t, mask)
-        start_t = per_ray(_beam_prepass(route.beam_step, o_c, d_c, r0, rd, route.margin,
+        start_t = per_ray(_beam_prepass(route.beam, o_c, d_c, r0, rd, route.margin,
                                         far * box_size))
 
     # The frame's state (tensors of this call, never the caller's), written
@@ -930,7 +807,7 @@ def _trace_dynamic(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: flo
     rounds_log = []
     while remaining > 0 and n_cur > 0:
         k = min(round_iters, remaining)
-        its, sub = _march(route.step, sub, sub_dirs, eps_w, far_w, k)
+        its, sub = _march(route.march, sub, sub_dirs, eps_w, far_w, k)
         for full, part in zip((pos, acc, last_d), sub):
             full.index_copy_(0, cur, part)
         iterations.index_add_(0, cur, its)    # integer adds at distinct rays

@@ -21,6 +21,9 @@ Three query routes, each the JAX function's formulas:
 * ``_octree_query_fat``: one gather of a fused row holding the leaf word,
   its depth and flags, and the coefficients.
 
+The two grid routes are K4 on the card (``ops/octree_query.py``,
+``csrc/octree_query.cu``) and its plain torch version on the CPU.
+
 Outside the box every route returns the box distance plus
 ``min_border_value`` (OctreeSdf.cpp:99-104). The leaf grid's depth word
 carries the sphere tracer's surface-free flag (bit 16) and free radius
@@ -32,8 +35,7 @@ import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
-from ..ops.box import box_distance, box_distance_gradient
-from ..ops.interpolation import gradient_at, interpolate_at
+from ..ops.octree_query import LeafGrid, _coeff_rows, _finish, grid_query, grid_query_plain
 from ..triangle import calculate_mesh_triangle_data, soa_to_torch
 from .octree_builder import (
     CHILDREN_INDEX_MASK,
@@ -48,34 +50,6 @@ __all__ = ["OctreeSdf"]
 
 _RULES = {"trapezoid", "simpson", "by_distance", "none"}
 _CIDX = int(CHILDREN_INDEX_MASK)
-
-
-def _finish(pts, coeffs, frac, in_box, box_min, box_size3, min_border_value,
-            interpolation, with_gradient):
-    """Leaf polynomial inside the box, box distance + ``min_border_value``
-    outside; the gradient normalized (OctreeSdf.cpp:150)."""
-    d_in = interpolate_at(coeffs, frac, interpolation)
-    center = box_min + 0.5 * box_size3
-    if with_gradient:
-        g_in = gradient_at(coeffs, frac, interpolation)
-        norm = (g_in * g_in).sum(-1, keepdim=True).sqrt()
-        g_in = g_in / norm.clamp_min(1e-30)
-        d_out, g_out = box_distance_gradient(pts, center, box_size3)
-        return (
-            torch.where(in_box, d_in, d_out + min_border_value),
-            torch.where(in_box[..., None], g_in, g_out),
-        )
-    d_out = box_distance(pts, center, box_size3)
-    return torch.where(in_box, d_in, d_out + min_border_value)
-
-
-def _coeff_rows(octree_i32, word, num_coeff, coeffs_f32=None):
-    """The coefficients of leaf words, one aligned row each, read from
-    ``coeffs_f32`` (a flat float32 tensor of the octree's length) or by
-    default from the float32 view of the words."""
-    base = (word & _CIDX).long()
-    flat = octree_i32.view(torch.float32) if coeffs_f32 is None else coeffs_f32
-    return flat.view(-1, num_coeff)[base // num_coeff]
 
 
 def _octree_walk(octree_i32, points, box_min, box_size3, start_grid_size: int, *,
@@ -188,25 +162,6 @@ def _layout_is_aligned(data: np.ndarray, start_grid_size: int, num_coeff: int) -
     return False  # deeper than any valid octree
 
 
-def _grid_cells(pts, box_min, box_size3, grid_depth):
-    """(rel, in_box, linear cell index) of points on the 2^d grid."""
-    g = 1 << grid_depth
-    rel = (pts - box_min) / box_size3          # [0, 1) inside the box
-    in_box = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
-    cell = (rel * g).to(torch.int32).clamp(0, g - 1).long()
-    lin = (cell[..., 2] * g + cell[..., 1]) * g + cell[..., 0]
-    return rel, in_box, lin
-
-
-def _leaf_frac(rel, depth_word):
-    """frac within the leaf: the point scaled to the leaf's depth, rel *
-    2^depth (low 16 bits of the depth word)."""
-    depth = depth_word & 0xFFFF
-    scale = (1 << depth).to(rel.dtype)
-    f = rel * scale[..., None]
-    return f - f.floor()
-
-
 def _octree_query_grid(
     octree_i32,
     grid_i32,        # (2^d^3, 2): [leaf word, leaf depth | flags] per finest cell
@@ -221,13 +176,11 @@ def _octree_query_grid(
     with_gradient: bool,
 ):
     """One-gather descent through the dense leaf grid at max-depth
-    resolution, then the leaf's coefficient row (aligned layout only)."""
-    rel, in_box, lin = _grid_cells(points, box_min, box_size3, grid_depth)
-    row = grid_i32[lin]                         # (P, 2)
-    frac = _leaf_frac(rel, row[..., 1])
-    coeffs = _coeff_rows(octree_i32, row[..., 0], num_coeff)
-    return _finish(points, coeffs, frac, in_box, box_min, box_size3,
-                   min_border_value, interpolation, with_gradient)
+    resolution, then the leaf's coefficient row (aligned layout only):
+    K4 on CUDA tensors (``ops/octree_query.py``)."""
+    grid = LeafGrid(grid_i32, False, octree_i32, box_min, box_size3, min_border_value,
+                    grid_depth, num_coeff, interpolation)
+    return grid_query(grid, points, with_gradient)
 
 
 def _build_fat_grid(octree_np: np.ndarray, grid: np.ndarray, num_coeff: int) -> np.ndarray:
@@ -255,13 +208,11 @@ def _octree_query_fat(
     interpolation: str,
     with_gradient: bool,
 ):
-    """Dense-grid query over fused rows: one row gather per point."""
-    rel, in_box, lin = _grid_cells(points, box_min, box_size3, grid_depth)
-    row = fat_i32[lin]                          # (P, width)
-    frac = _leaf_frac(rel, row[..., 1])
-    coeffs = row[..., 2 : 2 + num_coeff].view(torch.float32)
-    return _finish(points, coeffs, frac, in_box, box_min, box_size3,
-                   min_border_value, interpolation, with_gradient)
+    """Dense-grid query over fused rows, one row gather per point: K4 on
+    CUDA tensors (``ops/octree_query.py``)."""
+    grid = LeafGrid(fat_i32, True, None, box_min, box_size3, min_border_value,
+                    grid_depth, num_coeff, interpolation)
+    return grid_query(grid, points, with_gradient)
 
 
 def _build_leaf_grid(
@@ -327,7 +278,11 @@ class OctreeSdf(SdfFunction):
 
     ``build_query_grid()`` switches queries to the dense leaf grid
     (8 bytes per finest cell) and builds the fused rows of
-    ``_octree_query_fat`` where they fit ``_FAT_GRID_BYTE_BUDGET``.
+    ``_octree_query_fat`` where they fit ``_FAT_GRID_BYTE_BUDGET``. On the
+    card the grid routes run K4, and the tracer's march and beam over
+    them K5 and K6 (``ops/march.py``); setting the private ``_plain`` to
+    True pins the plain torch versions of all three for this structure
+    (the card's comparisons; the tracer's frames key on it).
     """
 
     # fused rows above this many bytes stay unbuilt: depth 6 tricubic is
@@ -437,6 +392,7 @@ class OctreeSdf(SdfFunction):
         )
         self._query_grid = None
         self._fat_grid = None
+        self._plain = False
 
     @property
     def num_coefficients(self) -> int:
@@ -534,24 +490,26 @@ class OctreeSdf(SdfFunction):
 
     # -- queries ----------------------------------------------------------------
 
+    def _leaf_grid(self, fat: bool) -> LeafGrid:
+        """The thin leaf grid (``fat`` False) or the fused rows, for K4-K6."""
+        return LeafGrid(self._fat_grid if fat else self._query_grid, fat, self._octree_dev,
+                        self._box_min, self._box_size3, self.min_border_value,
+                        self.max_depth, self.num_coefficients, self.interpolation)
+
     def _query(self, points, with_gradient: bool):
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
-        flat = pts.reshape(-1, 3)
-        common = dict(num_coeff=self.num_coefficients, interpolation=self.interpolation,
-                      with_gradient=with_gradient)
+        flat = pts.reshape(-1, 3).contiguous()
         # plain queries take the thin grid; the fused rows serve the tracer
         if self._query_grid is not None:
-            out = _octree_query_grid(
-                self._octree_dev, self._query_grid, flat, self._box_min,
-                self._box_size3, self.min_border_value, grid_depth=self.max_depth,
-                **common,
-            )
+            query = grid_query_plain if self._plain else grid_query
+            out = query(self._leaf_grid(False), flat, with_gradient)
         else:
             out = _octree_query(
                 self._octree_dev, flat, self._box_min, self._box_size3,
                 self.start_grid_size, self.min_border_value,
                 levels=self.max_depth - self.start_depth, fast=self._fast_layout,
-                **common,
+                num_coeff=self.num_coefficients, interpolation=self.interpolation,
+                with_gradient=with_gradient,
             )
         if with_gradient:
             d, g = out

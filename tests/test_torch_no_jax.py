@@ -6,8 +6,10 @@ the port's own RealSdf within 1e-5, and the row-fetch probes; then both
 approximate builders (rms error against RealSdf below the JAX tests'
 4e-3), the walk against the grid route within 1e-6, and a reference
 ``.bin`` golden through the port's io within 5e-5 of the C++ walk; then
-a 32^2 ``trace_octree`` (grid route, beam on) whose hits lie within
-1e-3 of the octree's surface, one shading call, a 32^2 plane cut, and a depth-3
+a 32^2 ``trace_octree`` (grid route, beam on: the plain versions of
+K5 and K6) whose hits lie within 1e-3 of the octree's surface, K4's
+fused-row route within 1e-6 of the thin grid's with no launch counted,
+one shading call, a 32^2 plane cut, and a depth-3
 ``UniformGridSdf`` with its ``.bin`` round trip, bit-equal; then one
 ``octree_query_diff`` backward (a finite coefficient gradient that leaves
 the words unchanged), an EXACT_OCTREE ``.bin`` round trip with the same
@@ -79,6 +81,12 @@ SCRIPT = textwrap.dedent(
     assert 0 < hit.sum() < hit.size and hit[16, 16]
     # the hits lie on the octree's own surface
     assert float(approx.get_distance(res.position[res.hit]).abs().max()) <= 1e-3
+    from sdflib_tpu_torch.ops import march as om
+    from sdflib_tpu_torch.ops import octree_query as oq
+    qt = torch.as_tensor(q)
+    fat = oq.grid_query(approx._leaf_grid(True), qt, False)
+    assert float((fat - approx.get_distance(q)).abs().max()) <= 1e-6
+    assert oq.launch_count == om.launch_count == om.beam_launch_count == 0
     img = normal_color(res.normal, res.hit).numpy()
     assert img.shape == (32, 32, 3) and 0.0 <= img.min() and img.max() <= 1.0
     cut = render_plane_cut(approx, resolution=32)

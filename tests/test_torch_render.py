@@ -435,9 +435,12 @@ def _report():
     route's hits off its own surface on this file's camera frame (run
     ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_render.py``
     from the repository root)."""
+    from functools import partial
+
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from sdflib_tpu_torch.render.sphere_trace import _grid_distance_and_step, _march
+    from sdflib_tpu_torch.ops.march import _grid_distance_and_step, march_trips
+    from sdflib_tpu_torch.render.sphere_trace import _march
 
     class Count(TorchDispatchMode):
         views = {"unsqueeze", "select", "slice", "view", "detach", "expand", "permute"}
@@ -464,7 +467,7 @@ def _report():
             interpolation="tricubic", grid_fat=True)
 
     with Count() as count:
-        _march(step, state, d, 1e-4, 4.0, 1)
+        _march(partial(march_trips, step), state, d, 1e-4, 4.0, 1)
     print(f"one march trip, fused rows: {count.calls} dispatcher calls, "
           f"{count.non_views} of them not views")
 

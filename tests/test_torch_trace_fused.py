@@ -331,13 +331,13 @@ def test_results_do_not_alias(cuda_octree):
 def test_capture_error_propagates(cuda_octree, monkeypatch):
     """A host sync inside a piece fails its capture: the error reaches
     the caller, with no retry on the eager schedule."""
-    trip = st._trip
+    segment = st.march_segment
 
-    def syncing_trip(*args):
+    def syncing_segment(*args):
         bool(args[4].any())              # a host sync inside the captured march
-        return trip(*args)
+        return segment(*args)
 
-    monkeypatch.setattr(st, "_trip", syncing_trip)
+    monkeypatch.setattr(st, "march_segment", syncing_segment)
     o, d = _ortho(200)                   # a frame shape no other test captured
     with pytest.raises(RuntimeError):
         trace_octree(cuda_octree, o, d, max_iters=1024)
