@@ -44,29 +44,37 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   through the port's ``io`` and queried on the card. K4, the grid query
   kernel, is held against its plain version on the 2^22 points on both
   grid routes, with and without the gradient (1e-6 in distance, 1e-5 in
-  gradient), and timed beside its bound (``k4_vs_plain``). K2 is held
-  against its plain version at the seed lattice's shape (125 x 9,216);
+  gradient), each group size (lanes a point: 1, 4, 8) held bit-equal
+  to one thread a point and timed beside the bound (``k4_vs_plain``); the
+  profiler's breakdown of the queries runs in a process of its own
+  (``approx_profile``). K2 is held against its plain version at the seed
+  lattice's shape (125 x 9,216);
 * main path D, the sphere tracer at bench.py's configuration
   (bench.py:151-187): path C's no_continuity octree after
   ``build_query_grid``, 1024^2 rays from z = -1.2 along +z,
   ``max_iters=1024``, eps 1e-5, far 4. The frame takes the static
-  pyramid as captured CUDA graphs: the first frame's seconds (its
-  captures), a second frame that replays without capturing, both
-  bit-equal to the eager schedule; the kernel frame (K4's normals, K5's
-  march segments, K6's beam segments) against the frame with the plain
+  pyramid over the thin grid as one captured CUDA graph with no host
+  sync: the first frame's seconds (its capture), a second frame that
+  replays it with one launch, both bit-equal to the eager schedule; the
+  frame on the fused rows bit-equal to it (hit, position, depth, normal,
+  iterations) and both timed; the kernel frame (K4's
+  normals, K5's rounds, K6's prepass) against the frame with the plain
   step pinned (hit masks on >= 99.9%, q99 of |depth diff| on common hits
-  <= 1e-4 of the box); K6 and K5 against their plain versions at the
-  frame's first beam and march segments, timed beside their bounds
-  (``segments_vs_plain``); then the graph path and the dynamic
-  scheduler (``pyramid=False``) each timed (best of 3 after a warmup)
-  with rays/s, a ``breakdown`` (device activities, busy share, host syncs
-  and graph launches from the profiler), useful against marched
-  ray-trips and the bound from bytes; the two held to each other (hit
-  masks on >= 99.8%, depths within 1e-3); the graph path's hits held to
-  a plain host march through ``get_distance`` on every 16th ray, to
-  ``RealSdf`` (q95 below 8e-3) and to the trace without a beam; then a
-  512^2 camera frame in sdf_render's defaults shaded five ways (written
-  as PNGs to a temporary directory) and a 512^2 plane cut;
+  <= 1e-4 of the box), whose live rays' cells give the frame's bound
+  (inputs once, each touched row once); K6 and K5 against their plain
+  versions in the frame's forms (the 256-trip prepass and the first
+  round each in one launch), their forms held bit-equal and timed
+  (``segments_vs_plain``); then the graph path and the dynamic scheduler
+  (``pyramid=False``) each timed (best of 3 after a warmup) with rays/s,
+  a ``breakdown`` (device activities, busy share, host syncs and graph
+  launches from the profiler and from ``stats_out``) and a timeline
+  (idle gaps), useful against offered ray-trips and the bound; the two
+  held to each other (hit masks on >= 99.8%, depths within 1e-3); the
+  graph path's hits held to a plain host march through ``get_distance``
+  on every 16th ray, to ``RealSdf`` (q95 below 8e-3) and to the trace
+  without a beam; then a 512^2 camera frame in sdf_render's defaults
+  shaded five ways (written as PNGs to a temporary directory) and a 512^2
+  plane cut;
 * main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the bench
   torus (128^3 corners) by BASIC init (K2 over every corner) and by
   OCTREE init (K1 through a depth-6 exact octree), the two held to each
@@ -228,12 +236,15 @@ DIFF_BACKWARD_BYTES = 256
 APPROX_POINT_BYTES = 12 + 8 + 64 * 4 + 4
 APPROX_GRAD_BYTES = APPROX_POINT_BYTES + 12
 GOLDEN = os.path.join("tests", "golden", "data")
-# One march step's bytes on the fused-row route, counted from
-# render/sphere_trace.py (_grid_distance_and_step and _march): the
-# position (12 B) and direction (12 B) in, the fused row's two-word
-# header (8 B) and 64 coefficients (256 B), and the state written back:
-# position 12, accumulated distance 4, last distance 4, active flag 4.
+# One march step's bytes if each trip re-read its row (the earlier
+# statement of the frame's bound, kept as a note): the position (12 B)
+# and direction (12 B) in, the row's two words (8 B) and 64 coefficients
+# (256 B), and the state written back: position 12, accumulated distance
+# 4, last distance 4, active flag 4.
 TRACE_STEP_BYTES = 12 + 12 + 8 + 64 * 4 + 12 + 4 + 4 + 4
+# A traced ray's bytes in and out once: origin and direction in (24 B);
+# hit (1), position (12), depth (4), normal (12), iterations (4) out.
+FRAME_RAY_BYTES = 24 + 1 + 12 + 4 + 12 + 4
 # Flops counted from csrc/leaf_eval.cuh and csrc/march.cu: a tricubic
 # query point (its cell, the position in the leaf, 32 lanes of 6 and the
 # 31-add tree) ~250, with the normalized gradient ~900; a march trip (the
@@ -502,10 +513,13 @@ def _cuda_ms_prep(prep, fn, reps: int = 3) -> float:
 def k4_vs_plain(sdf, pts):
     """K4 against its plain version on both grid routes of ``sdf`` (thin
     grid, fused rows), with and without the gradient: max |d diff| <=
-    1e-6, gradient components within 1e-5. Each timed, kernel and plain,
-    beside its bound: the points in and the outputs out once, each touched
-    grid row and coefficient row (or fused row) once, and the kernel's
-    flops. Returns {(fat, grad): (max err, ms, plain ms, bound)}."""
+    1e-6, gradient components within 1e-5. Each group size (the lanes that
+    share a point, ``octree_query.GROUPS``; 1 is one thread a point) is
+    held bit-equal to the group of 1 and timed; the default group and the
+    plain version are timed beside the bound: the points in and the
+    outputs out once, each touched grid row and coefficient row (or fused
+    row) once, and the kernel's flops. Returns {(fat, grad): (max err, ms,
+    plain ms, bound)} of the default group."""
     import torch
 
     from sdflib_tpu_torch.ops import octree_query as oq
@@ -514,49 +528,97 @@ def k4_vs_plain(sdf, pts):
     _, in_box, lin = oq._grid_cells(pts, sdf._box_min, sdf._box_size3, sdf.max_depth)
     cells = torch.unique(lin[in_box])
     coeff_rows = int(torch.unique((sdf._query_grid[cells, 0] & 0x3FFFFFFF) // nc).numel())
+    # a fused row's live words 0-65 span 3 of its 128-B lines
     row_bytes = {False: cells.numel() * 8 + coeff_rows * nc * 4,
                  True: cells.numel() * (2 + nc) * 4}
     out = {}
     for fat in (False, True):
         grid = sdf._leaf_grid(fat)
         for grad in (False, True):
-            got = oq.grid_query(grid, pts, grad)
-            ref = oq.grid_query_plain(grid, pts, grad)
-            if not grad:
-                got, ref = (got,), (ref,)
-            d_err = float((got[0] - ref[0]).abs().max())
-            g_err = float((got[1] - ref[1]).abs().max()) if grad else 0.0
-            same = all(torch.equal(a, b) for a, b in zip(got, ref))
-            del got, ref
             label = f"{'fused rows' if fat else 'thin grid'}{', gradient' if grad else ''}"
-            _check(d_err <= 1e-6, f"K4 distances differ from the plain version's by {d_err} "
-                                  f"({label})")
-            _check(g_err <= 1e-5, f"K4 gradients differ from the plain version's by {g_err} "
-                                  f"({label})")
-            ms = _cuda_ms(lambda: oq.grid_query(grid, pts, grad))
+            ref = oq.grid_query_plain(grid, pts, grad)
+            ref = ref if grad else (ref,)
+            forms = {}
+            one = None
+            for group in oq.GROUPS:
+                got = oq.grid_query(grid, pts, grad, group=group)
+                got = got if grad else (got,)
+                one = got if one is None else one
+                d_err = float((got[0] - ref[0]).abs().max())
+                g_err = float((got[1] - ref[1]).abs().max()) if grad else 0.0
+                _check(d_err <= 1e-6, f"K4 distances differ from the plain version's by "
+                                      f"{d_err} ({label}, group {group})")
+                _check(g_err <= 1e-5, f"K4 gradients differ from the plain version's by "
+                                      f"{g_err} ({label}, group {group})")
+                _check(all(torch.equal(a, b) for a, b in zip(got, one)),
+                       f"K4 group {group} departs from the group of 1 ({label})")
+                forms[group] = (max(d_err, g_err), _cuda_ms(
+                    lambda: oq.grid_query(grid, pts, grad, group=group)))
+                del got
+            same = all(torch.equal(a, b) for a, b in zip(one, ref))
+            del one, ref
+            err, ms = forms[oq.GROUP[grad]]
             plain_ms = _cuda_ms(lambda: oq.grid_query_plain(grid, pts, grad))
             bound = _bound(n * (16 + (12 if grad else 0)) + row_bytes[fat],
                            n * (FLOPS_K4_GRAD if grad else FLOPS_K4))
-            print(f"K4 grid query vs plain ({label}, {n} points): max |d diff| {d_err:.3e}, "
-                  f"max |g diff| {g_err:.3e}, bit-equal {same}; kernel {ms:.4f} ms "
+            print(f"K4 grid query vs plain ({label}, {n} points): max |diff| {err:.3e} (d "
+                  f"within 1e-6, g within 1e-5), bit-equal to plain {same}; every group "
+                  f"bit-equal to one thread a point; kernel, group {oq.GROUP[grad]}: {ms:.4f} ms "
                   f"({n / ms * 1e3:.4e} q/s), plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
                   f"({bound[1]}; {cells.numel()} cells, {coeff_rows} coefficient rows "
-                  f"touched) = {bound[0] / ms:.1%} of the kernel's time")
-            out[(fat, grad)] = (max(d_err, g_err), ms, plain_ms, bound)
+                  f"touched) = {bound[0] / ms:.1%} of the kernel's time; lanes a point: "
+                  + ", ".join(f"{g} {t:.4f} ms" for g, (_, t) in forms.items()))
+            out[(fat, grad)] = (err, ms, plain_ms, bound)
+    # coherent warps (the points sorted by cell, as a traced frame's hits
+    # come): few rows a warp, which each warp reads one thread a point
+    srt = pts[torch.argsort(lin)].contiguous()
+    grid = sdf._leaf_grid(False)
+    one = oq.grid_query(grid, srt, False, group=1)
+    times = {}
+    for group in oq.GROUPS:
+        _check(torch.equal(oq.grid_query(grid, srt, False, group=group), one),
+               f"K4 group {group} departs from the group of 1 on sorted points")
+        times[group] = _cuda_ms(lambda: oq.grid_query(grid, srt, False, group=group))
+    # what the order costs: the sort by cell, the points' gather and the
+    # distances' scatter back
+    d_srt = torch.empty_like(one)
+    sort_ms = _cuda_ms(lambda: d_srt.index_copy_(0, (order := torch.argsort(lin)),
+                                                  pts[order][:, 0]))
+    print(f"K4 on the same points sorted by cell (thin grid; every group bit-equal to one "
+          f"thread a point): " + ", ".join(f"{g} {t:.4f} ms" for g, t in times.items())
+          + f"; the sort, the gather and the unsort {sort_ms:.4f} ms")
     return out
 
 
+def _row_bytes(sdf, grid, cells) -> int:
+    """Bytes of each touched row of ``grid`` read once, for the cells
+    (linear indices) ``cells``: a thin grid's 8-B row and the coefficient
+    row each word names, or each fused row's live words."""
+    import torch
+
+    nc = sdf.num_coefficients
+    cells = torch.unique(cells)
+    if grid.fat:
+        return cells.numel() * (2 + nc) * 4
+    rows = torch.unique((grid.rows[cells, 0] & 0x3FFFFFFF) // nc).numel()
+    return cells.numel() * 8 + rows * nc * 4
+
+
 def segments_vs_plain(sdf, origins, dirs, kw):
-    """K6 and K5 against their plain versions at the frame's first
-    segments: the 16-trip beam segment of every beam from its setup, then
-    (the beams marched to their end by K6) the first round's 8-trip march
-    segment of every ray from its start. The end states are compared
-    (active flags, step counts, depths), then each segment is timed from
-    the same start state (restored before the start event), beside its
-    bound: the state read and written once, each touched fused row once
-    (the plain version's cells, trip by trip), and the kernel's flops a
-    useful trip. Returns {"beam": ..., "march": ...}, each (max |depth
-    diff|, ms, plain ms, bound)."""
+    """K6 and K5 against their plain versions in the frame's forms, on the
+    tracer's rows (the thin grid and the words): the whole beam prepass
+    (its 256 trips of every beam) in one K6 launch from its setup, then
+    (the beams marched) the first round's 8 trips of every ray in one K5
+    launch from its start. The end states are compared (active flags, step
+    counts, depths), then each launch is timed from the same start state
+    (restored before the start event), beside its bound: the state read
+    and written once, each touched row once (the plain version's cells,
+    trip by trip), and the kernel's flops a useful trip. Then each
+    kernel's forms from the same starts, held bit-equal and timed: the
+    prepass in one launch and in 16-trip launches (the earlier form); a
+    64-trip budget of every ray in one K5 launch, in four 16-trip launches
+    and on the fused rows. Returns {"beam": ...,
+    "march": ...}, each (max |depth diff|, ms, plain ms, bound)."""
     import importlib
 
     import torch
@@ -571,15 +633,22 @@ def segments_vs_plain(sdf, origins, dirs, kw):
     frame.d_in.copy_(dirs.reshape(-1, 3))
     frame.live_in.fill_(1.0)
     frame._setup()
-    grid = sdf._leaf_grid(True)
+    grid, fat = sdf._leaf_grid(False), sdf._leaf_grid(True)
     box = float(sdf.box.size[0])
+
+    def restorer(bufs, start):
+        def restore():
+            for b, x in zip(bufs, start):
+                b.copy_(x)
+        return restore
 
     def run(name, segment, plain, bufs, consts, trips, state_bytes, flops):
         start = [b.clone() for b in bufs]
         ref = [b.clone() for b in start]
         cells, useful = [], 0
+        act = 2 if name == "beam" else 3
         for _ in range(trips):       # the plain version trip by trip: its cells
-            live = ref[-1 if name == "beam" else 3] > 0
+            live = ref[act] > 0
             _, in_box, lin = oq._grid_cells(ref[0][live], grid.box_min, grid.box_size3,
                                             grid.depth)
             cells.append(lin[in_box])
@@ -587,7 +656,6 @@ def segments_vs_plain(sdf, origins, dirs, kw):
             plain(grid, *ref, *consts, 1)
         got = [b.clone() for b in start]
         segment(grid, *got, *consts, trips)
-        act = 2 if name == "beam" else 3
         agree = float((got[act] == ref[act]).float().mean())
         d_err = float((got[1] - ref[1]).abs().max())
         its_eq = float((got[4] == ref[4]).float().mean()) if name == "march" else 1.0
@@ -595,18 +663,16 @@ def segments_vs_plain(sdf, origins, dirs, kw):
                f"{name}: active flags agree on {agree:.4%}, step counts on {its_eq:.4%}")
         _check(float(torch.quantile((got[1] - ref[1]).abs(), 0.99)) <= 1e-4 * box,
                f"{name}: depths differ from the plain version's, q99 above 1e-4 of the box")
-
-        def restore():
-            for b, s in zip(bufs, start):
-                b.copy_(s)
-
+        restore = restorer(bufs, start)
         ms = _cuda_ms_prep(restore, lambda: segment(grid, *bufs, *consts, trips))
         plain_ms = _cuda_ms_prep(restore, lambda: plain(grid, *bufs, *consts, trips))
-        rows = int(torch.unique(torch.cat(cells)).numel())
         n = bufs[0].shape[0]
-        bound = _bound(n * state_bytes + rows * (2 + sdf.num_coefficients) * 4, useful * flops)
-        print(f"{name} segment vs plain ({n} rays, {trips} trips, {useful} useful trips, "
-              f"{rows} fused rows touched): active flags agree on {agree:.6%}, step counts on "
+        touched = torch.cat(cells)
+        rows = _row_bytes(sdf, grid, touched)
+        bound = _bound(n * state_bytes + rows, useful * flops)
+        print(f"{name} launch vs plain ({n} rays, {trips} trips in one launch, {useful} useful "
+              f"trips, {int(torch.unique(touched).numel())} cells, {rows} B of thin-grid and "
+              f"coefficient rows touched): active flags agree on {agree:.6%}, step counts on "
               f"{its_eq:.6%}, max |depth diff| {d_err:.3e}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) = "
               f"{bound[0] / ms:.1%} of the kernel's time")
@@ -614,18 +680,45 @@ def segments_vs_plain(sdf, origins, dirs, kw):
         segment(grid, *bufs, *consts, trips)
         return d_err, ms, plain_ms, bound
 
-    out = {"beam": run("beam", om.beam_segment, om.beam_segment_plain,
-                       [frame.b_pos, frame.b_acc, frame.b_active],
-                       (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin,
-                        frame.beam_far), 16, BEAM_STATE_BYTES, FLOPS_BEAM_TRIP)}
-    for _ in range(16, st._BEAM_ITERS, 16):
-        frame.route.beam(frame.b_pos, frame.b_acc, frame.b_active, frame.b_dirs, frame.b_r0,
-                         frame.b_rd, frame.route.margin, frame.beam_far, 16)
+    def forms(name, bufs, fns):
+        """Each form from the same start state: bit-equal to the first, and
+        timed."""
+        start = [b.clone() for b in bufs]
+        restore = restorer(bufs, start)
+        first, times = None, {}
+        for label, fn in fns.items():
+            restore()
+            fn()
+            end = [b.clone() for b in bufs]
+            first = end if first is None else first
+            _check(all(torch.equal(a, b) for a, b in zip(end, first)),
+                   f"{name}: the form '{label}' departs from '{next(iter(fns))}'")
+            times[label] = _cuda_ms_prep(restore, fn)
+        restore()
+        print(f"{name} forms from one start, bit-equal: "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()))
+        return times
+
+    beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
+    beam_consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
+    forms("K6 beam prepass (65,536 beams x 256 trips)", beam_bufs, {
+        "one launch": lambda: om.beam_segment(grid, *beam_bufs, *beam_consts, st._BEAM_ITERS),
+        "16-trip launches": lambda: [om.beam_segment(grid, *beam_bufs, *beam_consts, 16)
+                                     for _ in range(0, st._BEAM_ITERS, 16)],
+    })
+    out = {"beam": run("beam", om.beam_segment, om.beam_segment_plain, beam_bufs, beam_consts,
+                       st._BEAM_ITERS, BEAM_STATE_BYTES, FLOPS_BEAM_TRIP)}
     frame._start()
-    out["march"] = run("march", om.march_segment, om.march_segment_plain,
-                       [frame.pos, frame.acc, frame.last_d, frame.active, frame.its],
-                       (frame.dirs, frame.eps_w, frame.far_w), frame.schedule[0][0],
-                       MARCH_STATE_BYTES, FLOPS_MARCH_TRIP)
+    bufs = [frame.pos, frame.acc, frame.last_d, frame.active, frame.its]
+    consts = (frame.dirs, frame.eps_w, frame.far_w)
+    forms(f"K5 march ({R} rays x 64 trips)", bufs, {
+        "one launch": lambda: om.march_segment(grid, *bufs, *consts, 64),
+        "16-trip launches": lambda: [om.march_segment(grid, *bufs, *consts, 16)
+                                     for _ in range(4)],
+        "fused rows": lambda: om.march_segment(fat, *bufs, *consts, 64),
+    })
+    out["march"] = run("march", om.march_segment, om.march_segment_plain, bufs, consts,
+                       frame.schedule[0][0], MARCH_STATE_BYTES, FLOPS_MARCH_TRIP)
     del frame
     return out
 
@@ -763,18 +856,19 @@ def approx_path(dev, root: str, n_query: int):
         _check(dd <= 1e-6 and gd <= 1e-4, f"route {name} differs from the walk")
     k4 = k4_vs_plain(sdf, pts)
 
-    # the query on n_query points: each route timed, then the profiler
+    # the query on n_query points: each route timed, then the profiler;
+    # the bound is K4's (inputs once, each touched row once), beside the
+    # earlier statement, each point re-reading its rows
     n = pts.shape[0]
-    bound = n * APPROX_POINT_BYTES / PEAK_BYTES * 1e3
-    bound_g = n * APPROX_GRAD_BYTES / PEAK_BYTES * 1e3
-    ms = _cuda_ms(lambda: sdf.get_distance(pts))
-    ms_g = _cuda_ms(lambda: sdf.get_distance_and_gradient(pts))
-    print(f"approx get_distance d6 {n} points (grid route): {ms:.4f} ms "
-          f"({n / ms * 1e3:.4e} q/s); bound {bound:.4f} ms (bytes, "
-          f"{APPROX_POINT_BYTES} B a point) = {bound / ms:.1%} of it")
-    print(f"approx get_distance_and_gradient d6 {n} points (grid route): {ms_g:.4f} ms "
-          f"({n / ms_g * 1e3:.4e} q/s); bound {bound_g:.4f} ms (bytes, "
-          f"{APPROX_GRAD_BYTES} B a point) = {bound_g / ms_g:.1%} of it")
+    for label, fn, (_, _, _, bound), per_point in (
+        ("get_distance", lambda: sdf.get_distance(pts), k4[(False, False)], APPROX_POINT_BYTES),
+        ("get_distance_and_gradient", lambda: sdf.get_distance_and_gradient(pts),
+         k4[(False, True)], APPROX_GRAD_BYTES),
+    ):
+        ms = _cuda_ms(fn)
+        print(f"approx {label} d6 {n} points (grid route): {ms:.4f} ms ({n / ms * 1e3:.4e} "
+              f"q/s); bound {bound[0]:.4f} ms ({bound[1]}, inputs once) = {bound[0] / ms:.1%} "
+              f"of it ({n * per_point / PEAK_BYTES * 1e3:.4f} ms at {per_point} B a point)")
     for name, fn in (
         ("walk, aligned", lambda: oq._octree_query(
             sdf._octree_dev, pts, *box_args, sdf.start_grid_size, sdf.min_border_value,
@@ -786,10 +880,13 @@ def approx_path(dev, root: str, n_query: int):
         r_ms = _cuda_ms(fn)
         print(f"approx distance d6 {n} points, {name} route: {r_ms:.4f} ms "
               f"({n / r_ms * 1e3:.4e} q/s)")
-    breakdown(lambda: sdf.get_distance(pts), f"approx get_distance d6 {n} points, grid route",
-              top=8)
-    breakdown(lambda: sdf.get_distance_and_gradient(pts),
-              f"approx get_distance_and_gradient d6 {n} points, grid route", top=8)
+    # the profiler records no device activity for K4's launches inside the
+    # full smoke, but does in a fresh process: the busy share comes from one
+    probe = subprocess.run([sys.executable, "-c", "import sys, chip_smoke as cs; "
+                            f"cs.approx_profile(int(sys.argv[1]))", str(n)], cwd=root,
+                           capture_output=True, text=True, timeout=600)
+    print(probe.stdout, end="")
+    _check(probe.returncode == 0, f"path C's profiler process failed:\n{probe.stderr[-4000:]}")
 
     # K2 at the builders' seed lattice: (2^start_depth + 1)^3 x T
     cbox = box.cubified()
@@ -802,6 +899,31 @@ def approx_path(dev, root: str, n_query: int):
     del built, sdf, routes
     torch.cuda.empty_cache()
     return launches, k2, k4
+
+
+def approx_profile(n_query: int) -> None:
+    """Path C's busy share, in a process of its own (``approx_path`` starts
+    one): path C's no_continuity octree and its grids built on the card,
+    then ``get_distance`` and ``get_distance_and_gradient`` on ``n_query``
+    uniform points (seed 1) broken down by the profiler. Inside the full
+    smoke the profiler records no device activity for K4's launches."""
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    dev = torch.device("cuda", 0)
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    sdf = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+                    init_algorithm="no_continuity", device=dev)
+    sdf.build_query_grid()
+    pts = _uniform(box, n_query, 1, dev)
+    for label, fn in (("get_distance", lambda: sdf.get_distance(pts)),
+                      ("get_distance_and_gradient", lambda: sdf.get_distance_and_gradient(pts))):
+        _, busy_ms, acts = breakdown(fn, f"approx {label} d6 {n_query} points, grid route "
+                                         f"(a process of its own)", top=8)
+        _check(acts > 0 and busy_ms > 0.0, f"the profiler saw no device activity ({label})")
 
 
 def _ortho_rays(n: int, dev):
@@ -846,17 +968,20 @@ def trace_path(dev, n_rays: int):
     (bench.py:151-187): path C's no_continuity octree (built here, its
     seed lattice through K2) after ``build_query_grid``, n_rays^2 rays on
     z = -1.2 marching +z, ``max_iters=1024``, eps 1e-5, far 4. The counts
-    run from the build to the first frame, which captures the pyramid's
-    CUDA graphs. A second frame replays them; both equal the eager
-    schedule bit for bit. The kernel frame (K4-K6) is held to the frame
-    with the plain step pinned (``_plain``). Then the graph path and the
-    dynamic scheduler are timed and broken down (with K4-K6's device time
-    a frame), K5 and K6 held to their plain versions at the frame's first
-    segments (``segments_vs_plain``), the two ways held to each other, the
-    graph path's hits held to a plain host march, to ``RealSdf`` and to
-    the trace without a beam; then a 512^2 camera frame shaded five ways
-    and a 512^2 plane cut. Returns (the path's launch counts, the
-    segments' checks)."""
+    run from the build to the first frame, which captures the frame's one
+    CUDA graph. A second frame replays it; both equal the eager schedule
+    bit for bit, with no host sync. The frame on the fused rows equals it
+    bit for bit and is timed beside it. The
+    kernel frame (K4-K6) is held to the frame with the plain step pinned
+    (``_plain``), which also records the cells its live rays touch: the
+    frame's bound. Then the graph path and the dynamic scheduler are timed
+    and broken down (with K4-K6's device time a frame), K5 and K6 held to
+    their plain versions in the frame's forms (``segments_vs_plain``), the
+    two ways held to each other, the graph path's hits held to a plain
+    host march, to ``RealSdf`` and to the trace without a beam; then a
+    512^2 camera frame shaded five ways and a 512^2 plane cut. Returns
+    (the path's launch counts, the segments' checks)."""
+    import importlib
     import tempfile
 
     import torch
@@ -873,9 +998,12 @@ def trace_path(dev, n_rays: int):
         trace_octree,
         write_png,
     )
+    from sdflib_tpu_torch.ops import march as march_ops
+    from sdflib_tpu_torch.ops import octree_query as oq
     from sdflib_tpu_torch.render.sphere_trace import _trace
     from sdflib_tpu_torch.utils.primitives import make_torus
 
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
     mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
     box = mesh.bounding_box.add_margin(0.14)
     origins, dirs = _ortho_rays(n_rays, dev)
@@ -910,15 +1038,16 @@ def trace_path(dev, n_rays: int):
     _check(0 < n_hit < R, f"{n_hit} of {R} rays hit")
     sched = stats["rounds"][0][1]
     print(f"trace d6 {n_rays}^2 rays, the graph path's first frame: {capture_s:.3f} s (host "
-          f"clock, the warm-up runs and captures included); {stats['graphs_captured']} graphs "
-          f"captured, {stats['host_syncs']} host syncs; peak memory "
+          f"clock, the warm-up run and the capture included); {stats['graphs_captured']} "
+          f"graphs captured, {stats['host_syncs']} host syncs (stats); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; pyramid {sched} "
           f"({sum(k * n for k, n in sched)} prefix ray-trips offered)")
-    _check(stats["graphs_captured"] > 0, "the pyramid frame captured no graph")
+    _check(stats["graphs_captured"] == 1, f"the frame captured {stats['graphs_captured']} graphs")
+    _check(stats["host_syncs"] == 0, f"the frame made {stats['host_syncs']} host syncs")
     again = {}
     res2 = trace_octree(sdf, origins, dirs, stats_out=again, **kw)
-    _check(again["graphs_captured"] == 0 and again["graphs_replayed"] > 0,
-           f"the second frame did not replay its graphs: {again}")
+    _check(again["graphs_captured"] == 0 and again["graphs_replayed"] == 1
+           and again["host_syncs"] == 0, f"the second frame did not replay its graph: {again}")
     eager = _trace(sdf, origins, dirs, block_size=None, beam=4, pyramid=True, stats_out=None,
                    active=None, graphs=False, **kw)
     same = [torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(res, res2, eager)]
@@ -926,24 +1055,90 @@ def trace_path(dev, n_rays: int):
     _check(all(same), "the graph frame departs from the eager schedule")
     del res2, eager
 
-    # the kernel frame (K4-K6) against the frame with the plain step pinned
-    box_size = float(sdf.box.size[0])
-    sdf._plain = True
+    # the tracer's rows: the fused rows (the structure's leaf grid patched
+    # to them) trace the same frame bit for bit; each timed as its own
+    # captured frame (the frames are dropped around the patch: the route's
+    # key names the arrays, not the choice of rows)
+    def fresh_frames():
+        torch.cuda.synchronize(dev)
+        st._FRAMES.frames.clear()
+
+    frame_forms = {"thin grid": _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))}
+    fresh_frames()
+    sdf._leaf_grid = lambda fat: OctreeSdf._leaf_grid(sdf, True)
     try:
-        plain = trace_octree(sdf, origins, dirs, **kw)        # captures its own graphs
+        _check(st._route(sdf, kw["eps"]).march.args[0].fat, "the patch missed the route")
+        other = trace_octree(sdf, origins, dirs, **kw)         # captures its own graph
+        frame_forms["fused rows"] = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
+    finally:
+        del sdf._leaf_grid
+        fresh_frames()
+    eq = [torch.equal(a, b) for a, b in zip(res, other)]
+    print(f"trace frame on the fused rows against the thin grid, bit-equal by field (hit, "
+          f"position, depth, normal, iterations): {eq}")
+    _check(all(eq), "the frame on the fused rows departs from the thin-grid frame")
+    del other
+    print("trace frame forms (ms a frame, CUDA events, best of 3): "
+          + ", ".join(f"{k} {t:.4f}" for k, t in frame_forms.items()))
+    # K4 at the frame's normals: coherent points, neighbouring rays on
+    # neighbouring rows
+    at = res.position.reshape(-1, 3).contiguous()
+    shade = sdf._leaf_grid(False)
+    print("K4 with the gradient at the frame's 1024^2 end positions (the normals): "
+          + ", ".join(f"{g} lanes a row {_cuda_ms(lambda: oq.grid_query(shade, at, True, group=g)):.4f} ms"
+                      for g in oq.GROUPS))
+
+    # the kernel frame (K4-K6) against the frame with the plain step pinned
+    # (eager: its torch trips check for live rays, a host sync, every 16
+    # trips); that frame also records the cells its live rays touch
+    box_size = float(sdf.box.size[0])
+    thin = sdf._leaf_grid(False)
+    touched = []
+
+    def record(pos, active):
+        _, in_box, lin = oq._grid_cells(pos[active > 0], thin.box_min, thin.box_size3,
+                                        thin.depth)
+        touched.append(torch.unique(lin[in_box]))
+
+    trip, beam_trip = march_ops._trip, march_ops._beam_trip
+
+    def rec_trip(step_fn, pos, acc, last_d, active, *rest):
+        record(pos, active)
+        trip(step_fn, pos, acc, last_d, active, *rest)
+
+    def rec_beam(beam_step, pos, acc, active, *rest):
+        record(pos, active)
+        beam_trip(beam_step, pos, acc, active, *rest)
+
+    sdf._plain = True
+    march_ops._trip, march_ops._beam_trip = rec_trip, rec_beam
+    try:
+        pstats = {}
+        plain = trace_octree(sdf, origins, dirs, stats_out=pstats, **kw)
+    finally:
+        march_ops._trip, march_ops._beam_trip = trip, beam_trip
+    try:
         plain_frame_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
     finally:
         sdf._plain = False
+    record(res.position.reshape(-1, 3), torch.ones(R, device=dev))     # the normals
+    frame_rows = _row_bytes(sdf, thin, torch.cat(touched))
+    frame_bytes = R * FRAME_RAY_BYTES + frame_rows
+    frame_bound = _bound(frame_bytes, trips * FLOPS_MARCH_TRIP)
     agree = float((plain.hit == hit).float().mean())
     both = plain.hit & hit
     dd = (plain.depth[both] - res.depth[both]).abs()
     q99 = float(torch.quantile(dd, 0.99))
-    print(f"kernel frame against the plain frame ({plain_frame_ms:.4f} ms a frame): hit masks "
-          f"agree on {agree:.6%}, |depth diff| on {int(both.sum())} common hits q99 {q99:.3e}, "
-          f"max {float(dd.max()):.3e} (box {box_size:.4f}); iterations equal on "
+    print(f"kernel frame against the plain frame ({plain_frame_ms:.4f} ms a frame, eager, "
+          f"{pstats['host_syncs']} host syncs): hit masks agree on {agree:.6%}, |depth diff| on "
+          f"{int(both.sum())} common hits q99 {q99:.3e}, max {float(dd.max()):.3e} (box "
+          f"{box_size:.4f}); iterations equal on "
           f"{float((plain.iterations == res.iterations).float().mean()):.6%}")
     _check(agree >= 0.999, f"kernel and plain frames' hit masks agree on {agree:.4%}")
     _check(q99 <= 1e-4 * box_size, f"kernel and plain frames' depths differ, q99 {q99}")
+    print(f"trace frame bound (inputs once: {FRAME_RAY_BYTES} B a ray in and out, "
+          f"{frame_rows} B of thin-grid and coefficient rows the plain frame's live rays and "
+          f"normals touch, each once): {frame_bound[0]:.4f} ms ({frame_bound[1]})")
     del plain, dd
 
     # both ways timed, each with its device activities, busy share, host
@@ -952,28 +1147,37 @@ def trace_path(dev, n_rays: int):
     dyn = trace_octree(sdf, origins, dirs, pyramid=False, stats_out=dstats, **kw)
     offered = {"graphs": stats["marched_ray_trips"],
                "dynamic": sum(k * n for k, n, _ in dstats["rounds"])}
-    bound = trips * TRACE_STEP_BYTES / PEAK_BYTES * 1e3
+    # the earlier statement: each useful ray-trip re-reads its row
+    trip_bound = trips * TRACE_STEP_BYTES / PEAK_BYTES * 1e3
     frame_ms, kernel_ms = {}, {}
     for way, extra in (("graphs", {}), ("dynamic", {"pyramid": False})):
         def frame():
             return trace_octree(sdf, origins, dirs, **extra, **kw)
 
         ms = frame_ms[way] = _cuda_ms(frame)
+        way_stats = {}
+        trace_octree(sdf, origins, dirs, stats_out=way_stats, **extra, **kw)
         counts = {SYNC_EVENTS: 0, GRAPH_LAUNCH_EVENTS: 0}
         kernel_ms[way] = {"octree_query_kernel": 0.0, "march_kernel": 0.0, "beam_kernel": 0.0}
         ev_ms, busy_ms, acts = breakdown(frame, f"trace d6 {n_rays}^2 rays, {way}", top=8,
                                          counts=counts, device_ms=kernel_ms[way])
-        print(f"trace d6 {n_rays}^2 rays (beam 4, fused rows), {way}: {ms:.4f} ms a frame, "
+        k5_ms = kernel_ms[way]["march_kernel"]
+        print(f"trace d6 {n_rays}^2 rays (beam 4, thin grid), {way}: {ms:.4f} ms a frame, "
               f"{R / ms * 1e3:.6e} rays/s; {acts} device activities, device busy "
               f"{busy_ms:.4f} ms ({busy_ms / ev_ms:.1%}); host syncs {counts[SYNC_EVENTS]:.0f}, "
-              f"graph launches {counts[GRAPH_LAUNCH_EVENTS]:.0f} a frame (profiler); useful "
-              f"ray-trips (sum of iterations) {trips} against {offered[way]} marched; bound "
-              f"{bound:.4f} ms (bytes, {TRACE_STEP_BYTES} B a useful ray-trip) = "
-              f"{bound / ms:.2%} of the frame; device ms a frame of K4 (normals) "
-              f"{kernel_ms[way]['octree_query_kernel']:.4f}, K5 (march) "
-              f"{kernel_ms[way]['march_kernel']:.4f} (the bound is "
-              f"{bound / max(kernel_ms[way]['march_kernel'], 1e-9):.2%} of it), K6 (beam) "
+              f"graph launches {counts[GRAPH_LAUNCH_EVENTS]:.0f} a frame (profiler); stats: "
+              f"host syncs {way_stats.get('host_syncs', 'n/a')}, graphs replayed "
+              f"{way_stats.get('graphs_replayed', 'n/a')}; useful ray-trips (sum of "
+              f"iterations) {trips} against {offered[way]} offered; bound {frame_bound[0]:.4f} "
+              f"ms (inputs once) = {frame_bound[0] / ms:.2%} of the frame ({trip_bound:.4f} ms "
+              f"at {TRACE_STEP_BYTES} B a useful ray-trip); device ms a frame of K4 (normals) "
+              f"{kernel_ms[way]['octree_query_kernel']:.4f}, K5 (march) {k5_ms:.4f} (the "
+              f"bound is {frame_bound[0] / max(k5_ms, 1e-9):.2%} of it), K6 (beam) "
               f"{kernel_ms[way]['beam_kernel']:.4f}")
+        if way == "graphs":
+            _check(counts[SYNC_EVENTS] == 0 and counts[GRAPH_LAUNCH_EVENTS] == 1,
+                   f"the profiler saw {counts[SYNC_EVENTS]} host syncs and "
+                   f"{counts[GRAPH_LAUNCH_EVENTS]} graph launches a frame")
         device_timeline(frame, f"trace d6 {n_rays}^2 rays, {way}")
     segments = segments_vs_plain(sdf, origins, dirs, kw)
     print(f"trace frames: graphs {frame_ms['graphs']:.4f} ms against dynamic "

@@ -13,6 +13,11 @@
 // terms t and t + 32, then a pairwise tree over the lanes; 3 terms as
 // (x0 + x2) + x1. Where torch's order differs on some build, the two
 // still agree to a few ulps of the largest term.
+//
+// Two ways to read a row: one thread reads the whole row of its own point
+// (the march, and K4 with a group of 1), or a group of lanes shares one
+// point and reads its row together (K4's group read, below), with the
+// same sum, so both give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,8 +113,8 @@ __device__ __forceinline__ const float4* leaf_row(const Grid& G, const int c[3],
 }
 
 // N coefficients from S words into the 16-byte aligned base, as float4
-// loads: each lane of a warp reads its own row, so a load's cost is the
-// lines it touches, and a float4 touches as many as a float.
+// loads by one thread. Where each lane of a warp reads its own row, one
+// load instruction touches as many lines as the warp has distinct rows.
 template <int S, int N>
 __device__ __forceinline__ void load_coeffs(const float4* __restrict__ base, float (&c)[N]) {
 #pragma unroll
@@ -221,30 +226,240 @@ __device__ __forceinline__ float4 poly(const float4* base, const float f[3]) {
   }
 }
 
+// ---- K4's group read ------------------------------------------------------
+//
+// Each lane of a warp finds its own point's cell, row and position in the
+// leaf; then the warp reads the 32 points' coefficient rows in kGroup
+// rounds, kGroup lanes (4 or 8, an aligned run of the warp) a point: in
+// round r, group g takes point r * 32 / kGroup + g (its row pointer and
+// position come by shuffles), and its lane s loads float4s s, s + kGroup,
+// s + 2 kGroup, ... of the 16-byte aligned words that hold the
+// coefficients (a thin grid's coefficient row: 16 float4; a fused row:
+// words 0-67, 17 float4). So one load instruction reads each point's row
+// as a contiguous run and touches each of its lines once, and the work
+// done once a point (the cell, the divisions, the normalization) stays
+// one lane's. Coefficient m lies in float4 (m + S) / 4.
+//
+// The sum is tricubic's, term for term: quad q (0..7) is the pairwise sum
+// of its lanes 4q..4q+3, which need terms 4q..4q+3 ("lo") and
+// 4q+32..4q+35 ("hi"), and the eight quads add as a pairwise tree. A lane
+// owns quads s + kGroup j, takes their lo and hi coefficients from its own
+// loads or, where another lane loaded them, by a shuffle of the raw
+// coefficients, sums its quads, and the group adds its quads by
+// __shfl_xor_sync (a + b == b + a
+// in IEEE arithmetic, so both lanes of an exchange hold the same bits).
+// Every lane of the group ends with the total, bit-equal to one thread's
+// tricubic, and the point's own lane takes it by a shuffle.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int kGroup, int S>
+struct GroupRow {
+  static constexpr int kFloat4s = S == 0 ? 16 : 17;  // the float4s of live words
+  static constexpr int kSlots = (kFloat4s + kGroup - 1) / kGroup;  // loads a lane
+  static constexpr int kQuads = 8 / kGroup;                        // quads a lane
+};
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src, int width) {
+  return make_float4(__shfl_sync(kFullMask, v.x, src, width),
+                     __shfl_sync(kFullMask, v.y, src, width),
+                     __shfl_sync(kFullMask, v.z, src, width),
+                     __shfl_sync(kFullMask, v.w, src, width));
+}
+
+// Words 2-3 of a and 0-1 of b: four coefficients that straddle two float4
+// of a fused row.
+__device__ __forceinline__ float4 zw_xy(float4 a, float4 b) {
+  return make_float4(a.z, a.w, b.x, b.y);
+}
+
+__device__ __forceinline__ float pick4(const float (&v)[4], int i) {
+  return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
+}
+
+// The lo and hi coefficients of each quad lane s owns, from its loads v.
+template <int kGroup, int S>
+__device__ __forceinline__ void quad_coeffs(const float4 (&v)[GroupRow<kGroup, S>::kSlots],
+                                            int s, float4 (&lo)[GroupRow<kGroup, S>::kQuads],
+                                            float4 (&hi)[GroupRow<kGroup, S>::kQuads]) {
+  constexpr int Q = GroupRow<kGroup, S>::kQuads;
+  if constexpr (S == 0) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      lo[j] = v[j];
+      hi[j] = v[j + 8 / kGroup];
+    }
+  } else {
+    // slot q of lane s + 1 holds float4 s + 1 + kGroup q; lane s = kGroup - 1
+    // reads lane 0, whose next slot holds it
+    constexpr int K = GroupRow<kGroup, S>::kSlots;
+    float4 next[K - 1];
+#pragma unroll
+    for (int q = 0; q + 1 < K; ++q) {
+      next[q] = shfl4(s == 0 ? v[q + 1] : v[q], (s + 1) & (kGroup - 1), kGroup);
+    }
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      lo[j] = zw_xy(v[j], next[j]);
+      hi[j] = zw_xy(v[j + 8 / kGroup], next[j + 8 / kGroup]);
+    }
+  }
+}
+
+// Quad q's pairwise sum of tricubic's lanes 4q..4q+3 (unit-cube powers xv,
+// yv, zv and their derivatives).
+template <bool Grad>
+__device__ __forceinline__ float4 quad_sum(float4 lo4, float4 hi4, int q, const float (&xv)[4],
+                                           const float (&yv)[4], const float (&zv)[4],
+                                           const float (&dxv)[4], const float (&dyv)[4],
+                                           const float (&dzv)[4]) {
+  const int j = q & 3, k = q >> 2;
+  const float y = pick4(yv, j), dy = pick4(dyv, j);
+  const float z0 = k ? zv[1] : zv[0], z1 = k ? zv[3] : zv[2];
+  const float dz0 = k ? dzv[1] : dzv[0], dz1 = k ? dzv[3] : dzv[2];
+  const float lo[4] = {lo4.x, lo4.y, lo4.z, lo4.w};
+  const float hi[4] = {hi4.x, hi4.y, hi4.z, hi4.w};
+  auto lane = [&](int i) -> float4 {
+    const float c0 = lo[i], c1 = hi[i];
+    const float xy = xv[i] * y;
+    float4 s;
+    s.x = c0 * (xy * z0) + c1 * (xy * z1);
+    if (Grad) {
+      const float dxy = dxv[i] * y;
+      const float xdy = xv[i] * dy;
+      s.y = c0 * (dxy * z0) + c1 * (dxy * z1);
+      s.z = c0 * (xdy * z0) + c1 * (xdy * z1);
+      s.w = c0 * (xy * dz0) + c1 * (xy * dz1);
+    } else {
+      s.y = s.z = s.w = 0.0f;
+    }
+    return s;
+  };
+  return Tree<0, 4>::sum(lane);
+}
+
+template <bool Grad>
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int mask, int width) {
+  v.x = __shfl_xor_sync(kFullMask, v.x, mask, width);
+  if (Grad) {
+    v.y = __shfl_xor_sync(kFullMask, v.y, mask, width);
+    v.z = __shfl_xor_sync(kFullMask, v.z, mask, width);
+    v.w = __shfl_xor_sync(kFullMask, v.w, mask, width);
+  }
+  return v;
+}
+
+// tricubic<Grad> of one point's row read by the group: lane s of the group
+// calls it (every lane of the warp does: the shuffles span the warp);
+// base null reads nothing.
+template <bool Grad, int kGroup, int S>
+__device__ __forceinline__ float4 tricubic_group(const float4* base, int s, const float f[3]) {
+  using R = GroupRow<kGroup, S>;
+  float4 v[R::kSlots];
+#pragma unroll
+  for (int q = 0; q < R::kSlots; ++q) {
+    const int i = s + kGroup * q;
+    v[q] = (base != nullptr && i < R::kFloat4s) ? __ldg(base + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4 lo[R::kQuads], hi[R::kQuads];
+  quad_coeffs<kGroup, S>(v, s, lo, hi);
+  const float fx = f[0], fy = f[1], fz = f[2];
+  const float xv[4] = {1.0f, fx, fx * fx, fx * fx * fx};
+  const float yv[4] = {1.0f, fy, fy * fy, fy * fy * fy};
+  const float zv[4] = {1.0f, fz, fz * fz, fz * fz * fz};
+  const float dxv[4] = {0.0f, 1.0f, 2.0f * fx, 3.0f * fx * fx};
+  const float dyv[4] = {0.0f, 1.0f, 2.0f * fy, 3.0f * fy * fy};
+  const float dzv[4] = {0.0f, 1.0f, 2.0f * fz, 3.0f * fz * fz};
+  float4 part[R::kQuads];
+#pragma unroll
+  for (int j = 0; j < R::kQuads; ++j) {
+    part[j] = quad_sum<Grad>(lo[j], hi[j], s + kGroup * j, xv, yv, zv, dxv, dyv, dzv);
+  }
+  // the pairwise tree over the quads: lanes 1, 2, 4 apart hold quads 1,
+  // 2, 4 apart; with four lanes, quads 0-3 and 4-7 meet last
+#pragma unroll
+  for (int m = 1; m < kGroup; m <<= 1) {
+#pragma unroll
+    for (int j = 0; j < R::kQuads; ++j) part[j] = add4(part[j], shfl_xor4<Grad>(part[j], m, kGroup));
+  }
+  float4 total = part[0];
+#pragma unroll
+  for (int j = 1; j < R::kQuads; ++j) total = add4(total, part[j]);
+  return total;
+}
+
+// tricubic<Grad> of each lane's own point (its row's 16-byte aligned base,
+// null: none; its position f in the leaf), the rows read kGroup lanes a
+// point in kGroup rounds over the warp. Every lane of the warp calls it.
+template <bool Grad, int kGroup, int S>
+__device__ __forceinline__ float4 tricubic_warp(const float4* base, const float f[3]) {
+  constexpr int kPer = 32 / kGroup;     // points a round
+  const int lane = threadIdx.x & 31;
+  const int g = lane / kGroup, s = lane % kGroup;
+  const unsigned long long mine = reinterpret_cast<unsigned long long>(base);
+  float4 own = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+  for (int r = 0; r < kGroup; ++r) {
+    const int q = r * kPer + g;          // the point the group takes
+    const float4* qb = reinterpret_cast<const float4*>(__shfl_sync(kFullMask, mine, q));
+    const float qf[3] = {__shfl_sync(kFullMask, f[0], q), __shfl_sync(kFullMask, f[1], q),
+                         __shfl_sync(kFullMask, f[2], q)};
+    const float4 tot = tricubic_group<Grad, kGroup, S>(qb, s, qf);
+    // lane L's point went to group L - r * kPer in this round
+    const int at = lane - r * kPer;
+    float4 back;
+    back.x = __shfl_sync(kFullMask, tot.x, (at & (kPer - 1)) * kGroup);
+    if (Grad) {
+      back.y = __shfl_sync(kFullMask, tot.y, (at & (kPer - 1)) * kGroup);
+      back.z = __shfl_sync(kFullMask, tot.z, (at & (kPer - 1)) * kGroup);
+      back.w = __shfl_sync(kFullMask, tot.w, (at & (kPer - 1)) * kGroup);
+    } else {
+      back.y = back.z = back.w = 0.0f;
+    }
+    if (at >= 0 && at < kPer) own = back;
+  }
+  return own;
+}
+
 // The leaf polynomial at an in-box point of the cell with depth word dw,
 // its coefficients from leaf_row: (d, and with Grad the normalized
-// gradient). NaN where the row is missing.
-template <bool Grad>
+// gradient). NaN where the row is missing. kGroup > 1: the warp reads its
+// points' rows kGroup lanes a point (tricubic); every lane of the warp
+// calls it.
+template <bool Grad, int kGroup = 1>
 __device__ __forceinline__ float4 leaf_value(const Grid& G, const float4* base,
                                              const float rel[3], int dw) {
-  if (base == nullptr) return make_float4(NAN, NAN, NAN, NAN);
+  if (kGroup == 1 && base == nullptr) return make_float4(NAN, NAN, NAN, NAN);
   const float scale = static_cast<float>(1 << (dw & 0xFFFF));
   float f[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float s = rel[a] * scale;
-    f[a] = s - floorf(s);
+    const float t = rel[a] * scale;
+    f[a] = t - floorf(t);
   }
   const bool fused = G.coeffs == nullptr;
-  float4 v = G.tricubic ? (fused ? poly<Grad, 2, 64>(base, f) : poly<Grad, 0, 64>(base, f))
+  float4 v;
+  if (!G.tricubic) {
+    // 8 coefficients: each lane reads them all (the group's lanes read
+    // the same words)
+    v = base == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
                         : (fused ? poly<Grad, 2, 8>(base, f) : poly<Grad, 0, 8>(base, f));
+  } else if constexpr (kGroup == 1) {
+    v = fused ? poly<Grad, 2, 64>(base, f) : poly<Grad, 0, 64>(base, f);
+  } else {
+    v = fused ? tricubic_warp<Grad, kGroup, 2>(base, f) : tricubic_warp<Grad, kGroup, 0>(base, f);
+  }
   if (Grad) {
     const float norm = nan_max(sqrtf((v.y * v.y + v.w * v.w) + v.z * v.z), 1e-30f);
     v.y = v.y / norm;
     v.z = v.z / norm;
     v.w = v.w / norm;
   }
-  return v;
+  return base == nullptr ? make_float4(NAN, NAN, NAN, NAN) : v;
 }
 
 // box_distance about the box's centre, plus min_border_value.
@@ -283,19 +498,27 @@ __device__ __forceinline__ void box_gradient(const Box& b, const float p[3],
 }
 
 // _octree_query_grid / _octree_query_fat at one point: d, and with Grad
-// the gradient in g. Out-of-box points read no row.
-template <bool Grad>
+// the gradient in g. Out-of-box points read no row. kGroup > 1: the warp
+// reads its points' rows together; every lane of the warp calls it.
+template <bool Grad, int kGroup = 1>
 __device__ __forceinline__ float query(const Grid& G, const Box& b, const float p[3],
                                        float g[3]) {
   float rel[3];
   int c[3];
-  if (!grid_cell(G, b, p, rel, c)) {
+  const bool in_box = grid_cell(G, b, p, rel, c);
+  int dw = 0;
+  const float4* base = nullptr;
+  if (in_box) {
+    base = leaf_row(G, c, &dw);
+  } else if (kGroup == 1) {
     if (Grad) box_gradient(b, p, g);
     return box_value(b, p, G.min_border);
   }
-  int dw;
-  const float4* base = leaf_row(G, c, &dw);
-  const float4 v = leaf_value<Grad>(G, base, rel, dw);
+  const float4 v = leaf_value<Grad, kGroup>(G, base, rel, dw);
+  if (!in_box) {
+    if (Grad) box_gradient(b, p, g);
+    return box_value(b, p, G.min_border);
+  }
   if (Grad) {
     g[0] = v.y;
     g[1] = v.z;

@@ -1,34 +1,38 @@
-// K5 and K6: the sphere tracer's march segment and beam segment on the
-// approximate octree's dense leaf grid, one thread a ray.
+// K5 and K6: the sphere tracer's march and beam on the approximate
+// octree's dense leaf grid, one thread a ray.
 //
 // K5, march_kernel, replaces the body of the JAX package's march loops,
 // sdflib_tpu/render/sphere_trace.py _march_pyramid_jit (:411) over
 // _grid_distance_and_step (:44), which XLA fused into one loop; the torch
 // copy (render/sphere_trace.py _trip over ops/march.py
 // _grid_distance_and_step) ran ~105 eager kernels a trip. A thread runs
-// `trips` consecutive trips of its ray with the state (position, distance
-// so far, last distance, active flag, step count) in registers: the
-// distance and safe step of leaf_eval.cuh's leaf row (in a cell flagged
-// surface-free, the exit of the free-radius box of bits 17-21 when that
-// is farther), the move, the hit and far tests. A ray that is inactive
-// at a trip leaves the loop: the torch trip moves it by step * 0 and
-// keeps its state, and its step is finite for a finite position and a
-// direction with a non-zero component (the box exit takes the least
-// axis time over the non-zero components).
+// up to `trips` consecutive trips of its ray with the state (position,
+// distance so far, last distance, active flag, step count) in registers:
+// the distance and safe step of leaf_eval.cuh's leaf row (in a cell
+// flagged surface-free, the exit of the free-radius box of bits 17-21 when
+// that is farther), the move, the hit and far tests. A ray that is
+// inactive at a trip leaves the loop: the torch trip moves it by step * 0
+// and keeps its state, and its step is finite for a finite position and a
+// direction with a non-zero component (the box exit takes the least axis
+// time over the non-zero components). So one launch carries a whole
+// round's budget (the tracer's frame launches it once a round, with no
+// host check): a done ray costs one flag read.
 //
-// K6, beam_kernel, replaces _beam_prepass_jit (:541): `trips` trips of
-// the beam rays (one a 4 x 4 tile), each step the longer of the
+// K6, beam_kernel, replaces _beam_prepass_jit (:541): up to `trips` trips
+// of the beam rays (one a 4 x 4 tile), each step the longer of the
 // radius-widened distance step and the tube-safe exit of the free box
 // (every wall moved in by the tube radius, the exit where the first gap
 // closes), stopping on proximity, past far, or on stagnation.
 //
-// Bound: bytes. A useful ray-trip reads one grid row (fused: 8 B of words
-// and 256 B of coefficients); the ray's state is read and written once a
-// segment. Neighbouring rays share rows, and at bench.py's d6 the fused
-// rows are 128 MiB, so the rows come partly from L2. The design keeps the
-// state in registers across the segment, where the torch trip wrote some
-// 100 temporaries of the ray count to device memory each trip; a segment
-// is one launch, so a captured segment is one graph node.
+// Bound: bytes, the rays' state read and written once and each touched
+// row read once: on the thin grid the 8-B grid row and the 256-B
+// coefficient row its word names. The tracer marches the thin grid (2 MiB
+// at bench.py's d6, with the octree words' ~1 MB), which stays in the
+// H100's 50 MB L2 where the fused rows (128 MiB there) cannot; both hold
+// the same values, so both routes give the same bits. The state stays in
+// registers across the trips, where the torch trip wrote some 100
+// temporaries of the ray count to device memory each trip; a launch
+// allocates nothing, so a captured frame holds it as one node.
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -65,8 +65,8 @@ _SIGNATURES = {
     "sdf_row_min_tile": [_P, _I, _I, _P, _I, _I, _P, _P],
     # (w) -> shared-memory bytes of the tile kernel
     "sdf_row_min_tile_smem": [_I],
-    # (grid..., points, n, d, g or null, stream)
-    "sdf_octree_query": [*_GRID, _P, _I, _P, _P, _P],
+    # (grid..., points, n, d, g or null, group, stream)
+    "sdf_octree_query": [*_GRID, _P, _I, _P, _P, _I, _P],
     # (grid..., pos, acc, last_d, active, its, dirs, n, eps, far, trips, stream)
     "sdf_march": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P],
     # (grid..., pos, acc, active, dirs, r0, rd, n, margin, half margin, far,

@@ -1,8 +1,8 @@
-"""K5 and K6: the sphere tracer's march and beam segments on the dense
-leaf grid, one thread a ray.
+"""K5 and K6: the sphere tracer's march and beam on the dense leaf grid,
+one thread a ray.
 
-``march_segment`` runs ``trips`` consecutive march trips (``_trip``) of
-every ray in place: K5 (``csrc/march.cu`` ``march_kernel``) for CUDA
+``march_segment`` runs up to ``trips`` consecutive march trips (``_trip``)
+of every ray in place: K5 (``csrc/march.cu`` ``march_kernel``) for CUDA
 tensors, ``march_segment_plain`` (the trips in torch) for CPU tensors.
 ``beam_segment`` does the same for the beam prepass's trips
 (``_beam_trip``): K6 (``beam_kernel``), or ``beam_segment_plain``. The
@@ -15,8 +15,12 @@ sphere_trace.py ``_march_pyramid_jit`` :411 and ``_beam_prepass_jit``
 route, the generic march). ``launch_count`` and ``beam_launch_count``
 count kernel launches.
 
-The segments write the state in place and allocate nothing, so a CUDA
-graph captures a segment as one kernel node.
+A kernel's ray leaves its loop once it is done, so one launch carries a
+whole round's budget and needs no host check. The torch trips (the plain
+versions, the walk route) cost as much for a done ray as for a live one,
+so they check for a live ray instead (``_run_trips``) and stop once none
+is. The segments write the state in place, and a kernel launch allocates
+nothing, so a CUDA graph captures it as one node.
 """
 from __future__ import annotations
 
@@ -33,6 +37,10 @@ __all__ = [
 
 launch_count = 0
 beam_launch_count = 0
+# Torch trips with an early exit check for live rays once per this many
+# trips on the card, where a check is a host sync, and before every trip on
+# the CPU.
+_CHECK_EVERY = 16
 
 
 def _grid_distance_and_step(
@@ -165,20 +173,50 @@ def _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin: float, far: fl
     active.mul_((step > 0.5 * margin) & (acc < far))
 
 
+def _any_live(active) -> tuple[bool, int]:
+    """(whether a flag of ``active`` is set, the host syncs that took): on
+    the card one, during which a ``parallel`` worker gives up its turn."""
+    if active.device.type == "cpu":
+        return bool(active.any()), 0
+    from ..parallel.mesh import waiting   # parallel imports this module
+
+    flag = active.any()
+    with waiting():
+        return bool(flag), 1
+
+
+def _run_trips(trip, active, trips: int, exit_early: bool) -> int:
+    """``trip()`` ``trips`` times. ``exit_early`` stops once no flag of
+    ``active`` is set (a trip leaves a done ray as it is), at a check before
+    every trip on the CPU and before every ``_CHECK_EVERY``-th on the card.
+    Returns the host syncs taken."""
+    every = 1 if active.device.type == "cpu" else _CHECK_EVERY
+    syncs = 0
+    for i in range(trips):
+        if exit_early and i % every == 0:
+            live, n = _any_live(active)
+            syncs += n
+            if not live:
+                break
+        trip()
+    return syncs
+
+
 def march_trips(step_fn, pos, acc, last_d, active, its, dirs, eps: float, far: float,
-                trips: int) -> None:
+                trips: int, exit_early: bool = False) -> int:
     """``trips`` march trips (``_trip``) of ``step_fn`` (pos, dirs) -> (d,
-    step), in place."""
-    for _ in range(trips):
-        _trip(step_fn, pos, acc, last_d, active, its, dirs, eps, far)
+    step), in place, as ``_run_trips``."""
+    return _run_trips(lambda: _trip(step_fn, pos, acc, last_d, active, its, dirs, eps, far),
+                      active, trips, exit_early)
 
 
 def beam_trips(beam_step, pos, acc, active, dirs, r0, rd, margin: float, far: float,
-               trips: int) -> None:
+               trips: int, exit_early: bool = False) -> int:
     """``trips`` beam trips (``_beam_trip``) of ``beam_step`` (pos, dirs,
-    shrink) -> (d, tube-safe exit step or -inf), in place."""
-    for _ in range(trips):
-        _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin, far)
+    shrink) -> (d, tube-safe exit step or -inf), in place, as
+    ``_run_trips``."""
+    return _run_trips(lambda: _beam_trip(beam_step, pos, acc, active, dirs, r0, rd, margin, far),
+                      active, trips, exit_early)
 
 
 def _step(grid: LeafGrid):
@@ -193,15 +231,19 @@ def _step(grid: LeafGrid):
 
 
 def march_segment_plain(grid: LeafGrid, pos, acc, last_d, active, its, dirs,
-                        eps: float, far: float, trips: int) -> None:
-    """``march_segment`` in torch: ``trips`` ``_trip``s."""
-    march_trips(_step(grid), pos, acc, last_d, active, its, dirs, eps, far, trips)
+                        eps: float, far: float, trips: int) -> int:
+    """``march_segment`` in torch: up to ``trips`` ``_trip``s, with the
+    early exit of ``_run_trips``. Returns the host syncs taken."""
+    return march_trips(_step(grid), pos, acc, last_d, active, its, dirs, eps, far, trips,
+                       exit_early=True)
 
 
 def beam_segment_plain(grid: LeafGrid, pos, acc, active, dirs, r0, rd, margin: float,
-                       far: float, trips: int) -> None:
-    """``beam_segment`` in torch: ``trips`` ``_beam_trip``s."""
-    beam_trips(_step(grid), pos, acc, active, dirs, r0, rd, margin, far, trips)
+                       far: float, trips: int) -> int:
+    """``beam_segment`` in torch: up to ``trips`` ``_beam_trip``s, with the
+    early exit of ``_run_trips``. Returns the host syncs taken."""
+    return beam_trips(_step(grid), pos, acc, active, dirs, r0, rd, margin, far, trips,
+                      exit_early=True)
 
 
 def _check_state(grid: LeafGrid, pos, dirs, floats: dict, ints: dict) -> tuple[bool, int]:
@@ -223,18 +265,18 @@ def _check_state(grid: LeafGrid, pos, dirs, floats: dict, ints: dict) -> tuple[b
 
 
 def march_segment(grid: LeafGrid, pos, acc, last_d, active, its, dirs, eps: float,
-                  far: float, trips: int) -> None:
-    """K5: ``trips`` march trips of the (n,) rays on the grid, in place:
-    ``pos`` and ``dirs`` (n, 3), ``acc``, ``last_d`` and ``active`` (float
-    0/1) (n,) float32, ``its`` (n,) int32 steps taken. eps and far in world
-    units."""
+                  far: float, trips: int) -> int:
+    """K5: up to ``trips`` march trips of the (n,) rays on the grid, in
+    place: ``pos`` and ``dirs`` (n, 3), ``acc``, ``last_d`` and ``active``
+    (float 0/1) (n,) float32, ``its`` (n,) int32 steps taken. eps and far
+    in world units. Returns the host syncs taken (the plain version's, on
+    CPU tensors)."""
     launch, n = _check_state(grid, pos, dirs, {"acc": acc, "last_d": last_d, "active": active},
                              {"its": its})
     if not launch:
-        march_segment_plain(grid, pos, acc, last_d, active, its, dirs, eps, far, trips)
-        return
+        return march_segment_plain(grid, pos, acc, last_d, active, its, dirs, eps, far, trips)
     if n == 0 or trips <= 0:
-        return
+        return 0
     lib = build.library()
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -244,21 +286,21 @@ def march_segment(grid: LeafGrid, pos, acc, last_d, active, its, dirs, eps: floa
                              float(np.float32(far)), int(trips), stream)
     build.check(code, "sdf_march")
     build.count_launch(globals(), "launch_count")
+    return 0
 
 
 def beam_segment(grid: LeafGrid, pos, acc, active, dirs, r0, rd, margin: float,
-                 far: float, trips: int) -> None:
-    """K6: ``trips`` beam trips of the (n,) beam rays on the grid, in
+                 far: float, trips: int) -> int:
+    """K6: up to ``trips`` beam trips of the (n,) beam rays on the grid, in
     place: ``pos`` and ``dirs`` (n, 3), ``acc``, ``active``, the radius at
     the origin ``r0`` and its growth ``rd`` (n,) float32. margin and far
-    in world units."""
+    in world units. Returns the host syncs taken (the plain version's)."""
     launch, n = _check_state(grid, pos, dirs,
                              {"acc": acc, "active": active, "r0": r0, "rd": rd}, {})
     if not launch:
-        beam_segment_plain(grid, pos, acc, active, dirs, r0, rd, margin, far, trips)
-        return
+        return beam_segment_plain(grid, pos, acc, active, dirs, r0, rd, margin, far, trips)
     if n == 0 or trips <= 0:
-        return
+        return 0
     lib = build.library()
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -268,3 +310,4 @@ def beam_segment(grid: LeafGrid, pos, acc, active, dirs, r0, rd, margin: float,
                             float(np.float32(far)), int(trips), stream)
     build.check(code, "sdf_beam")
     build.count_launch(globals(), "beam_launch_count")
+    return 0

@@ -1,4 +1,4 @@
-"""K4: the approximate octree's dense-grid query, one thread a point.
+"""K4: the approximate octree's dense-grid query, a group of lanes a point.
 
 ``grid_query`` launches ``csrc/octree_query.cu`` for CUDA tensors and
 takes ``grid_query_plain``, the torch version, for CPU tensors. Both
@@ -31,6 +31,11 @@ __all__ = ["LeafGrid", "grid_query", "grid_query_plain", "launch_count"]
 
 _CIDX = 0x3FFFFFFF   # CHILDREN_INDEX_MASK: the 30-bit child/coefficient index
 launch_count = 0
+# Lanes that read a point's coefficient row in K4, without and with the
+# gradient, chosen by measurement on an H100 (chip_smoke.k4_vs_plain times
+# each of GROUPS; PERF.md section 6).
+GROUP = {False: 8, True: 4}
+GROUPS = (1, 4, 8)
 
 
 class LeafGrid(NamedTuple):
@@ -165,10 +170,14 @@ def grid_args(grid: LeafGrid) -> tuple:
             float(np.float32(grid.min_border)))
 
 
-def grid_query(grid: LeafGrid, points, with_gradient: bool, out=None):
+def grid_query(grid: LeafGrid, points, with_gradient: bool, out=None, group: int | None = None):
     """K4: d (P,), and with the gradient (d, g (P, 3)), of (P, 3) float32
     points on the grid's device. ``out``, if given, holds the outputs'
-    tensors (d, or (d, g)) to write in place, as a captured frame needs."""
+    tensors (d, or (d, g)) to write in place, as a captured frame needs.
+    ``group``: the lanes that read a point's row (``GROUPS``; default
+    ``GROUP[with_gradient]``)."""
+    group = GROUP[with_gradient] if group is None else group
+    _need(group in GROUPS, f"group must be one of {GROUPS}")
     _need(isinstance(points, torch.Tensor), "points must be a tensor")
     _f32(points, (None, 3), "points", points.device)
     launch = check_grid(grid, points.device)
@@ -193,7 +202,7 @@ def grid_query(grid: LeafGrid, points, with_gradient: bool, out=None):
         with torch.cuda.device(points.device):
             stream = torch.cuda.current_stream().cuda_stream
             code = lib.sdf_octree_query(*grid_args(grid), points.data_ptr(), n, d.data_ptr(),
-                                        g.data_ptr() if with_gradient else None, stream)
+                                        g.data_ptr() if with_gradient else None, group, stream)
         build.check(code, "sdf_octree_query")
         build.count_launch(globals(), "launch_count")
     return (d, g) if with_gradient else d

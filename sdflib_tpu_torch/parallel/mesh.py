@@ -22,7 +22,7 @@ in torch), so a block's work queues behind the caller's copies to that
 device and the caller's gather queues behind the block's work.
 
 The workers take turns at issuing work: one holds the turn, and gives it
-up while it waits on its card (``waiting``: the tracer's host syncs, the
+up while it waits on its card (``waiting``: the torch trips' checks, the
 tiles' ``nonzero``), so another card's launches go out meanwhile. Launches
 queue asynchronously, so every card works at once all the same; the
 devices' blocks overlap wherever a block waits. Issued from several

@@ -8,18 +8,19 @@ scaled by the box size, the reference's distanceScale = 1 / boxSize
 (RenderSdf.cpp:127-128).
 
 The march step is ``_grid_distance_and_step``: one row of the dense leaf
-grid (the fused row where ``build_query_grid`` built it), the leaf
-polynomial or the box fallback, and in cells flagged surface-free a step
-to the leaf exit or the free-radius box exit. A beam prepass starts every
-ray at a depth proven safe for its tile. Large frames then march the JAX
-package's static pyramid of rounds over shrinking prefixes (``_Frame``),
-on the card as captured CUDA graphs that one host loop replays; small
-frames and ``pyramid=False`` march rounds over the still-active rays,
-compacted between rounds with one host sync each. On the card a march
-segment (up to 16 trips of every ray of a prefix) and a beam segment are
-one launch each of K5 and K6 (``ops/march.py``), and the normals one of
-K4 (``ops/octree_query.py``); on the CPU, and on the walk route, the
-same trips run as torch ops.
+grid (the thin grid and the coefficient row its word names, where
+``build_query_grid`` built it), the leaf polynomial or the box fallback,
+and in cells flagged surface-free a step to the free-radius box exit. A
+beam prepass starts every ray at a depth proven safe for its tile. Large
+frames then march the JAX package's static pyramid of rounds over
+shrinking prefixes (``_Frame``), with no host check: on the card one CUDA
+graph a frame; small frames and ``pyramid=False`` march rounds over the
+still-active rays, compacted between rounds with one host sync each. On
+the card a round's march (every trip of its budget over a prefix) and the
+beam prepass are one launch each of K5 and K6 (``ops/march.py``), and the
+normals one of K4 (``ops/octree_query.py``); on the CPU, and on the walk
+route, the same trips run as torch ops, which check for live rays
+themselves (``ops.march._run_trips``).
 """
 from __future__ import annotations
 
@@ -46,9 +47,6 @@ from ..sdf.sdf_function import resolve_device
 
 __all__ = ["TraceResult", "sphere_trace", "trace_octree"]
 
-# The march checks for an early exit (one host sync) once per this many
-# trips; the returned trip counts do not depend on it.
-_CHECK_EVERY = 16
 # Trips of the first march round; each later round doubles, up to
 # _MAX_ROUND_ITERS (the JAX dynamic scheduler's rounds).
 _FIRST_ROUND_ITERS = 8
@@ -65,23 +63,17 @@ class TraceResult(NamedTuple):
     iterations: torch.Tensor  # (...,) int32 march steps of each ray
 
 
-def _march(segment, state, dirs, eps: float, far: float, trips: int,
-           fixed_trips: bool = False):
+def _march(segment, state, dirs, eps: float, far: float, trips: int):
     """``trips`` march steps of ``state`` = (pos, acc, last_d, active),
     active as float 0/1, by ``segment`` (pos, acc, last_d, active, its,
-    dirs, eps, far, trips), which runs trips in place (``_Route.march``,
-    ``march_trips``). Returns each ray's count of steps taken and the new
-    state (new tensors: the inputs are not written). Stops early, once
-    every ray is done, at a check before each segment of ``_CHECK_EVERY``
-    trips but the first (the state no longer changes by then);
-    ``fixed_trips`` runs every trip with no check, so no host sync."""
+    dirs, eps, far, trips), which runs up to that many trips in place
+    (``_Route.march``, ``march_trips``) and stops early as it does. Returns
+    each ray's count of steps taken and the new state (new tensors: the
+    inputs are not written)."""
     pos, acc, last_d, active = (x.clone(memory_format=torch.contiguous_format)
                                 for x in state)
     its = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
-    for i in range(0, trips, _CHECK_EVERY):
-        if not fixed_trips and i and not bool(active.any()):
-            break
-        segment(pos, acc, last_d, active, its, dirs, eps, far, min(_CHECK_EVERY, trips - i))
+    segment(pos, acc, last_d, active, its, dirs, eps, far, trips)
     return its, (pos, acc, last_d, active)
 
 
@@ -106,9 +98,11 @@ def sphere_trace_state(
     larger than d; the hit test always uses d. Runs on the device of
     ``state``; the trip count stays on the device (a ray's own count is
     the trips it was active, and rays never wake up, so the last trip
-    with an active ray is the largest count). ``fixed_trips=True`` runs
-    exactly ``max_iters`` trips with no early-exit check, so no host sync;
-    the state and the count are those of the early-exiting march."""
+    with an active ray is the largest count). The march checks for live
+    rays as ``ops.march._run_trips`` does (on the card a host sync every
+    16 trips) and stops once none is; ``fixed_trips=True`` runs exactly
+    ``max_iters`` trips with no check, so no host sync; the state and the
+    count are those of the early-exiting march."""
     pos = state[0]
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=pos.device)
     if distance_step_fn is None:
@@ -118,8 +112,8 @@ def sphere_trace_state(
     else:
         def step_fn(p, _):
             return distance_step_fn(p)
-    its, state = _march(partial(march_trips, step_fn), state, dirs, eps, far, max_iters,
-                        fixed_trips)
+    its, state = _march(partial(march_trips, step_fn, exit_early=not fixed_trips), state,
+                        dirs, eps, far, max_iters)
     it = its.max() if its.numel() else its.new_zeros(())
     return it, state
 
@@ -213,39 +207,38 @@ def _beam_prepass(beam, origins, dirs, r0, rd, margin: float, far: float,
     the beam ray and the true SDF is 1-Lipschitz, so no member hits before
     that depth, where the members then start (the reference renderer's
     per-tile coherence, RenderSdf.cpp:187, as an explicit two-level
-    schedule). Checks for a live beam before each segment of
-    ``_CHECK_EVERY`` trips but the first."""
+    schedule). ``beam`` stops early as ``_Route.beam`` does."""
     pos = origins.clone(memory_format=torch.contiguous_format)
     acc = torch.zeros_like(r0)
     active = torch.ones_like(r0)
-    for i in range(0, max_iters, _CHECK_EVERY):
-        if i and not bool(active.any()):
-            break
-        beam(pos, acc, active, dirs, r0, rd, margin, far, min(_CHECK_EVERY, max_iters - i))
+    beam(pos, acc, active, dirs, r0, rd, margin, far, max_iters)
     return acc
 
 
 class _Route(NamedTuple):
-    march: object     # (pos, acc, last_d, active, its, dirs, eps, far, trips), in place
-    beam: object      # (pos, acc, active, dirs, r0, rd, margin, far, trips), in place
+    march: object     # (pos, acc, last_d, active, its, dirs, eps, far, trips) -> syncs, in place
+    beam: object      # (pos, acc, active, dirs, r0, rd, margin, far, trips) -> syncs, in place
     normals: object   # (pos, out=None) -> normalized gradient (into out[1])
     margin: float     # the beam's safety margin, world units
+    kernel: bool      # the trips are K5/K6 launches (no host check: a frame is one graph)
     key: tuple        # the route and the arrays it reads
 
 
 def _route(octree: OctreeSdf, eps: float) -> _Route:
     """The distance route of ``octree`` at hit threshold ``eps``
-    (normalized): the fused rows if ``build_query_grid`` built them, else
-    the thin leaf grid, else the walk; the grids (and their free-cell
-    steps) only for eps <= ``OctreeSdf._FREE_CELL_MARGIN``, the margin the
-    free flags were proven with. On a grid the march and the beam are K5
-    and K6 segments, in torch on the CPU or where ``octree._plain`` pins
-    the plain versions; the walk runs its trips in torch. The normals ride
-    the fused rows where built (one gather a ray), else the thin grid
-    (K4 on either), else the walk. The beam's margin is the hit threshold
-    plus a fit-error budget: the Lipschitz argument runs through the true
-    distance, which the polynomial tracks within the build's termination
-    threshold."""
+    (normalized): the thin leaf grid and the octree words it names if
+    ``build_query_grid`` built it (L2-resident at d6 on an H100, where the
+    fused rows, which hold the same values, are not), else the walk; the
+    grid (and its free-cell steps) only for eps <=
+    ``OctreeSdf._FREE_CELL_MARGIN``, the margin the free flags were proven
+    with. On a grid the march and the beam are K5 and K6, each launch as
+    many trips as it is given (a done ray leaves at once), in torch on the
+    CPU or where ``octree._plain`` pins the plain versions; the walk runs
+    its trips in torch. Torch trips check for live rays themselves
+    (``ops.march._run_trips``). The normals ride the same rows (K4), else
+    the walk. The beam's margin is the hit threshold plus a fit-error
+    budget: the Lipschitz argument runs through the true distance, which
+    the polynomial tracks within the build's termination threshold."""
     box_args = (octree._box_min, octree._box_size3)
     mbv = octree.min_border_value
     words = octree._octree_dev
@@ -253,7 +246,7 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
                 num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
     fat, thin = octree._fat_grid, octree._query_grid
     sgs, depth, plain = octree.start_grid_size, octree.max_depth, octree._plain
-    shade = None if fat is None and thin is None else octree._leaf_grid(fat is not None)
+    shade = None if thin is None else octree._leaf_grid(False)
     grid = shade if eps <= OctreeSdf._FREE_CELL_MARGIN else None
 
     def distance(p):
@@ -271,11 +264,14 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
             dist = distance(p)
             return dist, torch.full_like(dist, -torch.inf)
 
-        march, beam = partial(march_trips, step), partial(beam_trips, beam_step)
+        march = partial(march_trips, step, exit_early=True)
+        beam = partial(beam_trips, beam_step, exit_early=True)
 
     def normals(pos, out=None):
         if shade is not None and not plain:
-            return grid_query(shade, pos, True, out)[1]
+            # a frame's end points are coherent: neighbouring rays share
+            # rows, which one thread a point reads with broadcast loads
+            return grid_query(shade, pos, True, out, group=1)[1]
         g = (grid_query_plain(shade, pos, True) if shade is not None else
              _octree_query(words, pos, *box_args, sgs, mbv, with_gradient=True, **walk))[1]
         return g if out is None else out[1].copy_(g)
@@ -287,9 +283,10 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     # and the scalars
     arrays = tuple(None if a is None else (a.device, a.data_ptr(), tuple(a.shape))
                    for a in (words, fat, thin, *box_args))
+    kernel = grid is not None and not plain
     key = (arrays, grid is not None, plain, mbv, margin, sgs, depth,
            tuple(sorted(walk.items())))
-    return _Route(march, beam, normals, margin, key)
+    return _Route(march, beam, normals, margin, kernel, key)
 
 
 # -- the whole-frame trace: the static pyramid --------------------------------
@@ -300,15 +297,9 @@ _TRACE_BLOCK = 1 << 17
 # Frames of at least this many (padded) rays and trips take the pyramid.
 _PYRAMID_MIN_RAYS = 1 << 15
 _PYRAMID_MIN_ITERS = 64
-# Prefixes this wide run their round's trips with no early-exit check:
-# they are sized to the active count, so they never converge inside it.
-_FIXED_WIDTH = 1 << 16
 # The compaction's width floor over the marched prefix, so that actives
 # beyond the prefix keep draining into the later rounds.
 _SORT_FLOOR = 1 << 15
-# The straggler march's least width: a power of two at least this
-# (the dynamic scheduler's least prefix) holds the active rays.
-_STRAGGLER_FLOOR = 1 << 10
 # Frames (fixed buffers and captured graphs) kept on one card.
 _MAX_FRAMES = 4
 
@@ -359,18 +350,16 @@ def _compact(active, tensors, W: int) -> None:
 
 
 class _Runner:
-    """Runs the pieces of a frame, each a function that writes the frame's
-    fixed buffers in place: eagerly, or (``graphs``) each as a CUDA graph
-    captured at its first run and replayed from then on. A first run is
-    the capture's warm-up: the piece runs eagerly on a side stream, and
-    that run is the frame's work; then its kernels are recorded without
-    running. A host sync or a host-to-device copy inside a piece makes
-    the capture raise, as does a capture that records nothing. The
-    graphs share one memory pool: they run one at a time on one stream,
-    and the buffers that carry data between them are allocated outside
-    every capture, so only their temporaries overlap. Made on the
-    frame's card (``torch.cuda.graph``'s default capture stream sits on
-    the card of its first use). Counts what it did since ``reset``.
+    """Runs a frame's work, a function that writes the frame's fixed
+    buffers in place: eagerly, or (``graphs``) as a CUDA graph captured at
+    its first run and replayed from then on. A first run is the capture's
+    warm-up: the work runs eagerly on a side stream, and that run is the
+    frame's; then its kernels are recorded without running. A host sync or
+    a host-to-device copy inside the work makes the capture raise, as does
+    a capture that records nothing. Made on the frame's card
+    (``torch.cuda.graph``'s default capture stream sits on the card of its
+    first use). Counts what it did since ``reset``, and the host syncs the
+    work reports.
 
     ``parallel`` traces several cards at once from worker threads, so a
     capture is thread-local (another thread's host syncs and allocations
@@ -379,9 +368,8 @@ class _Runner:
     empties the allocator's cache of every card."""
 
     def __init__(self, graphs: bool):
-        self.graphs = {} if graphs else None
+        self.graphs, self.graph = graphs, None
         if graphs:
-            self.pool = torch.cuda.graph_pool_handle()
             self.side = torch.cuda.Stream()
             self.capture = torch.cuda.Stream()
         self.reset()
@@ -389,81 +377,58 @@ class _Runner:
     def reset(self) -> None:
         self.captured = self.replayed = self.syncs = 0
 
-    def __call__(self, key, piece) -> None:
-        if self.graphs is None:
-            piece()
+    def __call__(self, work) -> None:
+        if not self.graphs:
+            work()
             return
-        graph = self.graphs.get(key)
-        if graph is not None:
-            graph.replay()
+        if self.graph is not None:
+            self.graph.replay()
             self.replayed += 1
             return
         stream = torch.cuda.current_stream()
         self.side.wait_stream(stream)
         with torch.cuda.stream(self.side):
-            piece()
+            work()
         stream.wait_stream(self.side)
         graph = torch.cuda.CUDAGraph()
         with warnings.catch_warnings():
-            # an empty graph: the piece's kernels went to another stream
+            # an empty graph: the work's kernels went to another stream
             warnings.filterwarnings("error", "The CUDA Graph is empty")
-            with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self.pool, stream=self.capture,
+            with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=self.capture,
                                                  capture_error_mode="thread_local"):
-                piece()
-        self.graphs[key] = graph
+                work()
+        self.graph = graph
         self.captured += 1
-
-    def any_active(self, active) -> bool:
-        """Whether a flag is set: one of the frame's host syncs, during
-        which a ``parallel`` worker gives up its turn."""
-        self.syncs += 1
-        flag = active.any()
-        with _waiting():
-            return bool(flag)
-
-    def count_active(self, active) -> int:
-        """How many flags are set: one of the frame's host syncs, during
-        which a ``parallel`` worker gives up its turn."""
-        self.syncs += 1
-        count = (active > 0).sum()
-        with _waiting():
-            return int(count)
-
-
-def _waiting():
-    """``parallel.mesh.waiting`` (imported at the call: ``parallel``
-    imports this module)."""
-    from ..parallel.mesh import waiting
-
-    return waiting()
 
 
 class _Frame:
     """The whole-frame trace of one ray count (the JAX package's
-    ``_trace_rays_fused``) over fixed buffers that its pieces write in
-    place: the beam prepass, the static pyramid of march rounds over
+    ``_trace_rays_fused``) over fixed buffers, in a fixed order with no
+    host check: the beam prepass, the static pyramid of march rounds over
     shrinking prefixes with a compaction of the active rays to the front
     after each, a full-width straggler march, the unsort and the normals.
+    On a kernel route the frame is one piece, on the card one CUDA graph
+    replayed with one launch.
 
     The rays are padded to ``Rp``: a padding ray points along unit x and
-    starts inactive. A round marches the prefix ``[:n]`` for its trips in
-    segments of ``_CHECK_EVERY``; a prefix narrower than ``_FIXED_WIDTH``
-    checks for an active ray before each segment (a host sync) and ends
-    the round when none is left, as the JAX while_loop exits. Then each
-    ray's count is added at ``perm[:n]`` and the first W rows compacted:
-    W is the prefix with a floor of ``_SORT_FLOOR``, and ``Rp`` on the
-    last round so that the straggler march finds every active ray at the
-    front. The straggler march gives every ray still active the budget of
-    all rounds but the first (a ray that overflowed every prefix was only
-    offered the first) and ends when none is left; it marches the
-    power-of-two prefix that holds the active rays (one host sync reads
-    their count), where the JAX march takes the full width: the rows past
-    it are inactive and would not change. A ray's march depends
-    on the ray alone, so a ray that converges within its budget ends
-    where the round scheduler of ``trace_octree(pyramid=False)`` ends it,
-    in as many steps. The B-ray blocks of the JAX march (TPU VMEM units)
-    are not carried: a prefix marches as one batch, and B only rounds the
-    schedule's prefixes."""
+    starts inactive. The beam prepass runs its ``_BEAM_ITERS`` trips as
+    one K6 launch. A round marches the prefix ``[:n]`` for its trips as
+    one K5 launch: a ray that is done leaves the kernel at once, so the
+    round ends with its longest ray, as the JAX while_loop exits. Then each
+    ray's count is added at ``perm[:n]`` and the first W rows compacted: W
+    is the prefix with a floor of ``_SORT_FLOOR``, and ``Rp`` on the last
+    round so that every active ray sits at the front. The straggler march
+    gives every ray still active the budget of all rounds but the first (a
+    ray that overflowed every prefix was only offered the first), over the
+    full width as in the JAX march: the rows past the active ones leave at
+    once. Torch trips (the CPU, the plain versions, the walk route) stop
+    once no ray is active (``ops.march._run_trips``), so on the card they
+    take host syncs and the frame runs eagerly. A ray's march depends on the ray
+    alone, so a ray that converges within its budget ends where the round
+    scheduler of ``trace_octree(pyramid=False)`` ends it, in as many steps.
+    The B-ray blocks of the JAX march (TPU VMEM units) are not carried: a
+    prefix marches as one batch, and B only rounds the schedule's
+    prefixes."""
 
     def __init__(self, octree: OctreeSdf, shape, R: int, Rp: int, B: int, *, eps: float,
                  far: float, max_iters: int, beam, graphs: bool):
@@ -479,6 +444,8 @@ class _Frame:
         if Rp >= _PYRAMID_MIN_RAYS and max_iters >= _PYRAMID_MIN_ITERS:
             self.schedule = _build_pyramid_schedule(Rp, max_iters, B, dense=not self.beam_on)
             self.remaining = max(max_iters - self.schedule[0][0], 0)
+        # the ray-trips the frame offers its rays (a done ray takes none)
+        self.offered = sum(k * n for k, n in self.schedule) + Rp * self.remaining
 
         def f32(*size):
             return torch.zeros(size, dtype=torch.float32, device=dev)
@@ -498,7 +465,6 @@ class _Frame:
             self.b_pos, self.b_dirs = f32(nt, 3), f32(nt, 3)
             self.b_r0, self.b_rd, self.b_acc, self.b_active = f32(nt), f32(nt), f32(nt), f32(nt)
         self.runner = _Runner(graphs)
-        self.marched = 0
 
     # -- the pieces ----------------------------------------------------------
 
@@ -515,11 +481,10 @@ class _Frame:
             self.b_acc.zero_()
             self.b_active.fill_(1.0)
 
-    def _beam_piece(self, trips: int):
-        def piece():
-            self.route.beam(self.b_pos, self.b_acc, self.b_active, self.b_dirs, self.b_r0,
-                            self.b_rd, self.route.margin, self.beam_far, trips)
-        return piece
+    def _beam_prepass(self) -> None:
+        self.runner.syncs += self.route.beam(
+            self.b_pos, self.b_acc, self.b_active, self.b_dirs, self.b_r0, self.b_rd,
+            self.route.margin, self.beam_far, _BEAM_ITERS)
 
     def _start(self) -> None:
         R = self.R
@@ -538,21 +503,17 @@ class _Frame:
         self.iters.zero_()
         self.its.zero_()
 
-    def _march_piece(self, n: int, trips: int):
-        state = (self.pos[:n], self.acc[:n], self.last_d[:n], self.active[:n],
-                 self.its[:n], self.dirs[:n])
+    def _march(self, n: int, trips: int) -> None:
+        """Every trip of a round's budget over the prefix ``[:n]``."""
+        self.runner.syncs += self.route.march(
+            self.pos[:n], self.acc[:n], self.last_d[:n], self.active[:n], self.its[:n],
+            self.dirs[:n], self.eps_w, self.far_w, trips)
 
-        def piece():
-            self.route.march(*state, self.eps_w, self.far_w, trips)
-        return piece
-
-    def _round_end(self, n: int, W: int):
-        def piece():
-            self.iters.index_add_(0, self.perm[:n], self.its[:n])
-            self.its[:n].zero_()
-            _compact(self.active, (self.pos, self.acc, self.last_d, self.active, self.dirs,
-                                   self.perm), W)
-        return piece
+    def _round_end(self, n: int, W: int) -> None:
+        self.iters.index_add_(0, self.perm[:n], self.its[:n])
+        self.its[:n].zero_()
+        _compact(self.active, (self.pos, self.acc, self.last_d, self.active, self.dirs,
+                               self.perm), W)
 
     def _finish(self) -> None:
         R = self.R
@@ -563,49 +524,29 @@ class _Frame:
         torch.le(self.out_last[:R], self.eps_w, out=self.out_hit)
         self.route.normals(self.out_pos[:R], (self.out_d, self.out_normal))
 
-    # -- the host loop --------------------------------------------------------
-
-    def _march_round(self, n: int, trips: int, check: bool) -> None:
-        done = 0
-        while done < trips:
-            if check and not self.runner.any_active(self.active[:n]):
-                break
-            t = min(_CHECK_EVERY, trips - done)
-            self.runner(("march", n, t), self._march_piece(n, t))
-            done += t
-        self.marched += n * done
+    def _frame(self) -> None:
+        """Every piece in order: the runner's work."""
+        self._setup()
+        if self.beam_on:
+            self._beam_prepass()
+        self._start()
+        for i, (k, n) in enumerate(self.schedule):
+            W = self.Rp if i == len(self.schedule) - 1 else min(self.Rp, max(n, _SORT_FLOOR))
+            self._march(n, k)
+            self._round_end(n, W)
+        if self.remaining:
+            self._march(self.Rp, self.remaining)
+        self._finish()
 
     def run(self, o, d, live):
         """The frame of (R, 3) rays ``o``, ``d`` whose ``live`` (R,) flag
         is 1.0: (hit, position, depth, normal, iterations), flat, in new
         tensors."""
-        run = self.runner
-        run.reset()
-        self.marched = 0
+        self.runner.reset()
         self.o_in.copy_(o)
         self.d_in.copy_(d)
         self.live_in.copy_(live)
-        run("setup", self._setup)
-        if self.beam_on:
-            for i in range(0, _BEAM_ITERS, _CHECK_EVERY):
-                if i and not run.any_active(self.b_active):
-                    break
-                t = min(_CHECK_EVERY, _BEAM_ITERS - i)
-                run(("beam", t), self._beam_piece(t))
-        run("start", self._start)
-        for i, (k, n) in enumerate(self.schedule):
-            W = self.Rp if i == len(self.schedule) - 1 else min(self.Rp, max(n, _SORT_FLOOR))
-            self._march_round(n, k, check=n < _FIXED_WIDTH)
-            run(("round", n, W), self._round_end(n, W))
-        if self.remaining:
-            n = run.count_active(self.active) if self.schedule else self.Rp
-            if n:
-                # past the last full-width compaction every active ray sits
-                # in the first n rows, and the rows past them do not change
-                w = self.Rp if not self.schedule else min(
-                    self.Rp, max(_STRAGGLER_FLOOR, 1 << (n - 1).bit_length()))
-                self._march_round(w, self.remaining, check=True)
-        run("finish", self._finish)
+        self.runner(self._frame)
         R = self.R
         return (self.out_hit.clone(), self.out_pos[:R].clone(), self.out_acc[:R].clone(),
                 self.out_normal.clone(), self.iters[:R].clone())
@@ -650,7 +591,7 @@ class _FrameCache:
                 if not old:
                     del frames[old_key]
         if dropped and device.type == "cuda":
-            # a replay still queued reads the buffers and pool dropped here;
+            # a replay still queued reads the buffers and graph dropped here;
             # no capture runs while the card drains
             with _CAPTURE_LOCK:
                 torch.cuda.synchronize(device)
@@ -664,12 +605,14 @@ def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
                 max_iters: int, B: int, beam, graphs: bool, stats_out: dict | None = None):
     """The whole-frame trace (``_Frame``) of (R, 3) rays on the octree's
     device, padded to whole B-blocks; ``live`` (R,) float marks the rays
-    that march. With ``graphs`` (a CUDA octree) the frame runs as CUDA
-    graphs on the rays' card, captured on its first call and replayed on
-    later ones with the same key (``_FRAMES``); else eagerly. Returns the
-    flat outputs of ``_Frame.run``."""
+    that march. With ``graphs`` (a CUDA octree on a kernel route) the frame
+    runs as one CUDA graph on the rays' card, captured on its first call
+    and replayed on later ones with the same key (``_FRAMES``); else
+    eagerly. Returns the flat outputs of ``_Frame.run``."""
     R = o.shape[0]
     Rp = -(-R // B) * B
+    route = _route(octree, eps)
+    graphs = graphs and route.kernel
 
     def make():
         return _Frame(octree, shape, R, Rp, B, eps=eps, far=far, max_iters=max_iters,
@@ -678,9 +621,9 @@ def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
     if graphs:
         # the shape matters only to the beam's tiles
         tiles = tuple(shape) if beam is not None and R >= beam * beam else None
-        key = (R, tiles, Rp, B, eps, far, max_iters, beam, _route(octree, eps).key)
-        # the side stream, the pool, the captures and the replays belong
-        # to the octree's card, whichever card is current
+        key = (R, tiles, Rp, B, eps, far, max_iters, beam, route.key)
+        # the side stream, the capture and the replays belong to the
+        # octree's card, whichever card is current
         with torch.cuda.device(o.device):
             frame = _FRAMES.take(o.device, key, make)
             out = frame.run(o, d, live)
@@ -692,7 +635,7 @@ def _trace_rays(octree: OctreeSdf, o, d, live, shape, *, eps: float, far: float,
         stats_out.update(
             rounds=[("pyramid", frame.schedule, 0)],
             graphs_captured=run.captured, graphs_replayed=run.replayed,
-            host_syncs=run.syncs, marched_ray_trips=frame.marched,
+            host_syncs=run.syncs, marched_ray_trips=frame.offered,
         )
     if graphs:
         _FRAMES.put(o.device, key, frame)
@@ -726,15 +669,17 @@ def trace_octree(
     each ray a safe start depth. A frame of at least 2^15 rays, padded to
     whole blocks of ``block_size`` (default 2^17, at most the ray count),
     with ``max_iters`` >= 64 then marches the JAX package's static
-    pyramid (``_Frame``): on a CUDA octree as captured CUDA graphs that
-    one host loop replays, kept for later frames of the same shape on the
-    same structure (at most four a card); on the CPU eagerly. ``stats_out["rounds"]`` receives
-    ``[("pyramid", schedule, 0)]``, and ``graphs_captured``,
-    ``graphs_replayed``, ``host_syncs`` and ``marched_ray_trips`` what
-    the frame did. Smaller frames and ``pyramid=False`` take the dynamic
-    scheduler: rounds of 8, 16, ... up to 256 trips over the rays still
-    active, each round ending with one host sync (the active count) and
-    one compaction of the active rays to the front;
+    pyramid (``_Frame``) with no host check: on a CUDA octree's grid as
+    one captured CUDA graph, replayed with one launch and kept for later
+    frames of the same shape on the same structure (at most four a card);
+    on the CPU, the walk route and the pinned plain versions eagerly.
+    ``stats_out["rounds"]`` receives ``[("pyramid", schedule, 0)]``, and
+    ``graphs_captured``, ``graphs_replayed``, ``host_syncs`` (those of
+    torch trips on the card) and ``marched_ray_trips`` (the ray-trips the
+    frame offers) what the frame did. Smaller frames and ``pyramid=False``
+    take the dynamic scheduler: rounds of 8, 16, ... up to 256 trips over
+    the rays still active, each round ending with one host sync (the
+    active count) and one compaction of the active rays to the front;
     ``stats_out["rounds"]`` receives (iters, marched, still_active) per
     round. Both give the same hits, depths and iterations for every ray
     that converges within ``max_iters``.

@@ -14,14 +14,19 @@ octree's grid query and the tracer's march and beam segments.
   ``_grid_distance_and_step``, from the rays' starts and from a
   half-marched state; the trace with the plain versions pinned
   (``_plain``) equals the default on the CPU.
+* Torch trips with the early exit stop at the first trip that finds no
+  ray active, bit-equal to running every trip.
 * Each wrapper raises on a wrong dtype, shape, contiguity or device, and
   on CPU tensors launches nothing (the counts stay 0, no build).
 * On a CUDA device (skipped here): K4 against its plain version (1e-6 in
-  distance, 1e-5 in gradient); K5 and K6 segments against theirs (active
+  distance, 1e-5 in gradient) on both routes, each group size bit-equal
+  to one thread a point; K5 and K6 segments against theirs (active
   flags and step counts on >= 99.9%, q99 of |depth difference| <= 1e-4
   of the box: the sums' order moves a ray's path by ulps, which grow over
-  the trips), and the kernel frame against the plain frame (hit masks on
-  >= 99.9%, q99 of |depth difference| on common hits <= 1e-4 of the box).
+  the trips); one K5 launch of a round's budget bit-equal to the same
+  trips in 16-trip launches, and on the fused rows; and the kernel frame
+  against the plain frame (hit masks on >= 99.9%, q99 of |depth
+  difference| on common hits <= 1e-4 of the box).
 
 JAX is imported inside fixtures: the GPU machine has no JAX and runs
 only the cuda-marked cases (``pytest --noconftest -m cuda``).
@@ -184,6 +189,36 @@ def test_route_beam_equals_beam_trip_loop(port_tree, fat):
     assert float(got[1].max()) > 0.0
 
 
+def test_torch_trips_stop_once_no_ray_is_active(port_tree):
+    """With the early exit, torch trips on the CPU check before every trip
+    and stop at the first trip that finds no ray active: bit-equal to
+    every trip of the budget (a trip leaves a done ray as it is), with no
+    host sync."""
+    o, d = _rays()
+    n = o.shape[0]
+    box = float(port_tree.box.size[0])
+    eps, far = float(np.float32(1e-5) * np.float32(box)), float(np.float32(4.0) * np.float32(box))
+    start = [o.clone(), torch.zeros(n), torch.full((n,), torch.inf), torch.ones(n),
+             torch.zeros(n, dtype=torch.int32)]
+    step = _step_fn(port_tree, False)
+    calls = []
+
+    def counted(p, u):
+        calls.append(p.shape[0])
+        return step(p, u)
+
+    trips = 1024
+    ref = [x.clone() for x in start]
+    got = [x.clone() for x in start]
+    assert om.march_trips(counted, *got, d, eps, far, trips, exit_early=True) == 0
+    assert not bool((got[3] > 0).any())          # every ray done within the budget
+    assert len(calls) == int(got[4].max()) < trips   # the last active ray's steps
+    for _ in range(len(calls) + 8):
+        _trip(step, *ref, d, eps, far)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
 def test_plain_pin_equals_default_on_cpu(port_tree):
     """``_plain`` pins the plain versions (the card's comparison); on the
     CPU both are the plain versions, so the traces agree bit for bit and
@@ -257,6 +292,9 @@ def test_wrappers_reject_bad_inputs(port_tree):
         oq.grid_query(grid._replace(box_min=grid.box_min.double()), pts, False)
     with pytest.raises(ValueError):               # out= of another shape
         oq.grid_query(grid, pts, True, out=(torch.zeros(8), torch.zeros(8, 2)))
+    for group in (2, 16):                         # group sizes the kernel lacks
+        with pytest.raises(ValueError):
+            oq.grid_query(grid, pts, False, group=group)
 
     pos, acc, last_d, active, its, dirs = _state(8)
     om.march_segment(grid, pos, acc, last_d, active, its, dirs, 1e-5, 4.0, 2)
@@ -292,17 +330,48 @@ def cuda_tree():
 @pytest.mark.parametrize("fat", [True, False])
 @pytest.mark.parametrize("grad", [False, True])
 def test_k4_against_plain(cuda_tree, fat, grad):
+    """Every group size within the tolerances of the plain version, and
+    bit-equal to one thread a point (the group keeps its sum order)."""
     grid = cuda_tree._leaf_grid(fat)
     pts = torch.as_tensor(np.concatenate([_points(s) for s in range(16)]), device="cuda")
-    _reset()
-    got = oq.grid_query(grid, pts, grad)
     ref = oq.grid_query_plain(grid, pts, grad)
-    assert oq.launch_count == 1
-    if not grad:
-        got, ref = (got,), (ref,)
-    assert float((got[0] - ref[0]).abs().max()) <= 1e-6
-    if grad:
-        assert float((got[1] - ref[1]).abs().max()) <= 1e-5
+    ref = ref if grad else (ref,)
+    one = None
+    for group in oq.GROUPS:
+        _reset()
+        got = oq.grid_query(grid, pts, grad, group=group)
+        assert oq.launch_count == 1
+        got = got if grad else (got,)
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-6, group
+        if grad:
+            assert float((got[1] - ref[1]).abs().max()) <= 1e-5, group
+        one = got if one is None else one
+        assert all(torch.equal(a, b) for a, b in zip(got, one)), group
+
+
+@pytest.mark.cuda
+def test_k5_one_launch_equals_segments(cuda_tree):
+    """A round's 64 trips in one K5 launch equal the same trips in four
+    16-trip launches bit for bit; so do the fused rows (the same values as
+    the thin grid and the words)."""
+    o, d = (x.cuda() for x in _rays(128))
+    n = o.shape[0]
+    box = float(cuda_tree.box.size[0])
+    eps, far = float(np.float32(1e-5) * np.float32(box)), float(np.float32(4.0) * np.float32(box))
+    start = [o.clone(), torch.zeros(n, device="cuda"), torch.full((n,), torch.inf, device="cuda"),
+             torch.ones(n, device="cuda"), torch.zeros(n, dtype=torch.int32, device="cuda")]
+    thin = cuda_tree._leaf_grid(False)
+    seg = [x.clone() for x in start]
+    for _ in range(4):
+        om.march_segment(thin, *seg, d, eps, far, 16)
+    assert 0 < int((seg[3] > 0).sum()) < n
+    _reset()
+    for grid in (thin, cuda_tree._leaf_grid(True)):
+        got = [x.clone() for x in start]
+        om.march_segment(grid, *got, d, eps, far, 64)
+        for a, b in zip(seg, got):
+            assert torch.equal(a, b), grid.fat
+    assert om.launch_count == 2
 
 
 @pytest.mark.cuda

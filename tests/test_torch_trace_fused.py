@@ -23,9 +23,15 @@ tests/test_render.py (subdivisions 3, radius 0.35, box margin 0.14,
 * The port's pyramid against its dynamic scheduler (``pyramid=False``):
   identical hit masks and iterations, depths within rtol 1e-5, atol
   1e-6.
+* The frame makes no host sync (``stats_out["host_syncs"] == 0``): a
+  round's trips run in one call, which stops by itself once its rays are
+  done.
 * A beam-off frame with 64 trips whose rays reach the straggler march,
   against JAX's pyramid and, on the rays that converge, the dynamic
   scheduler.
+* The tracer over the thin grid and the octree words equals the tracer
+  over the fused rows bit for bit (hit, position, depth, iterations,
+  normals): both hold the same values.
 * ``sharded_trace`` on two entries in two calls (2^15-ray shards, each a
   pyramid) against JAX's on two devices, and bit-equal to the port's
   single-device trace.
@@ -33,7 +39,8 @@ tests/test_render.py (subdivisions 3, radius 0.35, box margin 0.14,
   ``parallel``'s replicas are kept until the structure changes, so a
   second card's frames are found again.
 * On a CUDA device (skipped here): graph replay bit-equal to the eager
-  schedule, a second call replays without capturing, two results of one
+  schedule, a second call replays its one graph without capturing (one
+  ``cudaGraphLaunch`` and no host sync under the profiler), two results of one
   octree do not share storage, a capture error and an empty capture
   raise; with two cards or more, an octree on the second card traces
   bit-equal to the eager schedule, and a second ``sharded_trace`` over
@@ -188,7 +195,7 @@ def test_pyramid_frame_matches_jax(frames, n):
     assert (it_p <= it_j).mean() >= 0.999
     assert _np(res.iterations).max() <= _np(ref.iterations).max()
     assert sp["graphs_captured"] == sp["graphs_replayed"] == 0    # eager on the CPU
-    assert 0 < sp["host_syncs"] < 100
+    assert sp["host_syncs"] == 0
     assert sp["marched_ray_trips"] >= int(res.iterations.sum())
 
 
@@ -252,6 +259,26 @@ def _small_octree():
                      **dict(CFG, max_depth=4))
 
 
+def test_thin_route_equals_fused_rows(monkeypatch):
+    """The march, the beam and the normals over the thin grid (the
+    tracer's rows) and over the fused rows (the structure's leaf grid
+    patched to them) trace the same frame bit for bit: the rows hold the
+    same values."""
+    tree = _small_octree()
+    tree.build_query_grid()
+    o, d = _ortho(192)                       # 36,864 rays: the pyramid frame
+    assert not st._route(tree, 1e-5).march.args[0].fat
+    s_thin, s_fused = {}, {}
+    thin = trace_octree(tree, o, d, max_iters=256, stats_out=s_thin)
+    monkeypatch.setattr(tree, "_leaf_grid", lambda fat: OctreeSdf._leaf_grid(tree, True))
+    assert st._route(tree, 1e-5).march.args[0].fat
+    fused = trace_octree(tree, o, d, max_iters=256, stats_out=s_fused)
+    for a, b in zip(thin, fused):
+        assert torch.equal(a, b)
+    assert bool(thin.hit.any()) and not bool(thin.hit.all())
+    assert s_thin["host_syncs"] == s_fused["host_syncs"] == 0
+
+
 def test_route_key_follows_the_grids():
     """A frame is keyed on the route's arrays by address and its scalars:
     the same octree keys the same frames, new grids new ones."""
@@ -304,10 +331,16 @@ def test_graph_replay_equals_eager(cuda_octree):
               active=None)
     s1, s2, s3 = {}, {}, {}
     first = trace_octree(cuda_octree, o, d, stats_out=s1, max_iters=1024)
-    second = trace_octree(cuda_octree, o, d, stats_out=s2, max_iters=1024)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:   # one launch, no host sync
+        second = trace_octree(cuda_octree, o, d, stats_out=s2, max_iters=1024)
+        torch.cuda.synchronize()
     eager = st._trace(cuda_octree, o, d, stats_out=s3, graphs=False, **kw)
-    assert s1["graphs_captured"] > 0
-    assert s2["graphs_captured"] == 0 and s2["graphs_replayed"] >= s1["graphs_captured"]
+    calls = {e.key: e.count for e in prof.key_averages()}
+    assert calls.get("cudaGraphLaunch", 0) == 1
+    assert calls.get("aten::_local_scalar_dense", 0) == calls.get("aten::nonzero", 0) == 0
+    assert s1["graphs_captured"] == 1 and s1["host_syncs"] == 0
+    assert s2["graphs_captured"] == 0 and s2["graphs_replayed"] == 1 and s2["host_syncs"] == 0
     assert s3["graphs_captured"] == s3["graphs_replayed"] == 0
     assert s1["rounds"] == s2["rounds"] == s3["rounds"]
     for a, b, c in zip(first, second, eager):
@@ -345,11 +378,11 @@ def test_capture_error_propagates(cuda_octree, monkeypatch):
 
 @pytest.mark.cuda
 def test_empty_capture_raises(cuda_octree):
-    """A piece whose kernels miss the capture stream records an empty
-    graph: that raises rather than replaying nothing."""
+    """Work whose kernels miss the capture stream records an empty graph:
+    that raises rather than replaying nothing."""
     run = st._Runner(True)
     with pytest.raises(UserWarning, match="The CUDA Graph is empty"):
-        run("nothing", lambda: None)
+        run(lambda: None)
 
 
 @pytest.mark.cuda
