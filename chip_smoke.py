@@ -11,7 +11,7 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
 * K2 against its plain version at the oracle's 10k points, the gradient
   batch's 4k and 2^20 points (the approximate builders' sweep, checked on
   its first 2^16), with its grid of point tiles x triangle slices, timed
-  in both point orders and the Morton sort alone;
+  in both point orders and the point order alone;
 * the bench torus of bench.py (9,216 triangles, box margin 0.14), the
   port's own depth-6 region build, ``get_distance`` on 2^21 uniform
   points (seed 0, the window scan), and the 10k-point oracle gate (seed
@@ -26,8 +26,12 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
 * both scans pinned at 2^16 to 2^21 points;
 * the depth-7 cell: the 100,800-triangle torus of bench.py's big mesh,
   start depth 3, 2^20 uniform points (the grouped scan) and its oracle
-  gate, K2 and its Morton-code kernel at the d7 oracle's shape (10k x
-  100,800), and K1w on the 2^20 points (checked on the first 2^16 of
+  gate, K2 at the d7 oracle's shape (10k x 100,800) and its point order
+  there and at mesh_preview's 262,144 points (bit-equal to
+  ``morton_order_plain``; below the cutoff one launch, and in a process
+  of its own the profiler's only device activity; split by the profiler,
+  with aminmax and the stable sort timed alone), at the cutoff and one
+  past it, and K1w on the 2^20 points (checked on the first 2^16 of
   their windows);
 * the row-fetch probes K3a/K3b at the defaults of
   scripts/perf_pallas_gather.py and over the rows each K1 mode fetches;
@@ -64,8 +68,10 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   (inputs once, each touched row once); K6 and K5 against their plain
   versions in the frame's forms (the 256-trip prepass and the first
   round each in one launch), their forms held bit-equal and timed
-  (``segments_vs_plain``); then the graph path and the dynamic scheduler
-  (``pyramid=False``) each timed (best of 3 after a warmup) with rays/s,
+  (``segments_vs_plain``, with K6's device time), after K6's trip
+  histogram and its 16-, 64- and 256-trip budgets (``beam_histogram``);
+  then the graph path and the dynamic scheduler (``pyramid=False``) each
+  timed (best of 3 after a warmup) with rays/s,
   a ``breakdown`` (device activities, busy share, host syncs and graph
   launches from the profiler and from ``stats_out``) and a timeline
   (idle gaps), useful against offered ray-trips and the bound; the two
@@ -283,6 +289,33 @@ def _cuda_ms(fn, reps: int = 3) -> float:
     return best
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of ``fn``'s launches without their host time: CUDA events
+    around ``reps`` replays of one CUDA graph of ``fn`` (captured after a
+    warm-up on a side stream), over ``reps``. The profiler drops some
+    launches' device activity inside the full smoke; this does not use it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -296,8 +329,10 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def _instance(mangled: str) -> str:
-    """The bool template argument of a mangled kernel name, if any."""
-    return "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+    """The bool or int template arguments of a mangled kernel name, if any."""
+    args = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"(?<=[IE])L([bi])(\d+)E", mangled)]
+    return f"<{', '.join(args)}>" if args else ""
 
 
 def _sass_branches(so_path, short: str) -> str:
@@ -393,6 +428,53 @@ def k2_vs_plain(pts, fields, tris, label, n_check=None):
     return err, ms, plain_ms, bound
 
 
+def morton_profile(pts, label):
+    """K2's point order split into its pieces at ``pts``' shape: one
+    ``morton_order`` call under torch.profiler (device ms of each activity,
+    host self time), then CUDA-event ms of the whole call, of
+    ``torch.aminmax`` alone and of a stable ``torch.sort`` of the int32
+    codes alone (the pieces of the plain order). Below the one-launch
+    cutoff the order must be the profiler's only device activity."""
+    import torch
+
+    from sdflib_tpu_torch.ops import nearest
+
+    dev_ms = dict.fromkeys(("morton_order_kernel", "morton_box_kernel", "morton_codes_kernel"))
+    ev_ms, busy_ms, acts = breakdown(lambda: nearest.morton_order(pts), f"Morton order, {label}",
+                                     top=8, device_ms=dev_ms)
+    lo, hi = torch.aminmax(pts, dim=0)
+    codes = nearest.morton_codes_plain(pts, lo, hi)
+    aminmax_ms = _cuda_ms(lambda: torch.aminmax(pts, dim=0))
+    sort_ms = _cuda_ms(lambda: torch.sort(codes, stable=True))
+    print(f"Morton order pieces ({label}, P={pts.shape[0]}): the order {ev_ms:.4f} ms (CUDA "
+          f"events), device busy {busy_ms:.4f} ms in {acts} activities ("
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items() if v)
+          + f"); alone: aminmax {aminmax_ms:.4f} ms, the stable sort of the int32 codes "
+          f"{sort_ms:.4f} ms")
+    if pts.shape[0] <= nearest.morton_order_max(pts.device):
+        _check(acts == 1 and dev_ms["morton_order_kernel"] > 0,
+               f"the order made {acts} device activities a call ({label}): one kernel, no "
+               f"aminmax or sort")
+
+
+def morton_profile_alone(n: int, seed: int) -> None:
+    """``morton_profile`` of ``n`` uniform points (``seed``) in the d7
+    torus's box, in a process of its own: the full smoke starts one a
+    shape. On an H100 the profiler recorded no device activity for the
+    order's launch inside the full smoke, nor in a child's second profiled
+    call (as for K4's launches, ``approx_profile``); a fresh process's
+    first recorded it each time."""
+    import torch
+
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    dev = torch.device("cuda", 0)
+    box = make_torus(R=0.3, r=0.12, nu=420, nv=120).bounding_box.add_margin(0.14)
+    morton_profile(_uniform(box, n, seed, dev), f"{n} points, a process of its own")
+
+
+# Profiler sessions a breakdown takes at most (see ``breakdown``).
+PROFILE_TRIES = 3
 # Host-side profiler events that wait for the device (a tensor read as a
 # Python number, a nonzero's size) and that launch a CUDA graph.
 SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::nonzero")
@@ -406,18 +488,25 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None):
     busy ms, device activities a call). ``counts``, a dict of event
     names, receives each name's calls a call (summed over the names of a
     tuple key); ``device_ms``, a dict of name parts, the device ms a call
-    of the activities whose names hold each part."""
+    of the activities whose names hold each part. On an H100 a profiler
+    session now and then records no device activity at all, torch's own
+    kernels included: such a session is profiled again, up to
+    ``PROFILE_TRIES`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ev_ms = _cuda_ms(fn)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
+        if on_dev:
+            break
+        print(f"breakdown, {label}: the profiler session recorded no device activity")
     dev_us = {e.key: e.self_device_time_total / 3 for e in on_dev}
     host_ms = sum(e.self_cpu_time_total for e in avgs
                   if e.device_type == DeviceType.CPU) / 3e3
@@ -604,6 +693,68 @@ def _row_bytes(sdf, grid, cells) -> int:
     return cells.numel() * 8 + rows * nc * 4
 
 
+BEAM_MARKS = (8, 16, 32, 64, 128, 255)
+
+
+def beam_histogram(sdf, origins, dirs, kw):
+    """K6's trip histogram on the frame's beams: the plain beam run one
+    trip at a time from the frame's setup, the beams still live after
+    each of ``BEAM_MARKS`` trips; then K6 from the same start with
+    budgets of 16, 64 and 256 trips in one launch, timed (CUDA events
+    around a call, and its device time from graph replays, ``_graph_ms``)."""
+    import importlib
+
+    import torch
+
+    from sdflib_tpu_torch.ops import march as om
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    R = origins.shape[0] * origins.shape[1]
+    frame = st._Frame(sdf, origins.shape, R, R, R, beam=4, graphs=False, **kw)
+    frame.o_in.copy_(origins.reshape(-1, 3))
+    frame.d_in.copy_(dirs.reshape(-1, 3))
+    frame.live_in.fill_(1.0)
+    frame._setup()
+    grid = sdf._leaf_grid(False)
+    bufs = [frame.b_pos, frame.b_acc, frame.b_active]
+    consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
+    start = [b.clone() for b in bufs]
+    live, useful, longest = {}, 0, 0
+    for t in range(1, st._BEAM_ITERS + 1):     # trip t of every beam live before it
+        n_live = int((bufs[2] > 0).sum())
+        if not n_live:
+            break
+        useful, longest = useful + n_live, t
+        om.beam_segment_plain(grid, *bufs, *consts, 1)
+        if t in BEAM_MARKS:
+            live[t] = int((bufs[2] > 0).sum())
+    live.update({t: 0 for t in BEAM_MARKS if t not in live})
+
+    def restore():
+        for b, x in zip(bufs, start):
+            b.copy_(x)
+
+    budgets = {}
+    restore_ms = _graph_ms(restore)
+    for k in (16, 64, 256):
+        def launch():
+            om.beam_segment(grid, *bufs, *consts, k)
+        budgets[k] = (_cuda_ms_prep(restore, launch),
+                      _graph_ms(lambda: (restore(), launch())) - restore_ms)
+    restore()
+    n = bufs[0].shape[0]
+    past = max(min(longest, 64) - 16, 1)
+    print(f"K6 trip histogram ({n} beams, the plain beam trip by trip): live after "
+          + ", ".join(f"{t} trips {k}" for t, k in live.items())
+          + f"; {useful} useful trips ({useful / n:.2f} a beam), the longest beam {longest} "
+          f"trips; K6 in one launch with a budget of "
+          + ", ".join(f"{k} trips {ms:.4f} ms (device {dev:.4f})"
+                      for k, (ms, dev) in budgets.items())
+          + f"; the tail, (64-trip - 16-trip device ms) / the longest beam's {past} trips "
+          f"past 16: {(budgets[64][1] - budgets[16][1]) / past * 1e3:.4f} us a trip")
+    del frame
+
+
 def segments_vs_plain(sdf, origins, dirs, kw):
     """K6 and K5 against their plain versions in the frame's forms, on the
     tracer's rows (the thin grid and the words): the whole beam prepass
@@ -680,9 +831,9 @@ def segments_vs_plain(sdf, origins, dirs, kw):
         segment(grid, *bufs, *consts, trips)
         return d_err, ms, plain_ms, bound
 
-    def forms(name, bufs, fns):
+    def forms(name, bufs, fns, device=False):
         """Each form from the same start state: bit-equal to the first, and
-        timed."""
+        timed (with ``device``, also its device ms from graph replays)."""
         start = [b.clone() for b in bufs]
         restore = restorer(bufs, start)
         first, times = None, {}
@@ -694,9 +845,13 @@ def segments_vs_plain(sdf, origins, dirs, kw):
             _check(all(torch.equal(a, b) for a, b in zip(end, first)),
                    f"{name}: the form '{label}' departs from '{next(iter(fns))}'")
             times[label] = _cuda_ms_prep(restore, fn)
+            if device:
+                times[label] = (times[label], _graph_ms(lambda: (restore(), fn()))
+                                - _graph_ms(restore))
         restore()
-        print(f"{name} forms from one start, bit-equal: "
-              + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()))
+        print(f"{name} forms from one start, bit-equal: " + ", ".join(
+            f"{k} {t:.4f} ms" if not device else f"{k} {t[0]:.4f} ms (device {t[1]:.4f})"
+            for k, t in times.items()))
         return times
 
     beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
@@ -705,7 +860,7 @@ def segments_vs_plain(sdf, origins, dirs, kw):
         "one launch": lambda: om.beam_segment(grid, *beam_bufs, *beam_consts, st._BEAM_ITERS),
         "16-trip launches": lambda: [om.beam_segment(grid, *beam_bufs, *beam_consts, 16)
                                      for _ in range(0, st._BEAM_ITERS, 16)],
-    })
+    }, device=True)
     out = {"beam": run("beam", om.beam_segment, om.beam_segment_plain, beam_bufs, beam_consts,
                        st._BEAM_ITERS, BEAM_STATE_BYTES, FLOPS_BEAM_TRIP)}
     frame._start()
@@ -1084,9 +1239,15 @@ def trace_path(dev, n_rays: int):
     # neighbouring rows
     at = res.position.reshape(-1, 3).contiguous()
     shade = sdf._leaf_grid(False)
+    _, in_box, lin = oq._grid_cells(at, shade.box_min, shade.box_size3, shade.depth)
+    normals_bound = _bound(R * (12 + 16) + _row_bytes(sdf, shade, lin[in_box]),
+                           R * FLOPS_K4_GRAD)
+    normals_plain_ms = _cuda_ms(lambda: oq.grid_query_plain(shade, at, True))
     print("K4 with the gradient at the frame's 1024^2 end positions (the normals): "
           + ", ".join(f"{g} lanes a row {_cuda_ms(lambda: oq.grid_query(shade, at, True, group=g)):.4f} ms"
-                      for g in oq.GROUPS))
+                      for g in oq.GROUPS)
+          + f"; plain {normals_plain_ms:.4f} ms; bound {normals_bound[0]:.4f} ms "
+          f"({normals_bound[1]})")
 
     # the kernel frame (K4-K6) against the frame with the plain step pinned
     # (eager: its torch trips check for live rays, a host sync, every 16
@@ -1179,6 +1340,7 @@ def trace_path(dev, n_rays: int):
                    f"the profiler saw {counts[SYNC_EVENTS]} host syncs and "
                    f"{counts[GRAPH_LAUNCH_EVENTS]} graph launches a frame")
         device_timeline(frame, f"trace d6 {n_rays}^2 rays, {way}")
+    beam_histogram(sdf, origins, dirs, kw)
     segments = segments_vs_plain(sdf, origins, dirs, kw)
     print(f"trace frames: graphs {frame_ms['graphs']:.4f} ms against dynamic "
           f"{frame_ms['dynamic']:.4f} ms ({frame_ms['dynamic'] / frame_ms['graphs']:.2f}x); "
@@ -2740,7 +2902,8 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     report = build.ptxas_report()
-    for short in ("nearest_kernel", "merge_kernel", "morton_kernel", "scan_window_kernel",
+    for short in ("nearest_kernel", "merge_kernel", "morton_order_kernel", "morton_box_kernel",
+                  "morton_codes_kernel", "scan_window_kernel",
                   "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel",
                   "octree_query_kernel", "march_kernel", "beam_kernel"):
         lines = [(_instance(k), v) for k, v in report.items() if short in k]
@@ -2852,19 +3015,25 @@ def main() -> None:
         return res, plain_ms, bound
 
     def morton_vs_plain(pts, label):
-        """K2's Morton-code kernel against its plain version (codes
-        equal), then both timed. (max |code diff|, kernel ms, plain ms,
-        bound)."""
-        lo, hi = (t.contiguous() for t in torch.aminmax(pts, dim=0))
-        ck = nearest.morton_codes(pts, lo, hi)
-        cp = nearest.morton_codes_plain(pts, lo, hi)
-        _check(torch.equal(ck, cp), f"Morton codes differ from the plain version's ({label})")
-        ms = _cuda_ms(lambda: nearest.morton_codes(pts, lo, hi))
-        plain_ms = _cuda_ms(lambda: nearest.morton_codes_plain(pts, lo, hi))
-        P = pts.shape[0]
-        bound = _bound(P * 12 + 24 + P * 4, P * 9)
-        print(f"K2 Morton codes vs plain ({label}): equal; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (P={P}); bound {bound[0]:.6f} ms ({bound[1]})")
+        """K2's point order against its plain version (bit-equal), in one
+        launch up to the cutoff (counted), else the box and code kernels
+        and the sort; then both timed. (max |order diff|, kernel ms, plain
+        ms, bound)."""
+        P, cut = pts.shape[0], nearest.morton_order_max(dev)
+        before = nearest.morton_launch_count
+        got = nearest.morton_order(pts)
+        torch.cuda.synchronize()
+        launched = nearest.morton_launch_count - before
+        _check(launched == (1 if P <= cut else 2),
+               f"K2's point order took {launched} launches at {P} points (cutoff {cut})")
+        _check(torch.equal(got, nearest.morton_order_plain(pts)),
+               f"K2's point order differs from the plain order ({label})")
+        ms = _cuda_ms(lambda: nearest.morton_order(pts))
+        plain_ms = _cuda_ms(lambda: nearest.morton_order_plain(pts))
+        bound = _bound(P * 12 + P * 8, P * 9)
+        print(f"K2 Morton order vs plain ({label}, P={P}, one-launch cutoff {cut}): bit-equal; "
+              f"{launched} launch(es); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound[0]:.6f} ms ({bound[1]})")
         return 0.0, ms, plain_ms, bound
 
     def window_stats(sdf, pts):
@@ -3093,6 +3262,25 @@ def main() -> None:
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2_err7)
     m_err, m_ms, m_plain_ms, m_bound = morton_vs_plain(bopts, "d7 oracle")
     kernels["nearest_morton"] = dict(err=m_err, ms=m_ms, plain_ms=m_plain_ms, bound=m_bound)
+    morton_vs_plain(uniform(big_box, 262_144, 3), "mesh_preview's 262,144 points")
+    cut = nearest.morton_order_max(dev)
+    for n in (cut, cut + 1):
+        edge = uniform(big_box, n, 4)
+        edge[n // 2, 0] = float("nan")
+        edge[:, 2] = 0.0
+        _check(torch.equal(nearest.morton_order(edge), nearest.morton_order_plain(edge)),
+               f"K2's point order differs from the plain order at {n} points, a NaN and a "
+               f"flat axis among them")
+    print(f"K2's point order at the cutoff {cut} and one past it, a NaN and a flat axis among "
+          f"the points: bit-equal to the plain order")
+    for n, seed in ((10_000, 7), (262_144, 3)):      # bopts and the 262,144 above
+        profiled = subprocess.run([sys.executable, "-c", "import sys, chip_smoke as cs; "
+                                   "cs.morton_profile_alone(*map(int, sys.argv[1:]))",
+                                   str(n), str(seed)],
+                                  cwd=root, capture_output=True, text=True, timeout=600)
+        print(profiled.stdout, end="")
+        _check(profiled.returncode == 0,
+               f"the order's profiler process failed:\n{profiled.stderr[-4000:]}")
     for name in ("nearest", "nearest_morton", "scan_grouped"):
         _check(launches["d7"][name] > 0, f"{name} was not launched on path B")
     row = []

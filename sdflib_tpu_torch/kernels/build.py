@@ -9,6 +9,7 @@ rebuilds, an unchanged one loads the existing file, and ptxas's report
 of each kernel's registers and spills lies beside it (``ptxas_report``).
 Each entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
+``launch`` calls one on the current stream of a tensor's card and
 ``check`` turns a non-zero code into an exception. The wrappers count
 their launches through ``count_launch``.
 
@@ -23,9 +24,13 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 
-__all__ = ["library", "library_path", "check", "count_launch", "ptxas_report", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["library", "library_path", "launch", "check", "count_launch", "sm_count",
+           "ptxas_report", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -47,8 +52,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # min_border
 _GRID = [_P, _I, _P, _I, _I, _I, _P, _P, _F]
 _SIGNATURES = {
-    # (points, P, lo, hi, codes, stream)
-    "sdf_nearest_morton": [_P, _I, _P, _P, _P, _P],
+    # () -> the most points of the one-launch Morton order on the current card
+    "sdf_morton_order_max": [],
+    # (points, P, order, stream)
+    "sdf_morton_order": [_P, _I, _P, _P],
+    # (points, P, box scratch, codes, stream)
+    "sdf_morton_codes": [_P, _I, _P, _P, _P],
     # (points, order, P, fields, T, S, scratch, best, idx, stream)
     "sdf_nearest_triangle": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     # (bucket_ids, bucket_fields, num_rows, points, b0, nc, num_windows,
@@ -150,6 +159,8 @@ def library() -> ctypes.CDLL:
     no build of the current sources exists yet. Threads that make the
     first call together wait for one build."""
     global _lib, _so
+    if _lib is not None:
+        return _lib
     with _LIB_LOCK:
         if _lib is None:
             so = _compile()
@@ -174,6 +185,30 @@ def ptxas_report() -> dict[str, str]:
         elif name is not None and ("spill" in line or "Used" in line):
             report[name] = (report.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return report
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the library's entry point ``name`` with ``args`` and the
+    current stream of the CUDA ``device`` (read at every call: a CUDA
+    graph's capture replaces it), and raise if it returns an error. The
+    call enters ``device`` only when it is not the current card, where the
+    launch would find the stream of another card."""
+    fn = getattr(library(), name)
+    current = torch.cuda.current_device()
+    idx = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == current:
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            code = fn(*args, stream)
+    check(code, name)
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA card (read once a card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(code: int, what: str) -> None:

@@ -277,14 +277,9 @@ def march_segment(grid: LeafGrid, pos, acc, last_d, active, its, dirs, eps: floa
         return march_segment_plain(grid, pos, acc, last_d, active, its, dirs, eps, far, trips)
     if n == 0 or trips <= 0:
         return 0
-    lib = build.library()
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_march(*grid_args(grid), pos.data_ptr(), acc.data_ptr(),
-                             last_d.data_ptr(), active.data_ptr(), its.data_ptr(),
-                             dirs.data_ptr(), n, float(np.float32(eps)),
-                             float(np.float32(far)), int(trips), stream)
-    build.check(code, "sdf_march")
+    build.launch("sdf_march", pos.device, *grid_args(grid), pos.data_ptr(), acc.data_ptr(),
+                 last_d.data_ptr(), active.data_ptr(), its.data_ptr(), dirs.data_ptr(), n,
+                 float(np.float32(eps)), float(np.float32(far)), int(trips))
     build.count_launch(globals(), "launch_count")
     return 0
 
@@ -301,13 +296,9 @@ def beam_segment(grid: LeafGrid, pos, acc, active, dirs, r0, rd, margin: float,
         return beam_segment_plain(grid, pos, acc, active, dirs, r0, rd, margin, far, trips)
     if n == 0 or trips <= 0:
         return 0
-    lib = build.library()
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_beam(*grid_args(grid), pos.data_ptr(), acc.data_ptr(),
-                            active.data_ptr(), dirs.data_ptr(), r0.data_ptr(), rd.data_ptr(),
-                            n, float(np.float32(margin)), float(np.float32(0.5 * margin)),
-                            float(np.float32(far)), int(trips), stream)
-    build.check(code, "sdf_beam")
+    build.launch("sdf_beam", pos.device, *grid_args(grid), pos.data_ptr(), acc.data_ptr(),
+                 active.data_ptr(), dirs.data_ptr(), r0.data_ptr(), rd.data_ptr(), n,
+                 float(np.float32(margin)), float(np.float32(0.5 * margin)),
+                 float(np.float32(far)), int(trips))
     build.count_launch(globals(), "beam_launch_count")
     return 0

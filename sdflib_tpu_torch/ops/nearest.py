@@ -5,13 +5,17 @@ CUDA tensors (it replaces sdflib_tpu/ops/pallas_kernels.py:
 _nearest_kernel) and takes ``nearest_triangle_plain``, the plain torch
 version with the semantics of the JAX package's ``nearest_triangle``,
 for CPU tensors. From ``MORTON_PAIRS`` point-triangle pairs on, the
-kernel takes the points in Morton order (``morton_order``, whose codes
-come from the kernel ``morton_codes``); results come back in the
-caller's order. ``launch_count`` counts launches of the nearest-triangle
-kernel, ``morton_launch_count`` those of the Morton-code kernel;
-``last_grid`` holds the (point tiles, triangle slices) of the last launch.
+kernel takes the points in Morton order (``morton_order``: one kernel
+launch up to ``morton_order_max(device)`` points, else the box and code
+kernels and a stable sort; ``morton_order_plain`` on CPU tensors);
+results come back in the caller's order. ``launch_count`` counts
+launches of the nearest-triangle kernel, ``morton_launch_count`` those of
+the point order's kernels; ``last_grid`` holds the (point tiles,
+triangle slices) of the last launch.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -19,19 +23,20 @@ from ..kernels import build
 from .point_triangle import NUM_PACKED_FIELDS, sq_dist_from_field_fn
 
 __all__ = [
-    "nearest_triangle", "nearest_triangle_plain", "morton_codes", "morton_codes_plain",
-    "morton_order", "launch_count", "morton_launch_count",
+    "nearest_triangle", "nearest_triangle_plain", "morton_codes_plain", "morton_order",
+    "morton_order_plain", "morton_order_max", "launch_count", "morton_launch_count",
 ]
 
 POINT_TILE = 1024   # points a CTA of the kernel owns (256 threads x 4)
 TRI_TILE = 64       # triangles a staged tile; slices are runs of whole tiles
 CTAS_PER_SM = 4     # the grid a split aims for, in CTAs per SM
 # P * T from which the points are put in Morton order (chip_smoke.py times
-# both orders at each of its K2 shapes). On an H100 80GB HBM3 at 700 W the
-# order as given was faster at 4k x 9,216 (0.1864 against 0.3121 ms, sort
-# included) and 10k x 9,216 (0.3125 against 0.4356 ms; the sort alone
-# 0.10-0.13 ms at both), Morton order at 10k x 100,800 (2.7333 against
-# 3.3449 ms) and 2^20 x 9,216 (18.4481 against 25.5961 ms).
+# both orders at each of its K2 shapes). On an H100 80GB HBM3 at 700 W with
+# the one-launch order the order as given was still faster at 4k x
+# 9,216 (0.1671 against 0.2080 ms, the order included) and 10k x 9,216
+# (0.3099 against 0.3427 ms; the order alone 0.0462 and 0.0654 ms), Morton
+# order at 10k x 100,800 (2.6205 against 3.3412 ms) and 2^20 x 9,216
+# (18.1450 against 25.2361 ms), so the threshold stays between them.
 MORTON_PAIRS = 1 << 27
 launch_count = 0
 morton_launch_count = 0
@@ -113,33 +118,55 @@ def morton_codes_plain(pts, lo, hi):
     return (cell[:, 0] | (cell[:, 1] << 1) | (cell[:, 2] << 2)).to(torch.int32)
 
 
-def morton_codes(pts, lo, hi):
-    """``morton_codes_plain`` of contiguous f32 points and (3,) f32 box
-    corners: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    for t, shape in ((pts, (pts.shape[0], 3)), (lo, (3,)), (hi, (3,))):
-        if t.shape != shape or t.dtype != torch.float32 or t.device != pts.device:
-            raise ValueError(f"expected f32 {shape} on {pts.device}")
-    if pts.device.type == "cpu":
-        return morton_codes_plain(pts, lo, hi)
-    codes = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
-    lib = build.library()
-    with torch.cuda.device(pts.device):
-        code = lib.sdf_nearest_morton(
-            pts.data_ptr(), pts.shape[0], lo.data_ptr(), hi.data_ptr(),
-            codes.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(code, "sdf_nearest_morton")
-    build.count_launch(globals(), "morton_launch_count")
-    return codes
+def morton_order_plain(pts):
+    """(P,) int64: a stable sort of the (P, 3) f32 points' Morton codes over
+    their own box (``torch.aminmax``, which keeps a NaN: a NaN coordinate
+    sends every point of its axis to cell 0, as a flat axis does), so that
+    a warp's points lie close together and mostly take the same branch of
+    the region ladder. Stable, so the order is a function of the points."""
+    if pts.shape[0] == 0:
+        return torch.empty(0, dtype=torch.int64, device=pts.device)
+    lo, hi = torch.aminmax(pts, dim=0)
+    return torch.sort(morton_codes_plain(pts, lo, hi), stable=True).indices
+
+
+@lru_cache(maxsize=None)
+def morton_order_max(device: torch.device) -> int:
+    """The most points whose order the kernel makes in one launch on the
+    CUDA ``device`` (what its shared memory holds; read once a card)."""
+    with torch.cuda.device(device):
+        most = build.library().sdf_morton_order_max()
+    if most <= 0:
+        raise RuntimeError(f"sdf_morton_order_max failed on {device}")
+    return most
 
 
 def morton_order(pts):
-    """(P,) int64: the points in Morton order over their own box, so that
-    a warp's points lie close together and mostly take the same branch of
-    the region ladder."""
-    lo, hi = torch.aminmax(pts, dim=0)
-    return torch.sort(morton_codes(pts, lo.contiguous(), hi.contiguous())).indices
+    """``morton_order_plain`` of contiguous (P, 3) f32 points: on a CUDA
+    tensor one kernel launch up to ``morton_order_max`` points (box, codes
+    and a stable radix sort in one CTA), else the box and code kernels and
+    ``torch.sort(stable=True)`` of the int32 codes; the plain version on a
+    CPU tensor."""
+    if (pts.ndim != 2 or pts.shape[1] != 3 or pts.dtype != torch.float32
+            or not pts.is_contiguous()):
+        raise ValueError(f"expected contiguous f32 (P, 3) points, got {tuple(pts.shape)}")
+    if pts.device.type == "cpu":
+        return morton_order_plain(pts)
+    P = pts.shape[0]
+    if P == 0:
+        return torch.empty(0, dtype=torch.int64, device=pts.device)
+    if P <= morton_order_max(pts.device):
+        order = torch.empty(P, dtype=torch.int64, device=pts.device)
+        build.launch("sdf_morton_order", pts.device, pts.data_ptr(), P, order.data_ptr())
+        build.count_launch(globals(), "morton_launch_count")
+        return order
+    codes = torch.empty(P, dtype=torch.int32, device=pts.device)
+    box = torch.empty(7, dtype=torch.int32, device=pts.device)
+    build.launch("sdf_morton_codes", pts.device, pts.data_ptr(), P, box.data_ptr(),
+                 codes.data_ptr())
+    build.count_launch(globals(), "morton_launch_count")   # the box kernel
+    build.count_launch(globals(), "morton_launch_count")   # the code kernel
+    return torch.sort(codes, stable=True).indices
 
 
 def _launch(pts, fld, order):
@@ -152,20 +179,14 @@ def _launch(pts, fld, order):
     idx = torch.empty(P, dtype=torch.int32, device=pts.device)
     if P == 0:
         return best, idx
-    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
-    grid = _split(P, T, sms)
+    grid = _split(P, T, build.sm_count(pts.device))
     S = grid[1]
     # the slices' minima, then their ids as int32 bits; filled by the kernel
     scratch = torch.empty(2 * S * P if S > 1 else 0, dtype=torch.float32,
                           device=pts.device)
-    lib = build.library()
-    with torch.cuda.device(pts.device):
-        code = lib.sdf_nearest_triangle(
-            pts.data_ptr(), None if order is None else order.data_ptr(), P,
-            fld.data_ptr(), T, S, scratch.data_ptr() if S > 1 else None,
-            best.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(code, "sdf_nearest_triangle")
+    build.launch("sdf_nearest_triangle", pts.device, pts.data_ptr(),
+                 None if order is None else order.data_ptr(), P, fld.data_ptr(), T, S,
+                 scratch.data_ptr() if S > 1 else None, best.data_ptr(), idx.data_ptr())
     build.count_launch(globals(), "launch_count")
     last_grid = grid
     return best, idx

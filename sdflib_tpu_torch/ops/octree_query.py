@@ -198,11 +198,7 @@ def grid_query(grid: LeafGrid, points, with_gradient: bool, out=None, group: int
         d = torch.empty(n, dtype=torch.float32, device=points.device)
         g = torch.empty((n, 3), dtype=torch.float32, device=points.device) if with_gradient else None
     if n:
-        lib = build.library()
-        with torch.cuda.device(points.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.sdf_octree_query(*grid_args(grid), points.data_ptr(), n, d.data_ptr(),
-                                        g.data_ptr() if with_gradient else None, group, stream)
-        build.check(code, "sdf_octree_query")
+        build.launch("sdf_octree_query", points.device, *grid_args(grid), points.data_ptr(), n,
+                     d.data_ptr(), g.data_ptr() if with_gradient else None, group)
         build.count_launch(globals(), "launch_count")
     return (d, g) if with_gradient else d

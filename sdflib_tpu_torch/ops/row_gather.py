@@ -65,14 +65,8 @@ def row_min_block(table, rows):
         return row_min_plain(table, rows)
     table, rows = table.contiguous(), rows.contiguous()
     out = torch.empty(rows.shape[0], dtype=torch.float32, device=table.device)
-    lib = build.library()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_row_min_block(
-            table.data_ptr(), table.shape[0], table.shape[1], rows.data_ptr(),
-            rows.shape[0], out.data_ptr(), stream,
-        )
-    build.check(code, "sdf_row_min_block")
+    build.launch("sdf_row_min_block", table.device, table.data_ptr(), table.shape[0],
+                 table.shape[1], rows.data_ptr(), rows.shape[0], out.data_ptr())
     build.count_launch(globals(), "block_launch_count")
     return out
 
@@ -85,17 +79,11 @@ def row_min_tile(table, rows, *, tile: int = 512):
     if not _check(table, rows):
         return row_min_plain(table, rows)
     table, rows = table.contiguous(), rows.contiguous()
-    lib = build.library()
-    if lib.sdf_row_min_tile_smem(table.shape[1]) > _MAX_SMEM:
+    if build.library().sdf_row_min_tile_smem(table.shape[1]) > _MAX_SMEM:
         raise ValueError(f"rows of {table.shape[1]} floats overflow the tile ring")
     out = torch.empty(rows.shape[0], dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_row_min_tile(
-            table.data_ptr(), table.shape[0], table.shape[1], rows.data_ptr(),
-            rows.shape[0], tile, out.data_ptr(), stream,
-        )
-    build.check(code, "sdf_row_min_tile")
+    build.launch("sdf_row_min_tile", table.device, table.data_ptr(), table.shape[0],
+                 table.shape[1], rows.data_ptr(), rows.shape[0], tile, out.data_ptr())
     build.count_launch(globals(), "tile_launch_count")
     return out
 

@@ -138,15 +138,9 @@ def scan_window(bucket_ids, bucket_fields, points, b0, nc, *, G: int = WINDOW):
         raise ValueError("the kernel takes windows of 32 points and 64-slot rows")
     args = [t.contiguous() for t in (bucket_ids, bucket_fields, points, b0, nc)]
     win = torch.empty((P // G, G), dtype=torch.int32, device=points.device)
-    lib = build.library()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_scan_window(
-            args[0].data_ptr(), args[1].data_ptr(), NB, args[2].data_ptr(),
-            args[3].data_ptr(), args[4].data_ptr(), P // G, win.data_ptr(),
-            stream,
-        )
-    build.check(code, "sdf_scan_window")
+    build.launch("sdf_scan_window", points.device, args[0].data_ptr(), args[1].data_ptr(), NB,
+                 args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(), P // G,
+                 win.data_ptr())
     build.count_launch(globals(), "launch_count")
     return win
 
@@ -291,14 +285,8 @@ def scan_grouped(bucket_ids, bucket_fields, points, point_leaf, group_start,
     args = [t.contiguous() for t in (bucket_ids, bucket_fields, points, point_leaf,
                                      group_start, leaf_row0, leaf_nrows)]
     win = torch.empty(P, dtype=torch.int32, device=points.device)
-    lib = build.library()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdf_scan_grouped(
-            args[0].data_ptr(), args[1].data_ptr(), NB, args[2].data_ptr(),
-            args[3].data_ptr(), args[4].data_ptr(), NG, args[5].data_ptr(),
-            args[6].data_ptr(), win.data_ptr(), stream,
-        )
-    build.check(code, "sdf_scan_grouped")
+    build.launch("sdf_scan_grouped", points.device, args[0].data_ptr(), args[1].data_ptr(), NB,
+                 args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(), NG,
+                 args[5].data_ptr(), args[6].data_ptr(), win.data_ptr())
     build.count_launch(globals(), "grouped_launch_count")
     return win

@@ -1,7 +1,9 @@
 """K2 (nearest triangle): the plain version against the JAX package's
 ``nearest_triangle`` and its Pallas kernel in interpret mode, the grid
-split of the kernel, and, on a CUDA device, the kernel against the plain
-version.
+split of the kernel, K2's point order (the plain order is a stable sort
+of the Morton codes over the points' own box; K2's results do not depend
+on the order), and, on a CUDA device, the kernel and the order's kernels
+against their plain versions.
 
 Between the packages squared distances agree within rtol 1e-5 / atol
 1e-7 (fp32 rounding order); indices may differ only on last-ulp ties,
@@ -248,7 +250,7 @@ def test_morton_codes_plain_interleave_the_cells():
     lo, hi = pts.min(0), pts.max(0)
     pts[:3] = [lo, hi, [np.nan, 2.0, -2.0]]
     t = torch.as_tensor
-    codes = nearest.morton_codes(t(pts), t(lo), t(hi))
+    codes = nearest.morton_codes_plain(t(pts), t(lo), t(hi))
     assert codes.dtype == torch.int32
     scaled = (pts - lo) / (hi - lo) * np.float32(1023.0)
     cells = np.clip(np.nan_to_num(scaled, nan=0.0), 0, 1023).astype(np.int64)
@@ -261,15 +263,132 @@ def test_morton_codes_plain_interleave_the_cells():
     assert float(step) < 0.25 * float((q[1:] - q[:-1]).norm(dim=1).mean())
 
 
+def test_morton_order_plain_is_a_stable_sort_of_the_codes():
+    """The plain order: a permutation that sorts the codes over the points'
+    own box, equal codes in index order (many points share a cell)."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.6, 0.6, (3000, 3)).astype(np.float32)
+    pts[1000:2000] = pts[rng.integers(0, 1000, 1000)]        # repeated cells
+    t = torch.as_tensor(pts)
+    order = nearest.morton_order_plain(t)
+    assert order.dtype == torch.int64
+    assert torch.equal(order.sort().values, torch.arange(3000))
+    codes = nearest.morton_codes_plain(t, *(torch.as_tensor(v) for v in (pts.min(0), pts.max(0))))
+    key = codes[order].long() * 3000 + order       # ascending code, then ascending id
+    assert bool((key[1:] > key[:-1]).all())
+    assert torch.equal(order, torch.as_tensor(np.argsort(codes.numpy(), kind="stable")))
+
+
+def test_morton_order_plain_nan_and_flat_axes_go_to_cell_zero():
+    """aminmax keeps a NaN: a NaN coordinate makes its axis's box NaN and
+    sends every point of that axis to cell 0, as a flat axis (0 / 0)
+    does; the order then sorts by the other axes alone."""
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(-0.6, 0.6, (500, 3)).astype(np.float32)
+    pts[:, 2] = 0.25                                  # flat z
+    pts[7, 1] = np.nan                                # y's box NaN
+    t = torch.as_tensor(pts)
+    lo, hi = torch.aminmax(t, dim=0)
+    assert bool(lo[1].isnan()) and bool(hi[1].isnan())
+    codes = nearest.morton_codes_plain(t, lo, hi)
+    cells_x = np.clip((pts[:, 0] - pts[:, 0].min()) / np.float32(pts[:, 0].max() - pts[:, 0].min())
+                      * np.float32(1023.0), 0, 1023).astype(np.int64)
+    np.testing.assert_array_equal(codes.numpy(), _interleave(
+        np.stack([cells_x, np.zeros_like(cells_x), np.zeros_like(cells_x)], 1)))
+    order = nearest.morton_order_plain(t)
+    assert torch.equal(order, torch.as_tensor(np.argsort(cells_x, kind="stable")))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_morton_order_of_few_points(n):
+    """0 points: an empty order (aminmax has no identity); 1 point: a flat
+    box, cell 0; 2 points: the corners of their own box, in code order."""
+    pts = torch.as_tensor(np.array([[0.5, 0.5, 0.5], [-0.5, -0.5, -0.5]], np.float32)[:n])
+    order = nearest.morton_order(pts)
+    assert order.dtype == torch.int64 and order.shape == (n,)
+    assert order.tolist() == {0: [], 1: [0], 2: [1, 0]}[n]
+
+
+def test_cpu_points_take_the_plain_order_and_launch_nothing(monkeypatch):
+    from sdflib_tpu_torch.kernels import build
+
+    def no_build():
+        raise AssertionError("a CPU call built the kernels")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(nearest, "morton_launch_count", 0)
+    monkeypatch.setattr(nearest, "launch_count", 0)
+    monkeypatch.setattr(nearest, "MORTON_PAIRS", 0)
+    pts = torch.as_tensor(np.random.default_rng(13).uniform(-0.6, 0.6, (700, 3))
+                          .astype(np.float32))
+    assert torch.equal(nearest.morton_order(pts), nearest.morton_order_plain(pts))
+    _, _, fields = _tris(make_torus(R=0.3, r=0.1, nu=7, nv=5))
+    nearest.nearest_triangle(pts, fields)
+    assert nearest.morton_launch_count == nearest.launch_count == 0
+    with pytest.raises(ValueError):
+        nearest.morton_order(pts.double())
+    with pytest.raises(ValueError):
+        nearest.morton_order(pts[:, :2].contiguous())
+
+
+@pytest.mark.parametrize("order_name", ["given", "morton", "reversed", "random"])
+def test_results_do_not_depend_on_the_point_order(jx, order_name):
+    """K2's results are each point's own: the points taken in any order
+    and put back give the same bits, within the JAX package's
+    ``nearest_triangle`` as the unpermuted batch is."""
+    soa, tris, fields = _tris(make_torus(R=0.3, r=0.12, nu=20, nv=12))
+    pts = np.random.default_rng(14).uniform(-0.5, 0.5, (400, 3)).astype(np.float32)
+    tp = torch.as_tensor(pts)
+    order = {"given": torch.arange(400), "morton": nearest.morton_order_plain(tp),
+             "reversed": torch.arange(399, -1, -1),
+             "random": torch.as_tensor(np.random.default_rng(15).permutation(400))}[order_name]
+    b0, i0 = nearest.nearest_triangle(tp, fields)
+    bo, io = nearest.nearest_triangle(tp[order].contiguous(), fields)
+    b, i = torch.empty_like(bo), torch.empty_like(io)
+    b[order], i[order] = bo, io
+    assert torch.equal(b, b0) and torch.equal(i, i0)
+    b_j, i_j = jx.nearest(pts, jx.jax.tree.map(jx.jnp.asarray, soa))
+    _assert_same_nearest(tp, tris, b, i, b_j, i_j)
+
+
+def _order_points(n: int, device, seed: int = 4):
+    """``n`` uniform points with a NaN coordinate and a flat axis among
+    them (beyond 4 points)."""
+    pts = np.random.default_rng(seed).uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    if n > 4:
+        pts[n // 2, 0] = np.nan
+        pts[:, 2] = -0.125
+    return torch.as_tensor(pts, device=device)
+
+
 @pytest.mark.cuda
 def test_kernel_morton_codes_match_plain(cuda):
-    pts = torch.as_tensor(
-        np.random.default_rng(4).uniform(-0.6, 0.6, (5000, 3)).astype(np.float32),
-        device=cuda,
-    )
-    lo, hi = torch.aminmax(pts, dim=0)
+    """Above the one-launch size the box and code kernels (two launches)
+    and the stable sort give the plain order bit for bit, also where many
+    points share a code."""
+    n = nearest.morton_order_max(cuda) + 1
+    pts = _order_points(n, cuda, seed=5)
+    pts[: n // 2] = pts[n // 2 :][: n // 2].clone()
     before = nearest.morton_launch_count
-    codes = nearest.morton_codes(pts, lo.contiguous(), hi.contiguous())
+    order = nearest.morton_order(pts)
     torch.cuda.synchronize()
-    assert nearest.morton_launch_count == before + 1
-    assert torch.equal(codes, nearest.morton_codes_plain(pts, lo, hi))
+    assert nearest.morton_launch_count == before + 2
+    assert torch.equal(order, nearest.morton_order_plain(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 1023, 1024, 1025, 10_000, "max-1", "max", "max+1",
+                                  262_144])
+def test_kernel_morton_order_matches_plain(cuda, size):
+    """The order on the card equals the plain order bit for bit, with a NaN
+    and a flat axis among the points: one launch up to the cutoff, the box
+    and code kernels above it."""
+    cut = nearest.morton_order_max(cuda)
+    assert 10_000 <= cut <= 65_535
+    n = size if isinstance(size, int) else cut + {"max-1": -1, "max": 0, "max+1": 1}[size]
+    pts = _order_points(n, cuda)
+    before = nearest.morton_launch_count
+    order = nearest.morton_order(pts)
+    torch.cuda.synchronize()
+    assert nearest.morton_launch_count == before + (1 if n <= cut else 2)
+    assert torch.equal(order, nearest.morton_order_plain(pts))
