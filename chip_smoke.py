@@ -19,6 +19,17 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   sparse batches take, and again with the window scan pinned;
 * K1w against its plain version at d6 2^21 and 2^16 points, with its
   rows visited and active-lane share;
+* K7-K9, the exact query's finish, descent key and sorted gather
+  (``exact_kernels_vs_plain``), against their plain versions at d6 2^21
+  (window), d6 2^16 and d7 2^20 (grouped), every 61st point moved out of
+  the box and every 97th winner -1: K8's keys and K9's outputs equal,
+  K7's distances bit-equal with and without the gradient in both table
+  layouts, its gradients within 1e-6, each timed beside its plain
+  version and bound, the int32 sort beside an int64 one; the three
+  batches' ``get_distance`` beside the query with K7-K9's plain versions
+  (``_query(plain_glue=True)``, equal answers) and the all-plain query,
+  and each profiled (``exact_breakdown``: at most 40 device activities a
+  call, K7-K9, K1 and the sort by name);
 * K1g against its plain version at d6 2^16 and d7 2^20 points, with its
   work (groups holding points, rows fetched, the shares of slots with an
   id and of rows with a dead half), its bound and its fetch floor: its
@@ -269,6 +280,28 @@ BEAM_STATE_BYTES = 2 * 20 + 20
 # gradient writes 12 B more); the grid itself counts once per call.
 GRID_POINT_BYTES = 12 + 4
 GRID_GRAD_BYTES = GRID_POINT_BYTES + 12
+# K7-K9, the exact query's finish, key and sorted gather. K7: a point's
+# 12 B, winner 4 B and order 8 B in, its distance out (the gradient 12 B
+# more); each touched triangle's 37 fields once (the world vertices' 9 more
+# with the gradient). K8: the point in, its key out, each touched grid
+# cell's word once. Flops counted from csrc/exact_finish.cu and
+# exact_descend.cu: the box test 12, the frame 18, the ladder's tests and
+# the feature's terms ~40 (the normal ~30 more), K8's cell ~12.
+FINISH_POINT_BYTES = 12 + 4 + 8 + 4
+FINISH_GRAD_BYTES = FINISH_POINT_BYTES + 12
+FINISH_ROW_BYTES = 37 * 4
+FINISH_GRAD_ROW_BYTES = FINISH_ROW_BYTES + 9 * 4
+FLOPS_FINISH = 70
+FLOPS_FINISH_GRAD = 100
+FLOPS_DESCEND = 12
+# The most device activities a profiled exact query may take with K7-K9
+# (the descent, the int32 sort, the gather, the group assembly, K1, K7).
+EXACT_MAX_ACTIVITIES = 40
+# K7-K9's launch counters, and the names of the exact query's kernels in a
+# profile (the int32 sort's are torch's radix sort).
+EXACT_KERNELS = ("exact_descend", "exact_sorted_gather", "exact_finish")
+EXACT_PARTS = ("exact_descend_kernel", "exact_sorted_gather_kernel", "scan_window_kernel",
+               "scan_grouped_kernel", "exact_finish_kernel", "DeviceRadixSort")
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -356,21 +389,26 @@ def _sass_branches(so_path, short: str) -> str:
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    from sdflib_tpu_torch.ops import march, nearest, octree_query, row_gather, scan
+    from sdflib_tpu_torch.ops import exact_query, march, nearest, octree_query, row_gather, scan
 
     scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
     nearest.morton_launch_count = 0
     row_gather.block_launch_count = row_gather.tile_launch_count = 0
     octree_query.launch_count = march.launch_count = march.beam_launch_count = 0
+    exact_query.finish_launch_count = exact_query.descend_launch_count = 0
+    exact_query.gather_launch_count = 0
 
 
 def read_counts():
     """Every kernel wrapper's launch count, by kernel name. A frame's
     captured pieces count their kernels at the warm-up run and at the
     capture; replays launch them without the wrapper."""
-    from sdflib_tpu_torch.ops import march, nearest, octree_query, row_gather, scan
+    from sdflib_tpu_torch.ops import exact_query, march, nearest, octree_query, row_gather, scan
 
     return {
+        "exact_finish": exact_query.finish_launch_count,
+        "exact_descend": exact_query.descend_launch_count,
+        "exact_sorted_gather": exact_query.gather_launch_count,
         "nearest": nearest.launch_count,
         "nearest_morton": nearest.morton_launch_count,
         "scan_window": scan.launch_count,
@@ -426,6 +464,124 @@ def k2_vs_plain(pts, fields, tris, label, n_check=None):
           f"plain {plain_ms:.4f} ms on "
           f"{n_check} points (P={P}, T={T}); bound {bound[0]:.4f} ms ({bound[1]})")
     return err, ms, plain_ms, bound
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit: floats compared as their int32 words, so signed
+    zeros and NaN payloads count."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def exact_kernels_vs_plain(sdf, pts, label):
+    """K8, K9 and K7 against their plain versions on one batch, as the
+    query calls them: every 61st point moved out of the box (1.6x about
+    its centre) and every 97th winner set to -1. K8's keys and K9's
+    outputs equal, K7's distances bit-equal on every point (with and
+    without the gradient, in the row-major and the field-major table),
+    its gradients within 1e-6; each timed (CUDA events) beside its plain
+    version and its bound, and the int32 sort beside an int64 one.
+    Returns {kernel: (max |err|, ms, plain ms, bound)}."""
+    import torch
+
+    from sdflib_tpu_torch.ops import exact_query as eq
+    from sdflib_tpu_torch.ops import scan
+
+    q = pts.clone()
+    centre = sdf._box_min + 0.5 * sdf._box_size3
+    q[::61] = centre + 1.6 * (q[::61] - centre)
+    P = q.shape[0]
+    out_share = float(((q < sdf._box_min) | (q >= sdf._box_min + sdf._box_size3)).any(1)
+                      .float().mean())
+    res = {}
+    # K8
+    dargs = (q, sdf._leaf_grid, sdf._box_min, sdf._box_size3, sdf.max_depth)
+    keys = eq.exact_descend(*dargs)
+    _check(torch.equal(keys, eq.exact_descend_plain(*dargs)),
+           f"K8's keys differ from the plain version's ({label})")
+    g = 1 << sdf.max_depth
+    cell = ((q - sdf._box_min) / sdf._box_size3 * g).to(torch.int32).clamp(0, g - 1).long()
+    cells = int(torch.unique((cell[:, 2] * g + cell[:, 1]) * g + cell[:, 0]).numel())
+    res["exact_descend"] = (0.0, _cuda_ms(lambda: eq.exact_descend(*dargs)),
+                            _cuda_ms(lambda: eq.exact_descend_plain(*dargs)),
+                            _bound(P * (12 + 4) + cells * 4, P * FLOPS_DESCEND))
+    sort32_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
+    keys64 = keys.long()
+    sort64_ms = _cuda_ms(lambda: torch.sort(keys64, stable=True))
+    lid_s, order = torch.sort(keys, stable=True)
+    _check(torch.equal(order, torch.sort(keys64, stable=True)[1]),
+           f"the int32 sort's order differs from the int64 sort's ({label})")
+    # K9, in the mode the structure's scan choice takes
+    kind = sdf._choose_scan(P)
+    leaves = int(torch.unique(lid_s).numel())
+    if kind == "window":
+        size = P + (-P) % scan.WINDOW
+        gargs = (q, order, lid_s, sdf.leaf_row0, sdf.leaf_nchunks)
+        gbytes = P * (12 + 8 + 4) + leaves * 8 + size * (12 + 8)
+    else:
+        size = P
+        gargs = (q, order)
+        gbytes = P * (12 + 8) + size * 12
+    got = eq.exact_sorted_gather(*gargs, size=size)
+    want = eq.exact_sorted_gather_plain(*gargs, size=size)
+    _check(all((a is None and b is None) or _bits_equal(a, b) for a, b in zip(got, want)),
+           f"K9's outputs differ from the plain version's ({label})")
+    res["exact_sorted_gather"] = (
+        0.0, _cuda_ms(lambda: eq.exact_sorted_gather(*gargs, size=size)),
+        _cuda_ms(lambda: eq.exact_sorted_gather_plain(*gargs, size=size)), _bound(gbytes, 0))
+    # the winners of the structure's own scan, then K7
+    if kind == "window":
+        pts_s, b0, nc, order = sdf._sorted_windows(q)
+        win = scan.scan_window(sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc).reshape(-1)
+    else:
+        pts_s, lid_g, start, _, order = sdf._sorted_groups(q)
+        win = scan.scan_grouped(sdf.bucket_ids, sdf.bucket_fields, pts_s, lid_g, start,
+                                sdf.leaf_row0, sdf.leaf_nchunks)
+    pts_s, win = pts_s[:P].contiguous(), win[:P].clone()
+    win[::97] = -1
+    rel = (pts_s - sdf._box_min) / sdf._box_size3
+    in_box = ((rel >= 0.0) & (rel < 1.0)).all(1)
+    touched = int(torch.unique(win.clamp_min(0)[in_box]).numel())
+    fields_major = sdf._finish_table.t().contiguous().t()
+    errs, rows = [], []
+    for grad in (False, True):
+        for name, table in (("row", sdf._finish_table), ("field", fields_major)):
+            fargs = (pts_s, win, order, table, sdf._box_min, sdf._box_size3, sdf._fallback)
+            k = eq.exact_finish(*fargs, with_gradient=grad)
+            p = eq.exact_finish_plain(*fargs, with_gradient=grad)
+            kd, pd = (k[0], p[0]) if grad else (k, p)
+            _check(_bits_equal(kd, pd), f"K7's distances differ from the plain version's "
+                   f"({label}, {name}, gradient {grad}): max {float((kd - pd).abs().max())}")
+            gerr = float((k[1] - p[1]).abs().max()) if grad else 0.0
+            gbits = float((k[1].view(torch.int32) == p[1].view(torch.int32)).float().mean()) \
+                if grad else 1.0
+            _check(gerr <= 1e-6, f"K7's gradients differ by {gerr} ({label}, {name})")
+            errs.append(gerr)
+            ms = _cuda_ms(lambda: eq.exact_finish(*fargs, with_gradient=grad))
+            plain_ms = _cuda_ms(lambda: eq.exact_finish_plain(*fargs, with_gradient=grad))
+            nbytes = (P * (FINISH_GRAD_BYTES if grad else FINISH_POINT_BYTES)
+                      + touched * (FINISH_GRAD_ROW_BYTES if grad else FINISH_ROW_BYTES))
+            bound = _bound(nbytes, P * (FLOPS_FINISH_GRAD if grad else FLOPS_FINISH))
+            rows.append(f"{'gradient' if grad else 'distance'}, {name}-major table: kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                        f"({bound[1]}), gradient bits equal on {gbits:.6f}")
+            if name == "row":
+                res["exact_finish_grad" if grad else "exact_finish"] = (gerr, ms, plain_ms, bound)
+    print(f"K7-K9 vs plain ({label}, P={P}, {kind} mode, {out_share:.4f} of the points "
+          f"outside the box, {int((win < 0).sum())} winners of -1, {touched} triangles "
+          f"touched, {cells} grid cells, {leaves} leaves): K8 keys equal, kernel "
+          f"{res['exact_descend'][1]:.4f} ms, plain {res['exact_descend'][2]:.4f} ms, bound "
+          f"{res['exact_descend'][3][0]:.6f} ms; the stable sort of the int32 keys "
+          f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; K9 equal, kernel "
+          f"{res['exact_sorted_gather'][1]:.4f} ms, plain {res['exact_sorted_gather'][2]:.4f} "
+          f"ms, bound {res['exact_sorted_gather'][3][0]:.6f} ms; K7 distances bit-equal, max "
+          f"|gradient diff| {max(errs):.3e}; " + "; ".join(rows))
+    return res
 
 
 def morton_profile(pts, label):
@@ -1921,7 +2077,7 @@ def leftovers_path(dev, root: str):
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"launches on path G (exact leftovers): {launches}")
-    for name in ("nearest", "scan_window", "scan_grouped"):
+    for name in ("nearest", "scan_window", "scan_grouped", *EXACT_KERNELS):
         _check(launches[name] > 0, f"{name} was not launched on path G")
     del approx, oracle, pts
     torch.cuda.empty_cache()
@@ -2236,7 +2392,7 @@ def tools_path(dev, root: str, sizes=None):
     launches = read_counts()
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"path H took {time.perf_counter() - t_path:.1f} s; launches on path H: {launches}")
-    for name in ("nearest", "scan_window", "scan_grouped"):
+    for name in ("nearest", "scan_window", "scan_grouped", *EXACT_KERNELS):
         _check(launches[name] > 0 or not cuda, f"{name} was not launched on path H")
     # K2 alone at the tools' two shapes, after the path's counts were read:
     # sdf_error's RealSdf (2^22 samples) and one mesh_preview trip
@@ -2863,7 +3019,7 @@ def process_path(dev, tmp: str, threaded=None):
     counts = {k: sum(rk["counts"][k] for rk in ranks) for k in ranks[0]["counts"]}
     print(f"process path took {time.perf_counter() - t_path:.1f} s; launches in the ranks: "
           f"{counts}")
-    for name in ("nearest", "scan_window", "scan_grouped"):
+    for name in ("nearest", "scan_window", "scan_grouped", *EXACT_KERNELS):
         _check(counts[name] > 0, f"{name} was not launched in the process path's ranks")
     return counts
 
@@ -2905,7 +3061,8 @@ def main() -> None:
     for short in ("nearest_kernel", "merge_kernel", "morton_order_kernel", "morton_box_kernel",
                   "morton_codes_kernel", "scan_window_kernel",
                   "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel",
-                  "octree_query_kernel", "march_kernel", "beam_kernel"):
+                  "octree_query_kernel", "march_kernel", "beam_kernel", "exact_descend_kernel",
+                  "exact_sorted_gather_kernel", "exact_finish_kernel"):
         lines = [(_instance(k), v) for k, v in report.items() if short in k]
         for tag, line in lines or [("", "not reported")]:
             print(f"ptxas {short}{tag}: {line}")
@@ -3077,6 +3234,32 @@ def main() -> None:
               f"active-lane share {share:.4f})")
         return err, ms, plain_ms, (pts_s, b0, nc, visit, rows)
 
+    def exact_breakdown(fn, label):
+        """``breakdown`` of one exact query, with the device ms a call of
+        K7-K9, K1 and the int32 sort, and at most EXACT_MAX_ACTIVITIES
+        device activities a call."""
+        parts = dict.fromkeys(EXACT_PARTS)
+        _, _, acts = breakdown(fn, label, top=8, device_ms=parts)
+        print(f"    {label}, by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+              + f"; {acts} device activities a call")
+        _check(acts <= EXACT_MAX_ACTIVITIES,
+               f"{acts} device activities a call ({label}), above {EXACT_MAX_ACTIVITIES}")
+
+    def query_rows(sdf, q, label):
+        """``get_distance`` (K8, the sort, K9, K1, K7), the same with
+        K7-K9's plain versions (``_query(plain_glue=True)``) and with
+        every step's (``plain=True``), each timed, their answers equal."""
+        d = sdf.get_distance(q)
+        _check(torch.equal(d, sdf._query(q, False, plain_glue=True)),
+               f"the query with K7-K9 differs from the one with their plain versions ({label})")
+        ms = [_cuda_ms(lambda: sdf.get_distance(q)),
+              _cuda_ms(lambda: sdf._query(q, False, plain_glue=True)),
+              _cuda_ms(lambda: sdf._query(q, False, plain=True))]
+        n = q.shape[0]
+        print(f"get_distance {label}: K7-K9 and K1 {ms[0]:.4f} ms ({n / ms[0] * 1e3:.4e} q/s), "
+              f"K1 with K7-K9 plain {ms[1]:.4f} ms ({n / ms[1] * 1e3:.4e} q/s), all plain "
+              f"{ms[2]:.3f} ms ({n / ms[2] * 1e3:.4e} q/s); the first two equal")
+
     kernels = {}
     launches = {}
 
@@ -3145,7 +3328,7 @@ def main() -> None:
     _check(g_err <= ORACLE_TOL, f"gradient-path distance error {g_err}")
     _check(g_bad < 5e-3, f"gradient mismatch share {g_bad}")
     print(f"launches on main path A (d6): {launches['d6']}")
-    for name in ("nearest", "scan_window", "scan_grouped"):
+    for name in ("nearest", "scan_window", "scan_grouped", *EXACT_KERNELS):
         _check(launches["d6"][name] > 0, f"{name} was not launched on path A")
 
     # -- K1w against its plain version on the 2^21 bench points -------------
@@ -3169,6 +3352,15 @@ def main() -> None:
     kernels["scan_window"]["err"] = max(k1_err, w_err6)
     kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6, bound=g_bound6)
 
+    # -- K7-K9 against their plain versions, d6 2^21 (window) and 2^16 ------
+    ek = exact_kernels_vs_plain(sdf, pts, "d6 2^21")
+    for name in EXACT_KERNELS:
+        err, ms, plain_ms, bound = ek[name]
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+    for res in (exact_kernels_vs_plain(sdf, pts[: 1 << 16], "d6 2^16"), ek):
+        kernels["exact_finish"]["err"] = max(kernels["exact_finish"]["err"],
+                                             res["exact_finish_grad"][0])
+
     # -- both scans pinned, d6 ----------------------------------------------
     for n in (1 << k for k in range(16, 22)):
         q = pts[:n]
@@ -3179,18 +3371,16 @@ def main() -> None:
             row.append(f"{name} {ms:.4f} ms ({n / ms * 1e3:.4e} q/s)")
         print(f"get_distance d6 2^{n.bit_length() - 1} points, scan pinned: "
               + ", ".join(row))
+    exact_breakdown(lambda: sdf.get_distance(pts), "d6 2^21 points (auto: window)")
     sdf.set_scan_impl("xla")
-    breakdown(lambda: sdf.get_distance(pts[:n]), "d6 2^21 points, grouped scan pinned")
+    exact_breakdown(lambda: sdf.get_distance(pts[:n]), "d6 2^21 points, grouped scan pinned")
     sdf._default_scan_impl()
-    breakdown(lambda: sdf.get_distance(pts[: 1 << 16]), "d6 2^16 points (auto: grouped)")
+    exact_breakdown(lambda: sdf.get_distance(pts[: 1 << 16]), "d6 2^16 points (auto: grouped)")
 
-    # -- end-to-end query timing, kernel path and plain path ----------------
-    q_ms = _cuda_ms(lambda: sdf.get_distance(pts))
-    q_plain_ms = _cuda_ms(lambda: sdf._query(pts, False, plain=True))
-    n = pts.shape[0]
-    print(f"get_distance d6 2^21 points (auto: window): kernel path {q_ms:.3f} ms "
-          f"({n / q_ms * 1e3:.4e} q/s), plain path {q_plain_ms:.3f} ms "
-          f"({n / q_plain_ms * 1e3:.4e} q/s)")
+    # -- end-to-end query timing: K7-K9 and K1, K1 with K7-K9's plain
+    # versions (``_query(plain_glue=True)``), every step plain -------------
+    query_rows(sdf, pts, "d6 2^21 points (auto: window)")
+    query_rows(sdf, pts[: 1 << 16], "d6 2^16 points (auto: grouped)")
 
     # -- K3a/K3b: the probe script's defaults, then K1w's fetch stream ------
     rng = np.random.default_rng(0)
@@ -3281,7 +3471,7 @@ def main() -> None:
         print(profiled.stdout, end="")
         _check(profiled.returncode == 0,
                f"the order's profiler process failed:\n{profiled.stderr[-4000:]}")
-    for name in ("nearest", "nearest_morton", "scan_grouped"):
+    for name in ("nearest", "nearest_morton", "scan_grouped", *EXACT_KERNELS):
         _check(launches["d7"][name] > 0, f"{name} was not launched on path B")
     row = []
     for impl, name in (("xla", "grouped"), ("xla_window", "window")):
@@ -3290,7 +3480,11 @@ def main() -> None:
         row.append(f"{name} {ms:.4f} ms ({bpts.shape[0] / ms * 1e3:.4e} q/s)")
     bsdf._default_scan_impl()
     print("get_distance d7 2^20 points, scan pinned: " + ", ".join(row))
-    breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
+    exact_breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
+    query_rows(bsdf, bpts, "d7 2^20 points (auto: grouped)")
+    ek7 = exact_kernels_vs_plain(bsdf, bpts, "d7 2^20")
+    kernels["exact_finish"]["err"] = max(kernels["exact_finish"]["err"],
+                                         ek7["exact_finish_grad"][0])
     g_err7, g_ms7, g_plain7 = grouped_vs_plain(bsdf, bpts, "d7, 2^20 points")
     grouped_work(bsdf, bpts, g_ms7, "d7 2^20")
     w_err7, w_ms7, _, _ = window_vs_plain(bsdf, bpts, "d7 2^20, checked on 2^16",
@@ -3373,6 +3567,12 @@ def main() -> None:
         "row_min_tile": ("sdflib_tpu_torch/csrc/row_gather.cu",
                          "scripts/perf_pallas_gather.py:80"),
         # kernels for XLA-fused code (no pl.pallas_call): the JAX functions
+        "exact_descend": ("sdflib_tpu_torch/csrc/exact_descend.cu",
+                          "sdflib_tpu/sdf/exact_octree.py:567"),
+        "exact_sorted_gather": ("sdflib_tpu_torch/csrc/exact_descend.cu",
+                                "sdflib_tpu/sdf/exact_octree.py:934"),
+        "exact_finish": ("sdflib_tpu_torch/csrc/exact_finish.cu",
+                         "sdflib_tpu/sdf/exact_octree.py:1144"),
         "octree_query": ("sdflib_tpu_torch/csrc/octree_query.cu",
                          "sdflib_tpu/sdf/octree.py:183"),
         "march": ("sdflib_tpu_torch/csrc/march.cu",

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # the leaf grid's leading arguments (ops/octree_query.py grid_args): rows,
 # width, coefficients, words, depth, tricubic, box_min, box_size3,
 # min_border
@@ -81,6 +81,14 @@ _SIGNATURES = {
     # (grid..., pos, acc, active, dirs, r0, rd, n, margin, half margin, far,
     #  trips, stream)
     "sdf_beam": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
+    # (points, P, leaf grid, depth, box_min, box_size3, key, stream)
+    "sdf_exact_descend": [_P, _I, _P, _I, _P, _P, _P, _P],
+    # (points, order, P, lid_s, leaf_row0, leaf_nchunks, size, pts_s, b0, nc,
+    #  stream)
+    "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    # (pts_s, win, order, P, table, row stride, field stride, box_min,
+    #  box_size3, fallback, d, g or null, stream)
+    "sdf_exact_finish": [_P, _P, _P, _I, _P, _L, _L, _P, _P, _F, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -39,7 +39,7 @@ def _device_put_structure(sdf, device):
     the caller's object is never changed. Every tensor attribute moves
     (the JAX list's arrays by the port's names: ``_octree_dev``,
     ``leaf_row0``, ``leaf_nchunks``, ``tri_flat``, ``bucket_ids``,
-    ``bucket_fields``, ``_packed_t``, ``_full_fields_t``, ``fields``,
+    ``bucket_fields``, ``_packed_t``, ``_finish_table``, ``fields``,
     ``_leaf_grid``, ``_query_grid``, ``_fat_grid``, ``grid`` and the box
     tensors), with ``triangles``; host arrays (``octree_data``,
     ``leaf_offset``, ``leaf_count``, ``leaf_centers``) stay shared, and the

@@ -16,12 +16,14 @@ ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320):
 * Buckets: ``tri_flat`` viewed as rows of ``scan_chunk`` slots, beside a
   table of each slot's fields in one of three tiers (``_make_buckets``),
   and per leaf its first row and row count.
-* Query: dense-grid descent (or the node walk past depth 7, until
-  ``build_query_grid``), a stable sort of the points by leaf carrying the
-  original index, the scan (kernel K1 on a CUDA device over 64-slot
-  vertex rows, else the plain scans), the signed evaluation of each
-  winner, the box fallback outside the domain (box distance + sqrt(3) *
-  box size, ExactOctreeSdf.cpp:44-49), and the unsort. The scan takes
+* Query: dense-grid descent to an int32 leaf key (kernel K8 on a CUDA
+  device; the node walk past depth 7, until ``build_query_grid``), a
+  stable ``torch.sort`` of the keys, the sorted gather of the points and
+  their bucket bounds (K9), the scan (kernel K1 on a CUDA device over
+  64-slot vertex rows, else the plain scans), then the signed evaluation
+  of each winner, the box fallback outside the domain (box distance +
+  sqrt(3) * box size, ExactOctreeSdf.cpp:44-49), and the unsort, in one
+  pass (K7); ``ops/exact_query.py`` holds K7-K9 and their plain versions. The scan takes
   fixed windows of 32 sorted points for dense batches and leaf-aligned
   groups of G points for sparse ones (padded batch < 4 points per leaf,
   the JAX package's rule), unless ``set_scan_impl`` pins one; the id-only
@@ -41,15 +43,19 @@ import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
-from ..ops.box import box_distance, box_distance_gradient
+from ..ops.exact_query import (
+    exact_descend,
+    exact_descend_plain,
+    exact_finish,
+    exact_finish_plain,
+    exact_sorted_gather,
+    exact_sorted_gather_plain,
+    finish_table,
+)
 from ..ops.gjk import box_triangle_distance, corner_sphere_hull_tri_lower
 from ..ops.point_triangle import (
     NUM_PACKED_FIELDS,
-    gather_triangles,
     pack_triangle_fields,
-    pack_triangle_full_fields,
-    signed_dist_from_rows,
-    signed_dist_grad_pair,
     sq_dist_and_grad_from_field_fn,
     sq_dist_from_field_fn,
 )
@@ -778,12 +784,14 @@ class ExactOctreeSdf(SdfFunction):
         self.bucket_byte_budget = bucket_byte_budget
         self.bucket_format = bucket_format
         self.triangles = triangles
-        # field-major (37, T): the finish gathers one contiguous column per
-        # field (a gathered (P, 37) block would need a transposing copy)
-        self._full_fields_t = pack_triangle_full_fields(triangles).t().contiguous()
+        # row-major (T, 48): K7 reads a winner's fields and world vertices
+        # as one row (PERF.md compares the field-major layout)
+        self._finish_table = finish_table(triangles)
         size = float(box.size[0])
         self._box_min = torch.as_tensor(box.min, device=device)
         self._box_size3 = torch.full((3,), size, device=device)
+        # the box fallback's constant: sqrt(3) * box size, in float32
+        self._fallback = _f32(_F32_SQRT3 * np.float32(box.size[0]))
         self.scan_chunk = _LEAF_CHUNK
         self._make_buckets()
         self._default_scan_impl()
@@ -976,11 +984,7 @@ class ExactOctreeSdf(SdfFunction):
         """Leaf id (int64) of each (P, 3) point; points outside the box
         take the clamped boundary cell."""
         if self._leaf_grid is not None:
-            g = 1 << self.max_depth
-            rel = (pts - self._box_min) / self._box_size3
-            cell = (rel * g).to(torch.int32).clamp(0, g - 1).long()
-            lin = (cell[:, 2] * g + cell[:, 1]) * g + cell[:, 0]
-            return self._leaf_grid[lin].long()
+            return self._leaf_keys(pts.to(torch.float32).contiguous()).long()
         # node walk (ExactOctreeSdf.cpp:57-66; strict '>' child rounding).
         # The position in the child is 2 frac minus the child's bit: a point
         # at exactly 0.5 goes to the lower child at its upper face (frac 1).
@@ -1009,22 +1013,29 @@ class ExactOctreeSdf(SdfFunction):
         s = self.start_grid_size
         return ic[:, 2] * (s * s) + ic[:, 1] * s + ic[:, 0]
 
-    def _sort_by_leaf(self, pts):
-        """(points sorted by leaf (stable), their leaf ids (int64), the
-        sort order)."""
-        lid_s, order = torch.sort(self._descend(pts), stable=True)
-        return pts[order], lid_s, order
+    def _leaf_keys(self, pts, plain: bool = False):
+        """The int32 sort key of each contiguous (P, 3) float32 point, its
+        leaf id: K8 on the dense leaf grid (its plain version with
+        ``plain``), else the node walk."""
+        if self._leaf_grid is None:
+            return self._descend(pts).to(torch.int32)
+        descend = exact_descend_plain if plain else exact_descend
+        return descend(pts, self._leaf_grid, self._box_min, self._box_size3, self.max_depth)
 
-    def _sorted_windows(self, pts):
-        """Points sorted by leaf (stable) and padded to whole windows, with
-        each point's first bucket row and row count (0 for padding), and
-        the sort order."""
-        pts_s, lid_s, order = self._sort_by_leaf(pts)
-        pad = (-pts.shape[0]) % WINDOW
-        zi = torch.zeros(pad, dtype=torch.int32, device=self.device)
-        pts_s = torch.cat([pts_s, pts.new_zeros((pad, 3))])
-        b0 = torch.cat([self.leaf_row0[lid_s], zi])
-        nc = torch.cat([self.leaf_nchunks[lid_s], zi])
+    def _sort_by_leaf(self, pts, plain: bool = False):
+        """(leaf ids sorted (int32, stable), the sort order (int64))."""
+        return torch.sort(self._leaf_keys(pts, plain), stable=True)
+
+    def _sorted_windows(self, pts, plain: bool = False, size: int | None = None):
+        """Points sorted by leaf (stable) and padded to whole windows (or
+        to ``size``), with each point's first bucket row and row count (0
+        for padding), and the sort order: K9, or with ``plain`` its plain
+        version."""
+        lid_s, order = self._sort_by_leaf(pts, plain)
+        P = pts.shape[0]
+        gather = exact_sorted_gather_plain if plain else exact_sorted_gather
+        pts_s, b0, nc = gather(pts, order, lid_s, self.leaf_row0, self.leaf_nchunks,
+                               size=P + (-P) % WINDOW if size is None else size)
         return pts_s, b0, nc, order
 
     def _pick_group_width(self, lid_s, Pp: int) -> int:
@@ -1044,16 +1055,19 @@ class ExactOctreeSdf(SdfFunction):
                 self._group_width_cache[Pp] = G
         return G
 
-    def _sorted_groups(self, pts):
-        """Points sorted by leaf, their leaf ids (int32), the CSR offsets
-        (NG + 1,) of the groups (runs of at most G points of one leaf;
-        trailing groups past the last are empty), G, and the sort order.
-        Port of the JAX package's ``_assign_groups``, with no host sync
-        once G is cached: NG is the bound min(P, P // G + L). Each run's
-        start is a binary search of the sorted ids for themselves: the
-        JAX package's max-scan, as ``torch.cummax`` over int64, took 2.85
-        of the 7.52 ms d7 2^20-point query on an H100 (PERF.md)."""
-        pts_s, lid_s, order = self._sort_by_leaf(pts)
+    def _sorted_groups(self, pts, plain: bool = False):
+        """Points sorted by leaf (K9, or with ``plain`` its plain version),
+        their leaf ids (int32, the sort's keys), the CSR offsets (NG + 1,)
+        of the groups (runs of at most G points of one leaf; trailing
+        groups past the last are empty), G, and the sort order. Port of
+        the JAX package's ``_assign_groups``, with no host sync once G is
+        cached: NG is the bound min(P, P // G + L). Each run's start is a
+        binary search of the sorted ids for themselves: the JAX package's
+        max-scan, as ``torch.cummax`` over int64, took 2.85 of the 7.52 ms
+        d7 2^20-point query on an H100 (PERF.md)."""
+        lid_s, order = self._sort_by_leaf(pts, plain)
+        gather = exact_sorted_gather_plain if plain else exact_sorted_gather
+        pts_s, _, _ = gather(pts, order)
         P = pts.shape[0]
         G = self._pick_group_width(lid_s, self._padded_batch(P))
         i = torch.arange(P, dtype=torch.int64, device=self.device)
@@ -1065,67 +1079,44 @@ class ExactOctreeSdf(SdfFunction):
         # non-boundary points land in the spare last slot, then reset to P
         start.scatter_(0, torch.where(boundary, gid, NG), i.to(torch.int32))
         start[NG] = P
-        return pts_s, lid_s.to(torch.int32), start, G, order
+        return pts_s, lid_s, start, G, order
 
-    def _finish(self, pts, win, with_gradient):
-        """Signed distance of each point to its winning triangle, with the
-        box fallback outside the domain."""
-        size = self._box_size3
-        center = self._box_min + 0.5 * size
-        fallback = _f32(_F32_SQRT3 * np.float32(self.box.size[0]))
-        rel = (pts - self._box_min) / size
-        in_box = ((rel >= 0.0) & (rel < 1.0)).all(dim=-1)
-        safe = win.clamp_min(0).long()
-        if with_gradient:
-            d_in, g_in = signed_dist_grad_pair(pts, gather_triangles(self.triangles, safe))
-            d_out, g_out = box_distance_gradient(pts, center, size)
-            return (
-                torch.where(in_box, d_in, d_out + fallback),
-                torch.where(in_box[:, None], g_in, g_out),
-            )
-        cols = self._full_fields_t
-        d_in = signed_dist_from_rows(
-            pts[:, 0], pts[:, 1], pts[:, 2], lambda r: cols[r][safe]
-        )
-        d_out = box_distance(pts, center, size)
-        return torch.where(in_box, d_in, d_out + fallback)
-
-    def _query(self, points, with_gradient: bool, plain: bool = False):
-        """The query; ``plain`` runs the scans' plain versions (a
-        yardstick on the card)."""
+    def _query(self, points, with_gradient: bool, plain: bool = False,
+               plain_glue: bool = False):
+        """The query: K8 (the leaf keys), a stable int32 sort, K9 (the
+        sorted gather), the scan (K1 over K1's tables, else the plain
+        scans) and K7 (the finish and the unsort). ``plain`` runs every
+        step's plain version (a yardstick on the card); ``plain_glue``
+        only K7-K9's, with K1 (the card's A/B of K7-K9)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         flat = pts.reshape(-1, 3).contiguous()
         P = flat.shape[0]
         kind = self._choose_scan(P)
         kernel = self._kernel_tables and not plain
+        glue = plain or plain_glue
         if kind == "id_only":
-            pts_s, lid_s, order = self._sort_by_leaf(flat)
-            win = scan_id_only(self.bucket_ids, self._packed_t, pts_s,
-                               self.leaf_row0[lid_s], self.leaf_nchunks[lid_s])
+            pts_s, b0, nc, order = self._sorted_windows(flat, glue, size=P)
+            win = scan_id_only(self.bucket_ids, self._packed_t, pts_s, b0, nc)
             stats = {"scan": kind, "G": 0, "NG": 0}
         elif kind == "grouped":
-            pts_s, lid_s, start, G, order = self._sorted_groups(flat)
+            pts_s, lid_s, start, G, order = self._sorted_groups(flat, glue)
             scan = scan_grouped if kernel else scan_grouped_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, lid_s, start,
                        self.leaf_row0, self.leaf_nchunks)
             stats = {"scan": kind, "G": G, "NG": start.shape[0] - 1}
         else:
-            pts_s, b0, nc, order = self._sorted_windows(flat)
+            pts_s, b0, nc, order = self._sorted_windows(flat, glue)
             scan = scan_window if kernel else scan_window_plain
             win = scan(self.bucket_ids, self.bucket_fields, pts_s, b0, nc).reshape(-1)
             stats = {"scan": kind, "G": WINDOW, "NG": pts_s.shape[0] // WINDOW}
         # one assignment: parallel's workers may query one structure at once
         self.last_scan_stats = {**stats, "tier": self.bucket_tier}
-        out = self._finish(pts_s[:P], win[:P], with_gradient)
+        finish = exact_finish_plain if glue else exact_finish
+        out = finish(pts_s[:P], win[:P], order, self._finish_table, self._box_min,
+                     self._box_size3, self._fallback, with_gradient=with_gradient)
         if with_gradient:
-            d = torch.empty_like(out[0])
-            g = torch.empty_like(out[1])
-            d[order] = out[0]
-            g[order] = out[1]
-            return d.reshape(pts.shape[:-1]), g.reshape(pts.shape)
-        d = torch.empty_like(out)
-        d[order] = out
-        return d.reshape(pts.shape[:-1])
+            return out[0].reshape(pts.shape[:-1]), out[1].reshape(pts.shape)
+        return out.reshape(pts.shape[:-1])
 
     def get_distance(self, points):
         return self._query(points, with_gradient=False)

@@ -1,0 +1,375 @@
+"""K7-K9 (``ops/exact_query.py``): the exact query's descent key, sorted
+gather and signed finish with its unsort, on the torus fixture of
+test_torch_exact_octree.py (nu=20, nv=12, max_depth 4, start_depth 1,
+16 triangles per node), built by the port and loaded into the JAX
+package from its ``.npz`` container, so both hold the same leaves.
+
+* ``exact_descend_plain`` gives the leaves of the JAX package's
+  ``_exact_descent_grid``, equal, for points in, on the faces of and
+  outside the box.
+* ``exact_finish_plain`` agrees with JAX's ``_exact_finish`` on the same
+  sorted points and winners (-1 winners, points outside the box, on a
+  vertex of their winner and beside its edges) within rtol 1e-5 / atol
+  1e-6, in the caller's order (the unsort). Gradients agree within the
+  same tolerance, except at a point on the winner's rim at distance 0
+  with sign 0, where the port gives the face normal ``tn`` and JAX 0
+  (ROADMAP Queue 3), and at a point within rounding noise of an edge
+  (|d| < 1e-6, not 0), where both directions are noise: there the
+  port's gradient has unit norm.
+* The int32-keyed stable sort gives the int64 one's order;
+  ``exact_sorted_gather_plain`` equals the gathers it replaces in both
+  modes; ``get_distance`` and ``get_distance_and_gradient`` through the
+  new call sites agree with JAX's under each scan pinned.
+* The wrappers reject wrong dtypes and shapes and launch nothing for CPU
+  tensors.
+* On a CUDA device (skipped here): each kernel against its plain version
+  (distances bit-equal, gradients within 1e-6, integers equal, in both
+  table layouts), the query with K7-K9 bit-equal to the query with their
+  plain versions, and a refused launch raises.
+
+JAX is imported inside fixtures and tests: the GPU machine has no JAX and
+runs only the cuda-marked cases (``pytest --noconftest -m cuda``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from sdflib_tpu_torch import ExactOctreeSdf
+from sdflib_tpu_torch.kernels import build
+from sdflib_tpu_torch.ops import exact_query as eq
+from sdflib_tpu_torch.ops.scan import WINDOW
+from sdflib_tpu_torch.utils.primitives import make_torus
+
+torch.set_num_threads(1)
+CFG = dict(max_depth=4, start_depth=1, min_triangles_per_node=16)
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _mesh_box(make):
+    mesh = make(R=0.3, r=0.12, nu=20, nv=12)
+    return mesh, mesh.bounding_box.add_margin(0.1)
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """(the JAX package's structure, the port's), one structure: the
+    port's build on the CPU, loaded into the JAX package from its
+    container (a JAX build of it takes several times longer)."""
+    from sdflib_tpu.sdf.sdf_function import SdfFunction as JSdfFunction
+
+    p = ExactOctreeSdf(*_mesh_box(make_torus), **CFG, device="cpu")
+    path = str(tmp_path_factory.mktemp("exact_query") / "torus.npz")
+    p.save(path)
+    return JSdfFunction.load(path), p
+
+
+def _points(box, n: int = 1500, seed: int = 11) -> np.ndarray:
+    """Points in the box, on its cells' faces (depth 4) and outside it."""
+    rng = np.random.default_rng(seed)
+    lo, size = np.asarray(box.min, np.float32), np.float32(box.size[0])
+    inside = rng.uniform(0.0, 1.0, (n, 3))
+    on_faces = np.round(rng.uniform(0.0, 1.0, (n // 4, 3)) * 16) / 16
+    outside = rng.uniform(-0.6, 1.6, (n // 4, 3))
+    rel = np.concatenate([inside, on_faces, outside]).astype(np.float32)
+    return lo + rel * size
+
+
+def _box_args(sdf):
+    return sdf._box_min, sdf._box_size3
+
+
+def test_descend_plain_matches_jax(pair):
+    import jax.numpy as jnp
+    from sdflib_tpu.sdf.exact_octree import _exact_descent_grid
+
+    j, p = pair
+    pts = _points(p.box)
+    want, _ = _exact_descent_grid(j._leaf_grid, jnp.asarray(pts), jnp.asarray(j.box.min),
+                                  jnp.float32(j.box.size[0]), grid_depth=j.max_depth)
+    got = eq.exact_descend_plain(torch.as_tensor(pts), p._leaf_grid, *_box_args(p), p.max_depth)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the structure's descent keeps its int64 contract on the same leaves
+    np.testing.assert_array_equal(p._descend(torch.as_tensor(pts)).numpy(), np.asarray(want))
+
+
+def _finish_inputs(p, seed: int = 5):
+    """Sorted points and winners for the finish: random winners (some -1),
+    points inside and outside the box, exactly on vertex v1 of their winner
+    (d = 0, sign 0), near the midpoints of its edges (rounding noise
+    from the edge) and 1e-3 beyond its edge v1-v2 in its plane; and a
+    random order."""
+    rng = np.random.default_rng(seed)
+    T = p.triangles.origin.shape[0]
+    vw = p.triangles.v_world.numpy()
+    pts = _points(p.box, 600, seed)
+    n = pts.shape[0]
+    win = rng.integers(-1, T, n).astype(np.int32)
+    win[::17] = -1
+    w = np.maximum(win, 0)
+    k = np.arange(n)
+    on_v1 = k % 7 == 1
+    pts[on_v1] = vw[w[on_v1], 0]
+    mid = k % 7 == 2
+    pts[mid] = (vw[w[mid], 0] + vw[w[mid], 1]) * np.float32(0.5)
+    beside = k % 7 == 3
+    e1 = vw[w[beside], 1] - vw[w[beside], 0]
+    nrm = np.cross(e1, vw[w[beside], 2] - vw[w[beside], 0])
+    out = np.cross(e1, nrm)       # in the plane, away from v3
+    out /= np.linalg.norm(out, axis=1, keepdims=True)
+    pts[beside] = (vw[w[beside], 0] + 0.5 * e1 + 1e-3 * out).astype(np.float32)
+    order = rng.permutation(n)
+    return pts.astype(np.float32), win, order
+
+
+@pytest.mark.parametrize("with_gradient", [False, True])
+def test_finish_plain_matches_jax(pair, with_gradient):
+    import jax
+    import jax.numpy as jnp
+    from sdflib_tpu.sdf.exact_octree import _exact_finish
+
+    j, p = pair
+    pts, win, order = _finish_inputs(p)
+    box_min, size = jnp.asarray(j.box.min), jnp.float32(j.box.size[0])
+    rel = (jnp.asarray(pts) - box_min) / size
+    in_box = jnp.all((rel >= 0.0) & (rel < 1.0), axis=-1)
+    assert 0 < int(in_box.sum()) < pts.shape[0]
+    tris = jax.tree.map(jnp.asarray, j.triangles)
+    ref = _exact_finish(tris, jnp.asarray(pts), jnp.asarray(win), in_box, box_min, size,
+                        with_gradient=with_gradient)
+    got = eq.exact_finish_plain(torch.as_tensor(pts), torch.as_tensor(win),
+                                torch.as_tensor(order), p._finish_table, *_box_args(p),
+                                p._fallback, with_gradient=with_gradient)
+    # sorted point i lands at order[i]: read the outputs back in sorted order
+    if not with_gradient:
+        np.testing.assert_allclose(got.numpy()[order], np.asarray(ref), **TOL)
+        return
+    d_ref, g_ref = (np.asarray(a) for a in ref)
+    d, g = got[0].numpy()[order], got[1].numpy()[order]
+    np.testing.assert_allclose(d, d_ref, **TOL)
+    ib = np.asarray(in_box)
+    rim = ib & (d_ref == 0.0) & (d == 0.0) & (np.abs(g_ref).max(axis=1) == 0.0)
+    noise = ib & ~rim & (np.abs(d_ref) < 1e-6)
+    assert rim.sum() >= 50              # the v1 points
+    tn = p._finish_table.numpy()[np.maximum(win, 0), 9:12]
+    np.testing.assert_array_equal(g[rim], tn[rim])
+    np.testing.assert_allclose(np.linalg.norm(g[noise], axis=1), 1.0, rtol=0, atol=1e-5)
+    rest = ~rim & ~noise
+    np.testing.assert_allclose(g[rest], g_ref[rest], **TOL)
+
+
+def test_int32_sort_matches_int64(pair):
+    _, p = pair
+    keys = p._leaf_keys(torch.as_tensor(_points(p.box, 4000)))
+    v32, o32 = torch.sort(keys, stable=True)
+    v64, o64 = torch.sort(keys.long(), stable=True)
+    assert torch.equal(o32, o64) and torch.equal(v32.long(), v64)
+
+
+def test_sorted_gather_plain_equals_the_gathers(pair):
+    _, p = pair
+    pts = torch.as_tensor(_points(p.box, 1000))
+    lid_s, order = torch.sort(p._leaf_keys(pts), stable=True)
+    P = pts.shape[0]
+    size = P + (-P) % WINDOW
+    pad = size - P
+    pts_s, b0, nc = eq.exact_sorted_gather_plain(pts, order, lid_s, p.leaf_row0,
+                                                 p.leaf_nchunks, size=size)
+    zi = torch.zeros(pad, dtype=torch.int32)
+    assert torch.equal(pts_s, torch.cat([pts[order], pts.new_zeros((pad, 3))]))
+    assert torch.equal(b0, torch.cat([p.leaf_row0[lid_s.long()], zi]))
+    assert torch.equal(nc, torch.cat([p.leaf_nchunks[lid_s.long()], zi]))
+    g_s, gb, gn = eq.exact_sorted_gather_plain(pts, order)
+    assert torch.equal(g_s, pts[order]) and gb is None and gn is None
+    # the structure's own paths: the windows padded, the groups' keys int32
+    w_s, w_b0, w_nc, w_order = p._sorted_windows(pts)
+    assert torch.equal(w_s, pts_s) and torch.equal(w_b0, b0) and torch.equal(w_order, order)
+    g_s2, g_lid, _, _, _ = p._sorted_groups(pts)
+    assert torch.equal(g_s2, pts[order]) and g_lid.dtype == torch.int32
+
+
+@pytest.fixture(scope="module")
+def jax_ref(pair):
+    """JAX's distances and gradients on the query points (its own scan):
+    test_torch_exact_octree.py's 768 points (seed 1) and 256 outside the
+    box. A point equidistant from two triangles (on the torus's symmetry
+    planes, or near its axis) has two right gradients, and two scans may
+    break the tie differently: the cells' faces hold such points (the
+    distances still agree), so they serve the descent test only."""
+    j, p = pair
+    rng = np.random.default_rng(1)
+    pts = np.concatenate([rng.uniform(-0.5, 0.5, (768, 3)),
+                          rng.uniform(-1.5, 1.5, (256, 3))]).astype(np.float32)
+    d, (dg, g) = j.get_distance(pts), j.get_distance_and_gradient(pts)
+    return pts, np.asarray(d), np.asarray(dg), np.asarray(g)
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_window"])
+def test_query_matches_jax_each_scan(pair, jax_ref, impl):
+    _, p = pair
+    pts, d_ref, dg_ref, g_ref = jax_ref
+    p.set_scan_impl(impl)
+    try:
+        d = p.get_distance(pts)
+        want = {"xla": "grouped", "xla_window": "window"}[impl]
+        assert p.last_scan_stats["scan"] == want
+        dg, g = p.get_distance_and_gradient(pts)
+    finally:
+        p._default_scan_impl()
+    np.testing.assert_allclose(d.numpy(), d_ref, **TOL)
+    np.testing.assert_allclose(dg.numpy(), dg_ref, **TOL)
+    np.testing.assert_allclose(g.numpy(), g_ref, **TOL)
+    # the plain yardsticks answer the same on the CPU
+    assert torch.equal(p._query(pts, False, plain=True), d)
+    assert torch.equal(p._query(pts, False, plain_glue=True), d)
+
+
+def _reset():
+    eq.descend_launch_count = eq.gather_launch_count = eq.finish_launch_count = 0
+
+
+def test_cpu_tensors_launch_nothing(pair, monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU call built the kernels")
+
+    _, p = pair
+    monkeypatch.setattr(build, "library", no_build)
+    _reset()
+    pts = _points(p.box, 700)
+    for impl in ("xla", "xla_window"):
+        p.set_scan_impl(impl)
+        p.get_distance(pts)
+        p.get_distance_and_gradient(pts)
+    p._default_scan_impl()
+    assert eq.descend_launch_count == eq.gather_launch_count == eq.finish_launch_count == 0
+
+
+def test_wrappers_reject_bad_inputs(pair):
+    _, p = pair
+    pts = torch.as_tensor(_points(p.box, 40))
+    grid, depth = p._leaf_grid, p.max_depth
+    bm, bs = _box_args(p)
+    for bad in (pts.double(), pts[:, :2], "points"):
+        with pytest.raises(ValueError):
+            eq.exact_descend(bad, grid, bm, bs, depth)
+    with pytest.raises(ValueError):                    # the grid of another depth
+        eq.exact_descend(pts, grid, bm, bs, depth + 1)
+    with pytest.raises(ValueError):
+        eq.exact_descend(pts, grid.long(), bm, bs, depth)
+    with pytest.raises(ValueError):                    # an unsupported device
+        eq.exact_descend(pts.to("meta"), grid.to("meta"), bm.to("meta"), bs.to("meta"), depth)
+    lid_s, order = torch.sort(p._leaf_keys(pts), stable=True)
+    rows = (lid_s, p.leaf_row0, p.leaf_nchunks)
+    for args, kw in (((pts, order.int(), *rows), {}), ((pts, order[:-1], *rows), {}),
+                     ((pts, order, lid_s.long(), *rows[1:]), {}),
+                     ((pts, order, lid_s, p.leaf_row0, p.leaf_nchunks[:-1]), {}),
+                     ((pts, order, *rows), {"size": 10})):
+        with pytest.raises(ValueError):
+            eq.exact_sorted_gather(*args, **kw)
+    win = torch.zeros(40, dtype=torch.int32)
+    table = p._finish_table
+    fb = p._fallback
+    for args in ((pts, win.long(), order, table, bm, bs), (pts, win[:-1], order, table, bm, bs),
+                 (pts, win, order.int(), table, bm, bs), (pts, win, order, table[:, :37], bm, bs),
+                 (pts, win, order, table.double(), bm, bs), (pts, win, order, table, bm[:2], bs)):
+        with pytest.raises(ValueError):
+            eq.exact_finish(*args, fb)
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cuda_sdf():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return ExactOctreeSdf(*_mesh_box(make_torus), **CFG, device="cuda")
+
+
+def _cuda_batch(sdf, n: int = 40_000):
+    pts = torch.as_tensor(_points(sdf.box, n, 31), device="cuda")
+    lid_s, order = torch.sort(eq.exact_descend(pts, sdf._leaf_grid, *_box_args(sdf),
+                                               sdf.max_depth), stable=True)
+    return pts, lid_s, order
+
+
+@pytest.mark.cuda
+def test_k8_k9_against_plain(cuda_sdf):
+    sdf = cuda_sdf
+    pts, lid_s, order = _cuda_batch(sdf)
+    args = (pts, sdf._leaf_grid, *_box_args(sdf), sdf.max_depth)
+    assert torch.equal(eq.exact_descend(*args), eq.exact_descend_plain(*args))
+    P = pts.shape[0]
+    for size in (P, P + (-P) % WINDOW + WINDOW):
+        got = eq.exact_sorted_gather(pts, order, lid_s, sdf.leaf_row0, sdf.leaf_nchunks,
+                                     size=size)
+        want = eq.exact_sorted_gather_plain(pts, order, lid_s, sdf.leaf_row0,
+                                            sdf.leaf_nchunks, size=size)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(eq.exact_sorted_gather(pts, order)[0],
+                       eq.exact_sorted_gather_plain(pts, order)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gradient", [False, True])
+@pytest.mark.parametrize("layout", ["rows", "fields"])
+def test_k7_against_plain(cuda_sdf, with_gradient, layout):
+    sdf = cuda_sdf
+    pts, lid_s, order = _cuda_batch(sdf)
+    pts_s = pts[order]
+    T = sdf._finish_table.shape[0]
+    win = torch.randint(-1, T, (pts.shape[0],), dtype=torch.int32, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    table = sdf._finish_table
+    if layout == "fields":
+        table = table.t().contiguous().t()
+    args = (pts_s, win, order, table, *_box_args(sdf), sdf._fallback)
+    got = eq.exact_finish(*args, with_gradient=with_gradient)
+    want = eq.exact_finish_plain(*args, with_gradient=with_gradient)
+    if not with_gradient:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(got[0], want[0])
+    assert float((got[1] - want[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["xla", "xla_window"])
+def test_query_kernels_equal_plain_glue(cuda_sdf, impl):
+    sdf = cuda_sdf
+    pts = torch.as_tensor(_points(sdf.box, 20_000, 41), device="cuda")
+    sdf.set_scan_impl(impl)
+    try:
+        # the plain versions first: a batch size's first grouped query
+        # descends the origin once more to pick its group width
+        d_p = sdf._query(pts, False, plain_glue=True)
+        dg_p, g_p = sdf._query(pts, True, plain_glue=True)
+        _reset()
+        d = sdf.get_distance(pts)
+        dg, g = sdf.get_distance_and_gradient(pts)
+        counts = (eq.descend_launch_count, eq.gather_launch_count, eq.finish_launch_count)
+    finally:
+        sdf._default_scan_impl()
+    assert counts == (2, 2, 2)
+    assert torch.equal(d, d_p) and torch.equal(dg, dg_p)
+    assert float((g - g_p).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_a_refused_launch_raises(cuda_sdf):
+    sdf = cuda_sdf
+    pts = torch.zeros((64, 3), device="cuda")
+    key = torch.empty(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        build.launch("sdf_exact_descend", pts.device, pts.data_ptr(), 64,
+                     sdf._leaf_grid.data_ptr(), 11, sdf._box_min.data_ptr(),
+                     sdf._box_size3.data_ptr(), key.data_ptr())
+    order = torch.arange(64, device="cuda")
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(), order.data_ptr(),
+                     64, None, None, None, 32, pts.data_ptr(), None, None)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        build.launch("sdf_exact_finish", pts.device, pts.data_ptr(), key.data_ptr(),
+                     order.data_ptr(), 64, sdf._finish_table.data_ptr(), 0, 1,
+                     sdf._box_min.data_ptr(), sdf._box_size3.data_ptr(), 1.0,
+                     key.data_ptr(), None)

@@ -2,7 +2,9 @@
 interpreter with ``sys.modules["jax"] = None`` (any ``import jax`` then
 raises) imports sdflib_tpu_torch and runs the exact-octree slice on the
 CPU at test size, through the window and the grouped scan, exact against
-the port's own RealSdf within 1e-5, and the row-fetch probes; then both
+the port's own RealSdf within 1e-5, the sorted gather and the finish of
+``ops/exact_query.py`` (K7-K9's plain versions, no launch counted), and
+the row-fetch probes; then both
 approximate builders (rms error against RealSdf below the JAX tests'
 4e-3), the walk against the grid route within 1e-6, and a reference
 ``.bin`` golden through the port's io within 5e-5 of the C++ walk; then
@@ -44,11 +46,22 @@ SCRIPT = textwrap.dedent(
     pts = np.random.default_rng(0).uniform(-0.6, 0.6, (500, 3)).astype(np.float32)
     inside = np.all((pts >= sdf.box.min) & (pts < sdf.box.max), axis=1)
     ref = RealSdf(mesh, device="cpu").get_distance(pts)
+    from sdflib_tpu_torch.ops import exact_query
     for impl, scan in (("xla", "grouped"), ("xla_window", "window")):
         sdf.set_scan_impl(impl)
         err = (sdf.get_distance(pts) - ref).abs()
         assert sdf.last_scan_stats["scan"] == scan
         assert float(err[torch.as_tensor(inside)].max()) <= 1e-5
+        # K7-K9's plain versions, called as the query calls them
+        flat = torch.as_tensor(pts)
+        pts_s, b0, nc, order = sdf._sorted_windows(flat, size=len(pts))
+        assert torch.equal(pts_s, flat[order]) and bool((nc[torch.as_tensor(
+            inside)[order]] > 0).all())
+        win = torch.zeros(len(pts), dtype=torch.int32)
+        d0 = exact_query.exact_finish(pts_s, win, order, sdf._finish_table, sdf._box_min,
+                                      sdf._box_size3, sdf._fallback)
+        assert d0.shape == (len(pts),) and bool(torch.isfinite(d0).all())
+    assert exact_query.finish_launch_count == exact_query.descend_launch_count == 0
 
     from sdflib_tpu_torch.ops import row_gather
     table = torch.randn(64, 12, generator=torch.Generator().manual_seed(1))
