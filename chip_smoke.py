@@ -22,14 +22,19 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
 * K7-K9, the exact query's finish, descent key and sorted gather
   (``exact_kernels_vs_plain``), against their plain versions at d6 2^21
   (window), d6 2^16 and d7 2^20 (grouped), every 61st point moved out of
-  the box and every 97th winner -1: K8's keys and K9's outputs equal,
-  K7's distances bit-equal with and without the gradient in both table
-  layouts, its gradients within 1e-6, each timed beside its plain
-  version and bound, the int32 sort beside an int64 one; the three
-  batches' ``get_distance`` beside the query with K7-K9's plain versions
-  (``_query(plain_glue=True)``, equal answers) and the all-plain query,
-  and each profiled (``exact_breakdown``: at most 40 device activities a
-  call, K7-K9, K1 and the sort by name);
+  the box and every 97th winner -1: K8's keys and K9's outputs (both
+  modes) equal, K7's distances bit-equal with and without the gradient,
+  its gradients within 1e-6, through the public wrappers and every
+  points-a-thread form of the lean launches the query calls, each timed
+  by CUDA events and the profiler's device time beside its plain
+  version and bound, K9 grouped beside ``torch.index_select``, the int32
+  sort beside an int64 one; the three batches' ``get_distance`` beside
+  the query with K7-K9's plain versions (``_query(plain_glue=True)``,
+  equal answers) and the all-plain query, and each profiled
+  (``exact_breakdown``: no more device activities a call than 18 for the
+  d6 2^21 window query, 33 grouped and 29 at d7; K7-K9, K1 and the sort
+  by name); ``exact_ab`` (not part of the smoke) times K7, K9 and the
+  query in a parent checkout and this one, in turns;
 * K1g against its plain version at d6 2^16 and d7 2^20 points, with its
   work (groups holding points, rows fetched, the shares of slots with an
   id and of rows with a dead half), its bound and its fetch floor: its
@@ -297,9 +302,16 @@ FLOPS_DESCEND = 12
 # The most device activities a profiled exact query may take with K7-K9
 # (the descent, the int32 sort, the gather, the group assembly, K1, K7).
 EXACT_MAX_ACTIVITIES = 40
+# ... and at each profiled shape: no more than PR 15 measured (the d6
+# 2^21 window query, the grouped d6 queries, the d7 2^20 query)
+EXACT_ACTIVITIES = {"window": 18, "grouped": 33, "d7": 29}
 # K7-K9's launch counters, and the names of the exact query's kernels in a
 # profile (the int32 sort's are torch's radix sort).
 EXACT_KERNELS = ("exact_descend", "exact_sorted_gather", "exact_finish")
+# K9's and K7's points a thread, each timed (ops/exact_query.py
+# GATHER_POINTS and FINISH_POINTS are the query's)
+GATHER_FORMS = (1, 2, 4, 8)
+FINISH_FORMS = (1, 2)
 EXACT_PARTS = ("exact_descend_kernel", "exact_sorted_gather_kernel", "scan_window_kernel",
                "scan_grouped_kernel", "exact_finish_kernel", "DeviceRadixSort")
 
@@ -478,15 +490,26 @@ def _bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def exact_kernels_vs_plain(sdf, pts, label):
-    """K8, K9 and K7 against their plain versions on one batch, as the
-    query calls them: every 61st point moved out of the box (1.6x about
-    its centre) and every 97th winner set to -1. K8's keys and K9's
-    outputs equal, K7's distances bit-equal on every point (with and
-    without the gradient, in the row-major and the field-major table),
-    its gradients within 1e-6; each timed (CUDA events) beside its plain
-    version and its bound, and the int32 sort beside an int64 one.
-    Returns {kernel: (max |err|, ms, plain ms, bound)}."""
+def _timed(fn, key: str) -> tuple[float, float]:
+    """(CUDA-event ms, profiler device ms) of one call of ``fn``: the
+    events best of 3 after a warm-up (the host's issue time included when
+    it outlasts the device's work); the device time of the activities
+    whose name holds ``key`` (lower case) over 3 profiled calls, profiled
+    again, up to PROFILE_TRIES sessions, while a session records none."""
+    ev = _cuda_ms(fn)
+    dev = 0.0
+    for _ in range(PROFILE_TRIES):
+        dev = _device_ms(fn, (key,))
+        if dev > 0.0:
+            break
+    return ev, dev
+
+
+def _exact_inputs(sdf, pts):
+    """One batch as the query hands it to K7-K9: every 61st point moved out
+    of the box (1.6x about its centre), K8's keys, their stable sort, the
+    scan the structure chooses, and the sorted points and winners of the
+    structure's own scan with every 97th winner -1."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -496,92 +519,255 @@ def exact_kernels_vs_plain(sdf, pts, label):
     centre = sdf._box_min + 0.5 * sdf._box_size3
     q[::61] = centre + 1.6 * (q[::61] - centre)
     P = q.shape[0]
+    keys = eq.exact_descend(q, sdf._leaf_grid, sdf._box_min, sdf._box_size3, sdf.max_depth)
+    lid_s, order = torch.sort(keys, stable=True)
+    kind = sdf._choose_scan(P)
+    if kind == "window":
+        pts_s, b0, nc, _ = sdf._sorted_windows(q)
+        win = scan.scan_window(sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc).reshape(-1)
+    else:
+        pts_s, lid_g, start, _, _ = sdf._sorted_groups(q)
+        win = scan.scan_grouped(sdf.bucket_ids, sdf.bucket_fields, pts_s, lid_g, start,
+                                sdf.leaf_row0, sdf.leaf_nchunks)
+    pts_s, win = pts_s[:P].contiguous(), win[:P].clone()
+    win[::97] = -1
+    return dict(q=q, keys=keys, lid_s=lid_s, order=order, kind=kind, pts_s=pts_s, win=win)
+
+
+def _exact_times(sdf, x) -> dict:
+    """K9 (both modes) and K7 (both forms) timed on one batch of
+    ``_exact_inputs``: each public wrapper (CUDA events), and, where the
+    package has the lean launches the query calls, each of their
+    points-a-thread forms (events and profiler device time), else the
+    public wrapper's device time; K9 grouped's library call,
+    ``torch.index_select``. ms by name."""
+    import torch
+
+    from sdflib_tpu_torch.ops import exact_query as eq
+
+    lean = hasattr(eq, "launch_exact_finish")
+    q, order, lid_s, pts_s, win = x["q"], x["order"], x["lid_s"], x["pts_s"], x["win"]
+    P = q.shape[0]
+    t = {}
+    for mode in ("window", "grouped"):
+        rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks) if mode == "window" else ()
+        size = P + (-P) % 32 if mode == "window" else P
+        ev, dev = _timed(lambda: eq.exact_sorted_gather(q, order, *rows, size=size),
+                         "exact_sorted_gather_kernel")
+        t[f"K9 {mode} public"] = ev
+        if not lean:
+            t[f"K9 {mode} device"] = dev
+        for k in GATHER_FORMS if lean else ():
+            ev, dev = _timed(lambda: eq.launch_sorted_gather(
+                q, order, lid_s if rows else None, sdf._leaf_bounds if rows else None, size,
+                points_per_thread=k), "exact_sorted_gather_kernel")
+            t[f"K9 {mode} x{k}"], t[f"K9 {mode} x{k} device"] = ev, dev
+    ev, dev = _timed(lambda: torch.index_select(q, 0, order), "indexselect")
+    t["index_select"], t["index_select device"] = ev, dev
+    for grad in (False, True):
+        form = "gradient" if grad else "distance"
+        fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
+                 sdf._fallback)
+        ev, dev = _timed(lambda: eq.exact_finish(*fargs, with_gradient=grad),
+                         "exact_finish_kernel")
+        t[f"K7 {form} public"] = ev
+        if not lean:
+            t[f"K7 {form} device"] = dev
+        for k in FINISH_FORMS if lean else ():
+            ev, dev = _timed(lambda: eq.launch_exact_finish(
+                pts_s, win, order, P, sdf._finish_table, sdf._box_host, sdf._fallback, grad,
+                points_per_thread=k), "exact_finish_kernel")
+            t[f"K7 {form} x{k}"], t[f"K7 {form} x{k} device"] = ev, dev
+    return t
+
+
+def exact_kernels_vs_plain(sdf, pts, label):
+    """K8, K9 and K7 against their plain versions on one batch of
+    ``_exact_inputs``. K8's keys and K9's outputs equal (both modes, the
+    public wrapper and every points-a-thread form of the lean launch the
+    query calls), K7's distances bit-equal on every point (with and
+    without the gradient, the public wrapper and each form), its
+    gradients within 1e-6; each timed (``_timed``: CUDA events and the
+    profiler's device time) beside its plain version and its bound, the
+    int32 sort beside an int64 one, K9 grouped beside ``index_select``.
+    Returns {row: dict(err, ms, device_ms, plain_ms, bound, library_ms)}
+    for the JSON line: the query's forms (ops/exact_query.py
+    GATHER_POINTS, FINISH_POINTS), K9 in grouped mode (its library call)
+    and in window mode, K7 in both forms."""
+    import torch
+
+    from sdflib_tpu_torch.ops import exact_query as eq
+
+    x = _exact_inputs(sdf, pts)
+    q, keys, lid_s, order, kind = x["q"], x["keys"], x["lid_s"], x["order"], x["kind"]
+    pts_s, win = x["pts_s"], x["win"]
+    P = q.shape[0]
     out_share = float(((q < sdf._box_min) | (q >= sdf._box_min + sdf._box_size3)).any(1)
                       .float().mean())
     res = {}
     # K8
     dargs = (q, sdf._leaf_grid, sdf._box_min, sdf._box_size3, sdf.max_depth)
-    keys = eq.exact_descend(*dargs)
     _check(torch.equal(keys, eq.exact_descend_plain(*dargs)),
            f"K8's keys differ from the plain version's ({label})")
     g = 1 << sdf.max_depth
     cell = ((q - sdf._box_min) / sdf._box_size3 * g).to(torch.int32).clamp(0, g - 1).long()
     cells = int(torch.unique((cell[:, 2] * g + cell[:, 1]) * g + cell[:, 0]).numel())
-    res["exact_descend"] = (0.0, _cuda_ms(lambda: eq.exact_descend(*dargs)),
-                            _cuda_ms(lambda: eq.exact_descend_plain(*dargs)),
-                            _bound(P * (12 + 4) + cells * 4, P * FLOPS_DESCEND))
+    ev, dev = _timed(lambda: eq.exact_descend(*dargs), "exact_descend_kernel")
+    res["exact_descend"] = dict(err=0.0, ms=ev, device_ms=dev,
+                                plain_ms=_cuda_ms(lambda: eq.exact_descend_plain(*dargs)),
+                                bound=_bound(P * (12 + 4) + cells * 4, P * FLOPS_DESCEND))
     sort32_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
     keys64 = keys.long()
     sort64_ms = _cuda_ms(lambda: torch.sort(keys64, stable=True))
-    lid_s, order = torch.sort(keys, stable=True)
     _check(torch.equal(order, torch.sort(keys64, stable=True)[1]),
            f"the int32 sort's order differs from the int64 sort's ({label})")
-    # K9, in the mode the structure's scan choice takes
-    kind = sdf._choose_scan(P)
+    # K9, both modes, every form of the lean launch
     leaves = int(torch.unique(lid_s).numel())
-    if kind == "window":
-        size = P + (-P) % scan.WINDOW
-        gargs = (q, order, lid_s, sdf.leaf_row0, sdf.leaf_nchunks)
-        gbytes = P * (12 + 8 + 4) + leaves * 8 + size * (12 + 8)
-    else:
-        size = P
-        gargs = (q, order)
-        gbytes = P * (12 + 8) + size * 12
-    got = eq.exact_sorted_gather(*gargs, size=size)
-    want = eq.exact_sorted_gather_plain(*gargs, size=size)
-    _check(all((a is None and b is None) or _bits_equal(a, b) for a, b in zip(got, want)),
-           f"K9's outputs differ from the plain version's ({label})")
-    res["exact_sorted_gather"] = (
-        0.0, _cuda_ms(lambda: eq.exact_sorted_gather(*gargs, size=size)),
-        _cuda_ms(lambda: eq.exact_sorted_gather_plain(*gargs, size=size)), _bound(gbytes, 0))
-    # the winners of the structure's own scan, then K7
-    if kind == "window":
-        pts_s, b0, nc, order = sdf._sorted_windows(q)
-        win = scan.scan_window(sdf.bucket_ids, sdf.bucket_fields, pts_s, b0, nc).reshape(-1)
-    else:
-        pts_s, lid_g, start, _, order = sdf._sorted_groups(q)
-        win = scan.scan_grouped(sdf.bucket_ids, sdf.bucket_fields, pts_s, lid_g, start,
-                                sdf.leaf_row0, sdf.leaf_nchunks)
-    pts_s, win = pts_s[:P].contiguous(), win[:P].clone()
-    win[::97] = -1
+    for mode in ("window", "grouped"):
+        if mode == "window":
+            size = P + (-P) % 32
+            rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks)
+            gbytes = P * (12 + 8 + 4) + leaves * 8 + size * (12 + 8)
+        else:
+            size, rows = P, ()
+            gbytes = P * (12 + 8) + size * 12
+        want = eq.exact_sorted_gather_plain(q, order, *rows, size=size)
+        outs = [eq.exact_sorted_gather(q, order, *rows, size=size)]
+        outs += [eq.launch_sorted_gather(q, order, lid_s if rows else None,
+                                         sdf._leaf_bounds if rows else None, size,
+                                         points_per_thread=k) for k in GATHER_FORMS]
+        for got in outs:
+            _check(all((a is None and b is None) or _bits_equal(a, b)
+                       for a, b in zip(got, want)),
+                   f"K9's outputs differ from the plain version's ({label}, {mode})")
+        res[f"K9 {mode}"] = dict(
+            err=0.0, plain_ms=_cuda_ms(lambda: eq.exact_sorted_gather_plain(q, order, *rows,
+                                                                           size=size)),
+            bound=_bound(gbytes, 0))
+    # K7, both forms, every form of the lean launch
     rel = (pts_s - sdf._box_min) / sdf._box_size3
     in_box = ((rel >= 0.0) & (rel < 1.0)).all(1)
     touched = int(torch.unique(win.clamp_min(0)[in_box]).numel())
-    fields_major = sdf._finish_table.t().contiguous().t()
-    errs, rows = [], []
     for grad in (False, True):
-        for name, table in (("row", sdf._finish_table), ("field", fields_major)):
-            fargs = (pts_s, win, order, table, sdf._box_min, sdf._box_size3, sdf._fallback)
-            k = eq.exact_finish(*fargs, with_gradient=grad)
-            p = eq.exact_finish_plain(*fargs, with_gradient=grad)
-            kd, pd = (k[0], p[0]) if grad else (k, p)
+        form = "gradient" if grad else "distance"
+        fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
+                 sdf._fallback)
+        want = eq.exact_finish_plain(*fargs, with_gradient=grad)
+        outs = [eq.exact_finish(*fargs, with_gradient=grad)]
+        outs += [eq.launch_exact_finish(pts_s, win, order, P, sdf._finish_table,
+                                        sdf._box_host, sdf._fallback, grad,
+                                        points_per_thread=k) for k in FINISH_FORMS]
+        gerr = 0.0
+        for got in outs:
+            kd, pd = (got[0], want[0]) if grad else (got, want)
             _check(_bits_equal(kd, pd), f"K7's distances differ from the plain version's "
-                   f"({label}, {name}, gradient {grad}): max {float((kd - pd).abs().max())}")
-            gerr = float((k[1] - p[1]).abs().max()) if grad else 0.0
-            gbits = float((k[1].view(torch.int32) == p[1].view(torch.int32)).float().mean()) \
-                if grad else 1.0
-            _check(gerr <= 1e-6, f"K7's gradients differ by {gerr} ({label}, {name})")
-            errs.append(gerr)
-            ms = _cuda_ms(lambda: eq.exact_finish(*fargs, with_gradient=grad))
-            plain_ms = _cuda_ms(lambda: eq.exact_finish_plain(*fargs, with_gradient=grad))
-            nbytes = (P * (FINISH_GRAD_BYTES if grad else FINISH_POINT_BYTES)
-                      + touched * (FINISH_GRAD_ROW_BYTES if grad else FINISH_ROW_BYTES))
-            bound = _bound(nbytes, P * (FLOPS_FINISH_GRAD if grad else FLOPS_FINISH))
-            rows.append(f"{'gradient' if grad else 'distance'}, {name}-major table: kernel "
-                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                        f"({bound[1]}), gradient bits equal on {gbits:.6f}")
-            if name == "row":
-                res["exact_finish_grad" if grad else "exact_finish"] = (gerr, ms, plain_ms, bound)
-    print(f"K7-K9 vs plain ({label}, P={P}, {kind} mode, {out_share:.4f} of the points "
-          f"outside the box, {int((win < 0).sum())} winners of -1, {touched} triangles "
-          f"touched, {cells} grid cells, {leaves} leaves): K8 keys equal, kernel "
-          f"{res['exact_descend'][1]:.4f} ms, plain {res['exact_descend'][2]:.4f} ms, bound "
-          f"{res['exact_descend'][3][0]:.6f} ms; the stable sort of the int32 keys "
-          f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; K9 equal, kernel "
-          f"{res['exact_sorted_gather'][1]:.4f} ms, plain {res['exact_sorted_gather'][2]:.4f} "
-          f"ms, bound {res['exact_sorted_gather'][3][0]:.6f} ms; K7 distances bit-equal, max "
-          f"|gradient diff| {max(errs):.3e}; " + "; ".join(rows))
-    return res
+                   f"({label}, {form}): max {float((kd - pd).abs().max())}")
+            if grad:
+                gerr = max(gerr, float((got[1] - want[1]).abs().max()))
+        _check(gerr <= 1e-6, f"K7's gradients differ by {gerr} ({label})")
+        nbytes = (P * (FINISH_GRAD_BYTES if grad else FINISH_POINT_BYTES)
+                  + touched * (FINISH_GRAD_ROW_BYTES if grad else FINISH_ROW_BYTES))
+        res[f"K7 {form}"] = dict(
+            err=gerr, plain_ms=_cuda_ms(lambda: eq.exact_finish_plain(*fargs,
+                                                                      with_gradient=grad)),
+            bound=_bound(nbytes, P * (FLOPS_FINISH_GRAD if grad else FLOPS_FINISH)))
+    t = _exact_times(sdf, x)
+    for mode in ("window", "grouped"):
+        res[f"K9 {mode}"].update(ms=t[f"K9 {mode} x{eq.GATHER_POINTS}"],
+                                 device_ms=t[f"K9 {mode} x{eq.GATHER_POINTS} device"],
+                                 library_ms=t["index_select"] if mode == "grouped" else None)
+    for form in ("distance", "gradient"):
+        res[f"K7 {form}"].update(ms=t[f"K7 {form} x{eq.FINISH_POINTS}"],
+                                 device_ms=t[f"K7 {form} x{eq.FINISH_POINTS} device"])
+    rows = [f"{name}: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} device), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})"
+            for name, r in res.items()]
+    print(f"K7-K9 vs plain ({label}, P={P}, the query's scan: {kind}; {out_share:.4f} of the "
+          f"points outside the box, {int((win < 0).sum())} winners of -1, {touched} "
+          f"triangles touched, {cells} grid cells, {leaves} leaves): K8 keys, K9's outputs "
+          f"(both modes, every form) equal, K7's distances bit-equal (every form), max "
+          f"|gradient diff| {res['K7 gradient']['err']:.3e}; the stable sort of the int32 keys "
+          f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; " + "; ".join(rows))
+    print(f"exact_times {label}: " + json.dumps({k: round(v, 6) for k, v in t.items()}))
+    return {"exact_descend": res["exact_descend"], "exact_sorted_gather": res["K9 grouped"],
+            "exact_sorted_gather_window": res["K9 window"], "exact_finish": res["K7 distance"],
+            "exact_finish_grad": res["K7 gradient"]}
+
+
+EXACT_AB_BATCHES = (("d6", 1 << 21), ("d6", 1 << 16), ("d7", 1 << 20))
+
+
+def exact_probe(tree: str, store: str) -> None:
+    """K7's and K9's times (``_exact_times``) and the exact query's at
+    EXACT_AB_BATCHES, for the package of the checkout ``tree``, on the
+    structures and points ``exact_ab`` saved in ``store``: run in a
+    process of its own, which imports that checkout's sdflib_tpu_torch.
+    Prints one ``exact_ab`` JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import sdflib_tpu_torch
+    from sdflib_tpu_torch import SdfFunction
+
+    dev = torch.device("cuda", 0)
+    out = {"package": os.path.dirname(sdflib_tpu_torch.__file__)}
+    sdfs = {}
+    for name, n in EXACT_AB_BATCHES:
+        if name not in sdfs:
+            sdfs[name] = SdfFunction.load(os.path.join(store, f"{name}.npz"), device=dev)
+        sdf = sdfs[name]
+        pts = torch.as_tensor(np.load(os.path.join(store, f"{name}_pts.npy"))[:n], device=dev)
+        label = f"{name} 2^{n.bit_length() - 1}"
+        t = _exact_times(sdf, _exact_inputs(sdf, pts))
+        t["query"] = _cuda_ms(lambda: sdf.get_distance(pts), reps=20)
+        _, t["query busy"], t["query activities"] = breakdown(
+            lambda: sdf.get_distance(pts), f"{label}, {out['package']}")
+        t["query scan"] = sdf.last_scan_stats["scan"]
+        if n == 1 << 21:
+            t["gradient query"] = _cuda_ms(lambda: sdf.get_distance_and_gradient(pts), reps=20)
+        out[label] = t
+    print("exact_ab " + json.dumps(out))
+
+
+def exact_ab(parent: str) -> None:
+    """The A/B of K7, K9 and the exact query between the checkout
+    ``parent`` (a ``git archive`` of the parent commit) and this one, in
+    one call: path A's d6 and path B's d7 structures built once here and
+    saved with their points, then ``exact_probe`` for parent, this tree,
+    this tree, parent, each in a process of its own."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from sdflib_tpu_torch import ExactOctreeSdf
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    dev = torch.device("cuda", 0)
+    store = tempfile.mkdtemp(prefix="sdf_exact_ab_")
+    try:
+        for name, (nu, nv, depth, start, budget) in (
+                ("d6", (96, 48, 6, 2, None)), ("d7", (420, 120, 7, 3, 8 << 30))):
+            mesh = make_torus(R=0.3, r=0.12, nu=nu, nv=nv)
+            box = mesh.bounding_box.add_margin(0.14)
+            t0 = time.perf_counter()
+            sdf = ExactOctreeSdf(mesh, box, max_depth=depth, start_depth=start,
+                                 min_triangles_per_node=32, bucket_byte_budget=budget,
+                                 device=dev)
+            print(f"exact_ab: {name} built in {time.perf_counter() - t0:.1f} s")
+            sdf.save(os.path.join(store, f"{name}.npz"))
+            n = max(n for s, n in EXACT_AB_BATCHES if s == name)
+            np.save(os.path.join(store, f"{name}_pts.npy"),
+                    _uniform(box, n, 0, dev).cpu().numpy())
+            del sdf
+            torch.cuda.empty_cache()
+        for tree in (parent, root, root, parent):
+            run = subprocess.run([sys.executable, "-c", "import sys, chip_smoke as cs; "
+                                  "cs.exact_probe(*sys.argv[1:])", tree, store],
+                                 cwd=root, capture_output=True, text=True, timeout=900)
+            print(run.stdout, end="")
+            _check(run.returncode == 0, f"exact_probe failed ({tree}):\n{run.stderr[-4000:]}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def morton_profile(pts, label):
@@ -3069,6 +3255,7 @@ def main() -> None:
     print(f"SASS {_sass_branches(build.library_path(), 'nearest_kernel')}")
     print(f"SASS {_sass_branches(build.library_path(), 'scan_grouped_kernel')}")
     print(f"SASS {_sass_branches(build.library_path(), 'scan_window_kernel')}")
+    print(f"SASS {_sass_branches(build.library_path(), 'exact_finish_kernel')}")
     print(f"K1g occupancy: {build.library().sdf_scan_grouped_warps_per_sm()} warps an SM")
 
     def uniform(box, n, seed):
@@ -3234,16 +3421,16 @@ def main() -> None:
               f"active-lane share {share:.4f})")
         return err, ms, plain_ms, (pts_s, b0, nc, visit, rows)
 
-    def exact_breakdown(fn, label):
+    def exact_breakdown(fn, label, most):
         """``breakdown`` of one exact query, with the device ms a call of
-        K7-K9, K1 and the int32 sort, and at most EXACT_MAX_ACTIVITIES
-        device activities a call."""
+        K7-K9, K1 and the int32 sort, and at most ``most`` (and
+        EXACT_MAX_ACTIVITIES) device activities a call."""
         parts = dict.fromkeys(EXACT_PARTS)
         _, _, acts = breakdown(fn, label, top=8, device_ms=parts)
         print(f"    {label}, by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
               + f"; {acts} device activities a call")
-        _check(acts <= EXACT_MAX_ACTIVITIES,
-               f"{acts} device activities a call ({label}), above {EXACT_MAX_ACTIVITIES}")
+        most = min(most, EXACT_MAX_ACTIVITIES)
+        _check(acts <= most, f"{acts} device activities a call ({label}), above {most}")
 
     def query_rows(sdf, q, label):
         """``get_distance`` (K8, the sort, K9, K1, K7), the same with
@@ -3355,11 +3542,10 @@ def main() -> None:
     # -- K7-K9 against their plain versions, d6 2^21 (window) and 2^16 ------
     ek = exact_kernels_vs_plain(sdf, pts, "d6 2^21")
     for name in EXACT_KERNELS:
-        err, ms, plain_ms, bound = ek[name]
-        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+        kernels[name] = dict(ek[name])
     for res in (exact_kernels_vs_plain(sdf, pts[: 1 << 16], "d6 2^16"), ek):
         kernels["exact_finish"]["err"] = max(kernels["exact_finish"]["err"],
-                                             res["exact_finish_grad"][0])
+                                             res["exact_finish_grad"]["err"])
 
     # -- both scans pinned, d6 ----------------------------------------------
     for n in (1 << k for k in range(16, 22)):
@@ -3371,11 +3557,14 @@ def main() -> None:
             row.append(f"{name} {ms:.4f} ms ({n / ms * 1e3:.4e} q/s)")
         print(f"get_distance d6 2^{n.bit_length() - 1} points, scan pinned: "
               + ", ".join(row))
-    exact_breakdown(lambda: sdf.get_distance(pts), "d6 2^21 points (auto: window)")
+    exact_breakdown(lambda: sdf.get_distance(pts), "d6 2^21 points (auto: window)",
+                    EXACT_ACTIVITIES["window"])
     sdf.set_scan_impl("xla")
-    exact_breakdown(lambda: sdf.get_distance(pts[:n]), "d6 2^21 points, grouped scan pinned")
+    exact_breakdown(lambda: sdf.get_distance(pts[:n]), "d6 2^21 points, grouped scan pinned",
+                    EXACT_ACTIVITIES["grouped"])
     sdf._default_scan_impl()
-    exact_breakdown(lambda: sdf.get_distance(pts[: 1 << 16]), "d6 2^16 points (auto: grouped)")
+    exact_breakdown(lambda: sdf.get_distance(pts[: 1 << 16]), "d6 2^16 points (auto: grouped)",
+                    EXACT_ACTIVITIES["grouped"])
 
     # -- end-to-end query timing: K7-K9 and K1, K1 with K7-K9's plain
     # versions (``_query(plain_glue=True)``), every step plain -------------
@@ -3480,11 +3669,12 @@ def main() -> None:
         row.append(f"{name} {ms:.4f} ms ({bpts.shape[0] / ms * 1e3:.4e} q/s)")
     bsdf._default_scan_impl()
     print("get_distance d7 2^20 points, scan pinned: " + ", ".join(row))
-    exact_breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)")
+    exact_breakdown(lambda: bsdf.get_distance(bpts), "d7 2^20 points (auto: grouped)",
+                    EXACT_ACTIVITIES["d7"])
     query_rows(bsdf, bpts, "d7 2^20 points (auto: grouped)")
     ek7 = exact_kernels_vs_plain(bsdf, bpts, "d7 2^20")
     kernels["exact_finish"]["err"] = max(kernels["exact_finish"]["err"],
-                                         ek7["exact_finish_grad"][0])
+                                         ek7["exact_finish_grad"]["err"])
     g_err7, g_ms7, g_plain7 = grouped_vs_plain(bsdf, bpts, "d7, 2^20 points")
     grouped_work(bsdf, bpts, g_ms7, "d7 2^20")
     w_err7, w_ms7, _, _ = window_vs_plain(bsdf, bpts, "d7 2^20, checked on 2^16",

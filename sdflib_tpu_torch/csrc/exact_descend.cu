@@ -1,5 +1,5 @@
 // K8 (exact_descend) and K9 (exact_sorted_gather): the exact query's key
-// and its gathers around the stable sort, one thread a point.
+// and its gathers around the stable sort.
 //
 // Neither replaces a TPU kernel: no pl.pallas_call lies behind them. The
 // JAX package compiles its whole exact query as one XLA program
@@ -17,18 +17,23 @@
 // K9 replaces the gathers of the sorted order (the multi-operand lax.sort
 // carries the coordinates, :934-941) and of each sorted point's bucket
 // bounds (:982-983): pts_s[i] = points[order[i]] and, for the window scan
-// and the id-only tier, b0[i] = leaf_row0[lid_s[i]] and
-// nc[i] = leaf_nchunks[lid_s[i]], zero from P up to the padded size.
+// and the id-only tier, (b0[i], nc[i]) = bounds[lid_s[i]], the leaf's
+// first bucket row and row count from the structure's packed (L, 2)
+// table, zero from P up to the padded size.
 //
 // Bound: bytes. K8 reads 12 B of point and a 4 B grid word and writes a
 // 4 B key (20 B a point: 0.0125 ms at 2^21 points on an H100); K9 reads
 // 8 B of order, a point's 12 B at a random place, 4 B of key and 8 B of
 // the touched leaves' bounds, and writes 12 + 8 B. The grid (2 MiB at
-// depth 6, 8 MiB at depth 7) and the leaves' bounds stay in the 50 MB L2;
-// the points a sorted warp reads lie anywhere in the batch, so K9's reads
-// cost a 32 B sector each. One thread a point with plain loads and stores
-// is what this design does about it: nothing else is worth a launch's
-// cost at these sizes.
+// depth 6, 8 MiB at depth 7) and the leaves' bounds stay in the 50 MB L2.
+// K8 is one thread a point with plain loads and stores. K9 is latency
+// bound: the points a sorted warp reads lie anywhere in the batch, each a
+// dependent read behind order[i]. So a K9 thread takes kPts points (block
+// tiles, each load and store coalesced across the warp) and issues every
+// order and key load, then every point and bounds load, before its first
+// store: kPts random gathers in flight a thread instead of one. A leaf's
+// bounds are one 8-byte load; ~22 sorted points share a leaf at d6 2^21,
+// so a warp's read is mostly a broadcast.
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,34 +59,60 @@ __global__ void exact_descend_kernel(const float* __restrict__ points, int P,
   key[i] = grid[(c[2] * g + c[1]) * g + c[0]];
 }
 
-__global__ void exact_sorted_gather_kernel(const float* __restrict__ points,
-                                           const long long* __restrict__ order, int P,
-                                           const int* __restrict__ lid_s,
-                                           const int* __restrict__ leaf_row0,
-                                           const int* __restrict__ leaf_nchunks, int size,
-                                           float* __restrict__ pts_s, int* __restrict__ b0,
-                                           int* __restrict__ nc) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= size) return;
-  float x = 0.0f, y = 0.0f, z = 0.0f;
-  int r0 = 0, n0 = 0;
-  if (i < P) {
-    const long long j = order[i];
-    x = points[3 * j];
-    y = points[3 * j + 1];
-    z = points[3 * j + 2];
-    if (b0 != nullptr) {
-      const int l = lid_s[i];
-      r0 = leaf_row0[l];
-      n0 = leaf_nchunks[l];
+template <int kPts, bool kBounds>
+__global__ void __launch_bounds__(kThreads)
+    exact_sorted_gather_kernel(const float* __restrict__ points,
+                               const long long* __restrict__ order, int P,
+                               const int* __restrict__ lid_s, const int2* __restrict__ bounds,
+                               int size, float* __restrict__ pts_s, int* __restrict__ b0,
+                               int* __restrict__ nc) {
+  const int i0 = blockIdx.x * (kThreads * kPts) + threadIdx.x;
+  long long j[kPts];
+  int l[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int i = i0 + k * kThreads;
+    j[k] = i < P ? __ldg(order + i) : -1;
+    l[k] = kBounds && i < P ? __ldg(lid_s + i) : -1;
+  }
+  float x[kPts][3];
+  int2 bd[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[k][a] = j[k] >= 0 ? __ldg(points + 3 * j[k] + a) : 0.0f;
+    bd[k] = l[k] >= 0 ? __ldg(bounds + l[k]) : make_int2(0, 0);
+  }
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int i = i0 + k * kThreads;
+    if (i >= size) continue;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pts_s[3 * i + a] = x[k][a];
+    if (kBounds) {
+      b0[i] = bd[k].x;
+      nc[i] = bd[k].y;
     }
   }
-  pts_s[3 * i] = x;
-  pts_s[3 * i + 1] = y;
-  pts_s[3 * i + 2] = z;
-  if (b0 != nullptr) {
-    b0[i] = r0;
-    nc[i] = n0;
+}
+
+template <int kPts, bool kBounds>
+void launch_gather(const float* points, const long long* order, int P, const int* lid_s,
+                   const int2* bounds, int size, float* pts_s, int* b0, int* nc,
+                   cudaStream_t st) {
+  const int blocks = (size + kThreads * kPts - 1) / (kThreads * kPts);
+  exact_sorted_gather_kernel<kPts, kBounds><<<blocks, kThreads, 0, st>>>(
+      points, order, P, lid_s, bounds, size, pts_s, b0, nc);
+}
+
+template <int kPts>
+void launch_gather(const float* points, const long long* order, int P, const int* lid_s,
+                   const int2* bounds, int size, float* pts_s, int* b0, int* nc,
+                   cudaStream_t st) {
+  if (bounds == nullptr) {
+    launch_gather<kPts, false>(points, order, P, lid_s, bounds, size, pts_s, b0, nc, st);
+  } else {
+    launch_gather<kPts, true>(points, order, P, lid_s, bounds, size, pts_s, b0, nc, st);
   }
 }
 
@@ -101,18 +132,25 @@ extern "C" int sdf_exact_descend(const float* points, int P, const int* grid, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// points (P, 3); order (P,) int64; lid_s, leaf_row0, leaf_nchunks, b0, nc
-// all null (the grouped scan) or all given; pts_s (size, 3), b0 and nc
-// (size,), size >= P (else cudaErrorInvalidValue).
+// points (P, 3); order (P,) int64; lid_s (P,) int32 and bounds (L, 2)
+// int32 {first row, row count} a leaf, with b0 and nc, all null (the
+// grouped scan) or all given; pts_s (size, 3), b0 and nc (size,);
+// pts_per_thread 1, 2, 4 or 8. size < P, P < 0 or another pts_per_thread
+// returns cudaErrorInvalidValue.
 extern "C" int sdf_exact_sorted_gather(const float* points, const long long* order, int P,
-                                       const int* lid_s, const int* leaf_row0,
-                                       const int* leaf_nchunks, int size, float* pts_s,
-                                       int* b0, int* nc, void* stream) {
-  if (size < P || P < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                       const int* lid_s, const int* bounds, int size,
+                                       float* pts_s, int* b0, int* nc, int pts_per_thread,
+                                       void* stream) {
+  const int k = pts_per_thread;
+  if (size < P || P < 0 || (k != 1 && k != 2 && k != 4 && k != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (size > 0) {
-    exact_sorted_gather_kernel<<<(size + kThreads - 1) / kThreads, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        points, order, P, lid_s, leaf_row0, leaf_nchunks, size, pts_s, b0, nc);
+    const int2* bd = reinterpret_cast<const int2*>(bounds);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (k == 1) launch_gather<1>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
+    if (k == 2) launch_gather<2>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
+    if (k == 4) launch_gather<4>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
+    if (k == 8) launch_gather<8>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-// K7 (exact_finish): the exact query's signed finish and its unsort, one
-// thread a point.
+// K7 (exact_finish): the exact query's signed finish and its unsort,
+// kPts points a thread.
 //
 // It replaces no TPU kernel: no pl.pallas_call lies behind it. It does the
 // work of _exact_finish (sdflib_tpu/sdf/exact_octree.py:1144-1181) and of
@@ -9,12 +9,12 @@
 //
 // Point i of the leaf-sorted points reads its winner's row of the finish
 // table (ops/exact_query.py finish_table: the 37 fields of
-// pack_triangle_full_fields, then the 9 world-vertex floats) and writes
-// d[order[i]] (and g[order[i]]): inside the box [box_min, box_min +
-// box_size3), the signed distance to the winner (a winner of -1 reads
-// triangle 0); outside it box_distance + fallback (leaf_eval.cuh's
-// box_value, whose 3-term sums take torch's CUDA order), and
-// box_distance_gradient's gradient. Out-of-box points read no row.
+// pack_triangle_full_fields, then the 9 world-vertex floats, 48 floats a
+// row, row-major) and writes d[order[i]] (and g[order[i]]): inside the box
+// [box_min, box_min + box_size3), the signed distance to the winner (a
+// winner of -1 reads triangle 0); outside it box_distance + fallback
+// (leaf_eval.cuh's box_value, whose 3-term sums take torch's CUDA order),
+// and box_distance_gradient's gradient. Out-of-box points read no row.
 //
 // Every expression keeps the operand order of the torch version the
 // wrapper falls back to on the CPU (exact_finish_plain):
@@ -28,13 +28,19 @@
 // Bound: bytes. Each point reads 12 B of point, 4 B of winner and 8 B of
 // order and writes 4 B (16 more with the gradient); each touched triangle's
 // 148 B row (184 B with the world vertices) is read once. At 2^21 points
-// that is ~0.018 ms on an H100, against ~70 flops a point (~150 with the
-// gradient). The sorted points of a warp share few winners, so the rows
-// come from L1 after the first lane's miss; the scatter of the outputs
-// to order[i] is the random access, one 32 B sector a point. The table's
-// strides are arguments, so one kernel reads either layout: row-major,
-// where a row is five consecutive sectors, or field-major, where a field
-// of neighbouring triangles shares a sector (PERF.md compares the two).
+// that is ~0.018 ms on an H100, against ~70 flops a point (~100 with the
+// gradient). The sorted lanes of a warp share few winners, so a load
+// instruction costs one L1 wavefront per distinct row it touches. The
+// design spends as few load instructions a point as it can: the row
+// stride is the compile-time 48 floats (192 B, 16-byte aligned), so the
+// frame (fields 0-19) is five 16-byte loads; the region's normal triple
+// (and with the gradient its world vertex) is three scalar loads at an
+// offset computed from the region code, outside any branch; the box and
+// the fallback come by value. The region's arithmetic is selects, not a
+// switch, so lanes of different regions do not serialise. A thread takes
+// kPts points (block tiles, so each load stays coalesced) and issues
+// every point's loads before the first point's arithmetic. The unsort is
+// one scattered 4-byte write a point (16 more with the gradient).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,14 +49,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRow = 48;  // floats a row of the finish table (192 B)
 // finish-table fields (ops/point_triangle.py _F_*, ops/exact_query.py)
-constexpr int kOrigin = 0, kTransform = 3, kB = 12, kC = 14, kV2x = 16, kV3 = 17;
 constexpr int kEdgeN = 19, kVertN = 28, kVWorld = 37;
 
-struct Row {
-  const float* base;
-  long long stride;
-  __device__ __forceinline__ float operator()(int r) const { return __ldg(base + r * stride); }
+// the box [mn, mn + sz) and the fallback's constant, by value
+struct FinishBox {
+  float mn[3], sz[3], fallback;
 };
 
 // torch.sign on the card: (0 < v) - (v < 0), so 0 at 0 and at NaN
@@ -60,47 +65,50 @@ __device__ __forceinline__ float torch_sign(float v) {
 
 // _safe_normalize(vec, tn): torch's sum of 3 terms, (x0 + x2) + x1; rsqrt
 // of the sum clamped to 1e-38 where it is positive, else the fallback tn
-__device__ __forceinline__ void safe_normalize(float v0, float v1, float v2,
-                                               const float tn[3], float out[3]) {
-  const float n2 = (v0 * v0 + v2 * v2) + v1 * v1;
-  if (n2 > 0.0f) {
-    const float inv = rsqrtf(fmaxf(n2, 1e-38f));
-    out[0] = v0 * inv;
-    out[1] = v1 * inv;
-    out[2] = v2 * inv;
-  } else {
-    out[0] = tn[0];
-    out[1] = tn[1];
-    out[2] = tn[2];
+__device__ __forceinline__ void safe_normalize(const float v[3], const float tn[3],
+                                               float out[3]) {
+  const float n2 = (v[0] * v[0] + v[2] * v[2]) + v[1] * v[1];
+  const float inv = rsqrtf(fmaxf(n2, 1e-38f));
+#pragma unroll
+  for (int j = 0; j < 3; ++j) out[j] = n2 > 0.0f ? v[j] * inv : tn[j];
+}
+
+// The winner's frame (fields 0-19 of its row: origin, transform, b, c,
+// v2x, v3xy and one spare) as five 16-byte loads.
+struct Frame {
+  float4 q[5];
+  __device__ __forceinline__ float operator[](int k) const {
+    const float4 v = q[k >> 2];
+    return (k & 3) == 0 ? v.x : (k & 3) == 1 ? v.y : (k & 3) == 2 ? v.z : v.w;
   }
-}
+};
 
-// _to_world(tri, x, y, z), component j: (t[0][j] x + t[1][j] y) + t[2][j] z
-__device__ __forceinline__ void to_world(const float t[9], float x, float y, float z,
-                                         float out[3]) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) out[j] = t[j] * x + t[3 + j] * y + t[6 + j] * z;
-}
+// A point in its winner's frame and the region code of _code: 0-2
+// vertices, 3-5 edges, 6 the face. (a, b) is the point's in-plane offset
+// from the code's feature as the pseudonormal dot takes it, e its
+// distance from the edge line (edge codes).
+struct Local {
+  float t[9], ppx, ppy, ppz, z2, a, b, e, b0, b1, c0, c1;
+  int code;
+};
 
-template <bool Grad>
-__device__ __forceinline__ float signed_finish(const Row& f, float px, float py, float pz,
-                                               float g[3]) {
-  float t[9];
+__device__ __forceinline__ Local classify(const Frame& f, float px, float py, float pz) {
+  Local L;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) t[k] = f(kTransform + k);
-  const float dx = px - f(kOrigin);
-  const float dy = py - f(kOrigin + 1);
-  const float dz = pz - f(kOrigin + 2);
+  for (int k = 0; k < 9; ++k) L.t[k] = f[3 + k];
+  const float dx = px - f[0];
+  const float dy = py - f[1];
+  const float dz = pz - f[2];
+  const float* t = L.t;
   const float ppx = t[0] * dx + t[1] * dy + t[2] * dz;
   const float ppy = t[3] * dx + t[4] * dy + t[5] * dz;
   const float ppz = t[6] * dx + t[7] * dy + t[8] * dz;
-  const float b0 = f(kB), b1 = f(kB + 1), c0 = f(kC), c1 = f(kC + 1);
-  const float v2x = f(kV2x), v3x = f(kV3), v3y = f(kV3 + 1);
+  const float b0 = f[12], b1 = f[13], c0 = f[14], c1 = f[15];
+  const float v2x = f[16], v3x = f[17], v3y = f[18];
 
   const float de1 = -ppy;
   const float de2 = (ppx - v2x) * b1 - ppy * b0;
   const float de3 = ppx * c1 - ppy * c0;
-  const float z2 = ppz * ppz;
   const float rx2 = ppx - v2x;
   const float rx3 = ppx - v3x, ry3 = ppy - v3y;
   const float dot_b_v2 = rx2 * b0 + ppy * b1;
@@ -108,7 +116,6 @@ __device__ __forceinline__ float signed_finish(const Row& f, float px, float py,
   const float dot_c_v1 = ppx * c0 + ppy * c1;
   const float dot_c_v3 = rx3 * c0 + ry3 * c1;
 
-  // the region code of _code: 0-2 vertices, 3-5 edges, 6 the face
   int code;
   if (de1 >= 0.0f) {
     code = ppx <= 0.0f ? 0 : (ppx >= v2x ? 1 : 3);
@@ -119,135 +126,186 @@ __device__ __forceinline__ float signed_finish(const Row& f, float px, float py,
   } else {
     code = 6;
   }
+  L.code = code;
+  L.ppx = ppx;
+  L.ppy = ppy;
+  L.ppz = ppz;
+  L.z2 = ppz * ppz;
+  // vertices: v1 (ppx, ppy), v2 (rx2, ppy), v3 (rx3, ry3); edges e1 and
+  // e3 dot (ppx, ppy), e2 (rx2, ppy)
+  L.a = (code == 1 || code == 4) ? rx2 : (code == 2 ? rx3 : ppx);
+  L.b = code == 2 ? ry3 : ppy;
+  L.e = code == 3 ? de1 : (code == 4 ? de2 : de3);
+  L.b0 = b0;
+  L.b1 = b1;
+  L.c0 = c0;
+  L.c1 = c1;
+  return L;
+}
+
+// the first field of the code's pseudonormal triple (the face reads none)
+__device__ __forceinline__ int normal_field(int code) {
+  return code <= 2 ? kVertN + 3 * code : kEdgeN + 3 * (code - 3);
+}
+
+// The signed distance (and with Grad the gradient) of a classified point
+// from its feature's normal n and, for the vertex codes, its world vertex vw.
+template <bool Grad>
+__device__ __forceinline__ float signed_finish(const Local& L, const float n[3],
+                                               const float vw[3], float px, float py,
+                                               float pz, float g[3]) {
+  const int code = L.code;
   // the squared distance and the pseudonormal dot of the code's feature
-  float sq, s;
-  switch (code) {
-    case 0:
-      sq = ppx * ppx + ppy * ppy + z2;
-      s = f(kVertN) * ppx + f(kVertN + 1) * ppy + f(kVertN + 2) * ppz;
-      break;
-    case 1:
-      sq = rx2 * rx2 + ppy * ppy + z2;
-      s = f(kVertN + 3) * rx2 + f(kVertN + 4) * ppy + f(kVertN + 5) * ppz;
-      break;
-    case 2:
-      sq = rx3 * rx3 + ry3 * ry3 + z2;
-      s = f(kVertN + 6) * rx3 + f(kVertN + 7) * ry3 + f(kVertN + 8) * ppz;
-      break;
-    case 3:
-      sq = de1 * de1 + z2;
-      s = f(kEdgeN) * ppx + f(kEdgeN + 1) * ppy + f(kEdgeN + 2) * ppz;
-      break;
-    case 4:
-      sq = de2 * de2 + z2;
-      s = f(kEdgeN + 3) * rx2 + f(kEdgeN + 4) * ppy + f(kEdgeN + 5) * ppz;
-      break;
-    case 5:
-      sq = de3 * de3 + z2;
-      s = f(kEdgeN + 6) * ppx + f(kEdgeN + 7) * ppy + f(kEdgeN + 8) * ppz;
-      break;
-    default:
-      sq = z2;
-      s = ppz;
-  }
-  const float sign = torch_sign(s);
-  const float d = code == 6 ? ppz : sign * sqrtf(sq);
+  const float sq = code <= 2 ? L.a * L.a + L.b * L.b + L.z2 : L.e * L.e + L.z2;
+  const float s = n[0] * L.a + n[1] * L.b + n[2] * L.ppz;
+  const float sign = code == 6 ? 0.0f : torch_sign(s);
+  const float d = code == 6 ? L.ppz : sign * sqrtf(sq);
   if (!Grad) return d;
 
   // signed_dist_grad_pair: the normal of the code's feature, each built as
   // the torch version builds all seven
+  const float* t = L.t;
   const float tn[3] = {t[6], t[7], t[8]};
-  const bool on_rim = code != 6 && sign == 0.0f && sq == 0.0f;
-  if (code == 6 || on_rim) {
-    g[0] = tn[0];
-    g[1] = tn[1];
-    g[2] = tn[2];
-    return d;
+  const bool flat = code == 6 || (sign == 0.0f && sq == 0.0f);
+  // edges: e1 (0, y, z); e2 and e3 the point less its component along b
+  // or c, (x - dot u0, y - dot u1, z)
+  const bool e2 = code == 4;
+  const float u0 = e2 ? L.b0 : L.c0, u1 = e2 ? L.b1 : L.c1;
+  const float dot = L.a * u0 + L.ppy * u1;
+  const float x = code == 3 ? 0.0f : L.a - dot * u0;
+  const float y = code == 3 ? L.ppy : L.ppy - dot * u1;
+  float w[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    // _to_world(tri, x, y, z), component j: (t[0][j] x + t[1][j] y) + t[2][j] z
+    const float edge = t[j] * x + t[3 + j] * y + t[6 + j] * L.ppz;
+    const float p = j == 0 ? px : (j == 1 ? py : pz);
+    w[j] = code <= 2 ? p - vw[j] : edge;
   }
-  float n[3], w[3];
-  if (code <= 2) {
-    const int v = kVWorld + 3 * code;
-    safe_normalize(px - f(v), py - f(v + 1), pz - f(v + 2), tn, n);
-  } else if (code == 3) {
-    to_world(t, 0.0f, ppy, ppz, w);
-    safe_normalize(w[0], w[1], w[2], tn, n);
-  } else if (code == 4) {
-    const float dot_b = (ppx - v2x) * b0 + ppy * b1;
-    to_world(t, (ppx - v2x) - dot_b * b0, ppy - dot_b * b1, ppz, w);
-    safe_normalize(w[0], w[1], w[2], tn, n);
-  } else {
-    const float dot_c = ppx * c0 + ppy * c1;
-    to_world(t, ppx - dot_c * c0, ppy - dot_c * c1, ppz, w);
-    safe_normalize(w[0], w[1], w[2], tn, n);
-  }
-  g[0] = sign * n[0];
-  g[1] = sign * n[1];
-  g[2] = sign * n[2];
+  float nn[3];
+  safe_normalize(w, tn, nn);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) g[j] = flat ? tn[j] : sign * nn[j];
   return d;
 }
 
-template <bool Grad>
-__global__ void exact_finish_kernel(const float* __restrict__ pts_s, const int* __restrict__ win,
-                                    const long long* __restrict__ order, int P,
-                                    const float* __restrict__ table, long long ts,
-                                    long long rs, const float* __restrict__ box_min,
-                                    const float* __restrict__ box_size3, float fallback,
-                                    float* __restrict__ d_out, float* __restrict__ g_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= P) return;
+template <bool Grad, int kPts>
+__global__ void __launch_bounds__(kThreads)
+    exact_finish_kernel(const float* __restrict__ pts_s, const int* __restrict__ win,
+                        const long long* __restrict__ order, int P,
+                        const float* __restrict__ table, FinishBox fb,
+                        float* __restrict__ d_out, float* __restrict__ g_out) {
+  const int i0 = blockIdx.x * (kThreads * kPts) + threadIdx.x;
   leaf::Box b;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    b.mn[a] = box_min[a];
-    b.sz[a] = box_size3[a];
+    b.mn[a] = fb.mn[a];
+    b.sz[a] = fb.sz[a];
     b.half[a] = 0.5f * b.sz[a];
     b.ctr[a] = b.mn[a] + b.half[a];
   }
-  const float p[3] = {pts_s[3 * i], pts_s[3 * i + 1], pts_s[3 * i + 2]};
-  bool in_box = true;
+  // every point's inputs and row first, then the arithmetic
+  float p[kPts][3];
+  long long o[kPts];
+  bool live[kPts], in_box[kPts];
+  const float* row[kPts];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float rel = (p[a] - b.mn[a]) / b.sz[a];
-    in_box = in_box && rel >= 0.0f && rel < 1.0f;
+  for (int k = 0; k < kPts; ++k) {
+    const int i = i0 + k * kThreads;
+    live[k] = i < P;
+    int w = 0;
+    o[k] = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p[k][a] = 0.0f;
+    if (live[k]) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) p[k][a] = __ldg(pts_s + 3 * i + a);
+      w = max(__ldg(win + i), 0);
+      o[k] = __ldg(order + i);
+    }
+    row[k] = table + static_cast<long long>(w) * kRow;
   }
-  float d, g[3];
-  if (in_box) {
-    const int w = max(win[i], 0);
-    const Row f{table + w * ts, rs};
-    d = signed_finish<Grad>(f, p[0], p[1], p[2], g);
-  } else {
-    d = leaf::box_value(b, p, fallback);
-    if (Grad) leaf::box_gradient(b, p, g);
+  Frame f[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    bool in = live[k];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float rel = (p[k][a] - b.mn[a]) / b.sz[a];
+      in = in && rel >= 0.0f && rel < 1.0f;
+    }
+    in_box[k] = in;
+    const float4* q = reinterpret_cast<const float4*>(row[k]);
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      f[k].q[m] = in ? __ldg(q + m) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
   }
-  const long long o = order[i];
-  d_out[o] = d;
-  if (Grad) {
-    g_out[3 * o] = g[0];
-    g_out[3 * o + 1] = g[1];
-    g_out[3 * o + 2] = g[2];
+  Local L[kPts];
+  float n[kPts][3], vw[kPts][3];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    L[k] = classify(f[k], p[k][0], p[k][1], p[k][2]);
+    const int code = L[k].code;
+    const float* nb = row[k] + normal_field(code);
+    const float* vb = row[k] + kVWorld + 3 * min(code, 2);
+    const bool reads_n = in_box[k] && code != 6;
+    const bool reads_v = Grad && in_box[k] && code <= 2;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      n[k][j] = reads_n ? __ldg(nb + j) : 0.0f;
+      vw[k][j] = reads_v ? __ldg(vb + j) : 0.0f;
+    }
   }
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    if (!live[k]) continue;
+    float d, g[3];
+    if (in_box[k]) {
+      d = signed_finish<Grad>(L[k], n[k], vw[k], p[k][0], p[k][1], p[k][2], g);
+    } else {
+      d = leaf::box_value(b, p[k], fb.fallback);
+      if (Grad) leaf::box_gradient(b, p[k], g);
+    }
+    d_out[o[k]] = d;
+    if (Grad) {
+      g_out[3 * o[k]] = g[0];
+      g_out[3 * o[k] + 1] = g[1];
+      g_out[3 * o[k] + 2] = g[2];
+    }
+  }
+}
+
+template <bool Grad, int kPts>
+void launch(const float* pts_s, const int* win, const long long* order, int P,
+            const float* table, const FinishBox& fb, float* d, float* g, cudaStream_t st) {
+  const int blocks = (P + kThreads * kPts - 1) / (kThreads * kPts);
+  exact_finish_kernel<Grad, kPts><<<blocks, kThreads, 0, st>>>(pts_s, win, order, P, table,
+                                                                fb, d, g);
 }
 
 }  // namespace
 
 // pts_s (P, 3) leaf-sorted; win (P,) int32; order (P,) int64; table
-// (T, 48) float32, element (t, r) at table[t * ts + r * rs]; d (P,); g
-// (P, 3) or null (no gradient). Strides below 1 return
-// cudaErrorInvalidValue.
+// (T, 48) float32, row-major and 16-byte aligned; the box [bmin, bmin +
+// bsize) and the fallback by value; d (P,); g (P, 3) or null (no
+// gradient); pts_per_thread 1 or 2. Another pts_per_thread or P < 0
+// returns cudaErrorInvalidValue.
 extern "C" int sdf_exact_finish(const float* pts_s, const int* win, const long long* order,
-                                int P, const float* table, long long ts, long long rs,
-                                const float* box_min, const float* box_size3, float fallback,
-                                float* d, float* g, void* stream) {
-  if (ts <= 0 || rs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                int P, const float* table, float bx, float by, float bz,
+                                float sx, float sy, float sz, float fallback, float* d, float* g,
+                                int pts_per_thread, void* stream) {
+  if (P < 0 || (pts_per_thread != 1 && pts_per_thread != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (P > 0) {
-    const int blocks = (P + kThreads - 1) / kThreads;
+    const FinishBox fb{{bx, by, bz}, {sx, sy, sz}, fallback};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (g == nullptr) {
-      exact_finish_kernel<false><<<blocks, kThreads, 0, st>>>(
-          pts_s, win, order, P, table, ts, rs, box_min, box_size3, fallback, d, g);
+      if (pts_per_thread == 1) launch<false, 1>(pts_s, win, order, P, table, fb, d, g, st);
+      else launch<false, 2>(pts_s, win, order, P, table, fb, d, g, st);
     } else {
-      exact_finish_kernel<true><<<blocks, kThreads, 0, st>>>(
-          pts_s, win, order, P, table, ts, rs, box_min, box_size3, fallback, d, g);
+      if (pts_per_thread == 1) launch<true, 1>(pts_s, win, order, P, table, fb, d, g, st);
+      else launch<true, 2>(pts_s, win, order, P, table, fb, d, g, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

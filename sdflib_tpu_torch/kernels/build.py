@@ -9,7 +9,8 @@ rebuilds, an unchanged one loads the existing file, and ptxas's report
 of each kernel's registers and spills lies beside it (``ptxas_report``).
 Each entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
-``launch`` calls one on the current stream of a tensor's card and
+``launch`` calls one (looked up once a process, ``entry``) on the
+current stream of a tensor's card and
 ``check`` turns a non-zero code into an exception. The wrappers count
 their launches through ``count_launch``.
 
@@ -29,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "library_path", "launch", "check", "count_launch", "sm_count",
+__all__ = ["library", "library_path", "entry", "launch", "check", "count_launch", "sm_count",
            "ptxas_report", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v",
 )
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the leaf grid's leading arguments (ops/octree_query.py grid_args): rows,
 # width, coefficients, words, depth, tricubic, box_min, box_size3,
 # min_border
@@ -83,16 +84,17 @@ _SIGNATURES = {
     "sdf_beam": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
     # (points, P, leaf grid, depth, box_min, box_size3, key, stream)
     "sdf_exact_descend": [_P, _I, _P, _I, _P, _P, _P, _P],
-    # (points, order, P, lid_s, leaf_row0, leaf_nchunks, size, pts_s, b0, nc,
-    #  stream)
-    "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
-    # (pts_s, win, order, P, table, row stride, field stride, box_min,
-    #  box_size3, fallback, d, g or null, stream)
-    "sdf_exact_finish": [_P, _P, _P, _I, _P, _L, _L, _P, _P, _F, _P, _P, _P],
+    # (points, order, P, lid_s, leaf bounds, size, pts_s, b0, nc, points a
+    #  thread, stream)
+    "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P],
+    # (pts_s, win, order, P, table, box_min x y z, box size x y z, fallback,
+    #  d, g or null, points a thread, stream)
+    "sdf_exact_finish": [_P, _P, _P, _I, _P, *[_F] * 7, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
 _so: Path | None = None
+_entries: dict[str, ctypes._CFuncPtr] = {}
 _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
@@ -195,13 +197,21 @@ def ptxas_report() -> dict[str, str]:
     return report
 
 
+def entry(name: str) -> ctypes._CFuncPtr:
+    """The library's entry point ``name``, looked up once a process."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    return fn
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the library's entry point ``name`` with ``args`` and the
     current stream of the CUDA ``device`` (read at every call: a CUDA
     graph's capture replaces it), and raise if it returns an error. The
     call enters ``device`` only when it is not the current card, where the
     launch would find the stream of another card."""
-    fn = getattr(library(), name)
+    fn = entry(name)
     current = torch.cuda.current_device()
     idx = current if device.index is None else device.index
     stream = torch._C._cuda_getCurrentRawStream(idx)

@@ -1,4 +1,4 @@
-"""K7-K9: the exact query's work around the scan, one thread a point.
+"""K7-K9: the exact query's work around the scan.
 
 The JAX package runs the whole exact query as one compiled program
 (sdflib_tpu/sdf/exact_octree.py ``_exact_query_fused``), in which XLA
@@ -16,7 +16,9 @@ its plain torch version, beside it here, for CPU tensors.
   the sorted order, :934-941, and of the window scan's bounds,
   :982-983): ``pts[order]`` and, for the window scan and the id-only
   tier, each sorted point's first bucket row and row count, zero padded
-  to ``size`` points.
+  to ``size`` points. The kernel reads a leaf's bounds as one 8-byte
+  word of a packed (L, 2) table (``leaf_bounds``; the structure keeps
+  one beside ``leaf_row0`` and ``leaf_nchunks``).
 * K7, ``exact_finish`` (``csrc/exact_finish.cu``; ``_exact_finish``,
   :1144-1181, and the unsort, :1041-1048): the signed distance (and the
   gradient) of each sorted point to its winning triangle, or the box
@@ -26,9 +28,14 @@ its plain torch version, beside it here, for CPU tensors.
 K7 reads the finish table (``finish_table``): one row of
 ``FINISH_FIELDS`` floats a triangle, the 37 fields of
 ``pack_triangle_full_fields`` then the 9 world-vertex floats the
-gradient's normals need. The kernel takes any strides of the (T, 48)
-table: row-major (the structure's, ``_finish_table``) or field-major (a
-transposed copy, timed beside it in ``chip_smoke.py``).
+gradient's normals need, row-major (the structure's ``_finish_table``).
+``exact_finish`` refuses any other table, on every device.
+
+The public functions check their arguments and, on the card, call the
+lean launches ``launch_sorted_gather`` and ``launch_exact_finish``, which
+``ExactOctreeSdf._query`` calls directly with tensors it made itself:
+no checks, no copies, the box as host floats, the ctypes entry looked up
+once a process; a launch that fails still raises.
 
 ``descend_launch_count``, ``gather_launch_count`` and
 ``finish_launch_count`` count kernel launches.
@@ -52,12 +59,16 @@ __all__ = [
     "FINISH_FIELDS", "finish_table",
     "exact_descend", "exact_descend_plain",
     "exact_sorted_gather", "exact_sorted_gather_plain",
-    "exact_finish", "exact_finish_plain",
+    "exact_finish", "exact_finish_plain", "leaf_bounds",
+    "launch_sorted_gather", "launch_exact_finish",
     "descend_launch_count", "gather_launch_count", "finish_launch_count",
 ]
 
 FINISH_FIELDS = 48     # 37 full fields, 9 world-vertex floats, 2 of padding
 _F_VWORLD = NUM_FULL_FIELDS
+# points a thread of K9 and K7 (csrc/exact_descend.cu, exact_finish.cu)
+GATHER_POINTS = 4
+FINISH_POINTS = 1
 descend_launch_count = 0
 gather_launch_count = 0
 finish_launch_count = 0
@@ -134,6 +145,12 @@ def exact_descend(points, leaf_grid, box_min, box_size3, depth: int):
 
 # -- K9: the sorted gather ------------------------------------------------------
 
+def leaf_bounds(leaf_row0, leaf_nchunks):
+    """The packed (L, 2) int32 table K9 reads: each leaf's first bucket
+    row and row count, side by side."""
+    return torch.stack([leaf_row0, leaf_nchunks], dim=1).contiguous()
+
+
 def exact_sorted_gather_plain(points, order, lid_s=None, leaf_row0=None, leaf_nchunks=None,
                               *, size: int | None = None):
     """(points in sorted order, their first bucket rows, their row counts),
@@ -155,7 +172,7 @@ def exact_sorted_gather(points, order, lid_s=None, leaf_row0=None, leaf_nchunks=
     """K9: ``exact_sorted_gather_plain``'s outputs; a CUDA tensor runs the
     kernel, a CPU tensor the plain version. ``order`` (P,) int64, the
     sorted leaf ids ``lid_s`` (P,) int32, ``leaf_row0``/``leaf_nchunks``
-    (L,) int32."""
+    (L,) int32 (packed here by ``leaf_bounds`` for the kernel)."""
     dev = points.device if isinstance(points, torch.Tensor) else None
     _tensor(points, torch.float32, (None, 3), "points", dev)
     P = points.shape[0]
@@ -170,18 +187,29 @@ def exact_sorted_gather(points, order, lid_s=None, leaf_row0=None, leaf_nchunks=
     if not _launches(dev):
         return exact_sorted_gather_plain(points, order, lid_s, leaf_row0, leaf_nchunks,
                                          size=size)
-    args = [t.contiguous() for t in (points, order)]
+    return launch_sorted_gather(points.contiguous(), order.contiguous(),
+                                lid_s.contiguous() if bounds else None,
+                                leaf_bounds(leaf_row0, leaf_nchunks) if bounds else None, size)
+
+
+def launch_sorted_gather(points, order, lid_s, bounds, size: int,
+                         points_per_thread: int = GATHER_POINTS):
+    """K9's launch, unchecked: contiguous CUDA tensors on one card, as
+    ``exact_sorted_gather`` checks them, with the packed ``bounds`` (L, 2)
+    of ``leaf_bounds`` (``lid_s`` and ``bounds`` both None in the grouped
+    scan), ``size`` >= P. Returns (pts_s, b0, nc) as the public function."""
+    dev = points.device
     pts_s = torch.empty((size, 3), dtype=torch.float32, device=dev)
     b0 = nc = None
-    rows = (None,) * 5
-    if bounds:
+    if bounds is not None:
         b0 = torch.empty(size, dtype=torch.int32, device=dev)
         nc = torch.empty(size, dtype=torch.int32, device=dev)
-        ls, r0, n0 = (t.contiguous() for t in (lid_s, leaf_row0, leaf_nchunks))
-        rows = (ls.data_ptr(), r0.data_ptr(), n0.data_ptr(), b0.data_ptr(), nc.data_ptr())
     if size:
-        build.launch("sdf_exact_sorted_gather", dev, args[0].data_ptr(), args[1].data_ptr(), P,
-                     rows[0], rows[1], rows[2], size, pts_s.data_ptr(), rows[3], rows[4])
+        build.launch("sdf_exact_sorted_gather", dev, points.data_ptr(), order.data_ptr(),
+                     points.shape[0], None if lid_s is None else lid_s.data_ptr(),
+                     None if bounds is None else bounds.data_ptr(), size, pts_s.data_ptr(),
+                     None if b0 is None else b0.data_ptr(),
+                     None if nc is None else nc.data_ptr(), points_per_thread)
         build.count_launch(globals(), "gather_launch_count")
     return pts_s, b0, nc
 
@@ -236,25 +264,39 @@ def exact_finish(pts_s, win, order, table, box_min, box_size3, fallback: float,
                  *, with_gradient: bool = False):
     """K7: ``exact_finish_plain``'s outputs; a CUDA tensor runs the kernel
     (one launch for either form), a CPU tensor the plain version. The
-    table may have any strides (row-major or field-major)."""
+    table must be a contiguous (T, FINISH_FIELDS) float32 tensor, 16-byte
+    aligned (the structure's ``_finish_table``), on either device."""
     dev = pts_s.device if isinstance(pts_s, torch.Tensor) else None
     _tensor(pts_s, torch.float32, (None, 3), "pts_s", dev)
     P = pts_s.shape[0]
     _tensor(win, torch.int32, (P,), "win", dev)
     _tensor(order, torch.int64, (P,), "order", dev)
     _tensor(table, torch.float32, (None, FINISH_FIELDS), "table", dev)
+    _need(table.is_contiguous() and table.data_ptr() % 16 == 0,
+          "table must be contiguous (row-major) and 16-byte aligned")
     _tensor(box_min, torch.float32, (3,), "box_min", dev)
     _tensor(box_size3, torch.float32, (3,), "box_size3", dev)
     if not _launches(dev):
         return exact_finish_plain(pts_s, win, order, table, box_min, box_size3, fallback,
                                   with_gradient=with_gradient)
-    args = [t.contiguous() for t in (pts_s, win, order, box_min, box_size3)]
+    box = (*box_min.tolist(), *box_size3.tolist())       # a host sync, once a call
+    return launch_exact_finish(pts_s.contiguous(), win.contiguous(), order.contiguous(), P,
+                               table, box, float(np.float32(fallback)), with_gradient)
+
+
+def launch_exact_finish(pts_s, win, order, P: int, table, box, fallback: float,
+                        with_gradient: bool, points_per_thread: int = FINISH_POINTS):
+    """K7's launch, unchecked: contiguous CUDA tensors on one card, as
+    ``exact_finish`` checks them, of which the first P sorted points and
+    winners are read (padded ``pts_s``/``win`` may be longer); ``box``
+    the six float32 values of box_min and box_size3 and ``fallback`` a
+    float32 value, as host floats. Returns d, or (d, g)."""
+    dev = pts_s.device
     d = torch.empty(P, dtype=torch.float32, device=dev)
     g = torch.empty((P, 3), dtype=torch.float32, device=dev) if with_gradient else None
     if P:
-        build.launch("sdf_exact_finish", dev, args[0].data_ptr(), args[1].data_ptr(),
-                     args[2].data_ptr(), P, table.data_ptr(), table.stride(0), table.stride(1),
-                     args[3].data_ptr(), args[4].data_ptr(), float(np.float32(fallback)),
-                     d.data_ptr(), g.data_ptr() if with_gradient else None)
+        build.launch("sdf_exact_finish", dev, pts_s.data_ptr(), win.data_ptr(),
+                     order.data_ptr(), P, table.data_ptr(), *box, fallback, d.data_ptr(),
+                     None if g is None else g.data_ptr(), points_per_thread)
         build.count_launch(globals(), "finish_launch_count")
     return (d, g) if with_gradient else d

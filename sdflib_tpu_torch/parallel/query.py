@@ -38,7 +38,7 @@ def _device_put_structure(sdf, device):
     """A shallow copy of the structure whose tensors sit on ``device``;
     the caller's object is never changed. Every tensor attribute moves
     (the JAX list's arrays by the port's names: ``_octree_dev``,
-    ``leaf_row0``, ``leaf_nchunks``, ``tri_flat``, ``bucket_ids``,
+    ``leaf_row0``, ``leaf_nchunks``, ``_leaf_bounds``, ``tri_flat``, ``bucket_ids``,
     ``bucket_fields``, ``_packed_t``, ``_finish_table``, ``fields``,
     ``_leaf_grid``, ``_query_grid``, ``_fat_grid``, ``grid`` and the box
     tensors), with ``triangles``; host arrays (``octree_data``,

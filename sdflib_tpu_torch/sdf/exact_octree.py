@@ -46,11 +46,12 @@ from ..mesh import BoundingBox, Mesh
 from ..ops.exact_query import (
     exact_descend,
     exact_descend_plain,
-    exact_finish,
     exact_finish_plain,
-    exact_sorted_gather,
     exact_sorted_gather_plain,
     finish_table,
+    launch_exact_finish,
+    launch_sorted_gather,
+    leaf_bounds,
 )
 from ..ops.gjk import box_triangle_distance, corner_sphere_hull_tri_lower
 from ..ops.point_triangle import (
@@ -785,11 +786,13 @@ class ExactOctreeSdf(SdfFunction):
         self.bucket_format = bucket_format
         self.triangles = triangles
         # row-major (T, 48): K7 reads a winner's fields and world vertices
-        # as one row (PERF.md compares the field-major layout)
+        # as one row, its frame as five 16-byte loads
         self._finish_table = finish_table(triangles)
         size = float(box.size[0])
         self._box_min = torch.as_tensor(box.min, device=device)
         self._box_size3 = torch.full((3,), size, device=device)
+        # the same six float32 values on the host, K7's box by value
+        self._box_host = (*map(float, box.min), size, size, size)
         # the box fallback's constant: sqrt(3) * box size, in float32
         self._fallback = _f32(_F32_SQRT3 * np.float32(box.size[0]))
         self.scan_chunk = _LEAF_CHUNK
@@ -868,6 +871,9 @@ class ExactOctreeSdf(SdfFunction):
         self.leaf_nchunks = torch.as_tensor(
             (-(-cnt // CH)).astype(np.int32), device=self.device
         )
+        # K9 reads a leaf's two bounds as one 8-byte word (K1g reads the
+        # two arrays above)
+        self._leaf_bounds = leaf_bounds(self.leaf_row0, self.leaf_nchunks)
 
     def _repacked_ids(self, spans, CH: int):
         """The CSR repacked into CH-slot spans (CH a multiple of 64; the
@@ -1029,13 +1035,17 @@ class ExactOctreeSdf(SdfFunction):
     def _sorted_windows(self, pts, plain: bool = False, size: int | None = None):
         """Points sorted by leaf (stable) and padded to whole windows (or
         to ``size``), with each point's first bucket row and row count (0
-        for padding), and the sort order: K9, or with ``plain`` its plain
-        version."""
+        for padding), and the sort order: K9 on the card (its lean launch
+        over the packed leaf bounds), else its plain version. ``pts`` is
+        a contiguous (P, 3) float32 tensor."""
         lid_s, order = self._sort_by_leaf(pts, plain)
         P = pts.shape[0]
-        gather = exact_sorted_gather_plain if plain else exact_sorted_gather
-        pts_s, b0, nc = gather(pts, order, lid_s, self.leaf_row0, self.leaf_nchunks,
-                               size=P + (-P) % WINDOW if size is None else size)
+        size = P + (-P) % WINDOW if size is None else size
+        if plain or not pts.is_cuda:
+            pts_s, b0, nc = exact_sorted_gather_plain(pts, order, lid_s, self.leaf_row0,
+                                                      self.leaf_nchunks, size=size)
+        else:
+            pts_s, b0, nc = launch_sorted_gather(pts, order, lid_s, self._leaf_bounds, size)
         return pts_s, b0, nc, order
 
     def _pick_group_width(self, lid_s, Pp: int) -> int:
@@ -1066,9 +1076,11 @@ class ExactOctreeSdf(SdfFunction):
         max-scan, as ``torch.cummax`` over int64, took 2.85 of the 7.52 ms
         d7 2^20-point query on an H100 (PERF.md)."""
         lid_s, order = self._sort_by_leaf(pts, plain)
-        gather = exact_sorted_gather_plain if plain else exact_sorted_gather
-        pts_s, _, _ = gather(pts, order)
         P = pts.shape[0]
+        if plain or not pts.is_cuda:
+            pts_s, _, _ = exact_sorted_gather_plain(pts, order)
+        else:
+            pts_s, _, _ = launch_sorted_gather(pts, order, None, None, P)
         G = self._pick_group_width(lid_s, self._padded_batch(P))
         i = torch.arange(P, dtype=torch.int64, device=self.device)
         seg_start = torch.searchsorted(lid_s, lid_s)
@@ -1111,9 +1123,13 @@ class ExactOctreeSdf(SdfFunction):
             stats = {"scan": kind, "G": WINDOW, "NG": pts_s.shape[0] // WINDOW}
         # one assignment: parallel's workers may query one structure at once
         self.last_scan_stats = {**stats, "tier": self.bucket_tier}
-        finish = exact_finish_plain if glue else exact_finish
-        out = finish(pts_s[:P], win[:P], order, self._finish_table, self._box_min,
-                     self._box_size3, self._fallback, with_gradient=with_gradient)
+        if glue or not flat.is_cuda:
+            out = exact_finish_plain(pts_s[:P], win[:P], order, self._finish_table,
+                                     self._box_min, self._box_size3, self._fallback,
+                                     with_gradient=with_gradient)
+        else:       # K7 reads the first P of the padded sorted points
+            out = launch_exact_finish(pts_s, win, order, P, self._finish_table,
+                                      self._box_host, self._fallback, with_gradient)
         if with_gradient:
             return out[0].reshape(pts.shape[:-1]), out[1].reshape(pts.shape)
         return out.reshape(pts.shape[:-1])

@@ -10,7 +10,8 @@ package from its ``.npz`` container, so both hold the same leaves.
 * ``exact_finish_plain`` agrees with JAX's ``_exact_finish`` on the same
   sorted points and winners (-1 winners, points outside the box, on a
   vertex of their winner and beside its edges) within rtol 1e-5 / atol
-  1e-6, in the caller's order (the unsort). Gradients agree within the
+  1e-6, in the caller's order (the unsort); and again on points built to
+  fall in one region of their winner, each of the seven in turn. Gradients agree within the
   same tolerance, except at a point on the winner's rim at distance 0
   with sign 0, where the port gives the face normal ``tn`` and JAX 0
   (ROADMAP Queue 3), and at a point within rounding noise of an edge
@@ -20,12 +21,17 @@ package from its ``.npz`` container, so both hold the same leaves.
   ``exact_sorted_gather_plain`` equals the gathers it replaces in both
   modes; ``get_distance`` and ``get_distance_and_gradient`` through the
   new call sites agree with JAX's under each scan pinned.
-* The wrappers reject wrong dtypes and shapes and launch nothing for CPU
-  tensors.
+* The structure's packed leaf bounds (K9's table) equal ``leaf_row0`` and
+  ``leaf_nchunks`` after a build, after ``from_jax_state`` and after a
+  new scan chunk.
+* The wrappers reject wrong dtypes and shapes, a field-major or sliced
+  finish table, and launch nothing for CPU tensors.
 * On a CUDA device (skipped here): each kernel against its plain version
-  (distances bit-equal, gradients within 1e-6, integers equal, in both
-  table layouts), the query with K7-K9 bit-equal to the query with their
-  plain versions, and a refused launch raises.
+  (distances bit-equal, gradients within 1e-6, integers equal), K7 on a
+  random batch and on one whose every warp mixes the seven regions, K9 at
+  0, 1, 31, 33 and 1,000 points, padded or not, in both modes, each at
+  every points-a-thread form; the query with K7-K9 bit-equal to the
+  query with their plain versions, and a refused launch raises.
 
 JAX is imported inside fixtures and tests: the GPU machine has no JAX and
 runs only the cuda-marked cases (``pytest --noconftest -m cuda``).
@@ -37,6 +43,7 @@ import torch
 from sdflib_tpu_torch import ExactOctreeSdf
 from sdflib_tpu_torch.kernels import build
 from sdflib_tpu_torch.ops import exact_query as eq
+from sdflib_tpu_torch.ops.point_triangle import _project, gather_triangles, region_code
 from sdflib_tpu_torch.ops.scan import WINDOW
 from sdflib_tpu_torch.utils.primitives import make_torus
 
@@ -158,6 +165,89 @@ def test_finish_plain_matches_jax(pair, with_gradient):
     np.testing.assert_allclose(g[rest], g_ref[rest], **TOL)
 
 
+def _region_inputs(sdf, codes, seed: int = 3):
+    """Points built to fall in region ``codes[i]`` of their winner (0-2
+    its vertices, 3-5 its edges v1v2, v2v3, v3v1, 6 its face), a random
+    triangle each: in the plane, just outside the vertex between its two
+    edges' outward normals, or outside an edge's midpoint, or at the
+    centroid; then, in turn, 3 times that offset above the plane, in the
+    plane, 3 times below it, in the plane (the face's points 1 times
+    above and below instead). In the plane the sign is that of the
+    feature's pseudonormal, tilted from the face's by about half the
+    coarse torus's dihedral angle, so a wrong normal shows; where that
+    tilt is too small to give a sign (a quad's diagonal edge: two right
+    answers), the point goes 3 times its offset above the plane instead.
+    Returns (points, winners), checked against the port's region code."""
+    rng = np.random.default_rng(seed)
+    n = len(codes)
+    vw = sdf.triangles.v_world.cpu().numpy().astype(np.float64)
+    win = rng.integers(0, vw.shape[0], n).astype(np.int32)
+    v = vw[win]
+    unit = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)
+    nrm = unit(np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]))
+
+    def out(k):    # the in-plane outward normal of edge v_k v_{k+1}
+        a, b, c = v[:, k], v[:, (k + 1) % 3], v[:, (k + 2) % 3]
+        o = np.cross(b - a, nrm)
+        return unit(o * -np.sign(((c - a) * o).sum(1, keepdims=True)))
+
+    delta = 0.05 * np.linalg.norm(v[:, 1] - v[:, 0], axis=1, keepdims=True)
+    codes = np.asarray(codes)[:, None]
+    pts = v.mean(1)
+    for k in range(3):
+        pts = np.where(codes == k, v[:, k] + delta * unit(out(k) + out((k - 1) % 3)), pts)
+        pts = np.where(codes == 3 + k,
+                       0.5 * (v[:, k] + v[:, (k + 1) % 3]) + delta * out(k), pts)
+    side = np.array([3.0, 0.0, -3.0, 0.0])[np.arange(n) % 4][:, None]
+    side = np.where((codes == 6) & (side == 0.0), np.where(np.arange(n) % 8 < 4, 1.0, -1.0)[:, None],
+                    side)
+    # the pseudonormal dot of the in-plane points, in float64 in the
+    # winner's frame (signed_dist_from_rows's (a, b, z) of each code)
+    tr = {k: v.cpu().numpy().astype(np.float64)[win] for k, v in sdf.triangles._asdict().items()}
+    pp = np.einsum("nij,nj->ni", tr["transform"], pts - tr["origin"])
+    shift = np.where(np.isin(codes, (1, 4)), tr["v2x"][:, None],
+                     np.where(codes == 2, tr["v3xy"][:, :1], 0.0))
+    ab = np.stack([pp[:, 0] - shift[:, 0],
+                   pp[:, 1] - np.where(codes[:, 0] == 2, tr["v3xy"][:, 1], 0.0)], 1)
+    feat = np.where(codes[:, :, None] <= 2, tr["vertices_normal"][:, :3],
+                    tr["edges_normal"][:, :3])[np.arange(n), codes[:, 0] % 3]
+    dot = (feat[:, :2] * ab).sum(1) + feat[:, 2] * pp[:, 2]
+    tie = (side[:, 0] == 0.0) & (codes[:, 0] < 6) & (np.abs(dot) < 0.02 * delta[:, 0])
+    side[tie] = 3.0
+    pts = (pts + side * delta * nrm).astype(np.float32)
+    tri = gather_triangles(sdf.triangles, torch.as_tensor(win, device=sdf.device).long())
+    got, _ = region_code(_project(torch.as_tensor(pts, device=sdf.device), tri), tri)
+    np.testing.assert_array_equal(got.cpu().numpy(), codes[:, 0])
+    return pts, win
+
+
+@pytest.mark.parametrize("with_gradient", [False, True])
+@pytest.mark.parametrize("code", range(7))
+def test_finish_plain_each_region_matches_jax(pair, code, with_gradient):
+    import jax
+    import jax.numpy as jnp
+    from sdflib_tpu.sdf.exact_octree import _exact_finish
+
+    j, p = pair
+    pts, win = _region_inputs(p, np.full(96, code), seed=code)
+    order = np.random.default_rng(code).permutation(len(pts))
+    box_min, size = jnp.asarray(j.box.min), jnp.float32(j.box.size[0])
+    rel = (jnp.asarray(pts) - box_min) / size
+    in_box = jnp.all((rel >= 0.0) & (rel < 1.0), axis=-1)
+    assert bool(in_box.all())
+    tris = jax.tree.map(jnp.asarray, j.triangles)
+    ref = _exact_finish(tris, jnp.asarray(pts), jnp.asarray(win), in_box, box_min, size,
+                        with_gradient=with_gradient)
+    got = eq.exact_finish_plain(torch.as_tensor(pts), torch.as_tensor(win),
+                                torch.as_tensor(order), p._finish_table, *_box_args(p),
+                                p._fallback, with_gradient=with_gradient)
+    if not with_gradient:
+        np.testing.assert_allclose(got.numpy()[order], np.asarray(ref), **TOL)
+        return
+    np.testing.assert_allclose(got[0].numpy()[order], np.asarray(ref[0]), **TOL)
+    np.testing.assert_allclose(got[1].numpy()[order], np.asarray(ref[1]), **TOL)
+
+
 def test_int32_sort_matches_int64(pair):
     _, p = pair
     keys = p._leaf_keys(torch.as_tensor(_points(p.box, 4000)))
@@ -186,6 +276,20 @@ def test_sorted_gather_plain_equals_the_gathers(pair):
     assert torch.equal(w_s, pts_s) and torch.equal(w_b0, b0) and torch.equal(w_order, order)
     g_s2, g_lid, _, _, _ = p._sorted_groups(pts)
     assert torch.equal(g_s2, pts[order]) and g_lid.dtype == torch.int32
+
+
+@pytest.mark.parametrize("made_by", ["build", "from_jax_state", "scan_chunk"])
+def test_leaf_bounds_packed(pair, made_by):
+    j, p = pair
+    if made_by == "from_jax_state":
+        p = ExactOctreeSdf.from_jax_state(j._state_arrays(), device="cpu")
+    elif made_by == "scan_chunk":
+        p = ExactOctreeSdf.from_jax_state(p._state_arrays(), device="cpu")
+        p.set_scan_chunk(32)
+    bounds = p._leaf_bounds
+    assert bounds.dtype == torch.int32 and bounds.is_contiguous()
+    assert torch.equal(bounds, torch.stack([p.leaf_row0, p.leaf_nchunks], dim=1))
+    assert torch.equal(eq.leaf_bounds(p.leaf_row0, p.leaf_nchunks), bounds)
 
 
 @pytest.fixture(scope="module")
@@ -271,7 +375,10 @@ def test_wrappers_reject_bad_inputs(pair):
     fb = p._fallback
     for args in ((pts, win.long(), order, table, bm, bs), (pts, win[:-1], order, table, bm, bs),
                  (pts, win, order.int(), table, bm, bs), (pts, win, order, table[:, :37], bm, bs),
-                 (pts, win, order, table.double(), bm, bs), (pts, win, order, table, bm[:2], bs)):
+                 (pts, win, order, table.double(), bm, bs), (pts, win, order, table, bm[:2], bs),
+                 (pts, win, order, table.t().contiguous().t(), bm, bs),
+                 (pts, win, order, torch.cat([table, table], 1)[:, :48], bm, bs),
+                 (pts, win, order, table[::2], bm, bs)):
         with pytest.raises(ValueError):
             eq.exact_finish(*args, fb)
 
@@ -311,26 +418,65 @@ def test_k8_k9_against_plain(cuda_sdf):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_gradient", [False, True])
-@pytest.mark.parametrize("layout", ["rows", "fields"])
-def test_k7_against_plain(cuda_sdf, with_gradient, layout):
+@pytest.mark.parametrize("mode", ["window", "grouped"])
+@pytest.mark.parametrize("P", [0, 1, 31, 33, 1000])
+def test_k9_sizes_against_plain(cuda_sdf, P, mode):
+    """K9 at small and ragged sizes, unpadded and padded, at every
+    points-a-thread form, bit-equal to the plain version."""
     sdf = cuda_sdf
-    pts, lid_s, order = _cuda_batch(sdf)
-    pts_s = pts[order]
-    T = sdf._finish_table.shape[0]
-    win = torch.randint(-1, T, (pts.shape[0],), dtype=torch.int32, device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(0))
-    table = sdf._finish_table
-    if layout == "fields":
-        table = table.t().contiguous().t()
-    args = (pts_s, win, order, table, *_box_args(sdf), sdf._fallback)
-    got = eq.exact_finish(*args, with_gradient=with_gradient)
+    pts = torch.as_tensor(_points(sdf.box, 1000, 37)[:P], device="cuda")
+    lid_s, order = torch.sort(eq.exact_descend(pts, sdf._leaf_grid, *_box_args(sdf),
+                                               sdf.max_depth), stable=True)
+    rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks) if mode == "window" else ()
+    for size in (P, P + 77, P + (-P) % WINDOW + WINDOW):
+        want = eq.exact_sorted_gather_plain(pts, order, *rows, size=size)
+        got = eq.exact_sorted_gather(pts, order, *rows, size=size)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+        for k in (1, 2, 4, 8):
+            got = eq.launch_sorted_gather(pts, order, lid_s if rows else None,
+                                          sdf._leaf_bounds if rows else None, size,
+                                          points_per_thread=k)
+            assert all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, want))
+
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gradient", [False, True])
+@pytest.mark.parametrize("batch", ["random", "regions"])
+def test_k7_against_plain(cuda_sdf, with_gradient, batch):
+    """K7 bit-equal to its plain version in distance (gradients within
+    1e-6) at each points-a-thread form: random winners and points, or
+    points built in a chosen region of their winner, the seven regions
+    taken in turn so that every warp mixes them all."""
+    sdf = cuda_sdf
+    if batch == "random":
+        pts, lid_s, order = _cuda_batch(sdf)
+        pts_s = pts[order]
+        T = sdf._finish_table.shape[0]
+        win = torch.randint(-1, T, (pts.shape[0],), dtype=torch.int32, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    else:
+        pts, win = _region_inputs(sdf, np.arange(7 * 32 * 8) % 7, seed=9)
+        pts_s, win = torch.as_tensor(pts, device="cuda"), torch.as_tensor(win, device="cuda")
+        order = torch.randperm(pts_s.shape[0], device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(1))
+    args = (pts_s, win, order, sdf._finish_table, *_box_args(sdf), sdf._fallback)
     want = eq.exact_finish_plain(*args, with_gradient=with_gradient)
-    if not with_gradient:
-        assert torch.equal(got, want)
-        return
-    assert torch.equal(got[0], want[0])
-    assert float((got[1] - want[1]).abs().max()) <= 1e-6
+    outs = [eq.exact_finish(*args, with_gradient=with_gradient)]
+    for k in (1, 2):
+        outs.append(eq.launch_exact_finish(pts_s, win, order, pts_s.shape[0],
+                                           sdf._finish_table, sdf._box_host, sdf._fallback,
+                                           with_gradient, points_per_thread=k))
+    for got in outs:
+        if not with_gradient:
+            assert _bits_equal(got, want)
+            continue
+        assert _bits_equal(got[0], want[0])
+        assert float((got[1] - want[1]).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -365,11 +511,15 @@ def test_a_refused_launch_raises(cuda_sdf):
                      sdf._leaf_grid.data_ptr(), 11, sdf._box_min.data_ptr(),
                      sdf._box_size3.data_ptr(), key.data_ptr())
     order = torch.arange(64, device="cuda")
-    with pytest.raises(RuntimeError, match="failed to launch"):
+    with pytest.raises(RuntimeError, match="failed to launch"):      # size < P
         build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(), order.data_ptr(),
-                     64, None, None, None, 32, pts.data_ptr(), None, None)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        build.launch("sdf_exact_finish", pts.device, pts.data_ptr(), key.data_ptr(),
-                     order.data_ptr(), 64, sdf._finish_table.data_ptr(), 0, 1,
-                     sdf._box_min.data_ptr(), sdf._box_size3.data_ptr(), 1.0,
-                     key.data_ptr(), None)
+                     64, None, None, 32, pts.data_ptr(), None, None, 4)
+    with pytest.raises(RuntimeError, match="failed to launch"):      # 3 points a thread
+        build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(), order.data_ptr(),
+                     64, None, None, 64, pts.data_ptr(), None, None, 3)
+    d = torch.empty(64, device="cuda")
+    for P, k in ((-1, 1), (64, 4)):                                  # P < 0, 4 a thread
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            build.launch("sdf_exact_finish", pts.device, pts.data_ptr(), key.data_ptr(),
+                         order.data_ptr(), P, sdf._finish_table.data_ptr(), *sdf._box_host,
+                         1.0, d.data_ptr(), None, k)
