@@ -24,17 +24,18 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   (window), d6 2^16 and d7 2^20 (grouped), every 61st point moved out of
   the box and every 97th winner -1: K8's keys and K9's outputs (both
   modes) equal, K7's distances bit-equal with and without the gradient,
-  its gradients within 1e-6, through the public wrappers and every
-  points-a-thread form of the lean launches the query calls, each timed
-  by CUDA events and the profiler's device time beside its plain
-  version and bound, K9 grouped beside ``torch.index_select``, the int32
-  sort beside an int64 one; the three batches' ``get_distance`` beside
-  the query with K7-K9's plain versions (``_query(plain_glue=True)``,
-  equal answers) and the all-plain query, and each profiled
-  (``exact_breakdown``: no more device activities a call than 18 for the
-  d6 2^21 window query, 33 grouped and 29 at d7; K7-K9, K1 and the sort
-  by name); ``exact_ab`` (not part of the smoke) times K7, K9 and the
-  query in a parent checkout and this one, in turns;
+  its gradients within 1e-6, through the public wrappers and the lean
+  launches the query calls, each timed as the query launches it by CUDA
+  events, the profiler's device time and host time a call beside its
+  plain version and bound, K9 grouped beside ``torch.index_select``, the
+  int32 sort beside an int64 one; the three batches' ``get_distance``
+  beside the query with K7-K9's plain versions
+  (``_query(plain_glue=True)``, equal answers) and the all-plain query,
+  and each profiled (``exact_breakdown``: no more device activities a
+  call than 18 for the d6 2^21 window query, 33 for the grouped d6 ones
+  and 29 at d7; K7-K9, K1 and the sort by name); ``exact_ab`` (not part
+  of the smoke) times K7, K9 and the query in a parent checkout and this
+  one, in turns;
 * K1g against its plain version at d6 2^16 and d7 2^20 points, with its
   work (groups holding points, rows fetched, the shares of slots with an
   id and of rows with a dead half), its bound and its fetch floor: its
@@ -302,16 +303,13 @@ FLOPS_DESCEND = 12
 # The most device activities a profiled exact query may take with K7-K9
 # (the descent, the int32 sort, the gather, the group assembly, K1, K7).
 EXACT_MAX_ACTIVITIES = 40
-# ... and at each profiled shape: no more than PR 15 measured (the d6
-# 2^21 window query, the grouped d6 queries, the d7 2^20 query)
+# ... and at each profiled shape no more than the query took when K7-K9
+# first landed (the d6 2^21 window query, the grouped d6 queries, the d7
+# 2^20 query)
 EXACT_ACTIVITIES = {"window": 18, "grouped": 33, "d7": 29}
 # K7-K9's launch counters, and the names of the exact query's kernels in a
 # profile (the int32 sort's are torch's radix sort).
 EXACT_KERNELS = ("exact_descend", "exact_sorted_gather", "exact_finish")
-# K9's and K7's points a thread, each timed (ops/exact_query.py
-# GATHER_POINTS and FINISH_POINTS are the query's)
-GATHER_FORMS = (1, 2, 4, 8)
-FINISH_FORMS = (1, 2)
 EXACT_PARTS = ("exact_descend_kernel", "exact_sorted_gather_kernel", "scan_window_kernel",
                "scan_grouped_kernel", "exact_finish_kernel", "DeviceRadixSort")
 
@@ -534,13 +532,30 @@ def _exact_inputs(sdf, pts):
     return dict(q=q, keys=keys, lid_s=lid_s, order=order, kind=kind, pts_s=pts_s, win=win)
 
 
+def _host_us(fn, reps: int = 200) -> float:
+    """Host time (us) a call of ``fn``, ``reps`` calls issued back to back:
+    the Python and launch path, without the device's work, which the
+    stream's queue absorbs (a call that syncs waits for it, though)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _exact_times(sdf, x) -> dict:
     """K9 (both modes) and K7 (both forms) timed on one batch of
-    ``_exact_inputs``: each public wrapper (CUDA events), and, where the
-    package has the lean launches the query calls, each of their
-    points-a-thread forms (events and profiler device time), else the
-    public wrapper's device time; K9 grouped's library call,
-    ``torch.index_select``. ms by name."""
+    ``_exact_inputs``, each as the query launches it (the lean launches
+    where the package has them, else the public wrappers): CUDA events,
+    the profiler's device time and the host time a call (``_host_us``);
+    the public wrappers' events beside them; K9 grouped's library call,
+    ``torch.index_select``, and K7 without its unsort (the outputs in
+    sorted order), in events and device time. ms (host us) by name."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -548,52 +563,52 @@ def _exact_times(sdf, x) -> dict:
     lean = hasattr(eq, "launch_exact_finish")
     q, order, lid_s, pts_s, win = x["q"], x["order"], x["lid_s"], x["pts_s"], x["win"]
     P = q.shape[0]
-    t = {}
+    runs = {}
     for mode in ("window", "grouped"):
         rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks) if mode == "window" else ()
         size = P + (-P) % 32 if mode == "window" else P
-        ev, dev = _timed(lambda: eq.exact_sorted_gather(q, order, *rows, size=size),
-                         "exact_sorted_gather_kernel")
-        t[f"K9 {mode} public"] = ev
-        if not lean:
-            t[f"K9 {mode} device"] = dev
-        for k in GATHER_FORMS if lean else ():
-            ev, dev = _timed(lambda: eq.launch_sorted_gather(
-                q, order, lid_s if rows else None, sdf._leaf_bounds if rows else None, size,
-                points_per_thread=k), "exact_sorted_gather_kernel")
-            t[f"K9 {mode} x{k}"], t[f"K9 {mode} x{k} device"] = ev, dev
-    ev, dev = _timed(lambda: torch.index_select(q, 0, order), "indexselect")
-    t["index_select"], t["index_select device"] = ev, dev
+        runs[f"K9 {mode}"] = (
+            lambda rows=rows, size=size: eq.exact_sorted_gather(q, order, *rows, size=size),
+            lambda rows=rows, size=size: eq.launch_sorted_gather(
+                q, order, lid_s if rows else None, sdf._leaf_bounds if rows else None, size),
+            "exact_sorted_gather_kernel")
     for grad in (False, True):
-        form = "gradient" if grad else "distance"
         fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
                  sdf._fallback)
-        ev, dev = _timed(lambda: eq.exact_finish(*fargs, with_gradient=grad),
-                         "exact_finish_kernel")
-        t[f"K7 {form} public"] = ev
-        if not lean:
-            t[f"K7 {form} device"] = dev
-        for k in FINISH_FORMS if lean else ():
-            ev, dev = _timed(lambda: eq.launch_exact_finish(
-                pts_s, win, order, P, sdf._finish_table, sdf._box_host, sdf._fallback, grad,
-                points_per_thread=k), "exact_finish_kernel")
-            t[f"K7 {form} x{k}"], t[f"K7 {form} x{k} device"] = ev, dev
+        runs[f"K7 {'gradient' if grad else 'distance'}"] = (
+            lambda fargs=fargs, grad=grad: eq.exact_finish(*fargs, with_gradient=grad),
+            lambda grad=grad: eq.launch_exact_finish(pts_s, win, order, P, sdf._finish_table,
+                                                     sdf._box_host, sdf._fallback, grad),
+            "exact_finish_kernel")
+    t = {}
+    for name, (public, launch, key) in runs.items():
+        run = launch if lean else public
+        t[name], t[f"{name} device"] = _timed(run, key)
+        t[f"{name} host us"] = _host_us(run)
+        t[f"{name} public"] = _cuda_ms(public) if lean else t[name]
+    t["index_select"], t["index_select device"] = _timed(
+        lambda: torch.index_select(q, 0, order), "")
+    for grad in (False, True) if lean else ():      # K7 without its unsort
+        name = f"K7 {'gradient' if grad else 'distance'} sorted"
+        t[name], t[f"{name} device"] = _timed(
+            lambda grad=grad: eq.launch_exact_finish(pts_s, win, None, P, sdf._finish_table,
+                                                     sdf._box_host, sdf._fallback, grad),
+            "exact_finish_kernel")
     return t
 
 
 def exact_kernels_vs_plain(sdf, pts, label):
     """K8, K9 and K7 against their plain versions on one batch of
     ``_exact_inputs``. K8's keys and K9's outputs equal (both modes, the
-    public wrapper and every points-a-thread form of the lean launch the
-    query calls), K7's distances bit-equal on every point (with and
-    without the gradient, the public wrapper and each form), its
-    gradients within 1e-6; each timed (``_timed``: CUDA events and the
-    profiler's device time) beside its plain version and its bound, the
-    int32 sort beside an int64 one, K9 grouped beside ``index_select``.
-    Returns {row: dict(err, ms, device_ms, plain_ms, bound, library_ms)}
-    for the JSON line: the query's forms (ops/exact_query.py
-    GATHER_POINTS, FINISH_POINTS), K9 in grouped mode (its library call)
-    and in window mode, K7 in both forms."""
+    public wrapper and the lean launch the query calls), K7's distances
+    bit-equal on every point (with and without the gradient, both calls,
+    with its unsort and without), its gradients within 1e-6; each timed
+    as the query launches it (``_exact_times``: CUDA events, the
+    profiler's device time, host time) beside its plain version and its
+    bound, the int32 sort beside an int64 one, K9 grouped beside
+    ``index_select``. Returns {row: dict(err, ms, device_ms, plain_ms,
+    bound, library_ms)} for the JSON line: K8, K9 in grouped mode (the
+    mode with a library call), K7 in both forms."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -621,7 +636,7 @@ def exact_kernels_vs_plain(sdf, pts, label):
     sort64_ms = _cuda_ms(lambda: torch.sort(keys64, stable=True))
     _check(torch.equal(order, torch.sort(keys64, stable=True)[1]),
            f"the int32 sort's order differs from the int64 sort's ({label})")
-    # K9, both modes, every form of the lean launch
+    # K9, both modes, through the public wrapper and the query's launch
     leaves = int(torch.unique(lid_s).numel())
     for mode in ("window", "grouped"):
         if mode == "window":
@@ -632,11 +647,9 @@ def exact_kernels_vs_plain(sdf, pts, label):
             size, rows = P, ()
             gbytes = P * (12 + 8) + size * 12
         want = eq.exact_sorted_gather_plain(q, order, *rows, size=size)
-        outs = [eq.exact_sorted_gather(q, order, *rows, size=size)]
-        outs += [eq.launch_sorted_gather(q, order, lid_s if rows else None,
-                                         sdf._leaf_bounds if rows else None, size,
-                                         points_per_thread=k) for k in GATHER_FORMS]
-        for got in outs:
+        for got in (eq.exact_sorted_gather(q, order, *rows, size=size),
+                    eq.launch_sorted_gather(q, order, lid_s if rows else None,
+                                            sdf._leaf_bounds if rows else None, size)):
             _check(all((a is None and b is None) or _bits_equal(a, b)
                        for a, b in zip(got, want)),
                    f"K9's outputs differ from the plain version's ({label}, {mode})")
@@ -644,7 +657,7 @@ def exact_kernels_vs_plain(sdf, pts, label):
             err=0.0, plain_ms=_cuda_ms(lambda: eq.exact_sorted_gather_plain(q, order, *rows,
                                                                            size=size)),
             bound=_bound(gbytes, 0))
-    # K7, both forms, every form of the lean launch
+    # K7, both forms, through the public wrapper and the query's launch
     rel = (pts_s - sdf._box_min) / sdf._box_size3
     in_box = ((rel >= 0.0) & (rel < 1.0)).all(1)
     touched = int(torch.unique(win.clamp_min(0)[in_box]).numel())
@@ -652,18 +665,17 @@ def exact_kernels_vs_plain(sdf, pts, label):
         form = "gradient" if grad else "distance"
         fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
                  sdf._fallback)
-        want = eq.exact_finish_plain(*fargs, with_gradient=grad)
-        outs = [eq.exact_finish(*fargs, with_gradient=grad)]
-        outs += [eq.launch_exact_finish(pts_s, win, order, P, sdf._finish_table,
-                                        sdf._box_host, sdf._fallback, grad,
-                                        points_per_thread=k) for k in FINISH_FORMS]
         gerr = 0.0
-        for got in outs:
-            kd, pd = (got[0], want[0]) if grad else (got, want)
-            _check(_bits_equal(kd, pd), f"K7's distances differ from the plain version's "
-                   f"({label}, {form}): max {float((kd - pd).abs().max())}")
-            if grad:
-                gerr = max(gerr, float((got[1] - want[1]).abs().max()))
+        for o in (order, None):             # the unsort, and the sorted order
+            want = eq.exact_finish_plain(pts_s, win, o, *fargs[3:], with_gradient=grad)
+            for got in (eq.exact_finish(pts_s, win, o, *fargs[3:], with_gradient=grad),
+                        eq.launch_exact_finish(pts_s, win, o, P, sdf._finish_table,
+                                               sdf._box_host, sdf._fallback, grad)):
+                kd, pd = (got[0], want[0]) if grad else (got, want)
+                _check(_bits_equal(kd, pd), f"K7's distances differ from the plain version's "
+                       f"({label}, {form}): max {float((kd - pd).abs().max())}")
+                if grad:
+                    gerr = max(gerr, float((got[1] - want[1]).abs().max()))
         _check(gerr <= 1e-6, f"K7's gradients differ by {gerr} ({label})")
         nbytes = (P * (FINISH_GRAD_BYTES if grad else FINISH_POINT_BYTES)
                   + touched * (FINISH_GRAD_ROW_BYTES if grad else FINISH_ROW_BYTES))
@@ -672,26 +684,21 @@ def exact_kernels_vs_plain(sdf, pts, label):
                                                                       with_gradient=grad)),
             bound=_bound(nbytes, P * (FLOPS_FINISH_GRAD if grad else FLOPS_FINISH)))
     t = _exact_times(sdf, x)
-    for mode in ("window", "grouped"):
-        res[f"K9 {mode}"].update(ms=t[f"K9 {mode} x{eq.GATHER_POINTS}"],
-                                 device_ms=t[f"K9 {mode} x{eq.GATHER_POINTS} device"],
-                                 library_ms=t["index_select"] if mode == "grouped" else None)
-    for form in ("distance", "gradient"):
-        res[f"K7 {form}"].update(ms=t[f"K7 {form} x{eq.FINISH_POINTS}"],
-                                 device_ms=t[f"K7 {form} x{eq.FINISH_POINTS} device"])
+    for name in ("K9 window", "K9 grouped", "K7 distance", "K7 gradient"):
+        res[name].update(ms=t[name], device_ms=t[f"{name} device"],
+                         library_ms=t["index_select"] if name == "K9 grouped" else None)
     rows = [f"{name}: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} device), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})"
             for name, r in res.items()]
     print(f"K7-K9 vs plain ({label}, P={P}, the query's scan: {kind}; {out_share:.4f} of the "
           f"points outside the box, {int((win < 0).sum())} winners of -1, {touched} "
           f"triangles touched, {cells} grid cells, {leaves} leaves): K8 keys, K9's outputs "
-          f"(both modes, every form) equal, K7's distances bit-equal (every form), max "
+          f"(both modes) equal, K7's distances bit-equal (both forms), max "
           f"|gradient diff| {res['K7 gradient']['err']:.3e}; the stable sort of the int32 keys "
           f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; " + "; ".join(rows))
     print(f"exact_times {label}: " + json.dumps({k: round(v, 6) for k, v in t.items()}))
     return {"exact_descend": res["exact_descend"], "exact_sorted_gather": res["K9 grouped"],
-            "exact_sorted_gather_window": res["K9 window"], "exact_finish": res["K7 distance"],
-            "exact_finish_grad": res["K7 gradient"]}
+            "exact_finish": res["K7 distance"], "exact_finish_grad": res["K7 gradient"]}
 
 
 EXACT_AB_BATCHES = (("d6", 1 << 21), ("d6", 1 << 16), ("d7", 1 << 20))

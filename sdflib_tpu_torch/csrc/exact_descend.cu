@@ -26,15 +26,18 @@
 // 8 B of order, a point's 12 B at a random place, 4 B of key and 8 B of
 // the touched leaves' bounds, and writes 12 + 8 B. The grid (2 MiB at
 // depth 6, 8 MiB at depth 7) and the leaves' bounds stay in the 50 MB L2.
-// K8 is one thread a point with plain loads and stores. K9 is latency
-// bound: the points a sorted warp reads lie anywhere in the batch, each a
-// dependent read behind order[i]. So a K9 thread takes kPts points (block
-// tiles, each load and store coalesced across the warp) and issues every
-// order and key load, then every point and bounds load, before its first
-// store: kPts random gathers in flight a thread instead of one. A leaf's
-// bounds are one 8-byte load; ~22 sorted points share a leaf at d6 2^21,
-// so a warp's read is mostly a broadcast.
+// Both are one thread a point. K9's cost is its random gathers: the points
+// a sorted warp reads lie anywhere in the batch, and memory serves each
+// 12-byte point as a whole sector. More points a thread (2, 4 or 8, every
+// gather issued before the first store) measured slower on an H100
+// (PERF.md): the gathers are not waiting on latency. What helped:
+// a leaf's bounds as one 8-byte load from the packed table (~22 sorted
+// points share a leaf at d6 2^21, so a warp's read is mostly a broadcast)
+// and the order and keys, read once, loaded evict-first and not kept in
+// L1 (cache_hints.cuh), which leaves L2 to the points.
 #include <cuda_runtime.h>
+
+#include "cache_hints.cuh"
 
 namespace {
 
@@ -59,60 +62,30 @@ __global__ void exact_descend_kernel(const float* __restrict__ points, int P,
   key[i] = grid[(c[2] * g + c[1]) * g + c[0]];
 }
 
-template <int kPts, bool kBounds>
 __global__ void __launch_bounds__(kThreads)
     exact_sorted_gather_kernel(const float* __restrict__ points,
                                const long long* __restrict__ order, int P,
                                const int* __restrict__ lid_s, const int2* __restrict__ bounds,
                                int size, float* __restrict__ pts_s, int* __restrict__ b0,
                                int* __restrict__ nc) {
-  const int i0 = blockIdx.x * (kThreads * kPts) + threadIdx.x;
-  long long j[kPts];
-  int l[kPts];
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    const int i = i0 + k * kThreads;
-    j[k] = i < P ? __ldg(order + i) : -1;
-    l[k] = kBounds && i < P ? __ldg(lid_s + i) : -1;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= size) return;
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  int2 bd = make_int2(0, 0);
+  if (i < P) {
+    const unsigned long long once = hint::evict_first();
+    const long long j = hint::load(order + i, once);
+    if (bounds != nullptr) bd = __ldg(bounds + hint::load(lid_s + i, once));
+    x = __ldg(points + 3 * j);
+    y = __ldg(points + 3 * j + 1);
+    z = __ldg(points + 3 * j + 2);
   }
-  float x[kPts][3];
-  int2 bd[kPts];
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) x[k][a] = j[k] >= 0 ? __ldg(points + 3 * j[k] + a) : 0.0f;
-    bd[k] = l[k] >= 0 ? __ldg(bounds + l[k]) : make_int2(0, 0);
-  }
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    const int i = i0 + k * kThreads;
-    if (i >= size) continue;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) pts_s[3 * i + a] = x[k][a];
-    if (kBounds) {
-      b0[i] = bd[k].x;
-      nc[i] = bd[k].y;
-    }
-  }
-}
-
-template <int kPts, bool kBounds>
-void launch_gather(const float* points, const long long* order, int P, const int* lid_s,
-                   const int2* bounds, int size, float* pts_s, int* b0, int* nc,
-                   cudaStream_t st) {
-  const int blocks = (size + kThreads * kPts - 1) / (kThreads * kPts);
-  exact_sorted_gather_kernel<kPts, kBounds><<<blocks, kThreads, 0, st>>>(
-      points, order, P, lid_s, bounds, size, pts_s, b0, nc);
-}
-
-template <int kPts>
-void launch_gather(const float* points, const long long* order, int P, const int* lid_s,
-                   const int2* bounds, int size, float* pts_s, int* b0, int* nc,
-                   cudaStream_t st) {
-  if (bounds == nullptr) {
-    launch_gather<kPts, false>(points, order, P, lid_s, bounds, size, pts_s, b0, nc, st);
-  } else {
-    launch_gather<kPts, true>(points, order, P, lid_s, bounds, size, pts_s, b0, nc, st);
+  pts_s[3 * i] = x;
+  pts_s[3 * i + 1] = y;
+  pts_s[3 * i + 2] = z;
+  if (bounds != nullptr) {
+    b0[i] = bd.x;
+    nc[i] = bd.y;
   }
 }
 
@@ -134,23 +107,16 @@ extern "C" int sdf_exact_descend(const float* points, int P, const int* grid, in
 
 // points (P, 3); order (P,) int64; lid_s (P,) int32 and bounds (L, 2)
 // int32 {first row, row count} a leaf, with b0 and nc, all null (the
-// grouped scan) or all given; pts_s (size, 3), b0 and nc (size,);
-// pts_per_thread 1, 2, 4 or 8. size < P, P < 0 or another pts_per_thread
-// returns cudaErrorInvalidValue.
+// grouped scan) or all given; pts_s (size, 3), b0 and nc (size,). size <
+// P or P < 0 returns cudaErrorInvalidValue.
 extern "C" int sdf_exact_sorted_gather(const float* points, const long long* order, int P,
                                        const int* lid_s, const int* bounds, int size,
-                                       float* pts_s, int* b0, int* nc, int pts_per_thread,
-                                       void* stream) {
-  const int k = pts_per_thread;
-  if (size < P || P < 0 || (k != 1 && k != 2 && k != 4 && k != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                       float* pts_s, int* b0, int* nc, void* stream) {
+  if (size < P || P < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (size > 0) {
-    const int2* bd = reinterpret_cast<const int2*>(bounds);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (k == 1) launch_gather<1>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
-    if (k == 2) launch_gather<2>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
-    if (k == 4) launch_gather<4>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
-    if (k == 8) launch_gather<8>(points, order, P, lid_s, bd, size, pts_s, b0, nc, st);
+    exact_sorted_gather_kernel<<<(size + kThreads - 1) / kThreads, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        points, order, P, lid_s, reinterpret_cast<const int2*>(bounds), size, pts_s, b0, nc);
   }
   return static_cast<int>(cudaGetLastError());
 }

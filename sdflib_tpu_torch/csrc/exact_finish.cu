@@ -1,5 +1,5 @@
-// K7 (exact_finish): the exact query's signed finish and its unsort,
-// kPts points a thread.
+// K7 (exact_finish): the exact query's signed finish and its unsort, one
+// thread a point.
 //
 // It replaces no TPU kernel: no pl.pallas_call lies behind it. It does the
 // work of _exact_finish (sdflib_tpu/sdf/exact_octree.py:1144-1181) and of
@@ -10,7 +10,8 @@
 // Point i of the leaf-sorted points reads its winner's row of the finish
 // table (ops/exact_query.py finish_table: the 37 fields of
 // pack_triangle_full_fields, then the 9 world-vertex floats, 48 floats a
-// row, row-major) and writes d[order[i]] (and g[order[i]]): inside the box
+// row, row-major) and writes d[order[i]] (and g[order[i]]; d[i] and g[i]
+// without an order, as _exact_finish leaves them): inside the box
 // [box_min, box_min + box_size3), the signed distance to the winner (a
 // winner of -1 reads triangle 0); outside it box_distance + fallback
 // (leaf_eval.cuh's box_value, whose 3-term sums take torch's CUDA order),
@@ -29,21 +30,28 @@
 // order and writes 4 B (16 more with the gradient); each touched triangle's
 // 148 B row (184 B with the world vertices) is read once. At 2^21 points
 // that is ~0.018 ms on an H100, against ~70 flops a point (~100 with the
-// gradient). The sorted lanes of a warp share few winners, so a load
-// instruction costs one L1 wavefront per distinct row it touches. The
-// design spends as few load instructions a point as it can: the row
-// stride is the compile-time 48 floats (192 B, 16-byte aligned), so the
-// frame (fields 0-19) is five 16-byte loads; the region's normal triple
-// (and with the gradient its world vertex) is three scalar loads at an
-// offset computed from the region code, outside any branch; the box and
-// the fallback come by value. The region's arithmetic is selects, not a
-// switch, so lanes of different regions do not serialise. A thread takes
-// kPts points (block tiles, so each load stays coalesced) and issues
-// every point's loads before the first point's arithmetic. The unsort is
-// one scattered 4-byte write a point (16 more with the gradient).
+// gradient). What the card spends instead (PERF.md): the unsort's
+// scattered writes, the sorted points' row loads, the streams.
+//
+// * The rows. The sorted lanes of a warp share few winners, so a load
+//   instruction costs one L1 wavefront per distinct row it touches. The
+//   row stride is the compile-time 48 floats (192 B, 16-byte aligned), so
+//   the frame (fields 0-19) is five 16-byte loads; the region's normal
+//   triple (and with the gradient its world vertex) is three scalar loads
+//   at an offset computed from the region code. The region's arithmetic is
+//   selects, not a switch, so lanes of different regions do not serialise.
+//   The box and the fallback come by value.
+// * The unsort, one scattered write a point at order[i], costs more than
+//   the rows (PERF.md times K7 with and without it). The streams read
+//   once are loaded evict-first, the outputs stored evict-last
+//   (cache_hints.cuh), and a gradient is two stores, its 8-byte-aligned
+//   pair as one.
+// * Two points a thread, every load issued before the first arithmetic,
+//   measured no faster on an H100, so a thread takes one.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cache_hints.cuh"
 #include "leaf_eval.cuh"
 
 namespace {
@@ -189,13 +197,14 @@ __device__ __forceinline__ float signed_finish(const Local& L, const float n[3],
   return d;
 }
 
-template <bool Grad, int kPts>
+template <bool Grad>
 __global__ void __launch_bounds__(kThreads)
     exact_finish_kernel(const float* __restrict__ pts_s, const int* __restrict__ win,
                         const long long* __restrict__ order, int P,
                         const float* __restrict__ table, FinishBox fb,
                         float* __restrict__ d_out, float* __restrict__ g_out) {
-  const int i0 = blockIdx.x * (kThreads * kPts) + threadIdx.x;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= P) return;
   leaf::Box b;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -204,108 +213,74 @@ __global__ void __launch_bounds__(kThreads)
     b.half[a] = 0.5f * b.sz[a];
     b.ctr[a] = b.mn[a] + b.half[a];
   }
-  // every point's inputs and row first, then the arithmetic
-  float p[kPts][3];
-  long long o[kPts];
-  bool live[kPts], in_box[kPts];
-  const float* row[kPts];
+  const unsigned long long once = hint::evict_first();
+  const float p[3] = {hint::load(pts_s + 3 * i, once), hint::load(pts_s + 3 * i + 1, once),
+                      hint::load(pts_s + 3 * i + 2, once)};
+  const int w = max(hint::load(win + i, once), 0);
+  const long long o = order == nullptr ? i : hint::load(order + i, once);
+  bool in_box = true;
 #pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    const int i = i0 + k * kThreads;
-    live[k] = i < P;
-    int w = 0;
-    o[k] = 0;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) p[k][a] = 0.0f;
-    if (live[k]) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) p[k][a] = __ldg(pts_s + 3 * i + a);
-      w = max(__ldg(win + i), 0);
-      o[k] = __ldg(order + i);
-    }
-    row[k] = table + static_cast<long long>(w) * kRow;
+  for (int a = 0; a < 3; ++a) {
+    const float rel = (p[a] - b.mn[a]) / b.sz[a];
+    in_box = in_box && rel >= 0.0f && rel < 1.0f;
   }
-  Frame f[kPts];
+  float d, g[3];
+  if (in_box) {
+    const float* row = table + static_cast<long long>(w) * kRow;
+    Frame f;
 #pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    bool in = live[k];
+    for (int m = 0; m < 5; ++m) f.q[m] = __ldg(reinterpret_cast<const float4*>(row) + m);
+    const Local L = classify(f, p[0], p[1], p[2]);
+    float n[3] = {0.0f, 0.0f, 0.0f}, vw[3] = {0.0f, 0.0f, 0.0f};
+    if (L.code != 6) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float rel = (p[k][a] - b.mn[a]) / b.sz[a];
-      in = in && rel >= 0.0f && rel < 1.0f;
+      for (int j = 0; j < 3; ++j) n[j] = __ldg(row + normal_field(L.code) + j);
     }
-    in_box[k] = in;
-    const float4* q = reinterpret_cast<const float4*>(row[k]);
+    if (Grad && L.code <= 2) {
 #pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      f[k].q[m] = in ? __ldg(q + m) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < 3; ++j) vw[j] = __ldg(row + kVWorld + 3 * L.code + j);
     }
+    d = signed_finish<Grad>(L, n, vw, p[0], p[1], p[2], g);
+  } else {
+    d = leaf::box_value(b, p, fb.fallback);
+    if (Grad) leaf::box_gradient(b, p, g);
   }
-  Local L[kPts];
-  float n[kPts][3], vw[kPts][3];
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    L[k] = classify(f[k], p[k][0], p[k][1], p[k][2]);
-    const int code = L[k].code;
-    const float* nb = row[k] + normal_field(code);
-    const float* vb = row[k] + kVWorld + 3 * min(code, 2);
-    const bool reads_n = in_box[k] && code != 6;
-    const bool reads_v = Grad && in_box[k] && code <= 2;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      n[k][j] = reads_n ? __ldg(nb + j) : 0.0f;
-      vw[k][j] = reads_v ? __ldg(vb + j) : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    if (!live[k]) continue;
-    float d, g[3];
-    if (in_box[k]) {
-      d = signed_finish<Grad>(L[k], n[k], vw[k], p[k][0], p[k][1], p[k][2], g);
+  const unsigned long long keep = hint::evict_last();
+  hint::store(d_out + o, d, keep);
+  if (Grad) {
+    float* gp = g_out + 3 * o;       // 8-byte aligned at even o, gp + 1 at odd o
+    if ((o & 1) == 0) {
+      hint::store2(gp, g[0], g[1], keep);
+      hint::store(gp + 2, g[2], keep);
     } else {
-      d = leaf::box_value(b, p[k], fb.fallback);
-      if (Grad) leaf::box_gradient(b, p[k], g);
-    }
-    d_out[o[k]] = d;
-    if (Grad) {
-      g_out[3 * o[k]] = g[0];
-      g_out[3 * o[k] + 1] = g[1];
-      g_out[3 * o[k] + 2] = g[2];
+      hint::store(gp, g[0], keep);
+      hint::store2(gp + 1, g[1], g[2], keep);
     }
   }
-}
-
-template <bool Grad, int kPts>
-void launch(const float* pts_s, const int* win, const long long* order, int P,
-            const float* table, const FinishBox& fb, float* d, float* g, cudaStream_t st) {
-  const int blocks = (P + kThreads * kPts - 1) / (kThreads * kPts);
-  exact_finish_kernel<Grad, kPts><<<blocks, kThreads, 0, st>>>(pts_s, win, order, P, table,
-                                                                fb, d, g);
 }
 
 }  // namespace
 
-// pts_s (P, 3) leaf-sorted; win (P,) int32; order (P,) int64; table
+// pts_s (P, 3) leaf-sorted; win (P,) int32; order (P,) int64, or null
+// (the outputs in sorted order); table
 // (T, 48) float32, row-major and 16-byte aligned; the box [bmin, bmin +
-// bsize) and the fallback by value; d (P,); g (P, 3) or null (no
-// gradient); pts_per_thread 1 or 2. Another pts_per_thread or P < 0
-// returns cudaErrorInvalidValue.
+// bsize) and the fallback by value; d (P,); g (P, 3), 8-byte aligned, or
+// null (no gradient). P < 0 returns cudaErrorInvalidValue.
 extern "C" int sdf_exact_finish(const float* pts_s, const int* win, const long long* order,
                                 int P, const float* table, float bx, float by, float bz,
                                 float sx, float sy, float sz, float fallback, float* d, float* g,
-                                int pts_per_thread, void* stream) {
-  if (P < 0 || (pts_per_thread != 1 && pts_per_thread != 2))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                void* stream) {
+  if (P < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P > 0) {
     const FinishBox fb{{bx, by, bz}, {sx, sy, sz}, fallback};
+    const int blocks = (P + kThreads - 1) / kThreads;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (g == nullptr) {
-      if (pts_per_thread == 1) launch<false, 1>(pts_s, win, order, P, table, fb, d, g, st);
-      else launch<false, 2>(pts_s, win, order, P, table, fb, d, g, st);
+      exact_finish_kernel<false><<<blocks, kThreads, 0, st>>>(pts_s, win, order, P, table, fb,
+                                                               d, g);
     } else {
-      if (pts_per_thread == 1) launch<true, 1>(pts_s, win, order, P, table, fb, d, g, st);
-      else launch<true, 2>(pts_s, win, order, P, table, fb, d, g, st);
+      exact_finish_kernel<true><<<blocks, kThreads, 0, st>>>(pts_s, win, order, P, table, fb,
+                                                              d, g);
     }
   }
   return static_cast<int>(cudaGetLastError());

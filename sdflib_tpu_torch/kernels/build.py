@@ -84,12 +84,11 @@ _SIGNATURES = {
     "sdf_beam": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
     # (points, P, leaf grid, depth, box_min, box_size3, key, stream)
     "sdf_exact_descend": [_P, _I, _P, _I, _P, _P, _P, _P],
-    # (points, order, P, lid_s, leaf bounds, size, pts_s, b0, nc, points a
-    #  thread, stream)
-    "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P],
+    # (points, order, P, lid_s, leaf bounds, size, pts_s, b0, nc, stream)
+    "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     # (pts_s, win, order, P, table, box_min x y z, box size x y z, fallback,
-    #  d, g or null, points a thread, stream)
-    "sdf_exact_finish": [_P, _P, _P, _I, _P, *[_F] * 7, _P, _P, _I, _P],
+    #  d, g or null, stream)
+    "sdf_exact_finish": [_P, _P, _P, _I, _P, *[_F] * 7, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

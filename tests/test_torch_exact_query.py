@@ -11,11 +11,12 @@ package from its ``.npz`` container, so both hold the same leaves.
   sorted points and winners (-1 winners, points outside the box, on a
   vertex of their winner and beside its edges) within rtol 1e-5 / atol
   1e-6, in the caller's order (the unsort); and again on points built to
-  fall in one region of their winner, each of the seven in turn. Gradients agree within the
-  same tolerance, except at a point on the winner's rim at distance 0
-  with sign 0, where the port gives the face normal ``tn`` and JAX 0
-  (ROADMAP Queue 3), and at a point within rounding noise of an edge
-  (|d| < 1e-6, not 0), where both directions are noise: there the
+  fall in one region of their winner, each of the seven in turn; without
+  an order the finish leaves its values in sorted order. Gradients agree
+  within the same tolerance, except at a point on the winner's rim at
+  distance 0 with sign 0, where the port gives the face normal ``tn`` and
+  JAX 0 (ROADMAP Queue 3), and at a point within rounding noise of an
+  edge (|d| < 1e-6, not 0), where both directions are noise: there the
   port's gradient has unit norm.
 * The int32-keyed stable sort gives the int64 one's order;
   ``exact_sorted_gather_plain`` equals the gathers it replaces in both
@@ -29,9 +30,10 @@ package from its ``.npz`` container, so both hold the same leaves.
 * On a CUDA device (skipped here): each kernel against its plain version
   (distances bit-equal, gradients within 1e-6, integers equal), K7 on a
   random batch and on one whose every warp mixes the seven regions, K9 at
-  0, 1, 31, 33 and 1,000 points, padded or not, in both modes, each at
-  every points-a-thread form; the query with K7-K9 bit-equal to the
-  query with their plain versions, and a refused launch raises.
+  0, 1, 31, 33 and 1,000 points, padded or not, in both modes, through
+  the public wrappers and the query's lean launches; the query with
+  K7-K9 bit-equal to the query with their plain versions, and a refused
+  launch raises.
 
 JAX is imported inside fixtures and tests: the GPU machine has no JAX and
 runs only the cuda-marked cases (``pytest --noconftest -m cuda``).
@@ -199,11 +201,12 @@ def _region_inputs(sdf, codes, seed: int = 3):
         pts = np.where(codes == 3 + k,
                        0.5 * (v[:, k] + v[:, (k + 1) % 3]) + delta * out(k), pts)
     side = np.array([3.0, 0.0, -3.0, 0.0])[np.arange(n) % 4][:, None]
-    side = np.where((codes == 6) & (side == 0.0), np.where(np.arange(n) % 8 < 4, 1.0, -1.0)[:, None],
-                    side)
+    face = np.where(np.arange(n) % 8 < 4, 1.0, -1.0)[:, None]
+    side = np.where((codes == 6) & (side == 0.0), face, side)
     # the pseudonormal dot of the in-plane points, in float64 in the
     # winner's frame (signed_dist_from_rows's (a, b, z) of each code)
-    tr = {k: v.cpu().numpy().astype(np.float64)[win] for k, v in sdf.triangles._asdict().items()}
+    tr = {name: a.cpu().numpy().astype(np.float64)[win]
+          for name, a in sdf.triangles._asdict().items()}
     pp = np.einsum("nij,nj->ni", tr["transform"], pts - tr["origin"])
     shift = np.where(np.isin(codes, (1, 4)), tr["v2x"][:, None],
                      np.where(codes == 2, tr["v3xy"][:, :1], 0.0))
@@ -246,6 +249,20 @@ def test_finish_plain_each_region_matches_jax(pair, code, with_gradient):
         return
     np.testing.assert_allclose(got[0].numpy()[order], np.asarray(ref[0]), **TOL)
     np.testing.assert_allclose(got[1].numpy()[order], np.asarray(ref[1]), **TOL)
+
+
+@pytest.mark.parametrize("with_gradient", [False, True])
+def test_finish_without_order_stays_sorted(pair, with_gradient):
+    """Without an order the finish leaves the values in sorted order, as
+    JAX's ``_exact_finish`` does: the unsorted outputs read at the order."""
+    _, p = pair
+    pts, win, order = _finish_inputs(p)
+    args = (torch.as_tensor(pts), torch.as_tensor(win))
+    rest = (p._finish_table, *_box_args(p), p._fallback)
+    got = eq.exact_finish(*args, None, *rest, with_gradient=with_gradient)
+    want = eq.exact_finish(*args, torch.as_tensor(order), *rest, with_gradient=with_gradient)
+    for a, b in zip(*((got, want) if with_gradient else ((got,), (want,)))):
+        assert torch.equal(a, b[torch.as_tensor(order)])
 
 
 def test_int32_sort_matches_int64(pair):
@@ -421,8 +438,8 @@ def test_k8_k9_against_plain(cuda_sdf):
 @pytest.mark.parametrize("mode", ["window", "grouped"])
 @pytest.mark.parametrize("P", [0, 1, 31, 33, 1000])
 def test_k9_sizes_against_plain(cuda_sdf, P, mode):
-    """K9 at small and ragged sizes, unpadded and padded, at every
-    points-a-thread form, bit-equal to the plain version."""
+    """K9 at small and ragged sizes, unpadded and padded, through the
+    public wrapper and the lean launch, bit-equal to the plain version."""
     sdf = cuda_sdf
     pts = torch.as_tensor(_points(sdf.box, 1000, 37)[:P], device="cuda")
     lid_s, order = torch.sort(eq.exact_descend(pts, sdf._leaf_grid, *_box_args(sdf),
@@ -430,12 +447,9 @@ def test_k9_sizes_against_plain(cuda_sdf, P, mode):
     rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks) if mode == "window" else ()
     for size in (P, P + 77, P + (-P) % WINDOW + WINDOW):
         want = eq.exact_sorted_gather_plain(pts, order, *rows, size=size)
-        got = eq.exact_sorted_gather(pts, order, *rows, size=size)
-        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
-        for k in (1, 2, 4, 8):
-            got = eq.launch_sorted_gather(pts, order, lid_s if rows else None,
-                                          sdf._leaf_bounds if rows else None, size,
-                                          points_per_thread=k)
+        for got in (eq.exact_sorted_gather(pts, order, *rows, size=size),
+                    eq.launch_sorted_gather(pts, order, lid_s if rows else None,
+                                            sdf._leaf_bounds if rows else None, size)):
             assert all((a is None and b is None) or torch.equal(a, b)
                        for a, b in zip(got, want))
 
@@ -449,7 +463,8 @@ def _bits_equal(a, b) -> bool:
 @pytest.mark.parametrize("batch", ["random", "regions"])
 def test_k7_against_plain(cuda_sdf, with_gradient, batch):
     """K7 bit-equal to its plain version in distance (gradients within
-    1e-6) at each points-a-thread form: random winners and points, or
+    1e-6), public and lean, with its unsort and without: random winners
+    and points, or
     points built in a chosen region of their winner, the seven regions
     taken in turn so that every warp mixes them all."""
     sdf = cuda_sdf
@@ -464,19 +479,18 @@ def test_k7_against_plain(cuda_sdf, with_gradient, batch):
         pts_s, win = torch.as_tensor(pts, device="cuda"), torch.as_tensor(win, device="cuda")
         order = torch.randperm(pts_s.shape[0], device="cuda",
                                generator=torch.Generator("cuda").manual_seed(1))
-    args = (pts_s, win, order, sdf._finish_table, *_box_args(sdf), sdf._fallback)
-    want = eq.exact_finish_plain(*args, with_gradient=with_gradient)
-    outs = [eq.exact_finish(*args, with_gradient=with_gradient)]
-    for k in (1, 2):
-        outs.append(eq.launch_exact_finish(pts_s, win, order, pts_s.shape[0],
-                                           sdf._finish_table, sdf._box_host, sdf._fallback,
-                                           with_gradient, points_per_thread=k))
-    for got in outs:
-        if not with_gradient:
-            assert _bits_equal(got, want)
-            continue
-        assert _bits_equal(got[0], want[0])
-        assert float((got[1] - want[1]).abs().max()) <= 1e-6
+    rest = (sdf._finish_table, *_box_args(sdf), sdf._fallback)
+    for o in (order, None):                 # the unsort, and the sorted order
+        want = eq.exact_finish_plain(pts_s, win, o, *rest, with_gradient=with_gradient)
+        outs = (eq.exact_finish(pts_s, win, o, *rest, with_gradient=with_gradient),
+                eq.launch_exact_finish(pts_s, win, o, pts_s.shape[0], sdf._finish_table,
+                                       sdf._box_host, sdf._fallback, with_gradient))
+        for got in outs:
+            if not with_gradient:
+                assert _bits_equal(got, want)
+                continue
+            assert _bits_equal(got[0], want[0])
+            assert float((got[1] - want[1]).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -511,15 +525,12 @@ def test_a_refused_launch_raises(cuda_sdf):
                      sdf._leaf_grid.data_ptr(), 11, sdf._box_min.data_ptr(),
                      sdf._box_size3.data_ptr(), key.data_ptr())
     order = torch.arange(64, device="cuda")
-    with pytest.raises(RuntimeError, match="failed to launch"):      # size < P
-        build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(), order.data_ptr(),
-                     64, None, None, 32, pts.data_ptr(), None, None, 4)
-    with pytest.raises(RuntimeError, match="failed to launch"):      # 3 points a thread
-        build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(), order.data_ptr(),
-                     64, None, None, 64, pts.data_ptr(), None, None, 3)
-    d = torch.empty(64, device="cuda")
-    for P, k in ((-1, 1), (64, 4)):                                  # P < 0, 4 a thread
+    for P, size in ((64, 32), (-1, 0)):                             # size < P, P < 0
         with pytest.raises(RuntimeError, match="failed to launch"):
-            build.launch("sdf_exact_finish", pts.device, pts.data_ptr(), key.data_ptr(),
-                         order.data_ptr(), P, sdf._finish_table.data_ptr(), *sdf._box_host,
-                         1.0, d.data_ptr(), None, k)
+            build.launch("sdf_exact_sorted_gather", pts.device, pts.data_ptr(),
+                         order.data_ptr(), P, None, None, size, pts.data_ptr(), None, None)
+    d = torch.empty(64, device="cuda")
+    with pytest.raises(RuntimeError, match="failed to launch"):      # P < 0
+        build.launch("sdf_exact_finish", pts.device, pts.data_ptr(), key.data_ptr(),
+                     order.data_ptr(), -1, sdf._finish_table.data_ptr(), *sdf._box_host, 1.0,
+                     d.data_ptr(), None)
