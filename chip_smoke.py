@@ -33,9 +33,8 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   (``_query(plain_glue=True)``, equal answers) and the all-plain query,
   and each profiled (``exact_breakdown``: no more device activities a
   call than 18 for the d6 2^21 window query, 33 for the grouped d6 ones
-  and 29 at d7; K7-K9, K1 and the sort by name); ``exact_ab`` (not part
-  of the smoke) times K7, K9 and the query in a parent checkout and this
-  one, in turns;
+  and 29 at d7; K7-K9, K1 and the sort by name, and every activity's
+  count a call);
 * K1g against its plain version at d6 2^16 and d7 2^20 points, with its
   work (groups holding points, rows fetched, the shares of slots with an
   id and of rows with a dead half), its bound and its fetch floor: its
@@ -548,52 +547,49 @@ def _host_us(fn, reps: int = 200) -> float:
     return us
 
 
-def _exact_times(sdf, x) -> dict:
-    """K9 (both modes) and K7 (both forms) timed on one batch of
-    ``_exact_inputs``, each as the query launches it (the lean launches
-    where the package has them, else the public wrappers): CUDA events,
-    the profiler's device time and the host time a call (``_host_us``);
-    the public wrappers' events beside them; K9 grouped's library call,
-    ``torch.index_select``, and K7 without its unsort (the outputs in
-    sorted order), in events and device time. ms (host us) by name."""
+def _exact_runs(sdf, x) -> dict:
+    """K9 (both modes) and K7 (both forms) on one batch of ``_exact_inputs``,
+    as the query launches them (the lean launches): {name: (fn, the
+    kernel's name in a profile)}. K7 also at the identity order (its
+    outputs in sorted order: the same work without the scattered writes)."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
 
-    lean = hasattr(eq, "launch_exact_finish")
     q, order, lid_s, pts_s, win = x["q"], x["order"], x["lid_s"], x["pts_s"], x["win"]
     P = q.shape[0]
     runs = {}
     for mode in ("window", "grouped"):
-        rows = (lid_s, sdf.leaf_row0, sdf.leaf_nchunks) if mode == "window" else ()
-        size = P + (-P) % 32 if mode == "window" else P
+        window = mode == "window"
+        size = P + (-P) % 32 if window else P
         runs[f"K9 {mode}"] = (
-            lambda rows=rows, size=size: eq.exact_sorted_gather(q, order, *rows, size=size),
-            lambda rows=rows, size=size: eq.launch_sorted_gather(
-                q, order, lid_s if rows else None, sdf._leaf_bounds if rows else None, size),
+            lambda window=window, size=size: eq.launch_sorted_gather(
+                q, order, lid_s if window else None, sdf._leaf_bounds if window else None,
+                size),
             "exact_sorted_gather_kernel")
+    identity = torch.arange(P, device=q.device)
     for grad in (False, True):
-        fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
-                 sdf._fallback)
-        runs[f"K7 {'gradient' if grad else 'distance'}"] = (
-            lambda fargs=fargs, grad=grad: eq.exact_finish(*fargs, with_gradient=grad),
-            lambda grad=grad: eq.launch_exact_finish(pts_s, win, order, P, sdf._finish_table,
-                                                     sdf._box_host, sdf._fallback, grad),
-            "exact_finish_kernel")
+        form = "gradient" if grad else "distance"
+        for name, o in ((f"K7 {form}", order), (f"K7 {form} identity", identity)):
+            runs[name] = (lambda o=o, grad=grad: eq.launch_exact_finish(
+                pts_s, win, o, P, sdf._finish_table, sdf._box_host, sdf._fallback, grad),
+                "exact_finish_kernel")
+    return runs
+
+
+def _exact_times(runs: dict, x) -> dict:
+    """Each of ``runs`` (``_exact_runs``) timed: CUDA events, the
+    profiler's device time and the host time a call (``_host_us``); and
+    K9 grouped's library call, ``torch.index_select``, in events and
+    device time. ms (host us) by name."""
+    import torch
+
     t = {}
-    for name, (public, launch, key) in runs.items():
-        run = launch if lean else public
-        t[name], t[f"{name} device"] = _timed(run, key)
-        t[f"{name} host us"] = _host_us(run)
-        t[f"{name} public"] = _cuda_ms(public) if lean else t[name]
+    for name, (fn, key) in runs.items():
+        t[name], t[f"{name} device"] = _timed(fn, key)
+        t[f"{name} host us"] = _host_us(fn)
     t["index_select"], t["index_select device"] = _timed(
-        lambda: torch.index_select(q, 0, order), "")
-    for grad in (False, True) if lean else ():      # K7 without its unsort
-        name = f"K7 {'gradient' if grad else 'distance'} sorted"
-        t[name], t[f"{name} device"] = _timed(
-            lambda grad=grad: eq.launch_exact_finish(pts_s, win, None, P, sdf._finish_table,
-                                                     sdf._box_host, sdf._fallback, grad),
-            "exact_finish_kernel")
+        lambda: torch.index_select(x["q"], 0, x["order"]), "")
     return t
 
 
@@ -602,13 +598,14 @@ def exact_kernels_vs_plain(sdf, pts, label):
     ``_exact_inputs``. K8's keys and K9's outputs equal (both modes, the
     public wrapper and the lean launch the query calls), K7's distances
     bit-equal on every point (with and without the gradient, both calls,
-    with its unsort and without), its gradients within 1e-6; each timed
-    as the query launches it (``_exact_times``: CUDA events, the
-    profiler's device time, host time) beside its plain version and its
-    bound, the int32 sort beside an int64 one, K9 grouped beside
+    at the batch's order and at the identity), its gradients within 1e-6;
+    each timed as the query launches it (``_exact_times``: CUDA events,
+    the profiler's device time, host time) beside its plain version and
+    its bound, the int32 sort beside an int64 one, K9 grouped beside
     ``index_select``. Returns {row: dict(err, ms, device_ms, plain_ms,
-    bound, library_ms)} for the JSON line: K8, K9 in grouped mode (the
-    mode with a library call), K7 in both forms."""
+    bound, library_ms)} for the JSON line: K8, K9 in window mode and in
+    grouped mode (the mode with a library call), K7 in both forms; each
+    ``ms`` is the lean launch's events."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -666,7 +663,7 @@ def exact_kernels_vs_plain(sdf, pts, label):
         fargs = (pts_s, win, order, sdf._finish_table, sdf._box_min, sdf._box_size3,
                  sdf._fallback)
         gerr = 0.0
-        for o in (order, None):             # the unsort, and the sorted order
+        for o in (order, torch.arange(P, device=q.device)):
             want = eq.exact_finish_plain(pts_s, win, o, *fargs[3:], with_gradient=grad)
             for got in (eq.exact_finish(pts_s, win, o, *fargs[3:], with_gradient=grad),
                         eq.launch_exact_finish(pts_s, win, o, P, sdf._finish_table,
@@ -683,7 +680,7 @@ def exact_kernels_vs_plain(sdf, pts, label):
             err=gerr, plain_ms=_cuda_ms(lambda: eq.exact_finish_plain(*fargs,
                                                                       with_gradient=grad)),
             bound=_bound(nbytes, P * (FLOPS_FINISH_GRAD if grad else FLOPS_FINISH)))
-    t = _exact_times(sdf, x)
+    t = _exact_times(_exact_runs(sdf, x), x)
     for name in ("K9 window", "K9 grouped", "K7 distance", "K7 gradient"):
         res[name].update(ms=t[name], device_ms=t[f"{name} device"],
                          library_ms=t["index_select"] if name == "K9 grouped" else None)
@@ -697,84 +694,9 @@ def exact_kernels_vs_plain(sdf, pts, label):
           f"|gradient diff| {res['K7 gradient']['err']:.3e}; the stable sort of the int32 keys "
           f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; " + "; ".join(rows))
     print(f"exact_times {label}: " + json.dumps({k: round(v, 6) for k, v in t.items()}))
-    return {"exact_descend": res["exact_descend"], "exact_sorted_gather": res["K9 grouped"],
+    return {"exact_descend": res["exact_descend"], "exact_sorted_gather": res["K9 window"],
+            "exact_sorted_gather_grouped": res["K9 grouped"],
             "exact_finish": res["K7 distance"], "exact_finish_grad": res["K7 gradient"]}
-
-
-EXACT_AB_BATCHES = (("d6", 1 << 21), ("d6", 1 << 16), ("d7", 1 << 20))
-
-
-def exact_probe(tree: str, store: str) -> None:
-    """K7's and K9's times (``_exact_times``) and the exact query's at
-    EXACT_AB_BATCHES, for the package of the checkout ``tree``, on the
-    structures and points ``exact_ab`` saved in ``store``: run in a
-    process of its own, which imports that checkout's sdflib_tpu_torch.
-    Prints one ``exact_ab`` JSON line."""
-    sys.path.insert(0, os.path.abspath(tree))
-    import torch
-
-    import sdflib_tpu_torch
-    from sdflib_tpu_torch import SdfFunction
-
-    dev = torch.device("cuda", 0)
-    out = {"package": os.path.dirname(sdflib_tpu_torch.__file__)}
-    sdfs = {}
-    for name, n in EXACT_AB_BATCHES:
-        if name not in sdfs:
-            sdfs[name] = SdfFunction.load(os.path.join(store, f"{name}.npz"), device=dev)
-        sdf = sdfs[name]
-        pts = torch.as_tensor(np.load(os.path.join(store, f"{name}_pts.npy"))[:n], device=dev)
-        label = f"{name} 2^{n.bit_length() - 1}"
-        t = _exact_times(sdf, _exact_inputs(sdf, pts))
-        t["query"] = _cuda_ms(lambda: sdf.get_distance(pts), reps=20)
-        _, t["query busy"], t["query activities"] = breakdown(
-            lambda: sdf.get_distance(pts), f"{label}, {out['package']}")
-        t["query scan"] = sdf.last_scan_stats["scan"]
-        if n == 1 << 21:
-            t["gradient query"] = _cuda_ms(lambda: sdf.get_distance_and_gradient(pts), reps=20)
-        out[label] = t
-    print("exact_ab " + json.dumps(out))
-
-
-def exact_ab(parent: str) -> None:
-    """The A/B of K7, K9 and the exact query between the checkout
-    ``parent`` (a ``git archive`` of the parent commit) and this one, in
-    one call: path A's d6 and path B's d7 structures built once here and
-    saved with their points, then ``exact_probe`` for parent, this tree,
-    this tree, parent, each in a process of its own."""
-    import torch
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    from sdflib_tpu_torch import ExactOctreeSdf
-    from sdflib_tpu_torch.utils.primitives import make_torus
-
-    dev = torch.device("cuda", 0)
-    store = tempfile.mkdtemp(prefix="sdf_exact_ab_")
-    try:
-        for name, (nu, nv, depth, start, budget) in (
-                ("d6", (96, 48, 6, 2, None)), ("d7", (420, 120, 7, 3, 8 << 30))):
-            mesh = make_torus(R=0.3, r=0.12, nu=nu, nv=nv)
-            box = mesh.bounding_box.add_margin(0.14)
-            t0 = time.perf_counter()
-            sdf = ExactOctreeSdf(mesh, box, max_depth=depth, start_depth=start,
-                                 min_triangles_per_node=32, bucket_byte_budget=budget,
-                                 device=dev)
-            print(f"exact_ab: {name} built in {time.perf_counter() - t0:.1f} s")
-            sdf.save(os.path.join(store, f"{name}.npz"))
-            n = max(n for s, n in EXACT_AB_BATCHES if s == name)
-            np.save(os.path.join(store, f"{name}_pts.npy"),
-                    _uniform(box, n, 0, dev).cpu().numpy())
-            del sdf
-            torch.cuda.empty_cache()
-        for tree in (parent, root, root, parent):
-            run = subprocess.run([sys.executable, "-c", "import sys, chip_smoke as cs; "
-                                  "cs.exact_probe(*sys.argv[1:])", tree, store],
-                                 cwd=root, capture_output=True, text=True, timeout=900)
-            print(run.stdout, end="")
-            _check(run.returncode == 0, f"exact_probe failed ({tree}):\n{run.stderr[-4000:]}")
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
 
 
 def morton_profile(pts, label):
@@ -830,14 +752,15 @@ SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::nonzero")
 GRAPH_LAUNCH_EVENTS = ("cudaGraphLaunch",)
 
 
-def breakdown(fn, label, top=6, counts=None, device_ms=None):
+def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None):
     """Where a call's time goes: CUDA-event time, device and host time
     per call from torch.profiler over 3 calls, the busy share, and the
     kernels with the most device time. Returns (CUDA-event ms, device
     busy ms, device activities a call). ``counts``, a dict of event
     names, receives each name's calls a call (summed over the names of a
     tuple key); ``device_ms``, a dict of name parts, the device ms a call
-    of the activities whose names hold each part. On an H100 a profiler
+    of the activities whose names hold each part; ``activities``, a
+    dict, receives each device activity's count a call by name. On an H100 a profiler
     session now and then records no device activity at all, torch's own
     kernels included: such a session is profiled again, up to
     ``PROFILE_TRIES`` sessions in all."""
@@ -870,6 +793,8 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None):
         counts[names] = sum(e.count for e in avgs if e.key in names) / 3
     for part in device_ms or {}:
         device_ms[part] = sum(us for key, us in dev_us.items() if part in key) / 1e3
+    if activities is not None:
+        activities.update((e.key, e.count / 3) for e in on_dev)
     return ev_ms, busy_ms, sum(e.count for e in on_dev) // 3
 
 
@@ -3432,10 +3357,11 @@ def main() -> None:
         """``breakdown`` of one exact query, with the device ms a call of
         K7-K9, K1 and the int32 sort, and at most ``most`` (and
         EXACT_MAX_ACTIVITIES) device activities a call."""
-        parts = dict.fromkeys(EXACT_PARTS)
-        _, _, acts = breakdown(fn, label, top=8, device_ms=parts)
+        parts, named = dict.fromkeys(EXACT_PARTS), {}
+        _, _, acts = breakdown(fn, label, top=8, device_ms=parts, activities=named)
         print(f"    {label}, by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-              + f"; {acts} device activities a call")
+              + f"; {acts} device activities a call: "
+              + "; ".join(f"{n:g} x {k[:60]}" for k, n in sorted(named.items())))
         most = min(most, EXACT_MAX_ACTIVITIES)
         _check(acts <= most, f"{acts} device activities a call ({label}), above {most}")
 
@@ -3550,6 +3476,9 @@ def main() -> None:
     ek = exact_kernels_vs_plain(sdf, pts, "d6 2^21")
     for name in EXACT_KERNELS:
         kernels[name] = dict(ek[name])
+    # K9's grouped mode: the same kernel and counter as its window mode
+    kernels["exact_sorted_gather_grouped"] = dict(ek["exact_sorted_gather_grouped"],
+                                                  counter="exact_sorted_gather")
     for res in (exact_kernels_vs_plain(sdf, pts[: 1 << 16], "d6 2^16"), ek):
         kernels["exact_finish"]["err"] = max(kernels["exact_finish"]["err"],
                                              res["exact_finish_grad"]["err"])
@@ -3768,6 +3697,8 @@ def main() -> None:
                           "sdflib_tpu/sdf/exact_octree.py:567"),
         "exact_sorted_gather": ("sdflib_tpu_torch/csrc/exact_descend.cu",
                                 "sdflib_tpu/sdf/exact_octree.py:934"),
+        "exact_sorted_gather_grouped": ("sdflib_tpu_torch/csrc/exact_descend.cu",
+                                        "sdflib_tpu/sdf/exact_octree.py:934"),
         "exact_finish": ("sdflib_tpu_torch/csrc/exact_finish.cu",
                          "sdflib_tpu/sdf/exact_octree.py:1144"),
         "octree_query": ("sdflib_tpu_torch/csrc/octree_query.cu",
@@ -3782,7 +3713,7 @@ def main() -> None:
         {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": sum(counts[name] for counts in launches.values()),
+            "launches": sum(counts[k.get("counter", name)] for counts in launches.values()),
             "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
             "library_ms": k.get("library_ms"),

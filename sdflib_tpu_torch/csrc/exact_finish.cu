@@ -10,9 +10,8 @@
 // Point i of the leaf-sorted points reads its winner's row of the finish
 // table (ops/exact_query.py finish_table: the 37 fields of
 // pack_triangle_full_fields, then the 9 world-vertex floats, 48 floats a
-// row, row-major) and writes d[order[i]] (and g[order[i]]; d[i] and g[i]
-// without an order, as _exact_finish leaves them): inside the box
-// [box_min, box_min + box_size3), the signed distance to the winner (a
+// row, row-major) and writes d[order[i]] (and g[order[i]]): inside the
+// box [box_min, box_min + box_size3), the signed distance to the winner (a
 // winner of -1 reads triangle 0); outside it box_distance + fallback
 // (leaf_eval.cuh's box_value, whose 3-term sums take torch's CUDA order),
 // and box_distance_gradient's gradient. Out-of-box points read no row.
@@ -42,7 +41,7 @@
 //   selects, not a switch, so lanes of different regions do not serialise.
 //   The box and the fallback come by value.
 // * The unsort, one scattered write a point at order[i], costs more than
-//   the rows (PERF.md times K7 with and without it). The streams read
+//   the rows (PERF.md times K7 at its order and at the identity). The streams read
 //   once are loaded evict-first, the outputs stored evict-last
 //   (cache_hints.cuh), and a gradient is two stores, its 8-byte-aligned
 //   pair as one.
@@ -217,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   const float p[3] = {hint::load(pts_s + 3 * i, once), hint::load(pts_s + 3 * i + 1, once),
                       hint::load(pts_s + 3 * i + 2, once)};
   const int w = max(hint::load(win + i, once), 0);
-  const long long o = order == nullptr ? i : hint::load(order + i, once);
+  const long long o = hint::load(order + i, once);
   bool in_box = true;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -261,8 +260,7 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// pts_s (P, 3) leaf-sorted; win (P,) int32; order (P,) int64, or null
-// (the outputs in sorted order); table
+// pts_s (P, 3) leaf-sorted; win (P,) int32; order (P,) int64; table
 // (T, 48) float32, row-major and 16-byte aligned; the box [bmin, bmin +
 // bsize) and the fallback by value; d (P,); g (P, 3), 8-byte aligned, or
 // null (no gradient). P < 0 returns cudaErrorInvalidValue.

@@ -228,9 +228,8 @@ def _gather_soa(table, idx) -> TriangleDataSoA:
 def exact_finish_plain(pts_s, win, order, table, box_min, box_size3, fallback: float,
                        *, with_gradient: bool = False):
     """d (P,), and with the gradient (d, g (P, 3)), of the sorted (P, 3)
-    points in the caller's order: point i's values land at ``order[i]``
-    (at i without an ``order``, as the JAX package's ``_exact_finish``
-    leaves them). Inside the box [box_min, box_min + box_size3) the
+    points in the caller's order: point i's values land at ``order[i]``.
+    Inside the box [box_min, box_min + box_size3) the
     signed distance to triangle ``win[i]`` (-1, no candidate, reads
     triangle 0), from its row of the finish ``table`` (T, FINISH_FIELDS);
     outside it the box distance plus ``fallback``, with the box's
@@ -244,8 +243,6 @@ def exact_finish_plain(pts_s, win, order, table, box_min, box_size3, fallback: f
         d_out, g_out = box_distance_gradient(pts_s, center, box_size3)
         d_s = torch.where(in_box, d_in, d_out + fallback)
         g_s = torch.where(in_box[:, None], g_in, g_out)
-        if order is None:
-            return d_s, g_s
         d, g = torch.empty_like(d_s), torch.empty_like(g_s)
         d[order] = d_s
         g[order] = g_s
@@ -255,8 +252,6 @@ def exact_finish_plain(pts_s, win, order, table, box_min, box_size3, fallback: f
                                  lambda r: table[:, r][safe])
     d_out = box_distance(pts_s, center, box_size3)
     d_s = torch.where(in_box, d_in, d_out + fallback)
-    if order is None:
-        return d_s
     d = torch.empty_like(d_s)
     d[order] = d_s
     return d
@@ -267,14 +262,12 @@ def exact_finish(pts_s, win, order, table, box_min, box_size3, fallback: float,
     """K7: ``exact_finish_plain``'s outputs; a CUDA tensor runs the kernel
     (one launch for either form), a CPU tensor the plain version. The
     table must be a contiguous (T, FINISH_FIELDS) float32 tensor, 16-byte
-    aligned (the structure's ``_finish_table``), on either device;
-    ``order`` may be None (the outputs in sorted order)."""
+    aligned (the structure's ``_finish_table``), on either device."""
     dev = pts_s.device if isinstance(pts_s, torch.Tensor) else None
     _tensor(pts_s, torch.float32, (None, 3), "pts_s", dev)
     P = pts_s.shape[0]
     _tensor(win, torch.int32, (P,), "win", dev)
-    if order is not None:
-        _tensor(order, torch.int64, (P,), "order", dev)
+    _tensor(order, torch.int64, (P,), "order", dev)
     _tensor(table, torch.float32, (None, FINISH_FIELDS), "table", dev)
     _need(table.is_contiguous() and table.data_ptr() % 16 == 0,
           "table must be contiguous (row-major) and 16-byte aligned")
@@ -284,17 +277,15 @@ def exact_finish(pts_s, win, order, table, box_min, box_size3, fallback: float,
         return exact_finish_plain(pts_s, win, order, table, box_min, box_size3, fallback,
                                   with_gradient=with_gradient)
     box = (*box_min.tolist(), *box_size3.tolist())       # a host sync, once a call
-    return launch_exact_finish(pts_s.contiguous(), win.contiguous(),
-                               None if order is None else order.contiguous(), P, table, box,
-                               float(np.float32(fallback)), with_gradient)
+    return launch_exact_finish(pts_s.contiguous(), win.contiguous(), order.contiguous(), P,
+                               table, box, float(np.float32(fallback)), with_gradient)
 
 
 def launch_exact_finish(pts_s, win, order, P: int, table, box, fallback: float,
                         with_gradient: bool):
     """K7's launch, unchecked: contiguous CUDA tensors on one card, as
     ``exact_finish`` checks them, of which the first P sorted points and
-    winners are read (padded ``pts_s``/``win`` may be longer), ``order``
-    or None; ``box``
+    winners are read (padded ``pts_s``/``win`` may be longer); ``box``
     the six float32 values of box_min and box_size3 and ``fallback`` a
     float32 value, as host floats. Returns d, or (d, g)."""
     dev = pts_s.device
@@ -302,8 +293,7 @@ def launch_exact_finish(pts_s, win, order, P: int, table, box, fallback: float,
     g = torch.empty((P, 3), dtype=torch.float32, device=dev) if with_gradient else None
     if P:
         build.launch("sdf_exact_finish", dev, pts_s.data_ptr(), win.data_ptr(),
-                     None if order is None else order.data_ptr(), P, table.data_ptr(), *box,
-                     fallback, d.data_ptr(),
+                     order.data_ptr(), P, table.data_ptr(), *box, fallback, d.data_ptr(),
                      None if g is None else g.data_ptr())
         build.count_launch(globals(), "finish_launch_count")
     return (d, g) if with_gradient else d

@@ -252,16 +252,18 @@ def test_finish_plain_each_region_matches_jax(pair, code, with_gradient):
 
 
 @pytest.mark.parametrize("with_gradient", [False, True])
-def test_finish_without_order_stays_sorted(pair, with_gradient):
-    """Without an order the finish leaves the values in sorted order, as
-    JAX's ``_exact_finish`` does: the unsorted outputs read at the order."""
+def test_finish_unsort_writes_at_the_order(pair, with_gradient):
+    """The unsort: point i's values land at ``order[i]``, so the outputs
+    read at the order are those of the identity order (JAX's
+    ``_exact_finish`` leaves them in sorted order)."""
     _, p = pair
     pts, win, order = _finish_inputs(p)
     args = (torch.as_tensor(pts), torch.as_tensor(win))
     rest = (p._finish_table, *_box_args(p), p._fallback)
-    got = eq.exact_finish(*args, None, *rest, with_gradient=with_gradient)
-    want = eq.exact_finish(*args, torch.as_tensor(order), *rest, with_gradient=with_gradient)
-    for a, b in zip(*((got, want) if with_gradient else ((got,), (want,)))):
+    sorted_ = eq.exact_finish(*args, torch.arange(len(pts)), *rest,
+                              with_gradient=with_gradient)
+    got = eq.exact_finish(*args, torch.as_tensor(order), *rest, with_gradient=with_gradient)
+    for a, b in zip(*((sorted_, got) if with_gradient else ((sorted_,), (got,)))):
         assert torch.equal(a, b[torch.as_tensor(order)])
 
 
@@ -463,10 +465,10 @@ def _bits_equal(a, b) -> bool:
 @pytest.mark.parametrize("batch", ["random", "regions"])
 def test_k7_against_plain(cuda_sdf, with_gradient, batch):
     """K7 bit-equal to its plain version in distance (gradients within
-    1e-6), public and lean, with its unsort and without: random winners
-    and points, or
-    points built in a chosen region of their winner, the seven regions
-    taken in turn so that every warp mixes them all."""
+    1e-6), public and lean, at a random order and at the identity: random
+    winners and points, or points built in a chosen region of their
+    winner, the seven regions taken in turn so that every warp mixes them
+    all."""
     sdf = cuda_sdf
     if batch == "random":
         pts, lid_s, order = _cuda_batch(sdf)
@@ -480,7 +482,7 @@ def test_k7_against_plain(cuda_sdf, with_gradient, batch):
         order = torch.randperm(pts_s.shape[0], device="cuda",
                                generator=torch.Generator("cuda").manual_seed(1))
     rest = (sdf._finish_table, *_box_args(sdf), sdf._fallback)
-    for o in (order, None):                 # the unsort, and the sorted order
+    for o in (order, torch.arange(pts_s.shape[0], device="cuda")):
         want = eq.exact_finish_plain(pts_s, win, o, *rest, with_gradient=with_gradient)
         outs = (eq.exact_finish(pts_s, win, o, *rest, with_gradient=with_gradient),
                 eq.launch_exact_finish(pts_s, win, o, pts_s.shape[0], sdf._finish_table,
