@@ -1,25 +1,26 @@
 """exact-ab: K7, K9 and the exact query timed in checkouts of the port, in
 turns, on one card.
 
-    python -m sdflib_tpu_torch.tools.exact_ab PARENT [--variants]
+    python -m sdflib_tpu_torch.tools.exact_ab PARENT [--pairs N] [--variants]
 
 PARENT is another checkout of the repo (for example a ``git archive`` of
-the parent commit, unpacked). This process builds ``chip_smoke.py``'s
+the parent commit, unpacked). A first process builds ``chip_smoke.py``'s
 path A (d6) and path B (d7) exact structures, profiles each structure's
-query as built and again after a save and load in the same process (the
-device activities a call by name, both ways), and saves them beside
-their points. Each checkout then runs in processes of its own, in turns
-(PARENT, this one, the variants, this one, PARENT, the variants in the
-reverse order, PARENT, this one), and each process prints one
+query as built and again after a save and load (the device activities a
+call by name, both ways), and saves them beside their points. Each checkout then runs in processes of its own, in turns:
+``--pairs`` pairs of PARENT and this one, the first of a pair taking
+turns (with ``--variants``, the variants after the first pair and again,
+in the reverse order, before the last). Each process prints one
 ``exact_ab`` JSON line: the query first (CUDA events best and median of
 ``QUERY_REPS`` calls, host time a call, busy ms, device activities a
-call by name, K1's device ms in it), then K9 and K7 as the query launches
-them (``chip_smoke._exact_times``: events, device and host time; K7 also
-at the identity order), ``torch.index_select``, and at d6 2^21 K1w's
-device time right after K7's gradient form.
+call by name, K1's device ms in it; each profile after a discarded
+warm-up call), then K9 and K7 as the query launches them
+(``chip_smoke._exact_times``: events, device and host time; K7 also at
+the identity order), ``torch.index_select``, and where the query takes
+the window scan, K1w's device time right after K7's gradient form.
 
 ``--variants`` adds copies of this checkout with L2 cache hints taken
-out of K7's and K9's sources (``HINT_VARIANTS``), one set at a time;
+out of K7's source (``HINT_VARIANTS``), one set at a time;
 their processes skip the host-bound 2^16 batch. Every checkout's
 kernels are built before the first process starts, all at once.
 
@@ -58,15 +59,15 @@ HINT_VARIANTS = {
                    r"*(\1) = \2")],
     "k7-pair": [("exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
                  r"hint::store(\1, \2, keep); hint::store(\1 + 1, \3, keep)")],
-    "k9-loads": [("exact_descend.cu", *_LOADS)],
 }
-HINT_VARIANTS["none"] = (HINT_VARIANTS["k7-loads"] + HINT_VARIANTS["k7-stores"]
-                         + HINT_VARIANTS["k9-loads"])
+HINT_VARIANTS["none"] = HINT_VARIANTS["k7-loads"] + HINT_VARIANTS["k7-stores"]
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="exact-ab")
     p.add_argument("parent", help="another checkout of the repo")
+    p.add_argument("--pairs", type=int, default=10,
+                   help="processes of the parent and of this checkout, each")
     p.add_argument("--variants", action="store_true",
                    help="also time this checkout with L2 hints taken out")
     return p
@@ -124,7 +125,8 @@ def _profile(cs, fn, label: str) -> dict:
     """The query's busy ms, device activities a call (by name) and device
     ms by kernel, from ``chip_smoke.breakdown``."""
     parts, named = dict.fromkeys(cs.EXACT_PARTS), {}
-    _, busy, acts = cs.breakdown(fn, label, top=0, device_ms=parts, activities=named)
+    _, busy, acts = cs.breakdown(fn, label, top=0, device_ms=parts, activities=named,
+                                 warm=True)
     return {"busy": busy, "activities": acts, "by kernel": parts,
             "by name": {k[:70]: v for k, v in sorted(named.items())}}
 
@@ -255,7 +257,10 @@ def main(argv=None) -> int:
         print(sub.stdout, end="")
         if sub.returncode != 0:
             raise RuntimeError(f"the structures failed:\n{sub.stderr[-4000:]}")
-        turns = [parent, _ROOT, *variants, _ROOT, parent, *variants[::-1], parent, _ROOT]
+        turns = [tree for i in range(args.pairs)
+                 for tree in ((parent, _ROOT) if i % 2 == 0 else (_ROOT, parent))]
+        turns[2:2] = variants
+        turns[-2:-2] = variants[::-1]
         for tree in turns:
             run = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe", tree,
                                   store, "1" if tree in variants else "0"],
