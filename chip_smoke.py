@@ -764,10 +764,9 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None,
     profiles one more call first and drops its activities: at the start
     of a session the profiler can miss the first call's first activities
     (at d7 2^20 about 10 of the query's 33, which read as 29 a call). On
-    an H100 a profiler
-    session now and then records no device activity at all, torch's own
-    kernels included: such a session is profiled again, up to
-    ``PROFILE_TRIES`` sessions in all."""
+    an H100 a profiler session now and then records no device activity
+    at all, torch's own kernels included: such a session is profiled
+    again, up to ``PROFILE_TRIES`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -784,11 +783,15 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None,
                     prof.step()
             torch.cuda.synchronize()
         avgs = prof.key_averages()
+        # a warm session's step annotations span whole calls: no activity
+        avgs = [e for e in avgs if not e.key.startswith("ProfilerStep")]
         on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
         if on_dev:
             break
         print(f"breakdown, {label}: the profiler session recorded no device activity")
-    dev_us = {e.key: e.self_device_time_total / 3 for e in on_dev}
+    dev_us = collections.defaultdict(float)      # a name may head several rows
+    for e in on_dev:
+        dev_us[e.key] += e.self_device_time_total / 3
     host_ms = sum(e.self_cpu_time_total for e in avgs
                   if e.device_type == DeviceType.CPU) / 3e3
     busy_ms = sum(dev_us.values()) / 1e3
@@ -802,8 +805,8 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None,
         counts[names] = sum(e.count for e in avgs if e.key in names) / 3
     for part in device_ms or {}:
         device_ms[part] = sum(us for key, us in dev_us.items() if part in key) / 1e3
-    if activities is not None:
-        activities.update((e.key, e.count / 3) for e in on_dev)
+    for e in on_dev if activities is not None else ():
+        activities[e.key] = activities.get(e.key, 0.0) + e.count / 3
     return ev_ms, busy_ms, sum(e.count for e in on_dev) // 3
 
 

@@ -1,13 +1,15 @@
-// L2 cache hints for K7's streams (exact_finish.cu).
+// L2 cache hints for the exact query's streams (K7, K9).
 //
-// A stream read once (the sorted points, winners and order) is loaded
-// evict-first and not kept in L1, so it does not push out what is read
-// again (the rows K7 reads, the outputs it scatters). An output written
-// in a random order (the unsort) is stored evict-last, so a 32-byte
-// sector stays in L2 until its other points have filled it instead of
-// going back to memory half written. Each hint was taken out on its own
-// on an H100 (sdflib_tpu_torch/tools/exact_ab.py --variants, PERF.md):
-// without any one of them the gradient query was slower in every run.
+// A stream read once (the sort order, the sorted keys, points and
+// winners) is loaded evict-first and not kept in L1, so it does not push
+// out what is read again (the points K9 gathers, the rows K7 reads, the
+// outputs K7 scatters). An output written in a random order (K7's unsort)
+// is stored evict-last, so a 32-byte sector stays in L2 until its other
+// points have filled it instead of going back to memory half written.
+// Each hint was taken out on its own on an H100
+// (sdflib_tpu_torch/tools/exact_ab.py --variants, PERF.md): without any
+// one of K7's the gradient query was slower in every run; without K9's,
+// K9 was 5-6% slower at d6 2^21.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -30,12 +30,16 @@
 // a sorted warp reads lie anywhere in the batch, and memory serves each
 // 12-byte point as a whole sector. More points a thread (2, 4 or 8, every
 // gather issued before the first store) measured slower on an H100
-// (PERF.md): the gathers are not waiting on latency. What helped: a
-// leaf's bounds as one 8-byte load from the packed table (~22 sorted
-// points share a leaf at d6 2^21, so a warp's read is mostly a
-// broadcast). Loading the order and keys evict-first took 5-6% off K9 at
-// d6 2^21 and nothing at d7 or in either query, so they are plain loads.
+// (PERF.md): the gathers are not waiting on latency. What helped: the
+// order and keys, read once, loaded evict-first and not kept in L1
+// (cache_hints.cuh), which leaves L2 to the points: 5-6% at d6 2^21,
+// nothing at d7. A leaf's bounds are one 8-byte load from the packed
+// table (~22 sorted points share a leaf at d6 2^21, so a warp's read is
+// mostly a broadcast); alone, that measured within 2% of the two 4-byte
+// reads.
 #include <cuda_runtime.h>
+
+#include "cache_hints.cuh"
 
 namespace {
 
@@ -71,8 +75,9 @@ __global__ void __launch_bounds__(kThreads)
   float x = 0.0f, y = 0.0f, z = 0.0f;
   int2 bd = make_int2(0, 0);
   if (i < P) {
-    const long long j = __ldg(order + i);
-    if (bounds != nullptr) bd = __ldg(bounds + __ldg(lid_s + i));
+    const unsigned long long once = hint::evict_first();
+    const long long j = hint::load(order + i, once);
+    if (bounds != nullptr) bd = __ldg(bounds + hint::load(lid_s + i, once));
     x = __ldg(points + 3 * j);
     y = __ldg(points + 3 * j + 1);
     z = __ldg(points + 3 * j + 2);

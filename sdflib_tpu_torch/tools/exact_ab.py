@@ -20,7 +20,7 @@ the identity order), ``torch.index_select``, and where the query takes
 the window scan, K1w's device time right after K7's gradient form.
 
 ``--variants`` adds copies of this checkout with L2 cache hints taken
-out of K7's source (``HINT_VARIANTS``), one set at a time;
+out of K7's and K9's sources (``HINT_VARIANTS``), one set at a time;
 their processes skip the host-bound 2^16 batch. Every checkout's
 kernels are built before the first process starts, all at once.
 
@@ -59,8 +59,10 @@ HINT_VARIANTS = {
                    r"*(\1) = \2")],
     "k7-pair": [("exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
                  r"hint::store(\1, \2, keep); hint::store(\1 + 1, \3, keep)")],
+    "k9-loads": [("exact_descend.cu", *_LOADS)],
 }
-HINT_VARIANTS["none"] = HINT_VARIANTS["k7-loads"] + HINT_VARIANTS["k7-stores"]
+HINT_VARIANTS["none"] = (HINT_VARIANTS["k7-loads"] + HINT_VARIANTS["k7-stores"]
+                         + HINT_VARIANTS["k9-loads"])
 
 
 def build_parser() -> argparse.ArgumentParser:
