@@ -19,22 +19,28 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   sparse batches take, and again with the window scan pinned;
 * K1w against its plain version at d6 2^21 and 2^16 points, with its
   rows visited and active-lane share;
-* K7-K9, the exact query's finish, descent key and sorted gather
-  (``exact_kernels_vs_plain``), against their plain versions at d6 2^21
-  (window), d6 2^16 and d7 2^20 (grouped), every 61st point moved out of
-  the box and every 97th winner -1: K8's keys and K9's outputs (both
-  modes) equal, K7's distances bit-equal with and without the gradient,
-  its gradients within 1e-6, through the public wrappers and the lean
-  launches the query calls, each timed as the query launches it by CUDA
-  events, the profiler's device time and host time a call beside its
-  plain version and bound, K9 grouped beside ``torch.index_select``, the
-  int32 sort beside an int64 one; the three batches' ``get_distance``
-  beside the query with K7-K9's plain versions
-  (``_query(plain_glue=True)``, equal answers) and the all-plain query,
-  and each profiled after a discarded warm-up call (``exact_breakdown``:
-  no more device activities a call than 18 for the d6 2^21 window query
-  and 33 for the grouped ones, d6 and d7; K7-K9, K1 and the sort by name,
-  and every activity's count a call);
+* K7-K9 and the leaf sort, the exact query's finish, descent key, sort
+  and sorted gather (``exact_kernels_vs_plain``), against their plain
+  versions at d6 2^21 (window), d6 2^16 and d7 2^20 (grouped), every
+  61st point moved out of the box and every 97th winner -1: K8's keys,
+  the leaf sort's sorted keys and order (``torch.equal`` to
+  ``torch.sort`` of K8's plain keys; also given the node walk's keys)
+  and K9's outputs (both modes) equal, K7's distances bit-equal with and
+  without the gradient, its gradients within 1e-6, through the public
+  wrappers and the lean launches the query calls, each timed as the
+  query launches it by CUDA events, the profiler's device time and host
+  time a call beside its plain version and bound, the leaf sort beside
+  the parent's K8 + ``torch.sort`` and its design's floor, K9 grouped
+  beside ``torch.index_select``; at d6 2^21 the leaf sort's edge sweep
+  (``leaf_sort_sweep``: 0 to 2^20 + 3 points, 1 to 2^21 + 1 leaves, NaN
+  and far points, one leaf, descending keys); the three batches'
+  ``get_distance`` (one leaf sort launch a query) beside the query with
+  the plain versions of the sort, K9 and K7 (``_query(plain_glue=True)``,
+  equal answers, with the gradient too) and the all-plain query, and
+  each profiled after a discarded warm-up call (``exact_breakdown``: no
+  torch sort kernel, no more device activities a call than 7 for the d6
+  2^21 window query and 22 for the grouped ones, d6 and d7; the leaf
+  sort, K9, K1 and K7 by name, and every activity's count a call);
 * K1g against its plain version at d6 2^16 and d7 2^20 points, with its
   work (groups holding points, rows fetched, the shares of slots with an
   id and of rows with a dead half), its bound and its fetch floor: its
@@ -299,17 +305,34 @@ FINISH_GRAD_ROW_BYTES = FINISH_ROW_BYTES + 9 * 4
 FLOPS_FINISH = 70
 FLOPS_FINISH_GRAD = 100
 FLOPS_DESCEND = 12
+# The leaf sort (K8's key and a stable radix sort by it): its bound counts
+# the point in and lid_s (4 B) and the order (8 B) out, and each touched
+# grid word once; its design moves 16 B a point in the key launch (the
+# point in, the key out) and 16 B a digit pass (48 B in two passes).
+SORT_POINT_BYTES = 12 + 4 + 8
+SORT_DESIGN_BYTES = 16
+SORT_PASS_BYTES = 16
 # The most device activities a profiled exact query may take with K7-K9
-# (the descent, the int32 sort, the gather, the group assembly, K1, K7).
+# (the leaf sort, the gather, the group assembly, K1, K7).
 EXACT_MAX_ACTIVITIES = 40
-# ... and in each scan no more than the query took when K7-K9 first
-# landed (the d6 2^21 window query; the grouped queries, d6 and d7 2^20)
-EXACT_ACTIVITIES = {"window": 18, "grouped": 33}
-# K7-K9's launch counters, and the names of the exact query's kernels in a
-# profile (the int32 sort's are torch's radix sort).
-EXACT_KERNELS = ("exact_descend", "exact_sorted_gather", "exact_finish")
-EXACT_PARTS = ("exact_descend_kernel", "exact_sorted_gather_kernel", "scan_window_kernel",
+# ... and in each scan no more than the query takes with the leaf sort
+# (the d6 2^21 window query; the grouped queries, d6 and d7 2^20): 7 and
+# 22 on an H100, where K8 and torch's sort took 18 and 33
+EXACT_ACTIVITIES = {"window": 7, "grouped": 22}
+# The exact query's launch counters (the leaf sort, K9, K7), and the names
+# of its kernels in a profile: the leaf sort's two kernels and its memset,
+# and torch's radix sort, which a query over the leaf grid must not run.
+EXACT_KERNELS = ("leaf_sort", "exact_sorted_gather", "exact_finish")
+EXACT_PARTS = ("leaf_sort", "Memset", "exact_sorted_gather_kernel", "scan_window_kernel",
                "scan_grouped_kernel", "exact_finish_kernel", "DeviceRadixSort")
+
+
+def _torch_sort_kernel(name: str) -> bool:
+    """Whether a device activity is one of torch's sorts: a name with
+    "sort" in it that is not the leaf sort, K9 or ``searchsorted``."""
+    low = name.lower()
+    return "sort" in low and not any(k in low for k in ("leaf_sort", "sorted_gather",
+                                                         "searchsorted"))
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -404,7 +427,7 @@ def reset_counts():
     row_gather.block_launch_count = row_gather.tile_launch_count = 0
     octree_query.launch_count = march.launch_count = march.beam_launch_count = 0
     exact_query.finish_launch_count = exact_query.descend_launch_count = 0
-    exact_query.gather_launch_count = 0
+    exact_query.gather_launch_count = exact_query.sort_launch_count = 0
 
 
 def read_counts():
@@ -416,6 +439,7 @@ def read_counts():
     return {
         "exact_finish": exact_query.finish_launch_count,
         "exact_descend": exact_query.descend_launch_count,
+        "leaf_sort": exact_query.sort_launch_count,
         "exact_sorted_gather": exact_query.gather_launch_count,
         "nearest": nearest.launch_count,
         "nearest_morton": nearest.morton_launch_count,
@@ -503,11 +527,10 @@ def _timed(fn, key: str) -> tuple[float, float]:
 
 def _exact_inputs(sdf, pts):
     """One batch as the query hands it to K7-K9: every 61st point moved out
-    of the box (1.6x about its centre), K8's keys, their stable sort, the
-    scan the structure chooses, and the sorted points and winners of the
-    structure's own scan with every 97th winner -1."""
-    import torch
-
+    of the box (1.6x about its centre), K8's keys, the leaf sort's sorted
+    keys and order (as the query launches it), the scan the structure
+    chooses, and the sorted points and winners of the structure's own scan
+    with every 97th winner -1."""
     from sdflib_tpu_torch.ops import exact_query as eq
     from sdflib_tpu_torch.ops import scan
 
@@ -516,7 +539,8 @@ def _exact_inputs(sdf, pts):
     q[::61] = centre + 1.6 * (q[::61] - centre)
     P = q.shape[0]
     keys = eq.exact_descend(q, sdf._leaf_grid, sdf._box_min, sdf._box_size3, sdf.max_depth)
-    lid_s, order = torch.sort(keys, stable=True)
+    lid_s, order = eq.launch_leaf_sort(q, sdf._leaf_grid, sdf._box_host, sdf.max_depth,
+                                       eq.sort_bits(sdf.num_leaves))
     kind = sdf._choose_scan(P)
     if kind == "window":
         pts_s, b0, nc, _ = sdf._sorted_windows(q)
@@ -592,19 +616,102 @@ def _exact_times(runs: dict, x) -> dict:
     return t
 
 
-def exact_kernels_vs_plain(sdf, pts, label):
-    """K8, K9 and K7 against their plain versions on one batch of
-    ``_exact_inputs``. K8's keys and K9's outputs equal (both modes, the
-    public wrapper and the lean launch the query calls), K7's distances
-    bit-equal on every point (with and without the gradient, both calls,
-    at the batch's order and at the identity), its gradients within 1e-6;
-    each timed as the query launches it (``_exact_times``: CUDA events,
-    the profiler's device time, host time) beside its plain version and
-    its bound, the int32 sort beside an int64 one, K9 grouped beside
-    ``index_select``. Returns {row: dict(err, ms, device_ms, plain_ms,
-    bound, library_ms)} for the JSON line: K8, K9 in window mode and in
-    grouped mode (the mode with a library call), K7 in both forms; each
-    ``ms`` is the lean launch's events."""
+def _walk_keys(sdf, q):
+    """The node walk's int32 leaf keys of ``q`` on a structure that has the
+    dense grid (the grid set aside for the call)."""
+    grid, sdf._leaf_grid = sdf._leaf_grid, None
+    try:
+        return sdf._leaf_keys(q)
+    finally:
+        sdf._leaf_grid = grid
+
+
+# The leaf sort's edge sweep: batch sizes (a tile is 4,096 keys) and leaf
+# counts (1 bit for 1 and 2 leaves, 10 bits for 513, two digits of 9 for
+# 2^18 and of 11 for 2^21 + 1).
+SWEEP_SIZES = (0, 1, 255, 256, 257, 4095, 4096, 4097, (1 << 20) + 3)
+SWEEP_LEAVES = (1, 2, 513, 1 << 18, (1 << 21) + 1)
+
+
+def leaf_sort_sweep(dev) -> int:
+    """The leaf sort at every size of ``SWEEP_SIZES`` against grids of
+    every leaf count of ``SWEEP_LEAVES`` (random ids below L, every id
+    present where the grid has room; points over 1.2x the box, every 97th
+    far outside it, every 101st coordinate NaN), in both modes, the lean
+    launch and the public wrapper, ``torch.equal`` to
+    ``torch.sort(keys, stable=True)``; then every point in one leaf and
+    keys in descending order at 2^20 + 3. Returns the cases checked."""
+    import torch
+
+    from sdflib_tpu_torch.ops import exact_query as eq
+
+    lo, size = (-0.25, 0.5, -1.0), 2.0
+    box_min = torch.tensor(lo, dtype=torch.float32, device=dev)
+    box_size3 = torch.full((3,), size, dtype=torch.float32, device=dev)
+    box = (*lo, size, size, size)
+    cases = 0
+
+    def same(got, want, what):
+        nonlocal cases
+        cases += 1
+        _check(got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+               and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"the leaf sort differs from torch.sort ({what})")
+
+    for L in SWEEP_LEAVES:
+        rng = np.random.default_rng(L)
+        depth = 7 if L > 8 ** 5 else 5
+        cells = 8 ** depth
+        grid = rng.integers(0, L, cells).astype(np.int32)
+        grid[rng.permutation(cells)[: min(L, cells)]] = (np.arange(min(L, cells))
+                                                         * (L // min(L, cells)))
+        grid[0] = L - 1
+        grid = torch.as_tensor(grid, device=dev)
+        bits = eq.sort_bits(L)
+        for P in SWEEP_SIZES:
+            pts = (np.asarray(lo, np.float32)
+                   + rng.uniform(-0.1, 1.1, (P, 3)).astype(np.float32) * np.float32(size))
+            pts[::97] *= np.float32(40.0)
+            pts.reshape(-1)[::101] = np.nan
+            pts = torch.as_tensor(pts, device=dev)
+            what = f"P={P}, L={L}"
+            want = eq.leaf_sort_plain(pts, grid, box_min, box_size3, depth)
+            same(eq.launch_leaf_sort(pts, grid, box, depth, bits), want, what)
+            same(eq.leaf_sort(pts, grid, box_min, box_size3, depth, bits), want, what)
+            keys = eq.exact_descend_plain(pts, grid, box_min, box_size3, depth)
+            same(eq.launch_leaf_sort(keys, None, None, 0, bits), eq.leaf_sort_plain(keys),
+                 f"{what}, keys given")
+        if L == SWEEP_LEAVES[-1]:
+            P = SWEEP_SIZES[-1]
+            one = torch.full_like(grid, L // 3)
+            same(eq.launch_leaf_sort(pts, one, box, depth, bits),
+                 eq.leaf_sort_plain(pts, one, box_min, box_size3, depth), "one leaf")
+            down = (L - 1 - torch.arange(P, device=dev) % L).to(torch.int32)
+            same(eq.launch_leaf_sort(down, None, None, 0, bits), eq.leaf_sort_plain(down),
+                 "descending keys")
+    torch.cuda.synchronize()
+    return cases
+
+
+def exact_kernels_vs_plain(sdf, pts, label, sweep: bool = False):
+    """K8, the leaf sort, K9 and K7 against their plain versions on one
+    batch of ``_exact_inputs``. K8's keys, the leaf sort's sorted keys and
+    order (``torch.equal`` to ``torch.sort(exact_descend_plain(...),
+    stable=True)``, the lean launch and the public wrapper, over the grid
+    and given the node walk's keys) and K9's outputs equal (both modes,
+    the public wrapper and the lean launch the query calls), K7's
+    distances bit-equal on every point (with and without the gradient,
+    both calls, at the batch's order and at the identity), its gradients
+    within 1e-6; with ``sweep``, the leaf sort's edge sweep
+    (``leaf_sort_sweep``). Each timed as the query launches it
+    (``_exact_times``: CUDA events, the profiler's device time, host time)
+    beside its plain version and its bound; the leaf sort also beside the
+    parent's path, K8 and ``torch.sort`` of its int32 keys (its
+    ``library_ms``), ``torch.sort`` alone, and its design's floor; K9
+    grouped beside ``index_select``. Returns {row: dict(err, ms, device_ms,
+    plain_ms, bound, library_ms)} for the JSON line: K8, the leaf sort, K9
+    in window mode and in grouped mode (the mode with a library call), K7
+    in both forms; each ``ms`` is the lean launch's events."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -627,11 +734,31 @@ def exact_kernels_vs_plain(sdf, pts, label):
     res["exact_descend"] = dict(err=0.0, ms=ev, device_ms=dev,
                                 plain_ms=_cuda_ms(lambda: eq.exact_descend_plain(*dargs)),
                                 bound=_bound(P * (12 + 4) + cells * 4, P * FLOPS_DESCEND))
-    sort32_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
-    keys64 = keys.long()
-    sort64_ms = _cuda_ms(lambda: torch.sort(keys64, stable=True))
-    _check(torch.equal(order, torch.sort(keys64, stable=True)[1]),
-           f"the int32 sort's order differs from the int64 sort's ({label})")
+    # the leaf sort: the query's sorted keys and order, the public wrapper,
+    # the node walk's keys given
+    bits = eq.sort_bits(sdf.num_leaves)
+    passes = len(eq._digit_plan(bits))
+    want = eq.leaf_sort_plain(*dargs)
+    lean = lambda: eq.launch_leaf_sort(q, sdf._leaf_grid, sdf._box_host, sdf.max_depth, bits)
+    for got in ((lid_s, order), lean(), eq.leaf_sort(*dargs, bits)):
+        _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"the leaf sort differs from torch.sort of K8's plain keys ({label})")
+    walk = _walk_keys(sdf, q)
+    _check(all(torch.equal(a, b) for a, b in zip(
+        eq.launch_leaf_sort(walk, None, None, 0, bits), eq.leaf_sort_plain(walk))),
+           f"the leaf sort of the node walk's keys differs from torch.sort ({label})")
+    swept = leaf_sort_sweep(q.device) if sweep else 0
+    parent = lambda: torch.sort(eq.exact_descend(*dargs), stable=True)
+    st = {}
+    for name, fn in (("leaf sort", lean), ("K8 + torch.sort", parent),
+                     ("torch.sort", lambda: torch.sort(keys, stable=True))):
+        st[name], st[f"{name} device"] = _timed(fn, "")       # every activity of the call
+        st[f"{name} host us"] = _host_us(fn)
+    design_ms = P * (SORT_DESIGN_BYTES + SORT_PASS_BYTES * passes) / PEAK_BYTES * 1e3
+    res["leaf_sort"] = dict(err=0.0, ms=st["leaf sort"], device_ms=st["leaf sort device"],
+                            plain_ms=_cuda_ms(lambda: eq.leaf_sort_plain(*dargs)),
+                            bound=_bound(P * SORT_POINT_BYTES + cells * 4, P * FLOPS_DESCEND),
+                            library_ms=st["K8 + torch.sort"])
     # K9, both modes, through the public wrapper and the query's launch
     leaves = int(torch.unique(lid_s).numel())
     for mode in ("window", "grouped"):
@@ -688,12 +815,19 @@ def exact_kernels_vs_plain(sdf, pts, label):
             for name, r in res.items()]
     print(f"K7-K9 vs plain ({label}, P={P}, the query's scan: {kind}; {out_share:.4f} of the "
           f"points outside the box, {int((win < 0).sum())} winners of -1, {touched} "
-          f"triangles touched, {cells} grid cells, {leaves} leaves): K8 keys, K9's outputs "
-          f"(both modes) equal, K7's distances bit-equal (both forms), max "
-          f"|gradient diff| {res['K7 gradient']['err']:.3e}; the stable sort of the int32 keys "
-          f"{sort32_ms:.4f} ms (int64 {sort64_ms:.4f} ms), the same order; " + "; ".join(rows))
-    print(f"exact_times {label}: " + json.dumps({k: round(v, 6) for k, v in t.items()}))
-    return {"exact_descend": res["exact_descend"], "exact_sorted_gather": res["K9 window"],
+          f"triangles touched, {cells} grid cells, {leaves} leaves): K8 keys, the leaf sort "
+          f"(over the grid and given the walk's keys{f', and {swept} sweep cases' if sweep else ''}"
+          f"), K9's outputs (both modes) equal, K7's distances bit-equal (both forms), max "
+          f"|gradient diff| {res['K7 gradient']['err']:.3e}; " + "; ".join(rows))
+    print(f"leaf sort {label} ({bits} bits, digits {eq._digit_plan(bits)}): "
+          + ", ".join(f"{name} {st[name]:.4f} ms ({st[f'{name} device']:.4f} device, "
+                      f"{st[f'{name} host us']:.1f} us host)"
+                      for name in ("leaf sort", "K8 + torch.sort", "torch.sort"))
+          + f"; bound {res['leaf_sort']['bound'][0]:.6f} ms, design floor "
+          f"({SORT_DESIGN_BYTES + SORT_PASS_BYTES * passes} B a point) {design_ms:.6f} ms")
+    print(f"exact_times {label}: " + json.dumps({k: round(v, 6) for k, v in {**st, **t}.items()}))
+    return {"exact_descend": res["exact_descend"], "leaf_sort": res["leaf_sort"],
+            "exact_sorted_gather": res["K9 window"],
             "exact_sorted_gather_grouped": res["K9 grouped"],
             "exact_finish": res["K7 distance"], "exact_finish_grad": res["K7 gradient"]}
 
@@ -3166,7 +3300,7 @@ def main() -> None:
 
     from sdflib_tpu_torch import ExactOctreeSdf, RealSdf
     from sdflib_tpu_torch.kernels import build
-    from sdflib_tpu_torch.ops import nearest, row_gather, scan
+    from sdflib_tpu_torch.ops import exact_query, nearest, row_gather, scan
     from sdflib_tpu_torch.ops.point_triangle import (
         pack_triangle_fields,
         sq_dist_from_vertex_cols,
@@ -3192,6 +3326,7 @@ def main() -> None:
                   "morton_codes_kernel", "scan_window_kernel",
                   "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel",
                   "octree_query_kernel", "march_kernel", "beam_kernel", "exact_descend_kernel",
+                  "leaf_sort_keys_kernel", "leaf_sort_pass_kernel",
                   "exact_sorted_gather_kernel", "exact_finish_kernel"):
         lines = [(_instance(k), v) for k, v in report.items() if short in k]
         for tag, line in lines or [("", "not reported")]:
@@ -3366,31 +3501,48 @@ def main() -> None:
         return err, ms, plain_ms, (pts_s, b0, nc, visit, rows)
 
     def exact_breakdown(fn, label, most):
-        """``breakdown`` of one exact query, with the device ms a call of
-        K7-K9, K1 and the int32 sort, and at most ``most`` (and
-        EXACT_MAX_ACTIVITIES) device activities a call."""
+        """``breakdown`` of one exact query over the leaf grid, with the
+        device ms a call of the leaf sort (its kernels and its memset),
+        K9, K1 and K7, no torch sort kernel among its activities, and at
+        most ``most`` (and EXACT_MAX_ACTIVITIES) device activities a
+        call."""
         parts, named = dict.fromkeys(EXACT_PARTS), {}
         _, _, acts = breakdown(fn, label, top=8, device_ms=parts, activities=named, warm=True)
         print(f"    {label}, by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
               + f"; {acts} device activities a call: "
               + "; ".join(f"{n:g} x {k[:60]}" for k, n in sorted(named.items())))
+        sorts = [k for k in named if _torch_sort_kernel(k)]
+        _check(not sorts, f"the query ran torch's sort ({label}): {sorts}")
         most = min(most, EXACT_MAX_ACTIVITIES)
         _check(acts <= most, f"{acts} device activities a call ({label}), above {most}")
 
     def query_rows(sdf, q, label):
-        """``get_distance`` (K8, the sort, K9, K1, K7), the same with
-        K7-K9's plain versions (``_query(plain_glue=True)``) and with
-        every step's (``plain=True``), each timed, their answers equal."""
+        """``get_distance`` (the leaf sort, K9, K1, K7; the sort launched
+        once), the same with the plain versions of the sort, K9 and K7
+        (``_query(plain_glue=True)``: K8's plain keys and ``torch.sort``)
+        and with every step's (``plain=True``), each timed, their answers
+        equal; with the gradient, the distances equal and the gradients
+        within 1e-6."""
+        before = exact_query.sort_launch_count
         d = sdf.get_distance(q)
+        sorts = exact_query.sort_launch_count - before
+        _check(sorts == 1, f"the query launched the leaf sort {sorts} times ({label})")
         _check(torch.equal(d, sdf._query(q, False, plain_glue=True)),
                f"the query with K7-K9 differs from the one with their plain versions ({label})")
+        dg, g = sdf.get_distance_and_gradient(q)
+        dg_p, g_p = sdf._query(q, True, plain_glue=True)
+        g_err = float((g - g_p).abs().max())
+        _check(torch.equal(dg, dg_p) and g_err <= 1e-6,
+               f"the gradient query with K7-K9 differs from the plain versions' ({label}): "
+               f"gradients by {g_err}")
         ms = [_cuda_ms(lambda: sdf.get_distance(q)),
               _cuda_ms(lambda: sdf._query(q, False, plain_glue=True)),
               _cuda_ms(lambda: sdf._query(q, False, plain=True))]
         n = q.shape[0]
         print(f"get_distance {label}: K7-K9 and K1 {ms[0]:.4f} ms ({n / ms[0] * 1e3:.4e} q/s), "
               f"K1 with K7-K9 plain {ms[1]:.4f} ms ({n / ms[1] * 1e3:.4e} q/s), all plain "
-              f"{ms[2]:.3f} ms ({n / ms[2] * 1e3:.4e} q/s); the first two equal")
+              f"{ms[2]:.3f} ms ({n / ms[2] * 1e3:.4e} q/s); the first two equal, with the "
+              f"gradient too (max |gradient diff| {g_err:.3e})")
 
     kernels = {}
     launches = {}
@@ -3460,7 +3612,8 @@ def main() -> None:
     _check(g_err <= ORACLE_TOL, f"gradient-path distance error {g_err}")
     _check(g_bad < 5e-3, f"gradient mismatch share {g_bad}")
     print(f"launches on main path A (d6): {launches['d6']}")
-    for name in ("nearest", "scan_window", "scan_grouped", *EXACT_KERNELS):
+    # K8 alone: the first grouped query of a padded size descends the origin
+    for name in ("nearest", "scan_window", "scan_grouped", "exact_descend", *EXACT_KERNELS):
         _check(launches["d6"][name] > 0, f"{name} was not launched on path A")
 
     # -- K1w against its plain version on the 2^21 bench points -------------
@@ -3485,8 +3638,8 @@ def main() -> None:
     kernels["scan_grouped"] = dict(err=g_err6, ms=g_ms6, plain_ms=g_plain6, bound=g_bound6)
 
     # -- K7-K9 against their plain versions, d6 2^21 (window) and 2^16 ------
-    ek = exact_kernels_vs_plain(sdf, pts, "d6 2^21")
-    for name in EXACT_KERNELS:
+    ek = exact_kernels_vs_plain(sdf, pts, "d6 2^21", sweep=True)
+    for name in ("exact_descend", *EXACT_KERNELS):
         kernels[name] = dict(ek[name])
     # K9's grouped mode: the same kernel and counter as its window mode
     kernels["exact_sorted_gather_grouped"] = dict(ek["exact_sorted_gather_grouped"],
@@ -3707,6 +3860,8 @@ def main() -> None:
         # kernels for XLA-fused code (no pl.pallas_call): the JAX functions
         "exact_descend": ("sdflib_tpu_torch/csrc/exact_descend.cu",
                           "sdflib_tpu/sdf/exact_octree.py:567"),
+        "leaf_sort": ("sdflib_tpu_torch/csrc/exact_descend.cu",
+                      "sdflib_tpu/sdf/exact_octree.py:939"),
         "exact_sorted_gather": ("sdflib_tpu_torch/csrc/exact_descend.cu",
                                 "sdflib_tpu/sdf/exact_octree.py:934"),
         "exact_sorted_gather_grouped": ("sdflib_tpu_torch/csrc/exact_descend.cu",

@@ -84,6 +84,10 @@ _SIGNATURES = {
     "sdf_beam": [*_GRID, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
     # (points, P, leaf grid, depth, box_min, box_size3, key, stream)
     "sdf_exact_descend": [_P, _I, _P, _I, _P, _P, _P, _P],
+    # (points or null, keys or null, P, leaf grid, depth, box_min x y z, box
+    #  size x y z, bits, SMs, work, work words, lid_s, order, stream)
+    "sdf_leaf_sort": [_P, _P, _I, _P, _I, *[_F] * 6, _I, _I, _P, ctypes.c_longlong, _P, _P,
+                      _P],
     # (points, order, P, lid_s, leaf bounds, size, pts_s, b0, nc, stream)
     "sdf_exact_sorted_gather": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     # (pts_s, win, order, P, table, box_min x y z, box size x y z, fallback,

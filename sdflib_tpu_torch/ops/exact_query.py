@@ -9,9 +9,15 @@ its plain torch version, beside it here, for CPU tensors.
 * K8, ``exact_descend`` (``csrc/exact_descend.cu``; the JAX package's
   ``_exact_descent_grid``, :567-581): each point's leaf id (int32) from
   the dense leaf grid, the cell clamped to the grid as in the plain
-  version. Its int32 keys halve the radix passes of the stable
-  ``torch.sort`` that follows (the JAX package sorts outside any kernel
-  too).
+  version (the structure's ``_descend`` and the tools).
+* The leaf sort, ``leaf_sort`` (same file; ``_exact_descent_grid``
+  followed by the multi-operand ``lax.sort``, :934-941): K8's key and a
+  stable sort by it, ``torch.sort(exact_descend_plain(...),
+  stable=True)``, as a stable LSD radix sort over only the keys' bits
+  (``sort_bits`` of the leaf count; ``_digit_plan`` splits them into the
+  fewest digits of at most ``MAX_DIGIT`` bits), the key computed in its
+  first launch. Given int32 keys instead of points (the node walk's), it
+  sorts those.
 * K9, ``exact_sorted_gather`` (``csrc/exact_descend.cu``; the gathers of
   the sorted order, :934-941, and of the window scan's bounds,
   :982-983): ``pts[order]`` and, for the window scan and the id-only
@@ -32,12 +38,14 @@ gradient's normals need, row-major (the structure's ``_finish_table``).
 ``exact_finish`` refuses any other table, on every device.
 
 The public functions check their arguments and, on the card, call the
-lean launches ``launch_sorted_gather`` and ``launch_exact_finish``, which
-``ExactOctreeSdf._query`` calls directly with tensors it made itself:
-no checks, no copies, the box as host floats, the ctypes entry looked up
-once a process; a launch that fails still raises.
+lean launches ``launch_leaf_sort``, ``launch_sorted_gather`` and
+``launch_exact_finish``, which ``ExactOctreeSdf._query`` calls directly
+with tensors it made itself: no checks, no copies, the box as host
+floats, the ctypes entry looked up once a process; a launch that fails
+still raises.
 
-``descend_launch_count``, ``gather_launch_count`` and
+``descend_launch_count``, ``sort_launch_count`` (one a sort: its memset
+and launches are one call), ``gather_launch_count`` and
 ``finish_launch_count`` count kernel launches.
 """
 from __future__ import annotations
@@ -58,15 +66,17 @@ from .point_triangle import (
 __all__ = [
     "FINISH_FIELDS", "finish_table",
     "exact_descend", "exact_descend_plain",
+    "leaf_sort", "leaf_sort_plain", "launch_leaf_sort", "sort_bits", "MAX_DIGIT", "SORT_TILE",
     "exact_sorted_gather", "exact_sorted_gather_plain",
     "exact_finish", "exact_finish_plain", "leaf_bounds",
     "launch_sorted_gather", "launch_exact_finish",
-    "descend_launch_count", "gather_launch_count", "finish_launch_count",
+    "descend_launch_count", "sort_launch_count", "gather_launch_count", "finish_launch_count",
 ]
 
 FINISH_FIELDS = 48     # 37 full fields, 9 world-vertex floats, 2 of padding
 _F_VWORLD = NUM_FULL_FIELDS
 descend_launch_count = 0
+sort_launch_count = 0
 gather_launch_count = 0
 finish_launch_count = 0
 
@@ -138,6 +148,98 @@ def exact_descend(points, leaf_grid, box_min, box_size3, depth: int):
                      key.data_ptr())
         build.count_launch(globals(), "descend_launch_count")
     return key
+
+
+# -- the leaf sort: K8's key and a stable sort by it -----------------------------
+
+MAX_DIGIT = 11          # the widest digit of a pass (kMaxDigit)
+SORT_TILE = 4096        # keys a tile of a digit pass (kSortTile)
+# the look-back state's head: every pass's bins, a ticket, a tile counter a
+# pass (kStateHead)
+_STATE_HEAD = 2 * (1 << MAX_DIGIT) + 1 + 3
+
+
+def sort_bits(num_leaves: int) -> int:
+    """The bits of a leaf id below ``num_leaves``: what the sort sorts."""
+    return max(1, (int(num_leaves) - 1).bit_length())
+
+
+def _digit_plan(bits: int) -> tuple[int, ...]:
+    """The digit widths of a stable LSD radix sort of keys below
+    2^``bits``, least significant first: the fewest passes of at most
+    ``MAX_DIGIT`` bits, as even as can be (the first ones one bit wider),
+    as ``csrc/exact_descend.cu`` ``digit_plan`` splits them."""
+    passes = -(-bits // MAX_DIGIT)
+    base, extra = divmod(bits, passes)
+    return tuple(base + (i < extra) for i in range(passes))
+
+
+def _sort_words(P: int, bits: int, given: bool) -> int:
+    """The int32 words of the leaf sort's scratch: the look-back state (a
+    status word a tile and digit of each pass), the keys unless given, and
+    a key and a value buffer for each pass but the last."""
+    widths = _digit_plan(bits)
+    tiles = -(-P // SORT_TILE)
+    return (_STATE_HEAD + tiles * sum(1 << w for w in widths)
+            + P * ((0 if given else 1) + 2 * (len(widths) - 1)))
+
+
+def leaf_sort_plain(points, leaf_grid=None, box_min=None, box_size3=None, depth: int = 0):
+    """(lid_s (P,) int32, order (P,) int64): ``exact_descend_plain``'s keys
+    sorted, stable, and the sort order, ``torch.sort(keys,
+    stable=True)``. With ``leaf_grid`` None, ``points`` are the keys
+    themselves, (P,) int32."""
+    keys = points if leaf_grid is None else exact_descend_plain(points, leaf_grid, box_min,
+                                                                box_size3, depth)
+    return tuple(torch.sort(keys, stable=True))
+
+
+def leaf_sort(points, leaf_grid, box_min, box_size3, depth: int, bits: int):
+    """The leaf sort: ``leaf_sort_plain``'s outputs; a CUDA tensor runs the
+    kernel, a CPU tensor the plain version. ``points`` (P, 3) float32 on
+    the (8^depth,) int32 grid and the box, or with ``leaf_grid`` None the
+    (P,) int32 keys (box and depth unused). Every key must lie below
+    2^``bits`` (``sort_bits`` of the leaf count; unchecked on the card,
+    where a larger key sorts by its low bits only)."""
+    dev = points.device if isinstance(points, torch.Tensor) else None
+    _need(isinstance(bits, int) and 1 <= bits <= 31, "bits must lie in 1..31")
+    if leaf_grid is None:
+        _tensor(points, torch.int32, (None,), "keys", dev)
+    else:
+        _tensor(points, torch.float32, (None, 3), "points", dev)
+        _tensor(leaf_grid, torch.int32, (8 ** depth,), "leaf_grid", dev)
+        _tensor(box_min, torch.float32, (3,), "box_min", dev)
+        _tensor(box_size3, torch.float32, (3,), "box_size3", dev)
+        _need(0 <= depth <= 10, "the grid depth must lie in 0..10")
+    if not _launches(dev):
+        return leaf_sort_plain(points, leaf_grid, box_min, box_size3, depth)
+    if leaf_grid is None:
+        return launch_leaf_sort(points.contiguous(), None, None, 0, bits)
+    box = (*box_min.tolist(), *box_size3.tolist())       # a host sync, once a call
+    return launch_leaf_sort(points.contiguous(), leaf_grid.contiguous(), box, depth, bits)
+
+
+def launch_leaf_sort(points, leaf_grid, box, depth: int, bits: int):
+    """The leaf sort's launch, unchecked: contiguous CUDA tensors on one
+    card, as ``leaf_sort`` checks them, ``box`` the six float32 values of
+    box_min and box_size3 as host floats (None, with ``leaf_grid`` None:
+    ``points`` are the keys). One memset and 1 + passes launches, no host
+    read. Returns (lid_s, order) as the public function."""
+    dev = points.device
+    P = points.shape[0]
+    lid_s = torch.empty(P, dtype=torch.int32, device=dev)
+    order = torch.empty(P, dtype=torch.int64, device=dev)
+    if P:
+        given = leaf_grid is None
+        work = torch.empty(_sort_words(P, bits, given), dtype=torch.int32, device=dev)
+        if given:
+            head = (None, points.data_ptr(), P, None, 0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+        else:
+            head = (points.data_ptr(), None, P, leaf_grid.data_ptr(), depth, *box)
+        build.launch("sdf_leaf_sort", dev, *head, bits, build.sm_count(dev), work.data_ptr(),
+                     work.numel(), lid_s.data_ptr(), order.data_ptr())
+        build.count_launch(globals(), "sort_launch_count")
+    return lid_s, order
 
 
 # -- K9: the sorted gather ------------------------------------------------------

@@ -16,14 +16,17 @@ ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320):
 * Buckets: ``tri_flat`` viewed as rows of ``scan_chunk`` slots, beside a
   table of each slot's fields in one of three tiers (``_make_buckets``),
   and per leaf its first row and row count.
-* Query: dense-grid descent to an int32 leaf key (kernel K8 on a CUDA
-  device; the node walk past depth 7, until ``build_query_grid``), a
-  stable ``torch.sort`` of the keys, the sorted gather of the points and
+* Query: the leaf sort (on a CUDA device one kernel call: the dense-grid
+  descent to an int32 leaf key, K8's arithmetic, fused into a stable
+  radix sort over the leaf ids' bits; past depth 7, until
+  ``build_query_grid``, the node walk's keys given to the same sort), the
+  sorted gather of the points and
   their bucket bounds (K9), the scan (kernel K1 on a CUDA device over
   64-slot vertex rows, else the plain scans), then the signed evaluation
   of each winner, the box fallback outside the domain (box distance +
   sqrt(3) * box size, ExactOctreeSdf.cpp:44-49), and the unsort, in one
-  pass (K7); ``ops/exact_query.py`` holds K7-K9 and their plain versions. The scan takes
+  pass (K7); ``ops/exact_query.py`` holds K7-K9, the leaf sort and their
+  plain versions. The scan takes
   fixed windows of 32 sorted points for dense batches and leaf-aligned
   groups of G points for sparse ones (padded batch < 4 points per leaf,
   the JAX package's rule), unless ``set_scan_impl`` pins one; the id-only
@@ -45,13 +48,15 @@ import torch
 from ..mesh import BoundingBox, Mesh
 from ..ops.exact_query import (
     exact_descend,
-    exact_descend_plain,
     exact_finish_plain,
     exact_sorted_gather_plain,
     finish_table,
     launch_exact_finish,
+    launch_leaf_sort,
     launch_sorted_gather,
     leaf_bounds,
+    leaf_sort_plain,
+    sort_bits,
 )
 from ..ops.gjk import box_triangle_distance, corner_sphere_hull_tri_lower
 from ..ops.point_triangle import (
@@ -1019,18 +1024,29 @@ class ExactOctreeSdf(SdfFunction):
         s = self.start_grid_size
         return ic[:, 2] * (s * s) + ic[:, 1] * s + ic[:, 0]
 
-    def _leaf_keys(self, pts, plain: bool = False):
+    def _leaf_keys(self, pts):
         """The int32 sort key of each contiguous (P, 3) float32 point, its
-        leaf id: K8 on the dense leaf grid (its plain version with
-        ``plain``), else the node walk."""
+        leaf id: K8 on the dense leaf grid, else the node walk."""
         if self._leaf_grid is None:
             return self._descend(pts).to(torch.int32)
-        descend = exact_descend_plain if plain else exact_descend
-        return descend(pts, self._leaf_grid, self._box_min, self._box_size3, self.max_depth)
+        return exact_descend(pts, self._leaf_grid, self._box_min, self._box_size3, self.max_depth)
 
     def _sort_by_leaf(self, pts, plain: bool = False):
-        """(leaf ids sorted (int32, stable), the sort order (int64))."""
-        return torch.sort(self._leaf_keys(pts, plain), stable=True)
+        """(leaf ids sorted (int32, stable), the sort order (int64)): the
+        leaf sort's lean launch on the card, over the dense grid's keys or
+        the node walk's, else (and with ``plain``) its plain version, K8's
+        plain keys and ``torch.sort``."""
+        grid = self._leaf_grid
+        host = plain or not pts.is_cuda
+        if grid is None:
+            keys = self._leaf_keys(pts)
+            if host:
+                return leaf_sort_plain(keys)
+            return launch_leaf_sort(keys, None, None, 0, sort_bits(self.num_leaves))
+        if host:
+            return leaf_sort_plain(pts, grid, self._box_min, self._box_size3, self.max_depth)
+        return launch_leaf_sort(pts, grid, self._box_host, self.max_depth,
+                                sort_bits(self.num_leaves))
 
     def _sorted_windows(self, pts, plain: bool = False, size: int | None = None):
         """Points sorted by leaf (stable) and padded to whole windows (or
@@ -1095,11 +1111,12 @@ class ExactOctreeSdf(SdfFunction):
 
     def _query(self, points, with_gradient: bool, plain: bool = False,
                plain_glue: bool = False):
-        """The query: K8 (the leaf keys), a stable int32 sort, K9 (the
-        sorted gather), the scan (K1 over K1's tables, else the plain
-        scans) and K7 (the finish and the unsort). ``plain`` runs every
-        step's plain version (a yardstick on the card); ``plain_glue``
-        only K7-K9's, with K1 (the card's A/B of K7-K9)."""
+        """The query: the leaf sort (K8's key and a stable sort by leaf),
+        K9 (the sorted gather), the scan (K1 over K1's tables, else the
+        plain scans) and K7 (the finish and the unsort). ``plain`` runs
+        every step's plain version (a yardstick on the card);
+        ``plain_glue`` only those of the sort, K9 and K7 (K8's plain keys
+        and ``torch.sort``), with K1 (the card's A/B of K7-K9)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         flat = pts.reshape(-1, 3).contiguous()
         P = flat.shape[0]

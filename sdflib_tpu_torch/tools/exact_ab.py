@@ -1,5 +1,5 @@
-"""exact-ab: K7, K9 and the exact query timed in checkouts of the port, in
-turns, on one card.
+"""exact-ab: the leaf sort, K7, K9 and the exact query timed in checkouts of
+the port, in turns, on one card.
 
     python -m sdflib_tpu_torch.tools.exact_ab PARENT [--pairs N] [--variants]
 
@@ -14,7 +14,10 @@ in the reverse order, before the last). Each process prints one
 ``exact_ab`` JSON line: the query first (CUDA events best and median of
 ``QUERY_REPS`` calls, host time a call, busy ms, device activities a
 call by name, K1's device ms in it; each profile after a discarded
-warm-up call), then K9 and K7 as the query launches them
+warm-up call), then the key and its sort as the query runs them (the
+leaf sort; in a package without it, K8 and ``torch.sort`` of its int32
+keys: events, device time of every activity, host time), then K9 and K7
+as the query launches them
 (``chip_smoke._exact_times``: events, device and host time; K7 also at
 the identity order), ``torch.index_select``, and where the query takes
 the window scan, K1w's device time right after K7's gradient form.
@@ -191,6 +194,16 @@ def probe(tree: str, store: str, quick: bool) -> None:
             t["gradient query"], t["gradient query median"] = _query_ms(
                 lambda: sdf.get_distance_and_gradient(pts), QUERY_REPS)
         x = cs._exact_inputs(sdf, pts)
+        if hasattr(eq, "launch_leaf_sort"):
+            bits = eq.sort_bits(sdf.num_leaves)
+            sort = lambda: eq.launch_leaf_sort(x["q"], sdf._leaf_grid, sdf._box_host,
+                                               sdf.max_depth, bits)
+        else:
+            sort = lambda: torch.sort(eq.exact_descend(x["q"], sdf._leaf_grid, sdf._box_min,
+                                                       sdf._box_size3, sdf.max_depth),
+                                      stable=True)
+        t["key and sort"], t["key and sort device"] = cs._timed(sort, "")
+        t["key and sort host us"] = cs._host_us(sort)
         lean = hasattr(eq, "launch_exact_finish")
         runs = cs._exact_runs(sdf, x) if lean else _public_runs(sdf, x, eq)
         t.update(cs._exact_times(runs, x))

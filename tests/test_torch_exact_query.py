@@ -32,8 +32,9 @@ package from its ``.npz`` container, so both hold the same leaves.
   random batch and on one whose every warp mixes the seven regions, K9 at
   0, 1, 31, 33 and 1,000 points, padded or not, in both modes, through
   the public wrappers and the query's lean launches; the query with
-  K7-K9 bit-equal to the query with their plain versions, and a refused
-  launch raises.
+  K7-K9 and the leaf sort bit-equal to the query with their plain
+  versions, the sort launched once a query and K8 not at all, and a
+  refused launch raises.
 
 JAX is imported inside fixtures and tests: the GPU machine has no JAX and
 runs only the cuda-marked cases (``pytest --noconftest -m cuda``).
@@ -349,6 +350,7 @@ def test_query_matches_jax_each_scan(pair, jax_ref, impl):
 
 def _reset():
     eq.descend_launch_count = eq.gather_launch_count = eq.finish_launch_count = 0
+    eq.sort_launch_count = 0
 
 
 def test_cpu_tensors_launch_nothing(pair, monkeypatch):
@@ -365,6 +367,7 @@ def test_cpu_tensors_launch_nothing(pair, monkeypatch):
         p.get_distance_and_gradient(pts)
     p._default_scan_impl()
     assert eq.descend_launch_count == eq.gather_launch_count == eq.finish_launch_count == 0
+    assert eq.sort_launch_count == 0
 
 
 def test_wrappers_reject_bad_inputs(pair):
@@ -509,10 +512,12 @@ def test_query_kernels_equal_plain_glue(cuda_sdf, impl):
         _reset()
         d = sdf.get_distance(pts)
         dg, g = sdf.get_distance_and_gradient(pts)
-        counts = (eq.descend_launch_count, eq.gather_launch_count, eq.finish_launch_count)
+        counts = (eq.descend_launch_count, eq.sort_launch_count, eq.gather_launch_count,
+                  eq.finish_launch_count)
     finally:
         sdf._default_scan_impl()
-    assert counts == (2, 2, 2)
+    # the key is the leaf sort's: no K8 launch of its own
+    assert counts == (0, 2, 2, 2)
     assert torch.equal(d, d_p) and torch.equal(dg, dg_p)
     assert float((g - g_p).abs().max()) <= 1e-6
 

@@ -144,7 +144,7 @@ SCRIPT = textwrap.dedent(
     import sdflib_tpu_torch.tools
     for pkg in (sdflib_tpu_torch.tools, sdflib_tpu_torch.parallel):
         names = [m.name for m in pkgutil.iter_modules(pkg.__path__)]
-        assert len(names) == {"sdflib_tpu_torch.tools": 13,
+        assert len(names) == {"sdflib_tpu_torch.tools": 14,
                               "sdflib_tpu_torch.parallel": 5}[pkg.__name__], names
         for name in names:
             importlib.import_module(f"{pkg.__name__}.{name}")
