@@ -110,16 +110,20 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   beside their bound, the GRID ``.bin`` round trip bit-equal, and K2 held
   against its plain version at 2^21 x 9,216;
 * main path F, differentiable queries (``diff_path``): path C's
-  no_continuity octree, ``octree_query_diff`` on 2^22 points (seed 1)
-  bit-equal to the walk route and within 1e-6 of the grid route; the
-  coefficient gradient of mean((d - t)^2) timed with its forward beside
-  their bound from bytes, its scatter timed by the profiler, held to the
-  CPU on 2^16 points (1e-4 relative on the touched rows) and to central
-  differences on 8 coefficients; the point gradient against
-  ``get_distance_and_gradient``; ``render_depth_diff`` on bench.py's
-  1024^2 rays (eps 1e-4, far 4, 256 trips) against path D's trace; and
-  30 Adam steps of ``depth_fit_loss`` (tests/test_diff.py's recipe),
-  whose last loss must fall below half the first;
+  no_continuity octree, ``octree_query_diff`` (K10 forward, K11
+  backward) on 2^22 points (seed 1) bit-equal to the walk route (K10 as
+  well) and within 1e-6 of the grid route; the coefficient gradient of
+  mean((d - t)^2) timed with its forward beside their bound from bytes,
+  K11's device time by the profiler, held to the CPU on 2^16 points
+  (1e-4 relative on the touched rows) and to central differences on 8
+  coefficients; the point gradient against ``get_distance_and_gradient``;
+  ``render_depth_diff`` (K12's march) on bench.py's 1024^2 rays (eps
+  1e-4, far 4, 256 trips) against path D's trace; 30 Adam steps of
+  ``depth_fit_loss`` (tests/test_diff.py's recipe), whose last loss must
+  fall below half the first; K10, K11 and K12 each launched; then K10 in
+  each mode and layout, K11 in four forms and K12 on the frame against
+  their plain versions, timed beside them and their bounds
+  (``walk_kernels_vs_plain``);
 * main path G, the exact path's leftovers (``leftovers_path``), on path
   A's configuration: the EXACT_OCTREE ``.bin`` written, reloaded on the
   card and held to the 10k oracle gate through K1, the compiled
@@ -258,6 +262,27 @@ STRATEGY_DEPTH = {"lattice": 6, "basic": 6, "precise": 6, "per_vertex": 6}
 # the 64 coefficient gradients a point (256 B) that the scatter adds into
 # the gradient array.
 DIFF_BACKWARD_BYTES = 256
+# K10-K12 (path F), each input read once and each output written once.
+# K10: the point in and d out (16 B a point, 12 more with a gradient out),
+# and the node words and coefficient rows the points touch
+# (_walk_touched); K11: the point and gd in (16 B; gg 12 more), the touched
+# node words, the whole coefficient gradient out, and with the point
+# gradient the touched rows in and 12 B a point out; K12: a ray's origin
+# and direction in, hit, position, depth and trips out (45 B), and the
+# octree's words once (at most the rows its rays touch: ~1 MB, 0.3 us).
+# The forward's 280 B a point (APPROX_POINT_BYTES) and the backward's 256
+# more (DIFF_BACKWARD_BYTES) are the figures of every point re-reading
+# its row, which path F prints beside them.
+# Flops counted from csrc/walk.cuh and csrc/octree_walk.cu: the walk ~18
+# and ~12 a level; K10 then K4's polynomial (FLOPS_K4, FLOPS_K4_GRAD);
+# K11 ~3 a coefficient (~15 with gg); a K12 trip ~310 (a 4-level walk,
+# the value, the step).
+WALK_RAY_BYTES = 24 + 1 + 12 + 4 + 4
+FLOPS_WALK_START = 18
+FLOPS_WALK_LEVEL = 12
+FLOPS_K11 = 3 * 64
+FLOPS_K11_GG = 15 * 64
+FLOPS_WALK_TRIP = 310
 # One query point's bytes through the grid route: the point in, its grid
 # row (8 B), its leaf's 64 coefficients, the distance out; the gradient
 # writes 12 B more.
@@ -420,7 +445,9 @@ def _sass_branches(so_path, short: str) -> str:
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    from sdflib_tpu_torch.ops import exact_query, march, nearest, octree_query, row_gather, scan
+    from sdflib_tpu_torch.ops import (
+        exact_query, march, nearest, octree_query, row_gather, scan, walk,
+    )
 
     scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
     nearest.morton_launch_count = 0
@@ -428,13 +455,16 @@ def reset_counts():
     octree_query.launch_count = march.launch_count = march.beam_launch_count = 0
     exact_query.finish_launch_count = exact_query.descend_launch_count = 0
     exact_query.gather_launch_count = exact_query.sort_launch_count = 0
+    walk.launch_count = walk.backward_launch_count = walk.march_launch_count = 0
 
 
 def read_counts():
     """Every kernel wrapper's launch count, by kernel name. A frame's
     captured pieces count their kernels at the warm-up run and at the
     capture; replays launch them without the wrapper."""
-    from sdflib_tpu_torch.ops import exact_query, march, nearest, octree_query, row_gather, scan
+    from sdflib_tpu_torch.ops import (
+        exact_query, march, nearest, octree_query, row_gather, scan, walk,
+    )
 
     return {
         "exact_finish": exact_query.finish_launch_count,
@@ -450,6 +480,9 @@ def read_counts():
         "octree_query": octree_query.launch_count,
         "march": march.launch_count,
         "beam": march.beam_launch_count,
+        "walk_query": walk.launch_count,
+        "walk_backward": walk.backward_launch_count,
+        "walk_march": walk.march_launch_count,
     }
 
 
@@ -1955,21 +1988,155 @@ def grid_path(dev):
     return launches, k2
 
 
+def _walk_touched(walk, pts) -> tuple[int, int]:
+    """(node words, coefficient rows) that the walks of the in-box
+    ``pts`` read, each counted once: the word each level reads, by value
+    (distinct words sit at distinct indices), and the reached leaves' rows."""
+    import torch
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    words, rows = [], None
+    for level in range(walk.levels + 1):
+        word, _, in_box, _ = ow._descend(walk.words, pts, walk.box_min, walk.box_size3,
+                                         walk.start_grid_size, levels=level, fast=walk.fast)
+        words.append(torch.unique(word[in_box]))
+        if level == walk.levels:
+            rows = torch.unique((word[in_box] & 0x3FFFFFFF) // walk.num_coeff).numel()
+    return int(torch.unique(torch.cat(words)).numel()), int(rows)
+
+
+def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_iters: int):
+    """K10-K12 against their plain versions on path F's structure, with
+    the trainable copy of its coefficients: K10 on ``pts`` in each mode
+    (distance, the normalised gradient, the world gradient), aligned and
+    read word by word; K11 with a seeded gd (seed 3), with gg as well, with
+    the point gradient, and word by word; K12 on the rays with ``eps``,
+    ``far`` and ``max_iters``. Each held to its plain version (d within
+    1e-6, gradients within 1e-5, the world gradient and K11 relative to the
+    largest; K12's hit masks on >= 99.9% and q99 depth difference <= 1e-4
+    of the box) and timed beside it and its bound. Returns {(kernel,
+    case): (max abs error, ms, plain ms, bound)}."""
+    import torch
+
+    from sdflib_tpu_torch.diff.query import octree_coefficients
+    from sdflib_tpu_torch.ops import walk as ow
+
+    n, dev = pts.shape[0], pts.device
+    levels = sdf.max_depth - sdf.start_depth
+    base = ow.Walk(sdf._octree_dev, octree_coefficients(sdf._octree_dev), sdf._box_min,
+                   sdf._box_size3, float(sdf.min_border_value), sdf.start_grid_size, levels,
+                   sdf.num_coefficients, sdf.interpolation, True)
+    walk_flops = FLOPS_WALK_START + FLOPS_WALK_LEVEL * levels
+    nodes, coeff_rows = _walk_touched(base, pts)
+    touched_bytes = nodes * 4 + coeff_rows * sdf.num_coefficients * 4
+    print(f"K10/K11 bounds: {n} points touch {nodes} node words and {coeff_rows} coefficient "
+          f"rows ({touched_bytes} B), each counted once")
+    rows = {}
+    for fast, modes in ((True, ow.MODES), (False, ("distance", "world"))):
+        w = base._replace(fast=fast)
+        for mode in modes:
+            got, ref = ow.walk_query(w, pts, mode), ow.walk_query_plain(w, pts, mode)
+            got, ref = (got, ref) if mode != "distance" else ((got,), (ref,))
+            d_err = float((got[0] - ref[0]).abs().max())
+            g_abs = float((got[1] - ref[1]).abs().max()) if mode != "distance" else 0.0
+            g_err = g_abs / (float(ref[1].abs().max()) if mode == "world" else 1.0)
+            del got, ref
+            ms = _cuda_ms(lambda: ow.walk_query(w, pts, mode))
+            plain_ms = _cuda_ms(lambda: ow.walk_query_plain(w, pts, mode), reps=2)
+            grad = mode != "distance"
+            bound = _bound(n * (16 + (12 if grad else 0)) + touched_bytes,
+                           n * (walk_flops + (FLOPS_K4_GRAD if grad else FLOPS_K4)))
+            layout = "aligned" if fast else "word by word"
+            print(f"K10 walk_query {n} points, {mode}, {layout}: max |d - plain| {d_err:.3e}, "
+                  f"gradient {g_err:.3e}{' (relative)' if mode == 'world' else ''}; "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+                  f"= {bound[0] / ms:.1%}")
+            _check(d_err <= 1e-6, f"K10 ({mode}, {layout}) d differs from plain by {d_err}")
+            _check(g_err <= 1e-5, f"K10 ({mode}, {layout}) gradient differs from plain by {g_err}")
+            rows[("walk_query", fast, mode)] = (max(d_err, g_abs), ms, plain_ms, bound)
+            torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(3)
+    gd = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    gg = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
+    for fast, with_gg, points in ((True, False, False), (True, True, False), (True, False, True),
+                                  (False, False, False)):
+        w = base._replace(fast=fast)
+        g2 = gg if with_gg else None
+        got_c, got_p = ow.walk_backward(w, pts, gd, g2, True, points)
+        ref_c, ref_p = ow.walk_backward_plain(w, pts, gd, g2, True, points)
+        c_abs = float((got_c - ref_c).abs().max())
+        c_err = c_abs / float(ref_c.abs().max())
+        touched = int((ref_c.view(-1, sdf.num_coefficients) != 0).any(1).sum())
+        p_err = 0.0
+        if points:
+            p_err = float((got_p - ref_p).abs().max() / ref_p.abs().max())
+        del got_c, got_p, ref_c, ref_p
+        ms = _cuda_ms(lambda: ow.walk_backward(w, pts, gd, g2, True, points))
+        plain_ms = _cuda_ms(lambda: ow.walk_backward_plain(w, pts, gd, g2, True, points),
+                            reps=2)
+        nbytes = (n * (16 + (12 if with_gg else 0) + (12 if points else 0)) + nodes * 4
+                  + base.words.numel() * 4
+                  + (coeff_rows * sdf.num_coefficients * 4 if points else 0))
+        flops = n * (walk_flops + (FLOPS_K11_GG if with_gg else FLOPS_K11)
+                     + (FLOPS_K4_GRAD if points else 0))
+        bound = _bound(nbytes, flops)
+        case = (f"{'aligned' if fast else 'word by word'}, gd{' and gg' if with_gg else ''}"
+                f"{', point gradient' if points else ''}")
+        print(f"K11 walk_backward {n} points, {case}: coefficient gradient max |diff| "
+              f"{c_abs:.3e} ({c_err:.3e} of the largest; {touched} rows touched, "
+              f"{n / max(touched, 1):.1f} points a row), point gradient {p_err:.3e} (relative); "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) = "
+              f"{bound[0] / ms:.1%}")
+        _check(c_err <= 1e-5, f"K11 ({case}) coefficient gradient off plain by {c_err}")
+        _check(p_err <= 1e-5, f"K11 ({case}) point gradient off plain by {p_err}")
+        rows[("walk_backward", fast, with_gg, points)] = (c_abs, ms, plain_ms, bound)
+        torch.cuda.empty_cache()
+
+    o, d = origins.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous()
+    R = o.shape[0]
+    got = ow.walk_march(base, o, d, eps, far, max_iters)
+    ref = ow.walk_march_plain(base, o, d, eps, far, max_iters)
+    agree = float((got[0] == ref[0]).float().mean())
+    both = got[0] & ref[0]
+    dd = (got[2][both] - ref[2][both]).abs()
+    q99, dmax = float(torch.quantile(dd, 0.99)), float(dd.max())
+    useful = int(got[3].sum())
+    ms = _cuda_ms(lambda: ow.walk_march(base, o, d, eps, far, max_iters))
+    plain_ms = _cuda_ms(lambda: ow.walk_march_plain(base, o, d, eps, far, max_iters), reps=1)
+    bound = _bound(R * WALK_RAY_BYTES + base.words.numel() * 4, useful * FLOPS_WALK_TRIP)
+    box = float(np.float32(sdf.box.size[0]))
+    print(f"K12 walk_march {R} rays, {max_iters} trips at most ({useful} useful, the longest "
+          f"{int(got[3].max())}): hit masks agree on {agree:.4%}, on {int(both.sum())} common hits "
+          f"q99 |depth diff| {q99:.3e} (max {dmax:.3e}; allowance {1e-4 * box:.3e}); "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) = "
+          f"{bound[0] / ms:.1%}")
+    _check(agree >= 0.999, f"K12 hit masks agree with plain on {agree:.4%}")
+    _check(q99 <= 1e-4 * box, f"K12 q99 depth difference {q99} above 1e-4 of the box")
+    rows[("walk_march",)] = (dmax, ms, plain_ms, bound)
+    return rows
+
+
 def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     """Path F, differentiable queries at full width: path C's no_continuity
     octree (built here, its seed lattice through K2; the counts run from
-    the build to the last fit step). ``octree_query_diff`` on ``n_query``
-    points (seed 1) held bit-equal to the walk route and within 1e-6 of
-    the grid route; the coefficient gradient of mean((d - t)^2) timed
-    beside its bound, held to the same code on the CPU on 2^16 points and
-    to central differences; the point gradient held to
-    ``get_distance_and_gradient``; ``render_depth_diff`` on n_rays^2 of
-    bench.py's rays beside path D's trace; and ``fit_steps`` Adam steps of
-    ``depth_fit_loss``. Returns the path's launch counts."""
+    the build to the last fit step). ``octree_query_diff`` (K10, K11) on
+    ``n_query`` points (seed 1) held bit-equal to the walk route (K10 too)
+    and within 1e-6 of the grid route; the coefficient gradient of
+    mean((d - t)^2) timed beside its bound, K11's device time by the
+    profiler, held to the same code on the CPU on 2^16 points and to
+    central differences; the point gradient held to
+    ``get_distance_and_gradient``; ``render_depth_diff`` (K12, then K10
+    and K11) on n_rays^2 of bench.py's rays beside path D's trace; and
+    ``fit_steps`` Adam steps of ``depth_fit_loss``. Then, outside the
+    counts, K10-K12 against their plain versions
+    (``walk_kernels_vs_plain``). Returns the path's launch counts and the
+    comparison's rows."""
     import torch
 
     from sdflib_tpu_torch import OctreeSdf
-    from sdflib_tpu_torch.diff.query import octree_coefficients, octree_query_diff
+    from sdflib_tpu_torch.diff.query import _walk, octree_coefficients, octree_query_diff
     from sdflib_tpu_torch.diff.render import depth_fit_loss, render_depth_diff
     from sdflib_tpu_torch.render import trace_octree
     from sdflib_tpu_torch.sdf import octree as oq
@@ -2028,19 +2195,27 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     grad = fwd_bwd()
     fwd_ms = _cuda_ms(fwd)
     fb_ms = _cuda_ms(fwd_bwd)
-    bound_f = n * APPROX_POINT_BYTES / PEAK_BYTES * 1e3
-    bound_fb = n * (APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES) / PEAK_BYTES * 1e3
+    # moved once: the points in and d out, the touched node words and rows
+    # (K10); gd in, the words again and the whole gradient out (K11)
+    nodes, coeff_rows = _walk_touched(_walk(words, c.detach(), *args, num_coeff=64,
+                                            interpolation="tricubic", fast=True, **q), pts)
+    once_f = n * 16 + nodes * 4 + coeff_rows * 256
+    once_fb = once_f + n * 16 + nodes * 4 + words.numel() * 4
+    bound_f, bound_fb = (b / PEAK_BYTES * 1e3 for b in (once_f, once_fb))
+    reread_f = n * APPROX_POINT_BYTES / PEAK_BYTES * 1e3
+    reread_fb = n * (APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES) / PEAK_BYTES * 1e3
     touched = int((grad.view(-1, 64) != 0).any(1).sum())
-    print(f"diff forward {n} points (walk route, graph kept): {fwd_ms:.4f} ms, bound "
-          f"{bound_f:.4f} ms (bytes, {APPROX_POINT_BYTES} B a point) = {bound_f / fwd_ms:.1%}; "
+    print(f"diff forward {n} points (K10, the Function's forward): {fwd_ms:.4f} ms, bound "
+          f"{bound_f:.4f} ms (bytes moved once, {once_f} B) = {bound_f / fwd_ms:.1%}; "
           f"forward + backward {fb_ms:.4f} ms (backward {fb_ms - fwd_ms:.4f} ms), bound "
-          f"{bound_fb:.4f} ms ({APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES} B a point) = "
-          f"{bound_fb / fb_ms:.1%}; {touched} coefficient rows touched, "
-          f"{n / max(touched, 1):.0f} points a row")
+          f"{bound_fb:.4f} ms ({once_fb} B) = {bound_fb / fb_ms:.1%}; every point re-reading "
+          f"its row: {reread_f:.4f} ms ({APPROX_POINT_BYTES} B a point) and {reread_fb:.4f} ms "
+          f"({APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES} B); {touched} coefficient rows "
+          f"touched, {n / max(touched, 1):.0f} points a row")
     ev_ms, busy_ms, acts = breakdown(fwd_bwd, f"diff forward + backward, {n} points", top=10)
-    scatter = _device_ms(fwd_bwd, ("index_put", "scatter", "index_add", "indexing_backward"))
-    print(f"diff backward: the coefficient scatter {scatter:.4f} ms of a {ev_ms:.4f} ms "
-          f"forward + backward ({scatter / ev_ms:.1%}); device busy {busy_ms / ev_ms:.1%}, "
+    k11 = _device_ms(fwd_bwd, ("walk_backward",))
+    print(f"diff backward: K11 (walk_backward_kernel) {k11:.4f} ms device of a {ev_ms:.4f} ms "
+          f"forward + backward ({k11 / ev_ms:.1%}); device busy {busy_ms / ev_ms:.1%}, "
           f"{acts} device activities")
 
     # the card's gradient against the same code on the CPU, 2^16 points
@@ -2103,14 +2278,13 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     r_ms = _cuda_ms(lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw), reps=2)
     rb_ms = _cuda_ms(lambda: torch.autograd.grad(
         render_depth_diff(words, c, o, dr, *args, **kw)[0].sum(), c), reps=2)
-    from sdflib_tpu_torch.render.sphere_trace import sphere_trace
+    from sdflib_tpu_torch.ops.walk import walk_march
 
-    frozen = c.detach()
-    with torch.no_grad():
-        _, _, _, trips = sphere_trace(
-            lambda p: octree_query_diff(words, frozen, p, *args, **q), o, dr,
-            eps=float(np.float32(1e-4) * np.float32(sdf.box.size[0])),
-            far=float(np.float32(4.0) * np.float32(sdf.box.size[0])), max_iters=256)
+    size = np.float32(sdf.box.size[0])
+    eps_w, far_w = float(np.float32(1e-4) * size), float(np.float32(4.0) * size)
+    frozen = _walk(words, c.detach(), *args, num_coeff=64, interpolation="tricubic", fast=True,
+                   **q)
+    trips = walk_march(frozen, o, dr, eps_w, far_w, 256)[3].max()
     ev_ms, busy_ms, acts = breakdown(
         lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw),
         f"render_depth_diff {n_rays}^2 rays", top=6)
@@ -2167,10 +2341,14 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     _check(losses[-1] < 0.5 * losses[0], f"the fit's last loss {losses[-1]} is not below half "
            f"the first {losses[0]}")
     _check(torch.equal(words, before), "the fit changed the octree's words")
-    _check(launches["nearest"] > 0, "nearest was not launched on path F")
-    del sdf, coeffs, c, cf, opt, pts, ref
+    for name in ("nearest", "walk_query", "walk_backward", "walk_march"):
+        _check(launches[name] > 0, f"{name} was not launched on path F")
+    del coeffs, c, cf, opt, ref
     torch.cuda.empty_cache()
-    return launches
+    rows = walk_kernels_vs_plain(sdf, pts, o, dr, eps_w, far_w, 256)
+    del sdf, pts
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 def _device_ms(fn, keys) -> float:
@@ -3327,8 +3505,10 @@ def main() -> None:
                   "scan_grouped_kernel", "row_min_block_kernel", "row_min_tile_kernel",
                   "octree_query_kernel", "march_kernel", "beam_kernel", "exact_descend_kernel",
                   "leaf_sort_keys_kernel", "leaf_sort_pass_kernel",
-                  "exact_sorted_gather_kernel", "exact_finish_kernel"):
-        lines = [(_instance(k), v) for k, v in report.items() if short in k]
+                  "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
+                  "walk_backward_kernel", "walk_march_kernel"):
+        lines = [(_instance(k), v) for k, v in report.items()
+                 if short in k and (short.startswith("walk") or "walk_" not in k)]
         for tag, line in lines or [("", "not reported")]:
             print(f"ptxas {short}{tag}: {line}")
     print(f"SASS {_sass_branches(build.library_path(), 'nearest_kernel')}")
@@ -3820,8 +4000,17 @@ def main() -> None:
 
     # -- main path F, differentiable queries at full width -------------------
     t0 = time.perf_counter()
-    launches["diff"] = diff_path(dev, 1 << 22, 1024, 30)
+    launches["diff"], walk_rows = diff_path(dev, 1 << 22, 1024, 30)
     print(f"path F took {time.perf_counter() - t0:.1f} s")
+    # the rows of the forms the main path runs most: the distance forward
+    # on the aligned layout, its backward from gd alone; errors the largest
+    # over every form
+    for name, key in (("walk_query", ("walk_query", True, "distance")),
+                      ("walk_backward", ("walk_backward", True, False, False)),
+                      ("walk_march", ("walk_march",))):
+        _, ms, plain_ms, bound = walk_rows[key]
+        err = max(r[0] for k, r in walk_rows.items() if k[0] == name)
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
 
     # -- main path G, the exact path's leftovers at full width --------------
     t0 = time.perf_counter()
@@ -3874,6 +4063,12 @@ def main() -> None:
                   "sdflib_tpu/render/sphere_trace.py:411"),
         "beam": ("sdflib_tpu_torch/csrc/march.cu",
                  "sdflib_tpu/render/sphere_trace.py:541"),
+        "walk_query": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                       "sdflib_tpu/sdf/octree.py:56"),
+        "walk_backward": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                          "sdflib_tpu/diff/query.py:108"),
+        "walk_march": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                       "sdflib_tpu/render/sphere_trace.py:251"),
     }
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

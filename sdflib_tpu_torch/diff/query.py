@@ -5,19 +5,25 @@ Port of the JAX package's ``diff/query.py``. The flat octree words hold
 the topology and stay fixed; the polynomial coefficients are a separate
 float32 tensor of the same length (``octree_coefficients``: a copy of the
 words' float32 view, so its leaf coefficient slots hold the real values).
-The query descends through the words and gathers the coefficients from
-that tensor, so torch autograd differentiates it: the gather's backward
-is a row scatter-add into the coefficient tensor. No kernel sits on this
-path; the walk is the approximate octree's own (``sdf.octree``), so the
-forward equals ``OctreeSdf``'s walk route bit for bit.
+The query walks the words and reads the coefficients from that tensor
+(``ops/walk.py``): ``WalkQuery``, a ``torch.autograd.Function`` whose
+forward is K10 and whose backward is K11 on the card (the coefficient
+gradient by atomics, and the point gradient), their plain versions on the
+CPU. The forward
+equals ``OctreeSdf``'s walk route bit for bit on either device.
+
+The gradient of the world gradient ``g`` with respect to the points is a
+second derivative, which the kernels do not compute: where the caller
+asks for ``g`` of points that require a gradient while autograd records,
+the query takes autograd of the plain walk instead, on any device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.interpolation import gradient_at
-from ..sdf.octree import _finish, _octree_walk, _to_dev_i32
+from ..ops.walk import Walk, WalkQuery, walk_query_plain
+from ..sdf.octree import _to_dev_i32
 
 __all__ = ["octree_query_diff", "octree_coefficients"]
 
@@ -42,6 +48,17 @@ def _words(octree_words, device) -> torch.Tensor:
     return _to_dev_i32(np.asarray(octree_words), device)
 
 
+def _walk(octree_words, coeffs_f32, box_min, box_size, start_grid_size, min_border_value, *,
+          levels: int, num_coeff: int, interpolation: str, fast: bool) -> Walk:
+    """The walk of the flat octree over ``coeffs_f32``, on its device."""
+    dev = coeffs_f32.device
+    size = float(np.float32(box_size))
+    return Walk(_words(octree_words, dev), coeffs_f32,
+                torch.as_tensor(np.asarray(box_min, np.float32), device=dev),
+                torch.full((3,), size, device=dev), float(min_border_value),
+                int(start_grid_size), levels, num_coeff, interpolation, fast)
+
+
 def octree_query_diff(
     octree_words,
     coeffs_f32,
@@ -62,30 +79,26 @@ def octree_query_diff(
 
     ``octree_words`` is the flat array (the int32 device words of an
     ``OctreeSdf``, or its uint32 numpy array), ``coeffs_f32`` the
-    coefficient tensor of the same length; the query runs on the
-    coefficients' device. ``fast`` assumes the aligned layout the builders
-    emit (row gathers); ``fast=False`` takes any layout, as reference
-    ``.bin`` files have (coefficients gathered at base + arange). With
+    contiguous float32 coefficient tensor of the same length; the query
+    runs on the coefficients' device. ``fast`` assumes the aligned layout
+    the builders emit (row reads); ``fast=False`` takes any layout, as
+    reference ``.bin`` files have (coefficients read at base + j). With
     ``with_gradient`` also returns the world-space gradient: the
     polynomial's gradient times 2^steps / cell (not normalised), 0 outside
-    the box."""
-    dev = coeffs_f32.device
-    words = _words(octree_words, dev)
-    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    the box. The point gradient is the world gradient inside the box and
+    the box distance's gradient outside, as autograd of the walk gives it
+    (the JAX package's is NaN in the box)."""
+    walk = _walk(octree_words, coeffs_f32, box_min, box_size, start_grid_size,
+                 min_border_value, levels=levels, num_coeff=num_coeff,
+                 interpolation=interpolation, fast=fast)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=coeffs_f32.device)
     flat = pts.reshape(-1, 3)
-    box_min_t = torch.as_tensor(np.asarray(box_min, np.float32), device=dev)
-    size = float(np.float32(box_size))
-    box_size3 = torch.full((3,), size, device=dev)
-    coeffs, frac, in_box, steps = _octree_walk(
-        words, flat, box_min_t, box_size3, int(start_grid_size), levels=levels,
-        num_coeff=num_coeff, fast=fast, coeffs_f32=coeffs_f32,
-    )
-    d = _finish(flat, coeffs, frac, in_box, box_min_t, box_size3,
-                float(min_border_value), interpolation, False)
-    if not with_gradient:
-        return d.reshape(pts.shape[:-1])
-    # the reached leaf's edge: cell / 2^steps
-    leaf_size = (box_size3[0] / int(start_grid_size)) / torch.exp2(steps.to(torch.float32))
-    g = gradient_at(coeffs, frac, interpolation) / leaf_size[..., None]
-    g = torch.where(in_box[..., None], g, torch.zeros_like(g))
+    if with_gradient and flat.requires_grad and torch.is_grad_enabled():
+        d, g = walk_query_plain(walk, flat, "world")
+    else:
+        out = WalkQuery.apply(coeffs_f32, flat.contiguous(), walk._replace(coeffs=None),
+                               with_gradient)
+        if not with_gradient:
+            return out.reshape(pts.shape[:-1])
+        d, g = out
     return d.reshape(pts.shape[:-1]), g.reshape(pts.shape)

@@ -2,8 +2,10 @@
 coefficients.
 
 Port of the JAX package's ``diff/render.py``: the depth-image fit demo.
-The march is not differentiated: it runs under ``torch.no_grad()``
-through the generic ``sphere_trace``, walking the frozen coefficients
+The march is not differentiated: it runs under ``torch.no_grad()`` over
+the frozen coefficients, as one launch of K12 on the card (``ops/walk.py``
+``walk_march``: every trip of a ray in registers, a done ray leaving at
+once) and as the generic ``sphere_trace`` over the plain walk on the CPU
 (an autograd graph of every trip would hold every intermediate of up to
 ``max_iters`` full-batch steps). The converged point then takes one
 differentiable Newton correction along the ray,
@@ -12,16 +14,16 @@ differentiable Newton correction along the ray,
 
 with the denominator detached, so d(depth*)/d(coeffs) = -(dd/dcoeffs) /
 <grad, dir>, the usual differentiable sphere-tracing estimator; the
-coefficient gradient reaches the coefficient tensor through the row
-gather of ``octree_query_diff`` (its backward a row scatter-add).
+coefficient gradient reaches the coefficient tensor through
+``octree_query_diff`` (K10 forward, K11's atomics backward on the card).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..render.sphere_trace import sphere_trace
-from .query import _words, octree_query_diff
+from ..ops.walk import walk_march
+from .query import _walk, _words, octree_query_diff
 
 __all__ = ["render_depth_diff", "depth_fit_loss"]
 
@@ -55,14 +57,15 @@ def render_depth_diff(
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
     q = dict(levels=levels, num_coeff=num_coeff, interpolation=interpolation, fast=fast)
     args = (box_min, box_size, start_grid_size, min_border_value)
-    frozen = coeffs_f32.detach()
+    walk = _walk(words, coeffs_f32.detach(), *args, **q)
     size = np.float32(box_size)
+    shape = origins.shape[:-1]
     with torch.no_grad():
-        hit, pos, depth, _ = sphere_trace(
-            lambda p: octree_query_diff(words, frozen, p, *args, **q),
-            origins, dirs, eps=float(np.float32(eps) * size),
-            far=float(np.float32(far) * size), max_iters=max_iters,
-        )
+        hit, pos, depth, _ = walk_march(
+            walk, origins.reshape(-1, 3).contiguous(),
+            dirs.expand(origins.shape).reshape(-1, 3).contiguous(),
+            float(np.float32(eps) * size), float(np.float32(far) * size), max_iters)
+    hit, pos, depth = hit.reshape(shape), pos.reshape(origins.shape), depth.reshape(shape)
     d, g = octree_query_diff(words, coeffs_f32, pos, *args, with_gradient=True, **q)
     # the SDF's derivative along the ray at the surface (entering: < 0)
     denom = (g * dirs).sum(-1).clamp_max(-1e-2).detach()

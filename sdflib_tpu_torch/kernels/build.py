@@ -52,6 +52,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # width, coefficients, words, depth, tricubic, box_min, box_size3,
 # min_border
 _GRID = [_P, _I, _P, _I, _I, _I, _P, _P, _F]
+# the walk's leading arguments (ops/walk.py walk_args): words, coefficients,
+# W, start grid size, levels, tricubic, fast, box_min, box_size3,
+# min_border
+_WALK = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _F]
 _SIGNATURES = {
     # () -> the most points of the one-launch Morton order on the current card
     "sdf_morton_order_max": [],
@@ -93,6 +97,14 @@ _SIGNATURES = {
     # (pts_s, win, order, P, table, box_min x y z, box size x y z, fallback,
     #  d, g or null, stream)
     "sdf_exact_finish": [_P, _P, _P, _I, _P, *[_F] * 7, _P, _P, _P],
+    # (walk..., points, n, mode, d, g or null, stream)
+    "sdf_walk_query": [*_WALK, _P, _I, _I, _P, _P, _P],
+    # (walk..., points, n, gd, gg or null, grad coeffs or null, grad points
+    #  or null, stream)
+    "sdf_walk_backward": [*_WALK, _P, _I, _P, _P, _P, _P, _P],
+    # (walk..., origins, dirs, n, eps, far, max_iters, hit, pos, depth, its,
+    #  stream)
+    "sdf_walk_march": [*_WALK, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -200,10 +200,12 @@ def _deriv_power_vectors(frac):
 
 
 def _monomials(xv, yv, zv):
-    """Tensor-product monomial vector (..., 64), index i + 4j + 16k."""
+    """Tensor-product monomial vector (..., 64), index i + 4j + 16k, of
+    (..., 4) power vectors; of (..., n) vectors, the (..., n^3) products
+    (x_i y_j) z_k at index i + n j + n^2 k."""
     xy = xv[..., None, :] * yv[..., :, None]            # (..., 4y, 4x)
     xyz = xy[..., None, :, :] * zv[..., :, None, None]  # (..., 4z, 4y, 4x)
-    return xyz.reshape(xyz.shape[:-3] + (64,))
+    return xyz.reshape(xyz.shape[:-3] + (xv.shape[-1] ** 3,))
 
 
 def tricubic_interpolate(coeffs, frac):

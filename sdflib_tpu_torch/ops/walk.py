@@ -1,0 +1,406 @@
+"""K10-K12: the approximate octree's walk over a given coefficient
+tensor, its backward, and the generic march over it.
+
+The walk (OctreeSdf.cpp:93-152) takes a point's start-grid cell and up to
+``levels`` descents to its leaf, then the leaf polynomial; a ``Walk``
+names what it reads: the int32 octree words, which hold the topology, and
+a float32 coefficient tensor of the same length (the words' float32 view
+for ``OctreeSdf`` queries, the trainable tensor for ``diff``).
+
+* ``walk_query`` (K10, ``csrc/octree_walk.cu`` ``walk_query_kernel``): the
+  distance, with the normalised gradient of ``OctreeSdf`` queries or with
+  the diff query's world gradient. Replaces sdflib_tpu/sdf/octree.py
+  ``_octree_query`` (:56) and the forward of sdflib_tpu/diff/query.py
+  ``octree_query_diff`` (:43).
+* ``walk_backward`` (K11, ``walk_backward_kernel``): the coefficient
+  gradient of upstream ``gd`` (and ``gg`` of the world gradient) by fp32
+  atomics, and the point gradient. Replaces XLA's transpose of the row
+  gather (sdflib_tpu/diff/query.py:108) and the polynomial's VJP.
+* ``walk_march`` (K12, ``walk_march_kernel``): the generic sphere trace
+  (step max(d, 0)) over K10's distance, every trip of a ray in one launch.
+  Replaces sdflib_tpu/render/sphere_trace.py ``sphere_trace`` (:251) as
+  sdflib_tpu/diff/render.py (:65-68) calls it.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+torch version (``walk_query_plain``, ``walk_backward_plain``,
+``walk_march_plain``) for CPU tensors; ``launch_count``,
+``backward_launch_count`` and ``march_launch_count`` count the launches.
+The kernels have no autograd: ``walk_query`` raises for points or
+coefficients that require a gradient. ``WalkQuery``, the autograd
+Function of ``diff/query.py`` and of ``OctreeSdf`` distances of points
+that require a gradient, pairs K10 with K11; a second derivative takes
+autograd of the plain version.
+
+K11's atomics add in an order that changes from run to run, so its
+coefficient gradient agrees with the plain version's ``index_add_`` to
+fp32 rounding of each row's sum (1e-5 of the largest), not bit for bit.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..kernels import build
+from .box import box_distance
+from .interpolation import _deriv_power_vectors, _monomials, _power_vectors, gradient_at
+from .octree_query import _CIDX, _coeff_rows, _f32, _finish, _need
+
+__all__ = [
+    "Walk", "MODES", "walk_query", "walk_query_plain", "walk_backward", "walk_backward_plain",
+    "walk_march", "walk_march_plain", "WalkQuery", "launch_count", "backward_launch_count",
+    "march_launch_count",
+]
+
+launch_count = 0
+backward_launch_count = 0
+march_launch_count = 0
+# What a query returns besides the distance: nothing, the normalised
+# gradient (OctreeSdf.get_distance_and_gradient) or the world gradient
+# (octree_query_diff's with_gradient); the kernel's mode is the index.
+MODES = ("distance", "normal", "world")
+
+
+class Walk(NamedTuple):
+    """What the walk reads."""
+    words: torch.Tensor          # (W,) int32 octree words (leaf bit = sign)
+    coeffs: torch.Tensor         # (W,) float32 coefficients
+    box_min: torch.Tensor        # (3,) float32
+    box_size3: torch.Tensor      # (3,) float32
+    min_border: float            # min_border_value, added to the box distance
+    start_grid_size: int         # s: the s^3 start words, z-major
+    levels: int                  # descents at most below the start grid
+    num_coeff: int               # 64 tricubic, 8 trilinear
+    interpolation: str
+    fast: bool                   # the aligned layout the builders emit
+
+
+def _descend(octree_i32, points, box_min, box_size3, start_grid_size: int, *, levels: int,
+             fast: bool = True):
+    """The walk's descent (OctreeSdf.cpp:93-152) of (P, 3) points: (the
+    reached word, the position in the leaf in [0, 1)^3, in-box flags,
+    descent steps below the start grid). The position carries the points'
+    autograd graph: its integer offsets are detached, so its derivative is
+    2^steps / cell, as in the JAX package. The aligned layout reads each
+    node as an 8-word row and picks the child in it. In-box flags come from
+    float comparisons (a NaN point lies outside, on every device); a point
+    outside walks from the start cell nearest to it."""
+    pts = points
+    s = start_grid_size
+    cell = box_size3 / s
+    frac = (pts - box_min) / cell
+    fl = frac.detach().floor()
+    in_box = ((fl >= 0) & (fl < s)).all(dim=-1)
+    # the start cell's offset converted as XLA converts it (saturating at
+    # +-2^31, NaN to 0), in float arithmetic so that every device walks
+    # a non-finite point to the same leaf; fl itself inside the box
+    ipos = torch.nan_to_num(fl, nan=0.0).clamp(-2.0**31, 2.0**31)
+    frac = frac - ipos
+    ic = ipos.clamp(0, s - 1).long()
+    node_idx = ic[..., 2] * (s * s) + ic[..., 1] * s + ic[..., 0]
+
+    if fast:
+        view8 = octree_i32.view(-1, 8)
+        word = view8[node_idx >> 3].gather(-1, (node_idx & 7)[..., None])[..., 0]
+    else:
+        word = octree_i32[node_idx]
+
+    steps = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    for _ in range(levels):
+        is_leaf = word < 0                                   # bit 31
+        fs = frac.detach()
+        # roundFloat: >= 0.5 (OctreeSdf.cpp:88-91)
+        child = (
+            ((fs[..., 2] >= 0.5).long() << 2)
+            + ((fs[..., 1] >= 0.5).long() << 1)
+            + (fs[..., 0] >= 0.5).long()
+        )
+        base = (word & _CIDX).long()
+        if fast:
+            # children blocks are 8-aligned: one row gather + in-row pick
+            nxt = view8[base >> 3].gather(-1, child[..., None])[..., 0]
+        else:
+            nxt = octree_i32[base + child]
+        nfrac = 2.0 * frac
+        nfrac = nfrac - nfrac.detach().floor()
+        word = torch.where(is_leaf, word, nxt)
+        frac = torch.where(is_leaf[..., None], frac, nfrac)
+        steps = steps + (~is_leaf).to(torch.int32)
+    return word, frac, in_box, steps
+
+
+def _leaf_coeffs(octree_i32, word, num_coeff: int, fast: bool, coeffs_f32=None):
+    """The reached leaves' coefficients (P, num_coeff), from ``coeffs_f32``
+    or the words' float32 view: one aligned row each, or at base + j."""
+    if fast:
+        return _coeff_rows(octree_i32, word, num_coeff, coeffs_f32)
+    base = (word & _CIDX).long()
+    flat = octree_i32.view(torch.float32) if coeffs_f32 is None else coeffs_f32
+    return flat[base[..., None] + torch.arange(num_coeff, device=word.device)]
+
+
+def _octree_walk(octree_i32, points, box_min, box_size3, start_grid_size: int, *,
+                 levels: int, num_coeff: int, fast: bool = True, coeffs_f32=None):
+    """``_descend``, then the reached leaf's coefficients: (coefficients
+    (P, num_coeff), position in the leaf, in-box flags, steps).
+    Coefficients come from ``coeffs_f32`` when given (a flat float32
+    tensor of the words' length), else from the float32 view of the
+    words."""
+    word, frac, in_box, steps = _descend(octree_i32, points, box_min, box_size3,
+                                         start_grid_size, levels=levels, fast=fast)
+    return _leaf_coeffs(octree_i32, word, num_coeff, fast, coeffs_f32), frac, in_box, steps
+
+
+def _leaf_size(walk: Walk, steps):
+    """The reached leaf's edge, cell / 2^steps."""
+    return (walk.box_size3[0] / walk.start_grid_size) / torch.exp2(steps.to(torch.float32))
+
+
+def walk_query_plain(walk: Walk, points, mode: str):
+    """The walk in torch, on any device and differentiable (autograd
+    through the points and the coefficients): d (P,) of (P, 3) points, and
+    for ``mode`` "normal" or "world" (d, g (P, 3)). "normal": _finish's
+    normalised gradient inside the box, the box gradient outside; "world":
+    the polynomial's gradient times 2^steps / cell, 0 outside."""
+    coeffs, frac, in_box, steps = _octree_walk(
+        walk.words, points, walk.box_min, walk.box_size3, walk.start_grid_size,
+        levels=walk.levels, num_coeff=walk.num_coeff, fast=walk.fast, coeffs_f32=walk.coeffs)
+    if mode != "world":
+        return _finish(points, coeffs, frac, in_box, walk.box_min, walk.box_size3,
+                       walk.min_border, walk.interpolation, mode == "normal")
+    d = _finish(points, coeffs, frac, in_box, walk.box_min, walk.box_size3, walk.min_border,
+                walk.interpolation, False)
+    g = gradient_at(coeffs, frac, walk.interpolation) / _leaf_size(walk, steps)[..., None]
+    return d, torch.where(in_box[..., None], g, torch.zeros_like(g))
+
+
+def check_walk(walk: Walk, device) -> bool:
+    """Raise unless ``walk`` is a walk on ``device`` that the kernels
+    read; True on a CUDA device (launch), False on the CPU (plain)."""
+    nc = {"tricubic": 64, "trilinear": 8}.get(walk.interpolation)
+    _need(nc is not None and walk.num_coeff == nc,
+          f"{walk.interpolation!r} leaves with {walk.num_coeff} coefficients")
+    w, c = walk.words, walk.coeffs
+    _need(isinstance(w, torch.Tensor) and w.dtype == torch.int32 and w.ndim == 1
+          and w.numel() < 2**31, "words must be a (W,) int32 tensor, W < 2^31")
+    _need(w.device == device, f"words lie on {w.device}, not on {device}")
+    _need(w.is_contiguous(), "words must be contiguous")
+    _need(not walk.fast or w.numel() % 8 == 0, "the aligned layout has whole 8-word rows")
+    _f32(c, (w.numel(),), "coeffs", device)
+    _f32(walk.box_min, (3,), "box_min", device)
+    _f32(walk.box_size3, (3,), "box_size3", device)
+    _need(int(walk.start_grid_size) >= 1, "start_grid_size must be positive")
+    _need(0 <= int(walk.levels) <= 30, "levels must lie in [0, 30]")
+    if device.type == "cpu":
+        return False
+    _need(device.type == "cuda", f"unsupported device {device}")
+    # K10 reads aligned coefficient rows as float4, K11 adds float4s into them
+    _need(not walk.fast or c.data_ptr() % 16 == 0,
+          "the aligned layout needs 16-byte aligned coefficients")
+    return True
+
+
+def walk_args(walk: Walk) -> tuple:
+    """The kernels' leading arguments: words, coefficients, W, start grid
+    size, levels, tricubic, fast, box_min, box_size3, min_border."""
+    return (walk.words.data_ptr(), walk.coeffs.data_ptr(), walk.words.numel(),
+            int(walk.start_grid_size), int(walk.levels), int(walk.interpolation == "tricubic"),
+            int(bool(walk.fast)), walk.box_min.data_ptr(), walk.box_size3.data_ptr(),
+            float(np.float32(walk.min_border)))
+
+
+def _no_graph(*tensors) -> None:
+    _need(not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)),
+          "the walk kernels have no autograd: take walk_query_plain, or the Function "
+          "of diff/query.py")
+
+
+def walk_query(walk: Walk, points, mode: str):
+    """K10: ``walk_query_plain``'s d (P,), or (d, g (P, 3)), of contiguous
+    (P, 3) float32 points on the walk's device: the kernel on the card,
+    the plain version on the CPU."""
+    _need(mode in MODES, f"mode must be one of {MODES}")
+    _need(isinstance(points, torch.Tensor), "points must be a tensor")
+    _f32(points, (None, 3), "points", points.device)
+    if not check_walk(walk, points.device):
+        return walk_query_plain(walk, points, mode)
+    _no_graph(points, walk.coeffs)
+    n = points.shape[0]
+    d = torch.empty(n, dtype=torch.float32, device=points.device)
+    g = None if mode == "distance" else torch.empty((n, 3), dtype=torch.float32,
+                                                    device=points.device)
+    if n:
+        build.launch("sdf_walk_query", points.device, *walk_args(walk), points.data_ptr(), n,
+                     MODES.index(mode), d.data_ptr(), None if g is None else g.data_ptr())
+        build.count_launch(globals(), "launch_count")
+    return d if g is None else (d, g)
+
+
+def _weights(frac, gd, gl, interpolation: str):
+    """Each point's coefficient weights (P, num_coeff): gd m_j + ((gl_x
+    dx m_j + gl_y dy m_j) + gl_z dz m_j), m_j the monomial of index i + 4j
+    + 16k (tricubic) or the corner weight of index i + 2j + 4k
+    (trilinear); ``gl`` (P, 3), the world gradient's upstream over the
+    leaf's edge, or None."""
+    if interpolation == "tricubic":
+        xv, yv, zv = _power_vectors(frac)
+        dxv, dyv, dzv = _deriv_power_vectors(frac)
+    else:
+        xv, yv, zv = (torch.stack([1.0 - frac[..., a], frac[..., a]], -1) for a in range(3))
+        one = torch.ones_like(xv)
+        dxv = dyv = dzv = torch.cat([-one[..., :1], one[..., 1:]], -1)
+    m = _monomials
+    w = gd[..., None] * m(xv, yv, zv)
+    if gl is None:
+        return w
+    return w + ((gl[..., 0:1] * m(dxv, yv, zv) + gl[..., 1:2] * m(xv, dyv, zv))
+                + gl[..., 2:3] * m(xv, yv, dzv))
+
+
+def walk_backward_plain(walk: Walk, points, gd, gg=None, coeffs_grad: bool = True,
+                        points_grad: bool = False):
+    """(coefficient gradient (W,) or None, point gradient (P, 3) or None)
+    of sum(gd d) + sum(gg g), (d, g) = ``walk_query_plain(walk, points,
+    "world")``: each in-box point's weights (``_weights``), then one
+    ``index_add_`` over the coefficient rows (at base + j on the other
+    layout). An out-of-box point adds 0 times its weights at the leaf it
+    reaches, as JAX's VJP does: NaN where a weight is not finite (a NaN,
+    infinite or far point), 0 elsewhere. The point gradient (``gg``
+    None: its gradient through g is a second derivative) is gd times the
+    world gradient in the box and autograd's of ``box_distance`` outside,
+    what autograd of the plain walk gives (but at a point exactly on the
+    box's low faces, where autograd's unselected square root reads NaN)."""
+    with torch.no_grad():
+        pts = points.detach()
+        word, frac, in_box, steps = _descend(walk.words, pts, walk.box_min, walk.box_size3,
+                                             walk.start_grid_size, levels=walk.levels,
+                                             fast=walk.fast)
+        leaf = _leaf_size(walk, steps)[..., None]
+        gc = gp = None
+        if coeffs_grad:
+            nc = walk.num_coeff
+            zero = torch.zeros((), dtype=torch.float32, device=pts.device)
+            gl = None if gg is None else torch.where(in_box[..., None], gg, zero) / leaf
+            w = _weights(frac, torch.where(in_box, gd, zero), gl, walk.interpolation)
+            base = (word & _CIDX).long()
+            gc = torch.zeros(walk.words.numel(), dtype=torch.float32, device=pts.device)
+            if walk.fast:
+                gc.view(-1, nc).index_add_(0, base // nc, w)
+            else:
+                idx = base[..., None] + torch.arange(nc, device=pts.device)
+                gc.index_add_(0, idx.reshape(-1), w.reshape(-1))
+        if points_grad:
+            _need(gg is None, "the point gradient through g is a second derivative: take "
+                  "autograd of walk_query_plain")
+            coeffs = _leaf_coeffs(walk.words, word, walk.num_coeff, walk.fast, walk.coeffs)
+            g_in = gradient_at(coeffs, frac, walk.interpolation) / leaf
+            with torch.enable_grad():
+                x = pts.clone().requires_grad_(True)
+                d_out = box_distance(x, walk.box_min + 0.5 * walk.box_size3, walk.box_size3)
+                (g_out,) = torch.autograd.grad(d_out, x, gd)
+            gp = torch.where(in_box[..., None], gd[..., None] * g_in, g_out)
+    return gc, gp
+
+
+def walk_backward(walk: Walk, points, gd, gg=None, coeffs_grad: bool = True,
+                  points_grad: bool = False):
+    """K11: ``walk_backward_plain``'s (coefficient gradient, point
+    gradient) for contiguous (P, 3) points, ``gd`` (P,) and ``gg`` (P, 3)
+    or None, float32 on the walk's device: the kernel on the card (it walks
+    each point again), the plain version on the CPU."""
+    _need(isinstance(points, torch.Tensor), "points must be a tensor")
+    _f32(points, (None, 3), "points", points.device)
+    n, dev = points.shape[0], points.device
+    _f32(gd, (n,), "gd", dev)
+    if gg is not None:
+        _f32(gg, (n, 3), "gg", dev)
+    _need(not (points_grad and gg is not None), "the point gradient through g is a second "
+          "derivative: take autograd of walk_query_plain")
+    if not check_walk(walk, dev):
+        return walk_backward_plain(walk, points, gd, gg, coeffs_grad, points_grad)
+    gc = torch.zeros(walk.words.numel(), dtype=torch.float32, device=dev) if coeffs_grad else None
+    gp = torch.empty((n, 3), dtype=torch.float32, device=dev) if points_grad else None
+    if n and (coeffs_grad or points_grad):
+        build.launch("sdf_walk_backward", dev, *walk_args(walk), points.data_ptr(), n,
+                     gd.data_ptr(), None if gg is None else gg.data_ptr(),
+                     None if gc is None else gc.data_ptr(), None if gp is None else gp.data_ptr())
+        build.count_launch(globals(), "backward_launch_count")
+    return gc, gp
+
+
+def walk_march_plain(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int):
+    """``render.sphere_trace`` over ``walk_query_plain``'s distance, with
+    each ray's trips: (hit, position, depth, trips (R,) int32) of the
+    (R, 3) rays; eps and far in world units."""
+    from ..render.sphere_trace import _march   # render imports sdf, which imports this
+    from .march import march_trips
+
+    def step(p, _):
+        d = walk_query_plain(walk, p, "distance")
+        return d, d.clamp_min(0.0)
+
+    zeros = torch.zeros(origins.shape[:-1], dtype=torch.float32, device=origins.device)
+    init = (origins, zeros, torch.full_like(zeros, torch.inf), torch.ones_like(zeros))
+    its, (pos, acc, last_d, _) = _march(partial(march_trips, step, exit_early=True), init, dirs,
+                                        eps, far, max_iters)
+    return last_d <= eps, pos, acc, its
+
+
+def walk_march(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int):
+    """K12: ``walk_march_plain``'s (hit (R,) bool, position (R, 3), depth
+    (R,), trips (R,) int32) of contiguous (R, 3) float32 origins and
+    directions on the walk's device: one launch on the card, a ray leaving
+    once it hits (last d <= eps), passes ``far`` or has taken ``max_iters``
+    trips. Rays are marched as the plain version marches them, but for one
+    whose position turns infinite: the plain version's later trips move a
+    done ray by an infinite step times 0, which is NaN; the kernel leaves
+    it as it was."""
+    _need(isinstance(origins, torch.Tensor), "origins must be a tensor")
+    _f32(origins, (None, 3), "origins", origins.device)
+    n, dev = origins.shape[0], origins.device
+    _f32(dirs, (n, 3), "dirs", dev)
+    if not check_walk(walk, dev):
+        return walk_march_plain(walk, origins, dirs, eps, far, max_iters)
+    _no_graph(origins, dirs, walk.coeffs)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty(n, dtype=torch.float32, device=dev)
+    its = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        build.launch("sdf_walk_march", dev, *walk_args(walk), origins.data_ptr(),
+                     dirs.data_ptr(), n, float(np.float32(eps)), float(np.float32(far)),
+                     int(max_iters), hit.data_ptr(), pos.data_ptr(), depth.data_ptr(),
+                     its.data_ptr())
+        build.count_launch(globals(), "march_launch_count")
+    return hit, pos, depth, its
+
+
+class WalkQuery(torch.autograd.Function):
+    """(coefficients, points, walk, world) -> d, or (d, g) with the world
+    gradient: K10 forward, K11 backward (the coefficient gradient by
+    atomics, and the point gradient), their plain versions on the CPU.
+    ``walk`` names the words; its coefficients are the first input. The
+    gradient of g with respect to the points is a second derivative, which
+    K11 does not compute: callers take autograd of ``walk_query_plain``
+    for it."""
+
+    @staticmethod
+    def forward(ctx, coeffs, points, walk, world):
+        ctx.set_materialize_grads(False)
+        ctx.walk = walk
+        ctx.save_for_backward(coeffs, points)
+        return walk_query(walk._replace(coeffs=coeffs), points, "world" if world else "distance")
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gd, gg=None):
+        coeffs, points = ctx.saved_tensors
+        need_c, need_p = ctx.needs_input_grad[:2]
+        if gd is None:
+            gd = torch.zeros(points.shape[0], dtype=torch.float32, device=points.device)
+        gc, gp = walk_backward(ctx.walk._replace(coeffs=coeffs), points, gd.contiguous(),
+                               None if gg is None else gg.contiguous(), need_c, need_p)
+        return gc, gp, None, None

@@ -234,9 +234,10 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     with. On a grid the march and the beam are K5 and K6, each launch as
     many trips as it is given (a done ray leaves at once), in torch on the
     CPU or where ``octree._plain`` pins the plain versions; the walk runs
-    its trips in torch. Torch trips check for live rays themselves
-    (``ops.march._run_trips``). The normals ride the same rows (K4), else
-    the walk. The beam's margin is the hit threshold plus a fit-error
+    its trips in torch, each trip's distance K10 on the card (the plain
+    walk where ``_plain`` pins it). Torch trips check for live rays
+    themselves (``ops.march._run_trips``). The normals ride the same rows
+    (K4), else the walk. The beam's margin is the hit threshold plus a fit-error
     budget: the Lipschitz argument runs through the true distance, which
     the polynomial tracks within the build's termination threshold."""
     box_args = (octree._box_min, octree._box_size3)
@@ -250,7 +251,8 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     grid = shade if eps <= OctreeSdf._FREE_CELL_MARGIN else None
 
     def distance(p):
-        return _octree_query(words, p, *box_args, sgs, mbv, with_gradient=False, **walk)
+        return _octree_query(words, p, *box_args, sgs, mbv, with_gradient=False, plain=plain,
+                             **walk)
 
     if grid is not None:
         march = partial(march_segment_plain if plain else march_segment, grid)
@@ -273,7 +275,8 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
             # rows, which one thread a point reads with broadcast loads
             return grid_query(shade, pos, True, out, group=1)[1]
         g = (grid_query_plain(shade, pos, True) if shade is not None else
-             _octree_query(words, pos, *box_args, sgs, mbv, with_gradient=True, **walk))[1]
+             _octree_query(words, pos, *box_args, sgs, mbv, with_gradient=True, plain=plain,
+                           **walk))[1]
         return g if out is None else out[1].copy_(g)
 
     box_size = float(octree.box.size[0])

@@ -22,7 +22,8 @@ Three query routes, each the JAX function's formulas:
   its depth and flags, and the coefficients.
 
 The two grid routes are K4 on the card (``ops/octree_query.py``,
-``csrc/octree_query.cu``) and its plain torch version on the CPU.
+``csrc/octree_query.cu``) and its plain torch version on the CPU; the
+walk is K10 on the card (``ops/walk.py``, ``csrc/octree_walk.cu``).
 
 Outside the box every route returns the box distance plus
 ``min_border_value`` (OctreeSdf.cpp:99-104). The leaf grid's depth word
@@ -35,7 +36,8 @@ import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
-from ..ops.octree_query import LeafGrid, _coeff_rows, _finish, grid_query, grid_query_plain
+from ..ops.octree_query import LeafGrid, grid_query, grid_query_plain
+from ..ops.walk import Walk, WalkQuery, walk_query, walk_query_plain
 from ..triangle import calculate_mesh_triangle_data, soa_to_torch
 from .octree_builder import (
     CHILDREN_INDEX_MASK,
@@ -49,64 +51,6 @@ from .sdf_function import SdfFormat, SdfFunction, resolve_device
 __all__ = ["OctreeSdf"]
 
 _RULES = {"trapezoid", "simpson", "by_distance", "none"}
-_CIDX = int(CHILDREN_INDEX_MASK)
-
-
-def _octree_walk(octree_i32, points, box_min, box_size3, start_grid_size: int, *,
-                 levels: int, num_coeff: int, fast: bool = True, coeffs_f32=None):
-    """The walk's descent (OctreeSdf.cpp:93-152) of (P, 3) points: (the
-    reached leaf's coefficients (P, num_coeff), the point's position in
-    the leaf in [0, 1)^3, in-box flags, descent steps below the start
-    grid). Coefficients come from ``coeffs_f32`` when given (a flat float32
-    tensor of the words' length, the differentiable query's parameter),
-    else from the float32 view of the words. The fractional position
-    carries the points' autograd graph: its integer offsets are detached,
-    so its derivative is 2^steps / cell, as in the JAX package."""
-    pts = points
-    s = start_grid_size
-    cell = box_size3 / s
-    frac = (pts - box_min) / cell
-    ipos = frac.detach().floor().to(torch.int32)
-    frac = frac - ipos.to(frac.dtype)
-    in_box = ((ipos >= 0) & (ipos < s)).all(dim=-1)
-    ic = ipos.clamp(0, s - 1).long()
-    node_idx = ic[..., 2] * (s * s) + ic[..., 1] * s + ic[..., 0]
-
-    if fast:
-        view8 = octree_i32.view(-1, 8)
-        word = view8[node_idx >> 3].gather(-1, (node_idx & 7)[..., None])[..., 0]
-    else:
-        word = octree_i32[node_idx]
-
-    steps = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
-    for _ in range(levels):
-        is_leaf = word < 0                                   # bit 31
-        fs = frac.detach()
-        # roundFloat: >= 0.5 (OctreeSdf.cpp:88-91)
-        child = (
-            ((fs[..., 2] >= 0.5).long() << 2)
-            + ((fs[..., 1] >= 0.5).long() << 1)
-            + (fs[..., 0] >= 0.5).long()
-        )
-        base = (word & _CIDX).long()
-        if fast:
-            # children blocks are 8-aligned: one row gather + in-row pick
-            nxt = view8[base >> 3].gather(-1, child[..., None])[..., 0]
-        else:
-            nxt = octree_i32[base + child]
-        nfrac = 2.0 * frac
-        nfrac = nfrac - nfrac.detach().floor()
-        word = torch.where(is_leaf, word, nxt)
-        frac = torch.where(is_leaf[..., None], frac, nfrac)
-        steps = steps + (~is_leaf).to(torch.int32)
-
-    if fast:
-        coeffs = _coeff_rows(octree_i32, word, num_coeff, coeffs_f32)
-    else:
-        base = (word & _CIDX).long()
-        flat = octree_i32.view(torch.float32) if coeffs_f32 is None else coeffs_f32
-        coeffs = flat[base[..., None] + torch.arange(num_coeff, device=pts.device)]
-    return coeffs, frac, in_box, steps
 
 
 def _octree_query(
@@ -122,6 +66,7 @@ def _octree_query(
     interpolation: str,
     with_gradient: bool,
     fast: bool = True,
+    plain: bool = False,
 ):
     """The walk (OctreeSdf.cpp:93-152) over (P, 3) points.
 
@@ -132,13 +77,27 @@ def _octree_query(
     64): each node is then read as one 8-word row and each leaf's
     coefficients as one row. ``fast=False`` is the layout-agnostic form
     for foreign (reference ``.bin``) arrays. The JAX package's one-hot
-    ``_select8`` is an in-row ``gather`` here."""
-    coeffs, frac, in_box, _ = _octree_walk(
-        octree_i32, points, box_min, box_size3, start_grid_size,
-        levels=levels, num_coeff=num_coeff, fast=fast,
-    )
-    return _finish(points, coeffs, frac, in_box, box_min, box_size3, min_border_value,
-                   interpolation, with_gradient)
+    ``_select8`` is an in-row ``gather`` here.
+
+    K10 (``ops/walk.py`` ``walk_query``) runs on CUDA points; the
+    distance of CUDA points that require a gradient while autograd
+    records runs through ``WalkQuery`` (K10, and K11 for the point
+    gradient). The plain torch version runs on the CPU, where ``plain``
+    pins it (the structure's ``_plain``), and for the normalised gradient
+    of points that require a gradient, whose derivative is a second
+    derivative of the walk that K11 does not compute: autograd of the
+    plain version's graph takes it."""
+    coeffs = octree_i32.view(torch.float32)
+    walk = Walk(octree_i32, coeffs, box_min, box_size3, float(min_border_value),
+                int(start_grid_size), levels, num_coeff, interpolation, fast)
+    mode = "normal" if with_gradient else "distance"
+    if plain or points.device.type == "cpu":
+        return walk_query_plain(walk, points, mode)
+    if points.requires_grad and torch.is_grad_enabled():
+        if with_gradient:
+            return walk_query_plain(walk, points, mode)
+        return WalkQuery.apply(coeffs, points.contiguous(), walk._replace(coeffs=None), False)
+    return walk_query(walk, points.contiguous(), mode)
 
 
 def _layout_is_aligned(data: np.ndarray, start_grid_size: int, num_coeff: int) -> bool:
@@ -280,9 +239,10 @@ class OctreeSdf(SdfFunction):
     (8 bytes per finest cell) and builds the fused rows of
     ``_octree_query_fat`` where they fit ``_FAT_GRID_BYTE_BUDGET``. On the
     card the grid routes run K4, and the tracer's march and beam over
-    them K5 and K6 (``ops/march.py``); setting the private ``_plain`` to
-    True pins the plain torch versions of all three for this structure
-    (the card's comparisons; the tracer's frames key on it).
+    them K5 and K6 (``ops/march.py``); the walk runs K10 (``ops/walk.py``).
+    Setting the private ``_plain`` to True pins the plain torch versions
+    of all four for this structure (the card's comparisons; the tracer's
+    frames key on it).
     """
 
     # fused rows above this many bytes stay unbuilt: depth 6 tricubic is
@@ -509,7 +469,7 @@ class OctreeSdf(SdfFunction):
                 self.start_grid_size, self.min_border_value,
                 levels=self.max_depth - self.start_depth, fast=self._fast_layout,
                 num_coeff=self.num_coefficients, interpolation=self.interpolation,
-                with_gradient=with_gradient,
+                with_gradient=with_gradient, plain=self._plain,
             )
         if with_gradient:
             d, g = out
