@@ -114,16 +114,21 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   backward) on 2^22 points (seed 1) bit-equal to the walk route (K10 as
   well) and within 1e-6 of the grid route; the coefficient gradient of
   mean((d - t)^2) timed with its forward beside their bound from bytes,
-  K11's device time by the profiler, held to the CPU on 2^16 points
-  (1e-4 relative on the touched rows) and to central differences on 8
-  coefficients; the point gradient against ``get_distance_and_gradient``;
-  ``render_depth_diff`` (K12's march) on bench.py's 1024^2 rays (eps
-  1e-4, far 4, 256 trips) against path D's trace; 30 Adam steps of
-  ``depth_fit_loss`` (tests/test_diff.py's recipe), whose last loss must
-  fall below half the first; K10, K11 and K12 each launched; then K10 in
-  each mode and layout, K11 in four forms and K12 on the frame against
-  their plain versions, timed beside them and their bounds
-  (``walk_kernels_vs_plain``);
+  K11's pieces' device time and launches by the profiler, one entry's
+  ``data_parallel_fit_step`` bit-equal to ``fit_step``, the gradient held
+  to the CPU on 2^16 points (1e-4 relative on the touched rows) and to
+  central differences on 8 coefficients; the point gradient against
+  ``get_distance_and_gradient``; ``render_depth_diff`` (K12's march) on
+  bench.py's 1024^2 rays (eps 1e-4, far 4, 256 trips) against path D's
+  trace; 30 Adam steps of ``depth_fit_loss`` (tests/test_diff.py's
+  recipe), whose last loss must fall below half the first; K10, K11's
+  key launch, leaf sort and reduction, and K12 each launched; then K10 in
+  each mode, layout and group size (bit-equal to one another and to K12's
+  one trip), K11 in four forms (bit-equal run to run on the aligned
+  layout; its pieces held to their plain versions bit for bit and timed
+  each) and K12 on the frame against their plain versions, timed beside
+  them and their bounds, and K10 at the frame's ray ends at each group
+  size (``walk_kernels_vs_plain``);
 * main path G, the exact path's leftovers (``leftovers_path``), on path
   A's configuration: the EXACT_OCTREE ``.bin`` written, reloaded on the
   card and held to the 10k oracle gate through K1, the compiled
@@ -278,6 +283,17 @@ DIFF_BACKWARD_BYTES = 256
 # K11 ~3 a coefficient (~15 with gg); a K12 trip ~310 (a 4-level walk,
 # the value, the step).
 WALK_RAY_BYTES = 24 + 1 + 12 + 4 + 4
+# K11's pieces on the aligned layout, each input once and each output
+# once: the key launch reads a point and gd (16 B; gg 12 more) and the
+# touched node words, and writes a key and a share (4 + 16 B; 16 more with
+# gg); the leaf sort reads a key and writes it sorted and the order (16
+# B); the reduction reads a sorted key, the order and a share (28 B; 16
+# more with gg) and writes each touched row once.
+K11_KEY_BYTES = 16 + 4 + 16
+K11_SORT_BYTES = 4 + 4 + 8
+K11_REDUCE_BYTES = 4 + 8 + 16
+K11_GG_KEY_BYTES = 12 + 16
+K11_GG_REDUCE_BYTES = 16
 FLOPS_WALK_START = 18
 FLOPS_WALK_LEVEL = 12
 FLOPS_K11 = 3 * 64
@@ -456,6 +472,7 @@ def reset_counts():
     exact_query.finish_launch_count = exact_query.descend_launch_count = 0
     exact_query.gather_launch_count = exact_query.sort_launch_count = 0
     walk.launch_count = walk.backward_launch_count = walk.march_launch_count = 0
+    walk.key_launch_count = walk.sort_launch_count = walk.reduce_launch_count = 0
 
 
 def read_counts():
@@ -482,6 +499,9 @@ def read_counts():
         "beam": march.beam_launch_count,
         "walk_query": walk.launch_count,
         "walk_backward": walk.backward_launch_count,
+        "walk_keys": walk.key_launch_count,
+        "walk_sort": walk.sort_launch_count,
+        "walk_reduce": walk.reduce_launch_count,
         "walk_march": walk.march_launch_count,
     }
 
@@ -2006,60 +2026,167 @@ def _walk_touched(walk, pts) -> tuple[int, int]:
     return int(torch.unique(torch.cat(words)).numel()), int(rows)
 
 
+def _k11_pieces(w, pts, gd, gg, bits: int, nodes: int, touched: int, walk_flops: int):
+    """K11's pieces on the aligned layout, each against its plain version
+    (the keys and shares equal, the sort equal to ``torch.sort``, the
+    reduction bit for bit) and timed: the key launch, the leaf sort of its
+    keys beside ``torch.sort``, the reduction, and as the reduction step's
+    reference torch's deterministic ``index_put_(accumulate=True)`` of the
+    same weights. Returns the three pieces' rows."""
+    import torch
+
+    from sdflib_tpu_torch.ops import exact_query as eq
+    from sdflib_tpu_torch.ops import walk as ow
+
+    n, nc = pts.shape[0], w.num_coeff
+    tag = f"gd{' and gg' if gg is not None else ''}"
+    keys, share = ow.walk_keys(w, pts, gd, gg)
+    keys_p, share_p = ow.walk_keys_plain(w, pts, gd, gg)
+    keys_ok = torch.equal(keys, keys_p) and _bits_equal(share, share_p)
+    del keys_p, share_p
+    lid_s, order = eq.leaf_sort(keys, None, None, None, 0, bits)
+    sort_ok = all(torch.equal(a, b) for a, b in zip((lid_s, order), torch.sort(keys, stable=True)))
+    red = ow.walk_reduce(w, lid_s, order, share)
+    red_ok = _bits_equal(red, ow.walk_reduce_plain(w, lid_s, order, share))
+    print(f"K11 pieces ({tag}): keys and shares equal to plain {keys_ok}, the leaf sort equal "
+          f"to torch.sort {sort_ok}, the reduction bit-equal to plain {red_ok}")
+    _check(keys_ok and sort_ok and red_ok, f"K11's pieces ({tag}) differ from their plain "
+           "versions")
+    key_ms = _cuda_ms(lambda: ow.walk_keys(w, pts, gd, gg))
+    key_plain = _cuda_ms(lambda: ow.walk_keys_plain(w, pts, gd, gg), reps=2)
+    sort_ms = _cuda_ms(lambda: eq.leaf_sort(keys, None, None, None, 0, bits))
+    sort_plain = _cuda_ms(lambda: eq.leaf_sort_plain(keys))
+    sort_lib = _cuda_ms(lambda: torch.sort(keys, stable=True))
+    red_ms = _cuda_ms(lambda: ow.walk_reduce(w, lid_s, order, share))
+    red_plain = _cuda_ms(lambda: ow.walk_reduce_plain(w, lid_s, order, share), reps=1)
+    rows = w.words.numel() // nc
+    live = lid_s < rows
+    idx = lid_s[live].long()
+    s = share[order[live]]
+    weights = ow._weights(s[:, :3], s[:, 3], s[:, 4:7] if gg is not None else None,
+                          w.interpolation)
+    del s
+
+    def put():
+        out = torch.zeros(w.words.numel(), dtype=torch.float32, device=pts.device)
+        out[: rows * nc].view(rows, nc).index_put_((idx,), weights, accumulate=True)
+        return out
+
+    put_err = float((put() - red).abs().max() / red.abs().max())
+    put_ms = _cuda_ms(put)
+    gg_in = gg is not None
+    key_bound = _bound(n * (K11_KEY_BYTES + (K11_GG_KEY_BYTES if gg_in else 0)) + nodes * 4,
+                       n * walk_flops)
+    sort_bound = _bound(n * K11_SORT_BYTES, 0)
+    red_bound = _bound(n * (K11_REDUCE_BYTES + (K11_GG_REDUCE_BYTES if gg_in else 0))
+                       + touched * nc * 4, n * (FLOPS_K11_GG if gg_in else FLOPS_K11))
+    print(f"K11 pieces ({tag}), {n} points, {bits} bits: key launch {key_ms:.4f} ms (plain "
+          f"{key_plain:.4f}, bound {key_bound[0]:.4f}, {key_bound[1]}); leaf sort "
+          f"{sort_ms:.4f} ms (plain {sort_plain:.4f}, torch.sort {sort_lib:.4f}, bound "
+          f"{sort_bound[0]:.4f}); reduction {red_ms:.4f} ms (plain {red_plain:.4f}, bound "
+          f"{red_bound[0]:.4f}, {red_bound[1]}); the reduction step's reference, "
+          f"index_put_(accumulate=True) of the same weights: {put_ms:.4f} ms (relative "
+          f"difference {put_err:.3e})")
+    del keys, share, lid_s, order, red, weights, idx
+    return {("walk_keys", gg_in): (0.0, key_ms, key_plain, key_bound),
+            ("walk_sort", gg_in): (0.0, sort_ms, sort_plain, sort_bound, sort_lib),
+            ("walk_reduce", gg_in): (0.0, red_ms, red_plain, red_bound)}
+
+
 def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_iters: int):
     """K10-K12 against their plain versions on path F's structure, with
     the trainable copy of its coefficients: K10 on ``pts`` in each mode
-    (distance, the normalised gradient, the world gradient), aligned and
-    read word by word; K11 with a seeded gd (seed 3), with gg as well, with
-    the point gradient, and word by word; K12 on the rays with ``eps``,
-    ``far`` and ``max_iters``. Each held to its plain version (d within
-    1e-6, gradients within 1e-5, the world gradient and K11 relative to the
-    largest; K12's hit masks on >= 99.9% and q99 depth difference <= 1e-4
-    of the box) and timed beside it and its bound. Returns {(kernel,
-    case): (max abs error, ms, plain ms, bound)}."""
+    (distance, the normalised gradient, the world gradient), aligned (each
+    group size, bit-equal to one lane a row, and its distances bit-equal to
+    K12's one trip) and read word by word; K11 with a seeded gd (seed 3),
+    with gg as well, with the point gradient, and word by word: on the
+    aligned layout bit-equal from run to run, its pieces (the key launch,
+    the leaf sort, the reduction) held to their plain versions bit for bit
+    and timed each, the reduction beside ``index_put_(accumulate=True)``
+    of the same weights; K12 on the rays with ``eps``, ``far`` and
+    ``max_iters``, and K10's world gradient at the rays' ends (the
+    render's sparse points: most lie outside the box) at each group size,
+    the same bits, timed each. Each held to its plain version
+    (d within 1e-6, gradients within 1e-5, the world gradient and K11
+    relative to the largest; K12's hit masks on >= 99.9% and q99 depth
+    difference <= 1e-4 of the box) and timed beside it and its bound.
+    Returns {(kernel, case): (max abs error, ms, plain ms, bound)}."""
     import torch
 
     from sdflib_tpu_torch.diff.query import octree_coefficients
+    from sdflib_tpu_torch.ops import exact_query as eq
     from sdflib_tpu_torch.ops import walk as ow
 
     n, dev = pts.shape[0], pts.device
     levels = sdf.max_depth - sdf.start_depth
+    nc = sdf.num_coefficients
     base = ow.Walk(sdf._octree_dev, octree_coefficients(sdf._octree_dev), sdf._box_min,
                    sdf._box_size3, float(sdf.min_border_value), sdf.start_grid_size, levels,
-                   sdf.num_coefficients, sdf.interpolation, True)
+                   nc, sdf.interpolation, True)
     walk_flops = FLOPS_WALK_START + FLOPS_WALK_LEVEL * levels
     nodes, coeff_rows = _walk_touched(base, pts)
-    touched_bytes = nodes * 4 + coeff_rows * sdf.num_coefficients * 4
+    touched_bytes = nodes * 4 + coeff_rows * nc * 4
     print(f"K10/K11 bounds: {n} points touch {nodes} node words and {coeff_rows} coefficient "
           f"rows ({touched_bytes} B), each counted once")
     rows = {}
     for fast, modes in ((True, ow.MODES), (False, ("distance", "world"))):
         w = base._replace(fast=fast)
         for mode in modes:
-            got, ref = ow.walk_query(w, pts, mode), ow.walk_query_plain(w, pts, mode)
-            got, ref = (got, ref) if mode != "distance" else ((got,), (ref,))
-            d_err = float((got[0] - ref[0]).abs().max())
-            g_abs = float((got[1] - ref[1]).abs().max()) if mode != "distance" else 0.0
-            g_err = g_abs / (float(ref[1].abs().max()) if mode == "world" else 1.0)
-            del got, ref
-            ms = _cuda_ms(lambda: ow.walk_query(w, pts, mode))
+            ref = ow.walk_query_plain(w, pts, mode)
+            ref = ref if mode != "distance" else (ref,)
+            groups = (1,) if not fast else (ow.GROUPS[mode], *(g for g in (1, 4, 8)
+                                                               if g != ow.GROUPS[mode]))
+            first, times = None, {}
+            for group in groups:
+                got = ow.walk_query(w, pts, mode, group=group)
+                got = got if mode != "distance" else (got,)
+                if first is None:
+                    first = got
+                    d_err = float((got[0] - ref[0]).abs().max())
+                    g_abs = float((got[1] - ref[1]).abs().max()) if mode != "distance" else 0.0
+                    g_err = g_abs / (float(ref[1].abs().max()) if mode == "world" else 1.0)
+                else:
+                    same = all(_bits_equal(a, b) for a, b in zip(got, first))
+                    _check(same, f"K10 ({mode}) with {group} lanes a row differs from "
+                           f"{groups[0]} lanes")
+                del got
+                times[group] = _cuda_ms(lambda: ow.walk_query(w, pts, mode, group=group))
+            del first, ref
+            ms = times[groups[0]]
             plain_ms = _cuda_ms(lambda: ow.walk_query_plain(w, pts, mode), reps=2)
             grad = mode != "distance"
             bound = _bound(n * (16 + (12 if grad else 0)) + touched_bytes,
                            n * (walk_flops + (FLOPS_K4_GRAD if grad else FLOPS_K4)))
             layout = "aligned" if fast else "word by word"
-            print(f"K10 walk_query {n} points, {mode}, {layout}: max |d - plain| {d_err:.3e}, "
-                  f"gradient {g_err:.3e}{' (relative)' if mode == 'world' else ''}; "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
-                  f"= {bound[0] / ms:.1%}")
+            others = ", ".join(f"lanes a row {g}: {t:.4f} ms" for g, t in times.items()
+                               if g != groups[0])
+            print(f"K10 walk_query {n} points, {mode}, {layout}, lanes a row {groups[0]}: max "
+                  f"|d - plain| {d_err:.3e}, gradient {g_err:.3e}"
+                  f"{' (relative)' if mode == 'world' else ''}; {ms:.4f} ms"
+                  f"{f' ({others}, the same bits)' if others else ''}, plain {plain_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}) = {bound[0] / ms:.1%}")
             _check(d_err <= 1e-6, f"K10 ({mode}, {layout}) d differs from plain by {d_err}")
             _check(g_err <= 1e-5, f"K10 ({mode}, {layout}) gradient differs from plain by {g_err}")
             rows[("walk_query", fast, mode)] = (max(d_err, g_abs), ms, plain_ms, bound)
             torch.cuda.empty_cache()
 
+    # K10's distances against K12's one trip (the one-thread walk): its
+    # depth is max(d, 0), so d itself wherever d >= 0
+    d = ow.walk_query(base, pts, "distance")
+    up = torch.zeros_like(pts)
+    up[:, 2] = 1.0
+    depth = ow.walk_march(base, pts, up, 0.0, 1e30, 1)[2]
+    keep = d >= 0
+    same = _bits_equal(depth[keep], d[keep])
+    print(f"K10 (8 lanes a row) against K12's one trip on the {int(keep.sum())} of {n} points "
+          f"with d >= 0: bit-equal {same}")
+    _check(same, "K10's distances differ from K12's one trip")
+    del d, up, depth, keep
+
     rng = np.random.default_rng(3)
     gd = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
     gg = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
+    bits = eq.sort_bits(base.words.numel() // nc + 1)
     for fast, with_gg, points in ((True, False, False), (True, True, False), (True, False, True),
                                   (False, False, False)):
         w = base._replace(fast=fast)
@@ -2068,17 +2195,23 @@ def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_i
         ref_c, ref_p = ow.walk_backward_plain(w, pts, gd, g2, True, points)
         c_abs = float((got_c - ref_c).abs().max())
         c_err = c_abs / float(ref_c.abs().max())
-        touched = int((ref_c.view(-1, sdf.num_coefficients) != 0).any(1).sum())
+        touched = int((ref_c.view(-1, nc) != 0).any(1).sum())
         p_err = 0.0
         if points:
             p_err = float((got_p - ref_p).abs().max() / ref_p.abs().max())
+        same = "fp32 atomics"
+        if fast:
+            ok = all(_bits_equal(ow.walk_backward(w, pts, gd, g2, True, points)[0], got_c)
+                     for _ in range(2))
+            same = f"bit-equal run to run: {ok}"
+            _check(ok, f"K11 (aligned, gd{' and gg' if with_gg else ''}) changed from run to run")
         del got_c, got_p, ref_c, ref_p
         ms = _cuda_ms(lambda: ow.walk_backward(w, pts, gd, g2, True, points))
         plain_ms = _cuda_ms(lambda: ow.walk_backward_plain(w, pts, gd, g2, True, points),
                             reps=2)
         nbytes = (n * (16 + (12 if with_gg else 0) + (12 if points else 0)) + nodes * 4
                   + base.words.numel() * 4
-                  + (coeff_rows * sdf.num_coefficients * 4 if points else 0))
+                  + (coeff_rows * nc * 4 if points else 0))
         flops = n * (walk_flops + (FLOPS_K11_GG if with_gg else FLOPS_K11)
                      + (FLOPS_K4_GRAD if points else 0))
         bound = _bound(nbytes, flops)
@@ -2086,12 +2219,14 @@ def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_i
                 f"{', point gradient' if points else ''}")
         print(f"K11 walk_backward {n} points, {case}: coefficient gradient max |diff| "
               f"{c_abs:.3e} ({c_err:.3e} of the largest; {touched} rows touched, "
-              f"{n / max(touched, 1):.1f} points a row), point gradient {p_err:.3e} (relative); "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) = "
-              f"{bound[0] / ms:.1%}")
+              f"{n / max(touched, 1):.1f} points a row), point gradient {p_err:.3e} (relative), "
+              f"{same}; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}) = {bound[0] / ms:.1%}")
         _check(c_err <= 1e-5, f"K11 ({case}) coefficient gradient off plain by {c_err}")
         _check(p_err <= 1e-5, f"K11 ({case}) point gradient off plain by {p_err}")
         rows[("walk_backward", fast, with_gg, points)] = (c_abs, ms, plain_ms, bound)
+        if fast and not points:
+            rows.update(_k11_pieces(w, pts, gd, g2, bits, nodes, touched, walk_flops))
         torch.cuda.empty_cache()
 
     o, d = origins.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous()
@@ -2115,6 +2250,20 @@ def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_i
     _check(agree >= 0.999, f"K12 hit masks agree with plain on {agree:.4%}")
     _check(q99 <= 1e-4 * box, f"K12 q99 depth difference {q99} above 1e-4 of the box")
     rows[("walk_march",)] = (dmax, ms, plain_ms, bound)
+
+    # K10 where the render runs it: the world gradient at the rays' ends
+    ends = got[1]
+    inside = int(((ends >= base.box_min) & (ends < base.box_min + base.box_size3)).all(1).sum())
+    first, times = ow.walk_query(base, ends, "world"), {}
+    for group in (ow.GROUPS["world"], 1, 8):
+        got_e = ow.walk_query(base, ends, "world", group=group)
+        _check(all(_bits_equal(a, b) for a, b in zip(got_e, first)),
+               f"K10 at the rays' ends with {group} lanes a row differs from the default group")
+        times[group] = _cuda_ms(lambda: ow.walk_query(base, ends, "world", group=group))
+    print(f"K10 walk_query at the render's {R} ray ends ({inside} in the box), world gradient: "
+          + ", ".join(f"lanes a row {g}: {t:.4f} ms" for g, t in times.items())
+          + " (the same bits)")
+    del got, ref, first, got_e, ends
     return rows
 
 
@@ -2124,9 +2273,10 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     the build to the last fit step). ``octree_query_diff`` (K10, K11) on
     ``n_query`` points (seed 1) held bit-equal to the walk route (K10 too)
     and within 1e-6 of the grid route; the coefficient gradient of
-    mean((d - t)^2) timed beside its bound, K11's device time by the
-    profiler, held to the same code on the CPU on 2^16 points and to
-    central differences; the point gradient held to
+    mean((d - t)^2) timed beside its bound, K11's pieces' device time and
+    launches by the profiler, one entry's ``data_parallel_fit_step`` held
+    bit-equal to ``fit_step``, the gradient held to the same code on the
+    CPU on 2^16 points and to central differences; the point gradient held to
     ``get_distance_and_gradient``; ``render_depth_diff`` (K12, then K10
     and K11) on n_rays^2 of bench.py's rays beside path D's trace; and
     ``fit_steps`` Adam steps of ``depth_fit_loss``. Then, outside the
@@ -2212,11 +2362,33 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
           f"its row: {reread_f:.4f} ms ({APPROX_POINT_BYTES} B a point) and {reread_fb:.4f} ms "
           f"({APPROX_POINT_BYTES + DIFF_BACKWARD_BYTES} B); {touched} coefficient rows "
           f"touched, {n / max(touched, 1):.0f} points a row")
-    ev_ms, busy_ms, acts = breakdown(fwd_bwd, f"diff forward + backward, {n} points", top=10)
-    k11 = _device_ms(fwd_bwd, ("walk_backward",))
-    print(f"diff backward: K11 (walk_backward_kernel) {k11:.4f} ms device of a {ev_ms:.4f} ms "
-          f"forward + backward ({k11 / ev_ms:.1%}); device busy {busy_ms / ev_ms:.1%}, "
-          f"{acts} device activities")
+    k11_parts = ("walk_key", "leaf_sort", "walk_reduce")
+    parts, names = dict.fromkeys(("walk_query", "Memset", *k11_parts), 0.0), {}
+    ev_ms, busy_ms, acts = breakdown(fwd_bwd, f"diff forward + backward, {n} points", top=10,
+                                     device_ms=parts, activities=names)
+    k11 = sum(parts[k] for k in k11_parts)
+    k11_acts = {k[:40]: c for k, c in names.items() if any(x in k for x in k11_parts)}
+    print(f"diff backward: K11 {k11:.4f} ms device (key launch {parts['walk_key']:.4f}, leaf "
+          f"sort {parts['leaf_sort']:.4f}, reduction {parts['walk_reduce']:.4f}) of a "
+          f"{ev_ms:.4f} ms forward + backward ({k11 / ev_ms:.1%}); its launches a backward "
+          f"{k11_acts}, memsets in the step "
+          f"{sum(c for k, c in names.items() if 'Memset' in k):.0f} "
+          f"({parts['Memset']:.4f} ms); K10 {parts['walk_query']:.4f} ms device; device busy "
+          f"{busy_ms / ev_ms:.1%}, {acts} device activities")
+
+    # one entry's data-parallel step is fit_step's bit for bit: K11 sums
+    # in one order
+    from sdflib_tpu_torch.parallel import data_parallel_fit_step, fit_step
+
+    l_one, c_one = fit_step(words, coeffs, pts, target, torch.ones(n, device=dev), *args[:2],
+                            sdf.min_border_value, 0.5, start_grid_size=sdf.start_grid_size,
+                            levels=levels)
+    l_dp, c_dp = data_parallel_fit_step(sdf, coeffs, pts, target, [dev], lr=0.5)
+    same = bool(torch.equal(l_one, l_dp)) and _bits_equal(c_one, c_dp[0])
+    print(f"data_parallel_fit_step on one entry ({n} points) against fit_step: loss "
+          f"{float(l_dp):.6e}, bit-equal {same}")
+    _check(same, "one entry's data_parallel_fit_step differs from fit_step")
+    del c_one, c_dp
 
     # the card's gradient against the same code on the CPU, 2^16 points
     g_card = torch.autograd.grad(loss_of(c, sub, target[: 1 << 16]), c)[0]
@@ -2341,7 +2513,8 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     _check(losses[-1] < 0.5 * losses[0], f"the fit's last loss {losses[-1]} is not below half "
            f"the first {losses[0]}")
     _check(torch.equal(words, before), "the fit changed the octree's words")
-    for name in ("nearest", "walk_query", "walk_backward", "walk_march"):
+    for name in ("nearest", "walk_query", "walk_backward", "walk_keys", "walk_sort",
+                 "walk_reduce", "walk_march"):
         _check(launches[name] > 0, f"{name} was not launched on path F")
     del coeffs, c, cf, opt, ref
     torch.cuda.empty_cache()
@@ -3506,6 +3679,7 @@ def main() -> None:
                   "octree_query_kernel", "march_kernel", "beam_kernel", "exact_descend_kernel",
                   "leaf_sort_keys_kernel", "leaf_sort_pass_kernel",
                   "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
+                  "walk_key_kernel", "walk_reduce_kernel", "walk_reduce_span_kernel",
                   "walk_backward_kernel", "walk_march_kernel"):
         lines = [(_instance(k), v) for k, v in report.items()
                  if short in k and (short.startswith("walk") or "walk_" not in k)]
@@ -4003,14 +4177,17 @@ def main() -> None:
     launches["diff"], walk_rows = diff_path(dev, 1 << 22, 1024, 30)
     print(f"path F took {time.perf_counter() - t0:.1f} s")
     # the rows of the forms the main path runs most: the distance forward
-    # on the aligned layout, its backward from gd alone; errors the largest
+    # on the aligned layout; K11 as a whole from gd alone, and its key
+    # launch, leaf sort and reduction from gd alone; errors the largest
     # over every form
     for name, key in (("walk_query", ("walk_query", True, "distance")),
                       ("walk_backward", ("walk_backward", True, False, False)),
-                      ("walk_march", ("walk_march",))):
-        _, ms, plain_ms, bound = walk_rows[key]
+                      ("walk_keys", ("walk_keys", False)), ("walk_sort", ("walk_sort", False)),
+                      ("walk_reduce", ("walk_reduce", False)), ("walk_march", ("walk_march",))):
+        _, ms, plain_ms, bound, *lib = walk_rows[key]
         err = max(r[0] for k, r in walk_rows.items() if k[0] == name)
-        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                             library_ms=lib[0] if lib else None)
 
     # -- main path G, the exact path's leftovers at full width --------------
     t0 = time.perf_counter()
@@ -4067,6 +4244,12 @@ def main() -> None:
                        "sdflib_tpu/sdf/octree.py:56"),
         "walk_backward": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                           "sdflib_tpu/diff/query.py:108"),
+        "walk_keys": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                      "sdflib_tpu/diff/query.py:108"),
+        "walk_sort": ("sdflib_tpu_torch/csrc/exact_descend.cu",
+                      "sdflib_tpu/diff/query.py:108"),
+        "walk_reduce": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                        "sdflib_tpu/diff/query.py:108"),
         "walk_march": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                        "sdflib_tpu/render/sphere_trace.py:251"),
     }

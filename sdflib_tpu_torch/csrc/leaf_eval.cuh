@@ -392,22 +392,52 @@ __device__ __forceinline__ float4 tricubic_group(const float4* base, int s, cons
   return total;
 }
 
+// The lane of the k-th (from 0) set bit of mask (k below its count).
+__device__ __forceinline__ int nth_lane(unsigned mask, int k) {
+  int at = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int low = __popc(mask & ((1u << w) - 1u));
+    if (k >= low) {
+      k -= low;
+      mask >>= w;
+      at += w;
+    }
+  }
+  return at;
+}
+
 // tricubic<Grad> of each lane's own point (its row's 16-byte aligned base,
 // null: none; its position f in the leaf), the rows read kGroup lanes a
-// point in kGroup rounds over the warp. Every lane of the warp calls it.
+// point in rounds over the warp. Every lane of the warp calls it. Where
+// some lanes have no row, the lanes with one move down to lanes 0.. in
+// lane order first and their sums move back after, so a warp whose lanes
+// hold few rows (points outside the box) takes few rounds; a lane without
+// a row returns zeros. A point's sum is the same bits whichever group
+// takes it.
 template <bool Grad, int kGroup, int S>
 __device__ __forceinline__ float4 tricubic_warp(const float4* base, const float f[3]) {
   constexpr int kPer = 32 / kGroup;     // points a round
   const int lane = threadIdx.x & 31;
   const int g = lane / kGroup, s = lane % kGroup;
-  const unsigned long long mine = reinterpret_cast<unsigned long long>(base);
+  const unsigned live = __ballot_sync(kFullMask, base != nullptr);
+  const int count = __popc(live);
+  unsigned long long mine = reinterpret_cast<unsigned long long>(base);
+  float pf[3] = {f[0], f[1], f[2]};
+  if (live != kFullMask) {
+    const int src = nth_lane(live, lane < count ? lane : 0);
+    mine = __shfl_sync(kFullMask, mine, src);
+    if (lane >= count) mine = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pf[a] = __shfl_sync(kFullMask, f[a], src);
+  }
   float4 own = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 1
-  for (int r = 0; r < kGroup; ++r) {
+  for (int r = 0; r * kPer < count; ++r) {
     const int q = r * kPer + g;          // the point the group takes
     const float4* qb = reinterpret_cast<const float4*>(__shfl_sync(kFullMask, mine, q));
-    const float qf[3] = {__shfl_sync(kFullMask, f[0], q), __shfl_sync(kFullMask, f[1], q),
-                         __shfl_sync(kFullMask, f[2], q)};
+    const float qf[3] = {__shfl_sync(kFullMask, pf[0], q), __shfl_sync(kFullMask, pf[1], q),
+                         __shfl_sync(kFullMask, pf[2], q)};
     const float4 tot = tricubic_group<Grad, kGroup, S>(qb, s, qf);
     // lane L's point went to group L - r * kPer in this round
     const int at = lane - r * kPer;
@@ -421,6 +451,17 @@ __device__ __forceinline__ float4 tricubic_warp(const float4* base, const float 
       back.y = back.z = back.w = 0.0f;
     }
     if (at >= 0 && at < kPer) own = back;
+  }
+  if (live != kFullMask) {
+    // the lane's sum sits at its rank among the lanes with a row
+    const int rank = __popc(live & ((1u << lane) - 1u));
+    own.x = __shfl_sync(kFullMask, own.x, rank);
+    if (Grad) {
+      own.y = __shfl_sync(kFullMask, own.y, rank);
+      own.z = __shfl_sync(kFullMask, own.z, rank);
+      own.w = __shfl_sync(kFullMask, own.w, rank);
+    }
+    if (((live >> lane) & 1u) == 0) own = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   return own;
 }

@@ -1,7 +1,10 @@
 // The approximate octree's walk (OctreeSdf.cpp:93-152) over a given
 // coefficient pointer, one thread a point, shared by K10-K12
 // (octree_walk.cu): the start-grid cell, up to `levels` descents, the
-// reached leaf's coefficients and the polynomial there.
+// reached leaf's coefficients and the polynomial there. K10 reads the rows
+// of its points a group of lanes a row (leaf_eval.cuh tricubic_warp) and
+// finishes with `answer`; K12 reads its own row (`query`), with the same
+// sums, so the two agree bit for bit.
 //
 // The torch version is ops/walk.py _descend and _octree_walk. Every
 // expression keeps its operand order and the library builds with
@@ -163,12 +166,14 @@ enum Mode : int {
   kWorld = 2,     // the polynomial's gradient / the leaf's edge, 0 outside
 };
 
-// The walk's answer at one point: d, and the gradient of the mode in g.
-template <int kMode, int N>
-__device__ __forceinline__ float query(const Tree& T, const Box& w, const float p[3],
-                                       float g[3]) {
-  Reach r;
-  if (!descend(T, w, p, r)) {
+// The walk's answer at one point from its descent (in_box, r) and its
+// leaf polynomial v (value and unit-cube gradient, read only where the
+// point lies in the box and reaches a row): d, and the gradient of the mode
+// in g.
+template <int kMode>
+__device__ __forceinline__ float answer(const Tree& T, const Box& w, const float p[3],
+                                        bool in_box, const Reach& r, float4 v, float g[3]) {
+  if (!in_box) {
     if (kMode == kNormal) leaf::box_gradient(w.b, p, g);
     if (kMode == kWorld) g[0] = g[1] = g[2] = 0.0f;
     return leaf::box_value(w.b, p, T.min_border);
@@ -177,7 +182,6 @@ __device__ __forceinline__ float query(const Tree& T, const Box& w, const float 
     if (kMode != kDistance) g[0] = g[1] = g[2] = NAN;
     return NAN;
   }
-  const float4 v = poly<kMode != kDistance, N>(T, r);
   if (kMode == kNormal) {
     const float norm = leaf::nan_max(sqrtf((v.y * v.y + v.w * v.w) + v.z * v.z), 1e-30f);
     g[0] = v.y / norm;
@@ -190,6 +194,17 @@ __device__ __forceinline__ float query(const Tree& T, const Box& w, const float 
     g[2] = v.w / e;
   }
   return v.x;
+}
+
+// The walk's answer at one point, one thread reading its own row.
+template <int kMode, int N>
+__device__ __forceinline__ float query(const Tree& T, const Box& w, const float p[3],
+                                       float g[3]) {
+  Reach r;
+  const bool in_box = descend(T, w, p, r);
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (in_box && r.start >= 0) v = poly<kMode != kDistance, N>(T, r);
+  return answer<kMode>(T, w, p, in_box, r, v, g);
 }
 
 }  // namespace walk

@@ -8,8 +8,8 @@ words' float32 view, so its leaf coefficient slots hold the real values).
 The query walks the words and reads the coefficients from that tensor
 (``ops/walk.py``): ``WalkQuery``, a ``torch.autograd.Function`` whose
 forward is K10 and whose backward is K11 on the card (the coefficient
-gradient by atomics, and the point gradient), their plain versions on the
-CPU. The forward
+gradient, summed in a fixed order on the aligned layout, and the point
+gradient), their plain versions on the CPU. The forward
 equals ``OctreeSdf``'s walk route bit for bit on either device.
 
 The gradient of the world gradient ``g`` with respect to the points is a

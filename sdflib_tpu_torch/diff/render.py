@@ -15,7 +15,7 @@ differentiable Newton correction along the ray,
 with the denominator detached, so d(depth*)/d(coeffs) = -(dd/dcoeffs) /
 <grad, dir>, the usual differentiable sphere-tracing estimator; the
 coefficient gradient reaches the coefficient tensor through
-``octree_query_diff`` (K10 forward, K11's atomics backward on the card).
+``octree_query_diff`` (K10 forward, K11 backward on the card).
 """
 from __future__ import annotations
 

@@ -97,8 +97,13 @@ _SIGNATURES = {
     # (pts_s, win, order, P, table, box_min x y z, box size x y z, fallback,
     #  d, g or null, stream)
     "sdf_exact_finish": [_P, _P, _P, _I, _P, *[_F] * 7, _P, _P, _P],
-    # (walk..., points, n, mode, d, g or null, stream)
-    "sdf_walk_query": [*_WALK, _P, _I, _I, _P, _P, _P],
+    # (walk..., points, n, mode, group, d, g or null, stream)
+    "sdf_walk_query": [*_WALK, _P, _I, _I, _I, _P, _P, _P],
+    # (walk..., points, n, gd, gg or null, keys and share or both null, grad
+    #  points or null, stream)
+    "sdf_walk_keys": [*_WALK, _P, _I, _P, _P, _P, _P, _P, _P],
+    # (walk..., lid_s, order, P, share, with gg, grad coeffs, partials, stream)
+    "sdf_walk_reduce": [*_WALK, _P, _P, _I, _P, _I, _P, _P, _P],
     # (walk..., points, n, gd, gg or null, grad coeffs or null, grad points
     #  or null, stream)
     "sdf_walk_backward": [*_WALK, _P, _I, _P, _P, _P, _P, _P],

@@ -219,12 +219,14 @@ def leaf_sort(points, leaf_grid, box_min, box_size3, depth: int, bits: int):
     return launch_leaf_sort(points.contiguous(), leaf_grid.contiguous(), box, depth, bits)
 
 
-def launch_leaf_sort(points, leaf_grid, box, depth: int, bits: int):
+def launch_leaf_sort(points, leaf_grid, box, depth: int, bits: int, counters=None):
     """The leaf sort's launch, unchecked: contiguous CUDA tensors on one
     card, as ``leaf_sort`` checks them, ``box`` the six float32 values of
     box_min and box_size3 as host floats (None, with ``leaf_grid`` None:
     ``points`` are the keys). One memset and 1 + passes launches, no host
-    read. Returns (lid_s, order) as the public function."""
+    read. Returns (lid_s, order) as the public function. The launch counts
+    in ``counters["sort_launch_count"]``: this module's, or the calling
+    module's ``globals()``."""
     dev = points.device
     P = points.shape[0]
     lid_s = torch.empty(P, dtype=torch.int32, device=dev)
@@ -238,7 +240,7 @@ def launch_leaf_sort(points, leaf_grid, box, depth: int, bits: int):
             head = (points.data_ptr(), None, P, leaf_grid.data_ptr(), depth, *box)
         build.launch("sdf_leaf_sort", dev, *head, bits, build.sm_count(dev), work.data_ptr(),
                      work.numel(), lid_s.data_ptr(), order.data_ptr())
-        build.count_launch(globals(), "sort_launch_count")
+        build.count_launch(globals() if counters is None else counters, "sort_launch_count")
     return lid_s, order
 
 

@@ -9,31 +9,47 @@ for ``OctreeSdf`` queries, the trainable tensor for ``diff``).
 
 * ``walk_query`` (K10, ``csrc/octree_walk.cu`` ``walk_query_kernel``): the
   distance, with the normalised gradient of ``OctreeSdf`` queries or with
-  the diff query's world gradient. Replaces sdflib_tpu/sdf/octree.py
+  the diff query's world gradient; each lane walks its point and the warp
+  reads its points' aligned tricubic rows ``group`` lanes a row (8 for the
+  distance, 4 with a gradient). Replaces sdflib_tpu/sdf/octree.py
   ``_octree_query`` (:56) and the forward of sdflib_tpu/diff/query.py
   ``octree_query_diff`` (:43).
-* ``walk_backward`` (K11, ``walk_backward_kernel``): the coefficient
-  gradient of upstream ``gd`` (and ``gg`` of the world gradient) by fp32
-  atomics, and the point gradient. Replaces XLA's transpose of the row
-  gather (sdflib_tpu/diff/query.py:108) and the polynomial's VJP.
+* ``walk_backward`` (K11): the coefficient gradient of upstream ``gd``
+  (and ``gg`` of the world gradient), and the point gradient. Replaces
+  XLA's transpose of the row gather (sdflib_tpu/diff/query.py:108) and the
+  polynomial's VJP. On the aligned layout three steps on the device with
+  no host read: ``walk_keys`` (``walk_key_kernel``: each point's row and
+  share, and the point gradient), the leaf sort of the keys
+  (``exact_query.launch_leaf_sort``, given keys) and ``walk_reduce``
+  (``walk_reduce_kernel`` and ``walk_reduce_span_kernel``: each row's sum
+  in an order fixed by the sorted order and by tiles that depend on P
+  alone, stored once). On the word-by-word layout ``walk_backward_kernel``
+  adds by scalar fp32 atomics.
 * ``walk_march`` (K12, ``walk_march_kernel``): the generic sphere trace
-  (step max(d, 0)) over K10's distance, every trip of a ray in one launch.
-  Replaces sdflib_tpu/render/sphere_trace.py ``sphere_trace`` (:251) as
-  sdflib_tpu/diff/render.py (:65-68) calls it.
+  (step max(d, 0)) over the one-thread walk's distance, every trip of a
+  ray in one launch. Replaces sdflib_tpu/render/sphere_trace.py
+  ``sphere_trace`` (:251) as sdflib_tpu/diff/render.py (:65-68) calls it.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-torch version (``walk_query_plain``, ``walk_backward_plain``,
-``walk_march_plain``) for CPU tensors; ``launch_count``,
-``backward_launch_count`` and ``march_launch_count`` count the launches.
+torch version (``walk_query_plain``, ``walk_keys_plain``,
+``walk_reduce_plain``, ``walk_backward_plain``, ``walk_march_plain``) for
+CPU tensors. The counters: ``launch_count`` (K10), ``backward_launch_count``
+(K11 as a whole, one a backward on either layout), ``key_launch_count``,
+``sort_launch_count`` (K11's leaf sort: its memset and launches are one
+call), ``reduce_launch_count`` (its two launches are one call) and
+``march_launch_count``.
 The kernels have no autograd: ``walk_query`` raises for points or
 coefficients that require a gradient. ``WalkQuery``, the autograd
 Function of ``diff/query.py`` and of ``OctreeSdf`` distances of points
 that require a gradient, pairs K10 with K11; a second derivative takes
 autograd of the plain version.
 
-K11's atomics add in an order that changes from run to run, so its
-coefficient gradient agrees with the plain version's ``index_add_`` to
-fp32 rounding of each row's sum (1e-5 of the largest), not bit for bit.
+K11's coefficient gradient on the aligned layout is the same bits from run
+to run (``walk_reduce_plain`` repeats its order bit for bit) and agrees
+with ``walk_backward_plain``'s ``index_add_``, the function's definition
+and what the CPU runs, to fp32 rounding of each row's sum (1e-5 of the
+largest). On the word-by-word layout its atomics add in an order that
+changes from run to run.
 """
 from __future__ import annotations
 
@@ -46,22 +62,33 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from .box import box_distance
+from .exact_query import launch_leaf_sort, sort_bits
 from .interpolation import _deriv_power_vectors, _monomials, _power_vectors, gradient_at
 from .octree_query import _CIDX, _coeff_rows, _f32, _finish, _need
 
 __all__ = [
-    "Walk", "MODES", "walk_query", "walk_query_plain", "walk_backward", "walk_backward_plain",
-    "walk_march", "walk_march_plain", "WalkQuery", "launch_count", "backward_launch_count",
+    "Walk", "MODES", "GROUPS", "REDUCE_TILE", "reduce_plan", "walk_query", "walk_query_plain",
+    "walk_keys", "walk_keys_plain", "walk_reduce", "walk_reduce_plain", "walk_backward",
+    "walk_backward_plain", "walk_march", "walk_march_plain", "WalkQuery", "launch_count",
+    "backward_launch_count", "key_launch_count", "sort_launch_count", "reduce_launch_count",
     "march_launch_count",
 ]
 
 launch_count = 0
 backward_launch_count = 0
+key_launch_count = 0
+sort_launch_count = 0
+reduce_launch_count = 0
 march_launch_count = 0
 # What a query returns besides the distance: nothing, the normalised
 # gradient (OctreeSdf.get_distance_and_gradient) or the world gradient
 # (octree_query_diff's with_gradient); the kernel's mode is the index.
 MODES = ("distance", "normal", "world")
+# K10's lanes a row of the aligned tricubic layout, by mode (K4's sizes;
+# 1: one lane reads its own row, as K12 does)
+GROUPS = {"distance": 8, "normal": 4, "world": 4}
+REDUCE_TILE = 1024      # sorted points a block of K11's reduction (kTile)
+_THREADS = 256          # threads a block of it (kThreads)
 
 
 class Walk(NamedTuple):
@@ -197,7 +224,7 @@ def check_walk(walk: Walk, device) -> bool:
     if device.type == "cpu":
         return False
     _need(device.type == "cuda", f"unsupported device {device}")
-    # K10 reads aligned coefficient rows as float4, K11 adds float4s into them
+    # K10 reads aligned coefficient rows as float4
     _need(not walk.fast or c.data_ptr() % 16 == 0,
           "the aligned layout needs 16-byte aligned coefficients")
     return True
@@ -218,11 +245,15 @@ def _no_graph(*tensors) -> None:
           "of diff/query.py")
 
 
-def walk_query(walk: Walk, points, mode: str):
+def walk_query(walk: Walk, points, mode: str, group: int | None = None):
     """K10: ``walk_query_plain``'s d (P,), or (d, g (P, 3)), of contiguous
     (P, 3) float32 points on the walk's device: the kernel on the card,
-    the plain version on the CPU."""
+    the plain version on the CPU. ``group``: the lanes that read an aligned
+    tricubic row, 1, 4 or 8 (default ``GROUPS[mode]``); every size gives
+    the same bits."""
     _need(mode in MODES, f"mode must be one of {MODES}")
+    group = GROUPS[mode] if group is None else group
+    _need(group in (1, 4, 8), "group must be 1, 4 or 8")
     _need(isinstance(points, torch.Tensor), "points must be a tensor")
     _f32(points, (None, 3), "points", points.device)
     if not check_walk(walk, points.device):
@@ -234,7 +265,8 @@ def walk_query(walk: Walk, points, mode: str):
                                                     device=points.device)
     if n:
         build.launch("sdf_walk_query", points.device, *walk_args(walk), points.data_ptr(), n,
-                     MODES.index(mode), d.data_ptr(), None if g is None else g.data_ptr())
+                     MODES.index(mode), group, d.data_ptr(),
+                     None if g is None else g.data_ptr())
         build.count_launch(globals(), "launch_count")
     return d if g is None else (d, g)
 
@@ -305,12 +337,171 @@ def walk_backward_plain(walk: Walk, points, gd, gg=None, coeffs_grad: bool = Tru
     return gc, gp
 
 
+# -- K11 on the aligned layout: keys, the leaf sort, the reduction -----------------
+
+def reduce_plan(P: int, num_coeff: int) -> tuple[int, int, int]:
+    """K11's reduction of P sorted points: (tiles of ``REDUCE_TILE``
+    points, points a run (a run of 4 lanes, 2 for trilinear rows, adds them
+    one after the other), float32 words of the tiles' partials, two rows a
+    tile)."""
+    runs = _THREADS // (4 if num_coeff == 64 else 2)
+    tiles = -(-int(P) // REDUCE_TILE)
+    return tiles, REDUCE_TILE // runs, 2 * tiles * num_coeff
+
+
+def walk_keys_plain(walk: Walk, points, gd, gg=None):
+    """K11's keys and shares (the aligned layout): (keys (P,) int32,
+    share (P, 4), or (P, 8) with ``gg``). A point's key is the row it adds
+    into, base // num_coeff of the reached word, or W // num_coeff (one
+    past the last row) where it adds nothing: an in-box point whose row
+    runs past the words, an out-of-box point within 2^31 start cells of the
+    box (its weights are finite, 0 times them is 0). An out-of-box point
+    beyond (NaN, infinite, far) keeps the row it reaches from the nearest
+    start cell. Its share: the position in the leaf and gd (0 outside the
+    box), then gg over the leaf's edge (0 outside) and a 0; zeros where the
+    key is W // num_coeff."""
+    with torch.no_grad():
+        pts = points.detach()
+        word, frac, in_box, steps = _descend(walk.words, pts, walk.box_min, walk.box_size3,
+                                             walk.start_grid_size, levels=walk.levels,
+                                             fast=True)
+        rows = walk.words.numel() // walk.num_coeff
+        row = (word & _CIDX) // walk.num_coeff
+        cell = walk.box_size3 / walk.start_grid_size
+        near = (((pts - walk.box_min) / cell).abs() < 2.0**31).all(dim=-1)
+        keyed = (row < rows) & (in_box | ~near)
+        zero = torch.zeros((), dtype=torch.float32, device=pts.device)
+        parts = [frac, torch.where(in_box, gd, zero)[..., None]]
+        if gg is not None:
+            gl = torch.where(in_box[..., None], gg, zero) / _leaf_size(walk, steps)[..., None]
+            parts += [gl, torch.zeros_like(gl[..., :1])]
+        share = torch.where(keyed[..., None], torch.cat(parts, -1), zero)
+        return torch.where(keyed, row, rows).to(torch.int32), share
+
+
+def _fold(key, pos, val, span):
+    """The items (key, first position, value (n, C)), in position order,
+    with each run of consecutive items of one key inside one group
+    (position // span; span None: one group) added left to right into its
+    first: the kernel's order at one level."""
+    n = key.numel()
+    if n == 0:
+        return key, pos, val
+    grp = pos // span if span else torch.zeros_like(pos)
+    new = torch.ones(n, dtype=torch.bool, device=key.device)
+    new[1:] = (key[1:] != key[:-1]) | (grp[1:] != grp[:-1])
+    heads = torch.nonzero(new)[:, 0]
+    seg = torch.cumsum(new, 0) - 1
+    rank = torch.arange(n, device=key.device) - heads[seg]
+    out = val[heads].clone()
+    for k in range(1, int(rank.max()) + 1):
+        at = torch.nonzero(rank == k)[:, 0]
+        out[seg[at]] = out[seg[at]] + val[at]
+    return key[heads], pos[heads], out
+
+
+def walk_reduce_plain(walk: Walk, lid_s, order, share):
+    """K11's reduction in torch: the coefficient gradient (W,) of sorted
+    keys ``lid_s`` (P,) int32, their ``order`` (P,) int64 and the key
+    launch's ``share`` (P, 4 or 8), bit for bit in the kernel's order.
+    Each point of a row (key < W // num_coeff) brings ``_weights`` of its
+    share; a run of points (``reduce_plan``) adds its row's weights left to
+    right, a tile its runs' sums, then the tiles' in tile order."""
+    with torch.no_grad():
+        nc, W = walk.num_coeff, walk.words.numel()
+        rows = W // nc
+        pos = torch.nonzero(lid_s < rows)[:, 0]
+        s = share[order[pos]]
+        w = _weights(s[:, :3], s[:, 3], s[:, 4:7] if s.shape[1] == 8 else None,
+                     walk.interpolation)
+        key = lid_s[pos].long()
+        _, run, _ = reduce_plan(lid_s.numel(), nc)
+        for span in (run, REDUCE_TILE, None):
+            key, pos, w = _fold(key, pos, w, span)
+        gc = torch.zeros(W, dtype=torch.float32, device=share.device)
+        gc[: rows * nc].view(rows, nc)[key] = w
+        return gc
+
+
+def _check_aligned(walk: Walk, points, gd, gg) -> bool:
+    """``check_walk`` of an aligned walk and its (P, 3) points, gd (P,) and
+    gg (P, 3) or None: True on the card."""
+    _need(isinstance(points, torch.Tensor), "points must be a tensor")
+    _f32(points, (None, 3), "points", points.device)
+    n, dev = points.shape[0], points.device
+    _f32(gd, (n,), "gd", dev)
+    if gg is not None:
+        _f32(gg, (n, 3), "gg", dev)
+    _need(walk.fast, "K11's keys and reduction read the aligned layout")
+    return check_walk(walk, dev)
+
+
+def _launch_keys(walk: Walk, points, gd, gg, keys, share, gp) -> None:
+    build.launch("sdf_walk_keys", points.device, *walk_args(walk), points.data_ptr(),
+                 points.shape[0], gd.data_ptr(), None if gg is None else gg.data_ptr(),
+                 None if keys is None else keys.data_ptr(),
+                 None if share is None else share.data_ptr(),
+                 None if gp is None else gp.data_ptr())
+    build.count_launch(globals(), "key_launch_count")
+
+
+def _launch_reduce(walk: Walk, lid_s, order, share):
+    """The coefficient gradient of the sorted keys and the key launch's
+    ``share``."""
+    dev, P = lid_s.device, lid_s.shape[0]
+    gc = torch.zeros(walk.words.numel(), dtype=torch.float32, device=dev)
+    if P:
+        partial = torch.empty(reduce_plan(P, walk.num_coeff)[2], dtype=torch.float32,
+                              device=dev)
+        build.launch("sdf_walk_reduce", dev, *walk_args(walk), lid_s.data_ptr(),
+                     order.data_ptr(), P, share.data_ptr(), int(share.shape[1] == 8),
+                     gc.data_ptr(), partial.data_ptr())
+        build.count_launch(globals(), "reduce_launch_count")
+    return gc
+
+
+def walk_keys(walk: Walk, points, gd, gg=None):
+    """K11's key launch: ``walk_keys_plain``'s (keys, share) of contiguous
+    (P, 3) points, gd (P,) and gg (P, 3) or None, float32 on the aligned
+    walk's device: the kernel on the card, the plain version on the CPU."""
+    if not _check_aligned(walk, points, gd, gg):
+        return walk_keys_plain(walk, points, gd, gg)
+    n, dev = points.shape[0], points.device
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    share = torch.empty((n, 4 if gg is None else 8), dtype=torch.float32, device=dev)
+    if n:
+        _launch_keys(walk, points, gd, gg, keys, share, None)
+    return keys, share
+
+
+def walk_reduce(walk: Walk, lid_s, order, share):
+    """K11's reduction: ``walk_reduce_plain``'s coefficient gradient (W,)
+    of the sorted keys ``lid_s`` (P,) int32, their ``order`` (P,) int64
+    and the key launch's ``share``: the kernel on the card, the plain
+    version on the CPU."""
+    P = lid_s.shape[0]
+    dev = lid_s.device
+    _need(lid_s.dtype == torch.int32 and lid_s.shape == (P,) and lid_s.is_contiguous(),
+          "lid_s must be a contiguous (P,) int32 tensor")
+    _need(order.dtype == torch.int64 and order.shape == (P,) and order.is_contiguous()
+          and order.device == dev, "order must be a contiguous (P,) int64 tensor beside lid_s")
+    _need(walk.fast, "K11's keys and reduction read the aligned layout")
+    _f32(share, (P, None), "share", dev)
+    _need(share.shape[1] in (4, 8), "share must be (P, 4) or (P, 8)")
+    if not check_walk(walk, dev):
+        return walk_reduce_plain(walk, lid_s, order, share)
+    return _launch_reduce(walk, lid_s, order, share)
+
+
 def walk_backward(walk: Walk, points, gd, gg=None, coeffs_grad: bool = True,
                   points_grad: bool = False):
     """K11: ``walk_backward_plain``'s (coefficient gradient, point
     gradient) for contiguous (P, 3) points, ``gd`` (P,) and ``gg`` (P, 3)
-    or None, float32 on the walk's device: the kernel on the card (it walks
-    each point again), the plain version on the CPU."""
+    or None, float32 on the walk's device: the plain version on the CPU; on
+    the card, on the aligned layout the key launch (with the point
+    gradient), the leaf sort of its keys and the reduction from the key
+    launch's shares, on the word-by-word layout one launch of fp32
+    atomics."""
     _need(isinstance(points, torch.Tensor), "points must be a tensor")
     _f32(points, (None, 3), "points", points.device)
     n, dev = points.shape[0], points.device
@@ -321,14 +512,30 @@ def walk_backward(walk: Walk, points, gd, gg=None, coeffs_grad: bool = True,
           "derivative: take autograd of walk_query_plain")
     if not check_walk(walk, dev):
         return walk_backward_plain(walk, points, gd, gg, coeffs_grad, points_grad)
-    gc = torch.zeros(walk.words.numel(), dtype=torch.float32, device=dev) if coeffs_grad else None
     gp = torch.empty((n, 3), dtype=torch.float32, device=dev) if points_grad else None
-    if n and (coeffs_grad or points_grad):
-        build.launch("sdf_walk_backward", dev, *walk_args(walk), points.data_ptr(), n,
-                     gd.data_ptr(), None if gg is None else gg.data_ptr(),
-                     None if gc is None else gc.data_ptr(), None if gp is None else gp.data_ptr())
+    launches = n > 0 and (coeffs_grad or points_grad)
+    if launches:
         build.count_launch(globals(), "backward_launch_count")
-    return gc, gp
+    if not walk.fast:
+        gc = (torch.zeros(walk.words.numel(), dtype=torch.float32, device=dev)
+              if coeffs_grad else None)
+        if launches:
+            build.launch("sdf_walk_backward", dev, *walk_args(walk), points.data_ptr(), n,
+                         gd.data_ptr(), None if gg is None else gg.data_ptr(),
+                         None if gc is None else gc.data_ptr(),
+                         None if gp is None else gp.data_ptr())
+        return gc, gp
+    keys = torch.empty(n, dtype=torch.int32, device=dev) if coeffs_grad else None
+    share = (torch.empty((n, 4 if gg is None else 8), dtype=torch.float32, device=dev)
+             if coeffs_grad else None)
+    if launches:
+        _launch_keys(walk, points, gd, gg, keys, share, gp)
+    if not coeffs_grad:
+        return None, gp
+    lid_s, order = launch_leaf_sort(keys, None, None, 0,
+                                    sort_bits(walk.words.numel() // walk.num_coeff + 1),
+                                    globals())
+    return _launch_reduce(walk, lid_s, order, share), gp
 
 
 def walk_march_plain(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int):
@@ -380,8 +587,8 @@ def walk_march(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int
 
 class WalkQuery(torch.autograd.Function):
     """(coefficients, points, walk, world) -> d, or (d, g) with the world
-    gradient: K10 forward, K11 backward (the coefficient gradient by
-    atomics, and the point gradient), their plain versions on the CPU.
+    gradient: K10 forward, K11 backward (the coefficient gradient, and the
+    point gradient), their plain versions on the CPU.
     ``walk`` names the words; its coefficients are the first input. The
     gradient of g with respect to the points is a second derivative, which
     K11 does not compute: callers take autograd of ``walk_query_plain``

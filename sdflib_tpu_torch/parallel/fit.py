@@ -8,9 +8,10 @@ its weighted squared error over the whole batch's weight through
 on its worker (``run_blocks``); the blocks' coefficient gradients are
 summed on the first entry's device (the all-reduce, in
 entry order) and one SGD step is taken there. On one device the step is
-``fit_step``'s, bit for bit on the CPU; on the card a block's gradient
-is K11's atomics (``ops/walk.py``), whose order changes from run to run,
-so two runs agree to fp32 rounding of each coefficient's sum. Over a
+``fit_step``'s, bit for bit, on the CPU and on the card: K11
+(``ops/walk.py``) sums each coefficient row in an order fixed by the
+points (on the word-by-word layout its atomics do not, and two runs
+agree to fp32 rounding of each coefficient's sum). Over a
 ``ProcessMesh`` every rank gathers every block's loss and gradient
 (``_gather_runs``, an ``all_gather``) and sums them in the same entry
 order, so every rank takes the same step, the one-process step's sums

@@ -359,12 +359,13 @@ def test_wrappers_check_their_inputs():
 
 
 def test_entry_points_match_the_source():
-    """The three entry points exist in ``csrc/octree_walk.cu`` with as many
+    """The five entry points exist in ``csrc/octree_walk.cu`` with as many
     parameters as ``kernels/build.py`` gives them (no compiler here)."""
     src = (Path(build.__file__).parent.parent / "csrc" / "octree_walk.cu").read_text()
     walk_params = len(re.search(r"#define SDF_WALK_PARAMS(.*?)\n#define", src, re.S)
                       .group(1).split(","))
-    for name in ("sdf_walk_query", "sdf_walk_backward", "sdf_walk_march"):
+    for name in ("sdf_walk_query", "sdf_walk_keys", "sdf_walk_reduce", "sdf_walk_backward",
+                 "sdf_walk_march"):
         m = re.search(r'extern "C" int ' + name + r"\(SDF_WALK_PARAMS,(.*?)\)\s*\{", src, re.S)
         assert m is not None, name
         assert walk_params + len(m.group(1).split(",")) == len(build._SIGNATURES[name]), name
