@@ -128,7 +128,10 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   layout; its pieces held to their plain versions bit for bit and timed
   each) and K12 on the frame against their plain versions, timed beside
   them and their bounds, and K10 at the frame's ray ends at each group
-  size (``walk_kernels_vs_plain``);
+  size (``walk_kernels_vs_plain``); K12's persistent warps bit-equal to one
+  thread a ray (the render and its gradient too) and to themselves run
+  to run, both forms timed in the same call, with the one-thread form's
+  lane use and live warps and the warps' slot-trips (``_k12_forms``);
 * main path G, the exact path's leftovers (``leftovers_path``), on path
   A's configuration: the EXACT_OCTREE ``.bin`` written, reloaded on the
   card and held to the 10k oracle gate through K1, the compiled
@@ -2093,6 +2096,127 @@ def _k11_pieces(w, pts, gd, gg, bits: int, nodes: int, touched: int, walk_flops:
             ("walk_reduce", gg_in): (0.0, red_ms, red_plain, red_bound)}
 
 
+def _march_readings(its, width: int) -> dict:
+    """What a march of one thread a ray leaves idle, from each ray's trips
+    (``its``, rays in image order, ``width`` a row): lane use (useful
+    trips over 32 x the sum of each warp's longest ray) for warps of 32
+    consecutive rays and for warps of 8 x 4 pixel tiles, and the warps of
+    32 consecutive rays still live after 8, 16, 32, 64 and 128 trips."""
+    t = its.long()
+    useful = int(t.sum())
+    rows = t.view(-1, 32).amax(1)
+    height = t.numel() // width
+    tiles = (t.view(height // 4, 4, width // 8, 8).permute(0, 2, 1, 3).reshape(-1, 32)
+             .amax(1))
+    return {"useful": useful, "warps": rows.numel(),
+            "slot_trips_rows": 32 * int(rows.sum()), "slot_trips_tiles": 32 * int(tiles.sum()),
+            "lane_use_rows": useful / (32 * int(rows.sum())),
+            "lane_use_tiles": useful / (32 * int(tiles.sum())),
+            "live_after": {k: int((rows > k).sum()) for k in (8, 16, 32, 64, 128)}}
+
+
+def _k12_forms(sdf, base, o, d, eps: float, far: float, max_iters: int):
+    """K12 on path F's rays ``o``, ``d`` (a square image, flattened): the
+    one-thread form's readings (lane use, live warps, registers), the
+    persistent warps bit-equal ray for ray to one thread a ray, in 8 x 4
+    tiles and in ray order, and to themselves run to run, their hit masks
+    and depths held to the plain march (>= 99.9%, q99 <= 1e-4 of the box),
+    both forms timed in the same call in turns (one thread, warps, warps,
+    one thread) by CUDA events and by the profiler's device time, the
+    warps' slot-trips against the useful trips. Returns the JSON row (max
+    |depth - plain| on common hits, ms, plain ms, bound) and the march's
+    outputs."""
+    import torch
+
+    from sdflib_tpu_torch.kernels import build
+    from sdflib_tpu_torch.ops import walk as ow
+
+    R = o.shape[0]
+    width = int(round(R ** 0.5))
+    args = (base, o, d, eps, far, max_iters)
+    one = ow.walk_march_one_thread(*args)
+    got = ow.walk_march(*args, width=width)
+    again = ow.walk_march(*args, width=width)
+    flat = ow.walk_march(*args)
+    same = all(_bits_equal(a, b) for a, b in zip(got, one))
+    stable = all(_bits_equal(a, b) for a, b in zip(got, again))
+    same_flat = all(_bits_equal(a, b) for a, b in zip(flat, one))
+    print(f"K12 persistent warps against one thread a ray, {R} rays: hit, pos, depth, its "
+          f"bit-equal {same} (in ray order {same_flat}); run to run {stable}")
+    _check(same and same_flat, "K12's persistent warps differ from one thread a ray")
+    _check(stable, "K12's persistent warps changed from run to run")
+    del again, flat
+    ref = ow.walk_march_plain(*args)
+    agree = float((got[0] == ref[0]).float().mean())
+    both = got[0] & ref[0]
+    dd = (got[2][both] - ref[2][both]).abs()
+    q99, dmax = float(torch.quantile(dd, 0.99)), float(dd.max())
+    box = float(np.float32(sdf.box.size[0]))
+    _check(agree >= 0.999, f"K12 hit masks agree with plain on {agree:.4%}")
+    _check(q99 <= 1e-4 * box, f"K12 q99 depth difference {q99} above 1e-4 of the box")
+    del ref
+
+    read = _march_readings(one[3], width)
+    useful = read["useful"]
+    print(f"K12 one thread a ray, {R} rays: {useful} useful trips, the longest "
+          f"{int(one[3].max())}; lane use {read['lane_use_rows']:.4f} in warps of 32 "
+          f"consecutive rays ({read['slot_trips_rows']} slot-trips), "
+          f"{read['lane_use_tiles']:.4f} in warps of 8 x 4 pixel tiles "
+          f"({read['slot_trips_tiles']}); of {read['warps']} warps live after 8 / 16 / 32 / 64 "
+          f"/ 128 trips: {' / '.join(str(v) for v in read['live_after'].values())}")
+    for k, v in build.ptxas_report().items():
+        if "walk_march" in k:
+            print(f"ptxas {'walk_march_warps_kernel' if 'warps' in k else 'walk_march_kernel'}"
+                  f"{_instance(k)}: {v}")
+    del one
+
+    def slot_trips(w) -> int:
+        stats = torch.zeros(1, dtype=torch.int64, device=o.device)
+        ow._launch_march(base, o, d, eps, far, max_iters, 0, w, stats)
+        return 32 * int(stats.item())
+
+    def one_thread():
+        return ow.walk_march_one_thread(*args)
+
+    def warps():
+        return ow.walk_march(*args, width=width)
+
+    # in turns: one thread, warps, warps, one thread; device time as
+    # events around replays of a captured graph (the profiler drops
+    # launches inside the full smoke), and the profiler's where it records
+    ev_one = [_cuda_ms(one_thread)]
+    ev_new = [_cuda_ms(warps), _cuda_ms(warps)]
+    ev_one.append(_cuda_ms(one_thread))
+    gr_one = [_graph_ms(one_thread)]
+    gr_new = [_graph_ms(warps), _graph_ms(warps)]
+    gr_one.append(_graph_ms(one_thread))
+    prof_one = _timed(one_thread, "walk_march_kernel")[1]
+    prof_new = _timed(warps, "walk_march_warps")[1]
+    gr_flat = _graph_ms(lambda: ow.walk_march(*args))
+    slots, slots_flat = slot_trips(width), slot_trips(0)
+    # the word-by-word layout (rows read as scalars, c[64]) in both forms
+    wbw = (base._replace(fast=False), o, d, eps, far, max_iters)
+    wbw_same = all(_bits_equal(a, b) for a, b in zip(ow.walk_march(*wbw, width=width),
+                                                       ow.walk_march_one_thread(*wbw)))
+    _check(wbw_same, "K12's persistent warps differ from one thread a ray word by word")
+    wbw_new = _graph_ms(lambda: ow.walk_march(*wbw, width=width))
+    wbw_one = _graph_ms(lambda: ow.walk_march_one_thread(*wbw))
+    plain_ms = _cuda_ms(lambda: ow.walk_march_plain(*args), reps=1)
+    bound = _bound(R * WALK_RAY_BYTES + base.words.numel() * 4, useful * FLOPS_WALK_TRIP)
+    print(f"K12 walk_march {R} rays, {max_iters} trips at most: persistent warps in 8 x 4 "
+          f"tiles {ev_new[0]:.4f}, {ev_new[1]:.4f} ms events, {gr_new[0]:.4f}, {gr_new[1]:.4f} "
+          f"ms device (graph replays; profiler {prof_new:.4f}), {slots} slot-trips (lane use "
+          f"{useful / slots:.4f}); in ray order {gr_flat:.4f} ms device, {slots_flat} "
+          f"slot-trips (lane use {useful / slots_flat:.4f}); one thread a ray {ev_one[0]:.4f}, "
+          f"{ev_one[1]:.4f} ms events, {gr_one[0]:.4f}, {gr_one[1]:.4f} ms device (profiler "
+          f"{prof_one:.4f}); hit masks agree with plain on {agree:.4%}, on {int(both.sum())} "
+          f"common hits q99 |depth diff| {q99:.3e} (max {dmax:.3e}; allowance "
+          f"{1e-4 * box:.3e}); plain {plain_ms:.4f} ms; library none; bound {bound[0]:.4f} ms "
+          f"({bound[1]}) = {bound[0] / min(gr_new):.1%} of the warps' device time; word by "
+          f"word, bit-equal, warps {wbw_new:.4f} ms device, one thread {wbw_one:.4f}")
+    return (dmax, min(ev_new), plain_ms, bound), got
+
+
 def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_iters: int):
     """K10-K12 against their plain versions on path F's structure, with
     the trainable copy of its coefficients: K10 on ``pts`` in each mode
@@ -2231,25 +2355,7 @@ def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_i
 
     o, d = origins.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous()
     R = o.shape[0]
-    got = ow.walk_march(base, o, d, eps, far, max_iters)
-    ref = ow.walk_march_plain(base, o, d, eps, far, max_iters)
-    agree = float((got[0] == ref[0]).float().mean())
-    both = got[0] & ref[0]
-    dd = (got[2][both] - ref[2][both]).abs()
-    q99, dmax = float(torch.quantile(dd, 0.99)), float(dd.max())
-    useful = int(got[3].sum())
-    ms = _cuda_ms(lambda: ow.walk_march(base, o, d, eps, far, max_iters))
-    plain_ms = _cuda_ms(lambda: ow.walk_march_plain(base, o, d, eps, far, max_iters), reps=1)
-    bound = _bound(R * WALK_RAY_BYTES + base.words.numel() * 4, useful * FLOPS_WALK_TRIP)
-    box = float(np.float32(sdf.box.size[0]))
-    print(f"K12 walk_march {R} rays, {max_iters} trips at most ({useful} useful, the longest "
-          f"{int(got[3].max())}): hit masks agree on {agree:.4%}, on {int(both.sum())} common hits "
-          f"q99 |depth diff| {q99:.3e} (max {dmax:.3e}; allowance {1e-4 * box:.3e}); "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) = "
-          f"{bound[0] / ms:.1%}")
-    _check(agree >= 0.999, f"K12 hit masks agree with plain on {agree:.4%}")
-    _check(q99 <= 1e-4 * box, f"K12 q99 depth difference {q99} above 1e-4 of the box")
-    rows[("walk_march",)] = (dmax, ms, plain_ms, bound)
+    rows[("walk_march",)], got = _k12_forms(sdf, base, o, d, eps, far, max_iters)
 
     # K10 where the render runs it: the world gradient at the rays' ends
     ends = got[1]
@@ -2260,10 +2366,18 @@ def walk_kernels_vs_plain(sdf, pts, origins, dirs, eps: float, far: float, max_i
         _check(all(_bits_equal(a, b) for a, b in zip(got_e, first)),
                f"K10 at the rays' ends with {group} lanes a row differs from the default group")
         times[group] = _cuda_ms(lambda: ow.walk_query(base, ends, "world", group=group))
+    ends_plain = _cuda_ms(lambda: ow.walk_query_plain(base, ends, "world"), reps=2)
+    # moved once: each end in, d and the gradient out, the node words and
+    # rows the in-box ends touch; the walk and the polynomial with its
+    # gradient at the in-box ends
+    e_nodes, e_rows = _walk_touched(base, ends)
+    ends_bound = _bound(R * 28 + e_nodes * 4 + e_rows * nc * 4,
+                        inside * (walk_flops + FLOPS_K4_GRAD))
     print(f"K10 walk_query at the render's {R} ray ends ({inside} in the box), world gradient: "
           + ", ".join(f"lanes a row {g}: {t:.4f} ms" for g, t in times.items())
-          + " (the same bits)")
-    del got, ref, first, got_e, ends
+          + f" (the same bits); plain {ends_plain:.4f} ms, bound {ends_bound[0]:.4f} ms "
+          f"({ends_bound[1]}; {e_nodes} node words, {e_rows} rows touched)")
+    del got, first, got_e, ends
     return rows
 
 
@@ -2442,13 +2556,20 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     _check(auto_err <= 1e-5, f"autograd point gradient off by {auto_err}")
     _check(unit_err <= 1e-5, f"normalised gradient off get_distance_and_gradient's by {unit_err}")
 
-    # 4. render_depth_diff on bench.py's rays, JAX's defaults
+    # 4. render_depth_diff on bench.py's rays, JAX's defaults, as an image
+    # (the march takes them 8 x 4 pixels at a time)
     origins, dirs = _ortho_rays(n_rays, dev)
     o, dr = origins.reshape(-1, 3), dirs.reshape(-1, 3)
     kw = dict(levels=levels, eps=1e-4, far=4.0, max_iters=256)
-    depth, hit = render_depth_diff(words, c.detach(), o, dr, *args, **kw)
-    r_ms = _cuda_ms(lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw), reps=2)
+    depth, hit = render_depth_diff(words, c.detach(), origins, dirs, *args, **kw)
+    depth, hit = depth.reshape(-1), hit.reshape(-1)
+    r_ms = _cuda_ms(lambda: render_depth_diff(words, c.detach(), origins, dirs, *args, **kw),
+                    reps=2)
     rb_ms = _cuda_ms(lambda: torch.autograd.grad(
+        render_depth_diff(words, c, origins, dirs, *args, **kw)[0].sum(), c), reps=2)
+    # the same rays flattened: the march in ray order
+    r_flat_ms = _cuda_ms(lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw), reps=2)
+    rb_flat_ms = _cuda_ms(lambda: torch.autograd.grad(
         render_depth_diff(words, c, o, dr, *args, **kw)[0].sum(), c), reps=2)
     from sdflib_tpu_torch.ops.walk import walk_march
 
@@ -2456,9 +2577,9 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     eps_w, far_w = float(np.float32(1e-4) * size), float(np.float32(4.0) * size)
     frozen = _walk(words, c.detach(), *args, num_coeff=64, interpolation="tricubic", fast=True,
                    **q)
-    trips = walk_march(frozen, o, dr, eps_w, far_w, 256)[3].max()
+    trips = walk_march(frozen, o, dr, eps_w, far_w, 256, width=n_rays)[3].max()
     ev_ms, busy_ms, acts = breakdown(
-        lambda: render_depth_diff(words, c.detach(), o, dr, *args, **kw),
+        lambda: render_depth_diff(words, c.detach(), origins, dirs, *args, **kw),
         f"render_depth_diff {n_rays}^2 rays", top=6)
     ref = trace_octree(sdf, origins, dirs, eps=1e-5, far=4.0, max_iters=1024)
     rh, rd = ref.hit.reshape(-1), ref.depth.reshape(-1)
@@ -2476,7 +2597,7 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     over = diff > 1e-3
     bad = int((diff > allow).sum())
     print(f"render_depth_diff {n_rays}^2 rays: forward {r_ms:.4f} ms, forward + backward "
-          f"{rb_ms:.4f} ms; march trips {int(trips)} (the longest ray's); device busy "
+          f"{rb_ms:.4f} ms (the rays flattened: {r_flat_ms:.4f}, {rb_flat_ms:.4f}); march trips {int(trips)} (the longest ray's); device busy "
           f"{busy_ms / ev_ms:.1%}, {acts} device activities; hits {int(hit.sum())}, masks "
           f"agree with path D's trace on {agree:.4%}; on {int(both.sum())} common hits max "
           f"|depth diff| {float(diff.max()):.3e}, {int(over.sum())} above 1e-3 (largest "
@@ -2487,7 +2608,7 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
            f"max(1e-3, 2 eps / |cos|)")
 
     # 5. depth_fit_loss: tests/test_diff.py's recipe at full width
-    target_d, target_h = render_depth_diff(words, coeffs, o, dr, *args, **kw)
+    target_d, target_h = render_depth_diff(words, coeffs, origins, dirs, *args, **kw)
     noise = torch.as_tensor(
         np.random.default_rng(1).normal(0, 1e-3, coeffs.shape).astype(np.float32), device=dev)
     cf = (coeffs + noise).requires_grad_(True)
@@ -2497,7 +2618,7 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = depth_fit_loss(words, cf, o, dr, target_d, target_h, *args, **kw)
+        loss = depth_fit_loss(words, cf, origins, dirs, target_d, target_h, *args, **kw)
         loss.backward()
         if i < fit_steps:
             opt.step()
@@ -2516,6 +2637,27 @@ def diff_path(dev, n_query: int, n_rays: int, fit_steps: int):
     for name in ("nearest", "walk_query", "walk_backward", "walk_keys", "walk_sort",
                  "walk_reduce", "walk_march"):
         _check(launches[name] > 0, f"{name} was not launched on path F")
+    # the render and its coefficient gradient, outside the counts, with
+    # K12's persistent warps and with one thread a ray: the same bits
+    import sdflib_tpu_torch.diff.render as diff_render
+    from sdflib_tpu_torch.ops import walk as ow
+
+    def render_grad():
+        cc = coeffs.clone().requires_grad_(True)
+        dep, hh = render_depth_diff(words, cc, origins, dirs, *args, **kw)
+        return dep.detach(), hh, torch.autograd.grad(dep.sum(), cc)[0]
+
+    warps_out = render_grad()
+    diff_render.walk_march = lambda *a, width=0: ow.walk_march_one_thread(*a)
+    try:
+        one_out = render_grad()
+    finally:
+        diff_render.walk_march = ow.walk_march
+    same = all(_bits_equal(a, b) for a, b in zip(warps_out, one_out))
+    print(f"render_depth_diff {n_rays}^2 rays over K12's persistent warps against one thread a "
+          f"ray: depth, hit and coefficient gradient bit-equal {same}")
+    _check(same, "render_depth_diff changed with K12's persistent warps")
+    del warps_out, one_out
     del coeffs, c, cf, opt, ref
     torch.cuda.empty_cache()
     rows = walk_kernels_vs_plain(sdf, pts, o, dr, eps_w, far_w, 256)
@@ -3680,7 +3822,7 @@ def main() -> None:
                   "leaf_sort_keys_kernel", "leaf_sort_pass_kernel",
                   "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
                   "walk_key_kernel", "walk_reduce_kernel", "walk_reduce_span_kernel",
-                  "walk_backward_kernel", "walk_march_kernel"):
+                  "walk_backward_kernel", "walk_march_kernel", "walk_march_warps_kernel"):
         lines = [(_instance(k), v) for k, v in report.items()
                  if short in k and (short.startswith("walk") or "walk_" not in k)]
         for tag, line in lines or [("", "not reported")]:

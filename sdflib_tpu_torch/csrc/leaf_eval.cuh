@@ -392,6 +392,29 @@ __device__ __forceinline__ float4 tricubic_group(const float4* base, int s, cons
   return total;
 }
 
+// tricubic<Grad> of one thread's aligned row (16 float4 from base), read
+// a quad at a time: quad q's two float4 (coefficients 4q..4q+3 and
+// 4q+32..4q+35) go straight into quad_sum, and the eight quads add as
+// Tree<0, 32>'s pairwise tree does, so the sum is tricubic's bit for bit
+// while the 64 coefficients are never all live (K12's march).
+template <bool Grad>
+__device__ __forceinline__ float4 tricubic_quads(const float4* __restrict__ base,
+                                                 const float f[3]) {
+  const float fx = f[0], fy = f[1], fz = f[2];
+  const float xv[4] = {1.0f, fx, fx * fx, fx * fx * fx};
+  const float yv[4] = {1.0f, fy, fy * fy, fy * fy * fy};
+  const float zv[4] = {1.0f, fz, fz * fz, fz * fz * fz};
+  const float dxv[4] = {0.0f, 1.0f, 2.0f * fx, 3.0f * fx * fx};
+  const float dyv[4] = {0.0f, 1.0f, 2.0f * fy, 3.0f * fy * fy};
+  const float dzv[4] = {0.0f, 1.0f, 2.0f * fz, 3.0f * fz * fz};
+  auto quad = [&](int q) {
+    return quad_sum<Grad>(__ldg(base + q), __ldg(base + q + 8), q, xv, yv, zv, dxv, dyv, dzv);
+  };
+  const float4 lo = add4(add4(quad(0), quad(1)), add4(quad(2), quad(3)));
+  const float4 hi = add4(add4(quad(4), quad(5)), add4(quad(6), quad(7)));
+  return add4(lo, hi);
+}
+
 // The lane of the k-th (from 0) set bit of mask (k below its count).
 __device__ __forceinline__ int nth_lane(unsigned mask, int k) {
   int at = 0;

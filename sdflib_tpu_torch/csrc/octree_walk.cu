@@ -67,14 +67,31 @@
 // keeps walk_backward_kernel: one thread a point, scalar fp32 atomics at
 // start + j, in an order that changes from run to run.
 //
-// K12, walk_march_kernel, replaces sdflib_tpu/render/sphere_trace.py
-// sphere_trace (:251) as sdflib_tpu/diff/render.py (:65-68) calls it over
-// octree_query_diff: a ray's march state stays in registers for all
-// max_iters trips of ops/march.py _trip with the step max(d, 0) and the
-// one-thread walk's distance at each (a group read would idle the lanes of
-// rays that have left); a done ray leaves at once (as K5 does), so one
-// launch carries the whole march. No free-cell steps: the flags are proven
-// from coefficients that a fit changes.
+// K12 replaces sdflib_tpu/render/sphere_trace.py sphere_trace (:251) as
+// sdflib_tpu/diff/render.py (:65-68) calls it over octree_query_diff: the
+// trips of ops/march.py _trip with the step max(d, 0), every trip of every
+// ray in one launch. No free-cell steps: the flags are proven from
+// coefficients that a fit changes. walk_march_warps_kernel is persistent:
+// as many blocks as the SMs hold at once, each lane a slot that holds one
+// ray's march state in registers. A warp takes kMarchChunk rays at a time
+// from a global counter (one atomicAdd a chunk; in 8 x 4 pixel tiles where
+// the caller names the image's width, neighbouring rays marching alike)
+// and, after every trip, hands the chunk's next rays to the lanes whose
+// ray has left (a ballot; a lane's rank among them picks its ray). So its
+// lanes stay busy until the rays run out, where a warp of one thread a ray
+// lives as long as its longest ray (lane use 0.65 on path F's render).
+// Each lane reads its own row and folds it a quad at a time in
+// Tree<0, 32>'s order (leaf_eval.cuh tricubic_quads): the 64 coefficients
+// are never live at once, so the kernel fits 64 registers and 4 blocks an
+// SM (one thread a ray took 102, 2 blocks), which hides the trip's chain
+// behind twice the warps. A group read (K10's) lost here: its shuffles
+// cost more than the lines it saves. Each ray's arithmetic is
+// walk_march_kernel's, operation for operation, and a ray's results go to
+// its own index, so hit, pos, depth and its are bit-equal to the
+// one-thread form whichever lane took the ray. walk_march_kernel, one
+// thread a ray for all its trips, stays as the reference the tests and
+// chip_smoke.py hold the persistent form against. Trilinear rows and the
+// word-by-word layout march in the same warps with walk::query's read.
 //
 // Bound: K10 by bytes moved once: the points in and the outputs out (16 B
 // a point, 12 more with a gradient), and the node words and coefficient
@@ -85,8 +102,13 @@
 // group read touches each row's lines once a load. K11's key launch is
 // bounded by the point, gd (and gg) in and the key and share out; the
 // reduction by the sorted keys, the order and the shares in and the
-// gradient out. K12 by operations: ~310 flops a useful trip, every trip of
-// a ray waiting on its own walk.
+// gradient out. K12 by operations: ~310 flops a useful trip (counted at
+// the fused multiply-add rate, 67 TFLOP/s; built with --fmad=false every
+// multiply and add issues alone, about twice the time); every trip of a
+// ray waits on its own walk (three divisions, a dependent node word a
+// level, then the row), so the card hides that chain only across many
+// rays in flight: the persistent warps keep every lane's slot on a live
+// ray, and the quad fold's registers let twice the warps in.
 //
 // Launches a backward on the aligned layout: the key launch, the
 // gradient's zero fill, the leaf sort (a memset and 1 + passes launches: 2
@@ -575,6 +597,60 @@ walk_backward_kernel(walk::Tree T, const float* __restrict__ points, int n,
   }
 }
 
+// K12's state of one ray: its position, direction, depth so far, last
+// distance, 1 while it marches (0 once done), trips taken.
+struct Ray {
+  float p[3], u[3];
+  float ac, ld, a;
+  int it;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origins,
+                                        const float* __restrict__ dirs, int r) {
+  const size_t o = 3 * static_cast<size_t>(r);
+  Ray s;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    s.p[k] = origins[o + k];
+    s.u[k] = dirs[o + k];
+  }
+  s.ac = 0.0f;
+  s.ld = INFINITY;
+  s.a = 1.0f;
+  s.it = 0;
+  return s;
+}
+
+// One trip's step from the walk's distance d at the ray's position.
+__device__ __forceinline__ void march_step(Ray& s, float d, float eps, float far) {
+  const float moved = leaf::nan_max(d, 0.0f) * s.a;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s.p[k] = s.p[k] + s.u[k] * moved;
+  s.ac = s.ac + moved;
+  s.ld = d;
+  s.it += 1;
+  s.a = s.a * ((s.ld > eps && s.ac < far) ? 1.0f : 0.0f);
+}
+
+// Whether the ray takes another trip.
+__device__ __forceinline__ bool marching(const Ray& s, int max_iters) {
+  return s.it < max_iters && s.a > 0.0f;
+}
+
+__device__ __forceinline__ void march_out(const Ray& s, int r, float eps,
+                                          unsigned char* __restrict__ hit,
+                                          float* __restrict__ pos, float* __restrict__ depth,
+                                          int* __restrict__ its) {
+  const size_t o = 3 * static_cast<size_t>(r);
+  hit[r] = s.ld <= eps ? 1 : 0;
+  pos[o] = s.p[0];
+  pos[o + 1] = s.p[1];
+  pos[o + 2] = s.p[2];
+  depth[r] = s.ac;
+  its[r] = s.it;
+}
+
+// K12 one thread a ray, for all its trips: the reference form.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 walk_march_kernel(walk::Tree T, const float* __restrict__ origins,
@@ -584,31 +660,139 @@ walk_march_kernel(walk::Tree T, const float* __restrict__ origins,
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
   const walk::Box w = walk::load_box(T);
-  const size_t o = 3 * static_cast<size_t>(r);
-  float p[3] = {origins[o], origins[o + 1], origins[o + 2]};
-  const float u[3] = {dirs[o], dirs[o + 1], dirs[o + 2]};
-  float ac = 0.0f, ld = INFINITY, a = 1.0f;
-  int it = 0;
-  for (int t = 0; t < max_iters && a > 0.0f; ++t) {
+  Ray s = load_ray(origins, dirs, r);
+  while (marching(s, max_iters)) {
     float g[3];
-    const float d = walk::query<walk::kDistance, N>(T, w, p, g);
-    const float moved = leaf::nan_max(d, 0.0f) * a;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) p[k] = p[k] + u[k] * moved;
-    ac = ac + moved;
-    ld = d;
-    it += 1;
-    a = a * ((ld > eps && ac < far) ? 1.0f : 0.0f);
+    march_step(s, walk::query<walk::kDistance, N>(T, w, s.p, g), eps, far);
   }
-  hit[r] = ld <= eps ? 1 : 0;
-  pos[o] = p[0];
-  pos[o + 1] = p[1];
-  pos[o + 2] = p[2];
-  depth[r] = ac;
-  its[r] = it;
+  march_out(s, r, eps, hit, pos, depth, its);
+}
+
+constexpr int kMarchChunk = 32;     // rays a warp takes from the counter at once
+constexpr int kMarchMinBlocks = 4;  // blocks an SM holds at once (64 registers)
+
+// The walk's distance at a ray's position. kQuads: one lane folds its
+// aligned tricubic row a quad at a time; else walk::query's c[N].
+template <int N, bool kQuads>
+__device__ __forceinline__ float march_distance(const walk::Tree& T, const walk::Box& w,
+                                                const float p[3]) {
+  float g[3];
+  if constexpr (kQuads) {
+    walk::Reach r;
+    const bool in_box = walk::descend(T, w, p, r);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (in_box && r.start >= 0) {
+      v = leaf::tricubic_quads<false>(reinterpret_cast<const float4*>(T.coeffs + r.start), r.f);
+    }
+    return walk::answer<walk::kDistance>(T, w, p, in_box, r, v, g);
+  } else {
+    return walk::query<walk::kDistance, N>(T, w, p, g);
+  }
+}
+
+// The ray of the counter's k-th fetch: k itself, or with width > 0 (the
+// rays a width x height image, width % 8 == 0, height % 4 == 0) the rays
+// of its 8 x 4 pixel tiles in turn, so a chunk of 32 is one tile.
+__device__ __forceinline__ int ray_at(unsigned k, int width) {
+  if (width <= 0) return static_cast<int>(k);
+  const unsigned tile = k >> 5, e = k & 31u, across = static_cast<unsigned>(width) / 8u;
+  return static_cast<int>(((tile / across) * 4u + (e >> 3)) * static_cast<unsigned>(width) +
+                          (tile % across) * 8u + (e & 7u));
+}
+
+// K12, persistent warps (see the header): every lane of every warp runs the
+// loop to its end (the ballots span the warp). counter: the rays handed
+// out so far, zeroed before the launch; stats, or null: adds the warps'
+// trips (each a trip of all 32 slots).
+template <int N, bool kQuads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+walk_march_warps_kernel(walk::Tree T, const float* __restrict__ origins,
+                        const float* __restrict__ dirs, int n, int width, float eps, float far,
+                        int max_iters, unsigned char* __restrict__ hit, float* __restrict__ pos,
+                        float* __restrict__ depth, int* __restrict__ its,
+                        unsigned* __restrict__ counter, unsigned long long* __restrict__ stats) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  const walk::Box w = walk::load_box(T);
+  int ray = -1;  // the lane's ray; -1: none
+  Ray s{};
+  unsigned next = 0, end = 0;  // the warp's fetches not yet handed out
+  bool more = true;            // whether the counter may hold rays still
+  unsigned long long trips = 0;
+  while (true) {
+    // the lanes without a ray take the chunk's next rays, in lane order
+    unsigned idle = __ballot_sync(leaf::kFullMask, ray < 0);
+    while (idle != 0u && more) {
+      if (next == end) {
+        unsigned first = 0;
+        if (lane == 0) first = atomicAdd(counter, static_cast<unsigned>(kMarchChunk));
+        first = __shfl_sync(leaf::kFullMask, first, 0);
+        if (first >= static_cast<unsigned>(n)) {
+          more = false;
+          break;
+        }
+        next = first;
+        end = min(first + kMarchChunk, static_cast<unsigned>(n));
+      }
+      const unsigned take = min(static_cast<unsigned>(__popc(idle)), end - next);
+      const unsigned rank = __popc(idle & below);
+      if (ray < 0 && rank < take) {
+        ray = ray_at(next + rank, width);
+        s = load_ray(origins, dirs, ray);
+        if (!marching(s, max_iters)) {  // max_iters <= 0: no trip
+          march_out(s, ray, eps, hit, pos, depth, its);
+          ray = -1;
+        }
+      }
+      next += take;
+      idle = __ballot_sync(leaf::kFullMask, ray < 0);
+    }
+    if (__ballot_sync(leaf::kFullMask, ray >= 0) == 0u) break;  // no ray left
+    ++trips;
+    if (ray >= 0) {
+      march_step(s, march_distance<N, kQuads>(T, w, s.p), eps, far);
+      if (!marching(s, max_iters)) {
+        march_out(s, ray, eps, hit, pos, depth, its);
+        ray = -1;
+      }
+    }
+  }
+  if (stats != nullptr && lane == 0) atomicAdd(stats, trips);
 }
 
 inline int blocks(long long n, int per) { return static_cast<int>((n + per - 1) / per); }
+
+// The persistent march: the counter's fill, then as many blocks as the
+// card holds at once (at most one lane a ray).
+template <int N, bool kQuads, int kMinBlocks>
+cudaError_t launch_march_warps(const walk::Tree& T, const float* origins, const float* dirs,
+                               int n, int width, float eps, float far, int max_iters,
+                               unsigned char* hit, float* pos, float* depth, int* its,
+                               unsigned* counter, unsigned long long* stats, cudaStream_t st) {
+  constexpr int kCards = 64;
+  static int slots[kCards];  // blocks the card holds at once, by card
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int resident = dev < kCards ? slots[dev] : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, walk_march_warps_kernel<N, kQuads, kMinBlocks>, kThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    resident = per_sm * sms > 0 ? per_sm * sms : 1;
+    if (dev < kCards) slots[dev] = resident;
+  }
+  const int nb = blocks(n, kThreads) < resident ? blocks(n, kThreads) : resident;
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return err;
+  walk_march_warps_kernel<N, kQuads, kMinBlocks><<<nb, kThreads, 0, st>>>(
+      T, origins, dirs, n, width, eps, far, max_iters, hit, pos, depth, its, counter, stats);
+  return cudaGetLastError();
+}
 
 template <int kMode, int N>
 void launch_query_mode(const walk::Tree& T, const float* points, int n, int group, float* d,
@@ -789,13 +973,25 @@ extern "C" int sdf_walk_backward(SDF_WALK_PARAMS, const float* points, int n, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// hit (n,) bool, pos (n, 3), depth (n,), its (n,) int32.
+// hit (n,) bool, pos (n, 3), depth (n,), its (n,) int32. width: 0, or the
+// rays are an image width rays a row (width % 8 == 0, rows % 4 == 0),
+// handed out in 8 x 4 tiles. form 0: the persistent warps (counter: one
+// uint32 of scratch, zeroed here; stats: one uint64 the warps' trips are
+// added to, or null); 1: one thread a ray, the reference (width, counter
+// and stats unused).
 extern "C" int sdf_walk_march(SDF_WALK_PARAMS, const float* origins, const float* dirs, int n,
-                              float eps, float far, int max_iters, unsigned char* hit,
-                              float* pos, float* depth, int* its, void* stream) {
-  if (n > 0) {
-    const walk::Tree T = SDF_WALK_TREE;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                              int width, float eps, float far, int max_iters, int form,
+                              unsigned char* hit, float* pos, float* depth, int* its,
+                              unsigned* counter, unsigned long long* stats, void* stream) {
+  const bool tiles_ok = width == 0 || (width > 0 && width % 8 == 0 && n % width == 0 &&
+                                       (n / width) % 4 == 0);
+  if ((form != 0 && form != 1) || (form == 0 && counter == nullptr) || !tiles_ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const walk::Tree T = SDF_WALK_TREE;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == 1) {
     if (tricubic) {
       walk_march_kernel<64><<<blocks(n, kThreads), kThreads, 0, st>>>(
           T, origins, dirs, n, eps, far, max_iters, hit, pos, depth, its);
@@ -803,6 +999,18 @@ extern "C" int sdf_walk_march(SDF_WALK_PARAMS, const float* origins, const float
       walk_march_kernel<8><<<blocks(n, kThreads), kThreads, 0, st>>>(
           T, origins, dirs, n, eps, far, max_iters, hit, pos, depth, its);
     }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  // the aligned tricubic rows fold a quad at a time; the other layouts
+  // (trilinear rows, 48 registers; rows at any word) read c[N]
+  const cudaError_t err =
+      !tricubic ? launch_march_warps<8, false, 1>(T, origins, dirs, n, width, eps, far, max_iters,
+                                                  hit, pos, depth, its, counter, stats, st)
+      : fast    ? launch_march_warps<64, true, kMarchMinBlocks>(T, origins, dirs, n, width, eps,
+                                                                far, max_iters, hit, pos, depth,
+                                                                its, counter, stats, st)
+                : launch_march_warps<64, false, 1>(T, origins, dirs, n, width, eps, far,
+                                                   max_iters, hit, pos, depth, its, counter,
+                                                   stats, st);
+  return static_cast<int>(err);
 }

@@ -4,8 +4,10 @@ coefficients.
 Port of the JAX package's ``diff/render.py``: the depth-image fit demo.
 The march is not differentiated: it runs under ``torch.no_grad()`` over
 the frozen coefficients, as one launch of K12 on the card (``ops/walk.py``
-``walk_march``: every trip of a ray in registers, a done ray leaving at
-once) and as the generic ``sphere_trace`` over the plain walk on the CPU
+``walk_march``: persistent warps that march every ray's trips in
+registers and hand a lane the next ray once its own has left; rays given
+as an image, (..., H, W, 3), are taken 8 x 4 pixels at a time) and as the
+generic ``sphere_trace`` over the plain walk on the CPU
 (an autograd graph of every trip would hold every intermediate of up to
 ``max_iters`` full-batch steps). The converged point then takes one
 differentiable Newton correction along the ray,
@@ -64,7 +66,8 @@ def render_depth_diff(
         hit, pos, depth, _ = walk_march(
             walk, origins.reshape(-1, 3).contiguous(),
             dirs.expand(origins.shape).reshape(-1, 3).contiguous(),
-            float(np.float32(eps) * size), float(np.float32(far) * size), max_iters)
+            float(np.float32(eps) * size), float(np.float32(far) * size), max_iters,
+            width=shape[-1] if len(shape) >= 2 else 0)
     hit, pos, depth = hit.reshape(shape), pos.reshape(origins.shape), depth.reshape(shape)
     d, g = octree_query_diff(words, coeffs_f32, pos, *args, with_gradient=True, **q)
     # the SDF's derivative along the ray at the surface (entering: < 0)

@@ -107,9 +107,9 @@ _SIGNATURES = {
     # (walk..., points, n, gd, gg or null, grad coeffs or null, grad points
     #  or null, stream)
     "sdf_walk_backward": [*_WALK, _P, _I, _P, _P, _P, _P, _P],
-    # (walk..., origins, dirs, n, eps, far, max_iters, hit, pos, depth, its,
-    #  stream)
-    "sdf_walk_march": [*_WALK, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
+    # (walk..., origins, dirs, n, width, eps, far, max_iters, form, hit, pos,
+    #  depth, its, counter, stats or null, stream)
+    "sdf_walk_march": [*_WALK, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -25,10 +25,14 @@ for ``OctreeSdf`` queries, the trainable tensor for ``diff``).
   in an order fixed by the sorted order and by tiles that depend on P
   alone, stored once). On the word-by-word layout ``walk_backward_kernel``
   adds by scalar fp32 atomics.
-* ``walk_march`` (K12, ``walk_march_kernel``): the generic sphere trace
-  (step max(d, 0)) over the one-thread walk's distance, every trip of a
-  ray in one launch. Replaces sdflib_tpu/render/sphere_trace.py
-  ``sphere_trace`` (:251) as sdflib_tpu/diff/render.py (:65-68) calls it.
+* ``walk_march`` (K12, ``walk_march_warps_kernel``): the generic sphere
+  trace (step max(d, 0)) over the walk's distance, every trip of every ray
+  in one launch of persistent warps that hand a finished lane the next
+  ray of the warp's chunk from a ray counter (8 x 4 pixel tiles of an
+  image of rays); a lane folds its aligned tricubic row a quad at a time.
+  The same bits as one thread a ray (``walk_march_one_thread``, the
+  reference). Replaces sdflib_tpu/render/sphere_trace.py ``sphere_trace``
+  (:251) as sdflib_tpu/diff/render.py (:65-68) calls it.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 torch version (``walk_query_plain``, ``walk_keys_plain``,
@@ -69,9 +73,9 @@ from .octree_query import _CIDX, _coeff_rows, _f32, _finish, _need
 __all__ = [
     "Walk", "MODES", "GROUPS", "REDUCE_TILE", "reduce_plan", "walk_query", "walk_query_plain",
     "walk_keys", "walk_keys_plain", "walk_reduce", "walk_reduce_plain", "walk_backward",
-    "walk_backward_plain", "walk_march", "walk_march_plain", "WalkQuery", "launch_count",
-    "backward_launch_count", "key_launch_count", "sort_launch_count", "reduce_launch_count",
-    "march_launch_count",
+    "walk_backward_plain", "walk_march", "walk_march_plain", "walk_march_one_thread",
+    "WalkQuery", "launch_count", "backward_launch_count", "key_launch_count",
+    "sort_launch_count", "reduce_launch_count", "march_launch_count",
 ]
 
 launch_count = 0
@@ -556,33 +560,75 @@ def walk_march_plain(walk: Walk, origins, dirs, eps: float, far: float, max_iter
     return last_d <= eps, pos, acc, its
 
 
-def walk_march(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int):
-    """K12: ``walk_march_plain``'s (hit (R,) bool, position (R, 3), depth
-    (R,), trips (R,) int32) of contiguous (R, 3) float32 origins and
-    directions on the walk's device: one launch on the card, a ray leaving
-    once it hits (last d <= eps), passes ``far`` or has taken ``max_iters``
-    trips. Rays are marched as the plain version marches them, but for one
-    whose position turns infinite: the plain version's later trips move a
-    done ray by an infinite step times 0, which is NaN; the kernel leaves
-    it as it was."""
+def _check_march(walk: Walk, origins, dirs) -> bool:
+    """``check_walk`` of the march's (R, 3) origins and directions: True on
+    the card."""
     _need(isinstance(origins, torch.Tensor), "origins must be a tensor")
     _f32(origins, (None, 3), "origins", origins.device)
-    n, dev = origins.shape[0], origins.device
-    _f32(dirs, (n, 3), "dirs", dev)
-    if not check_walk(walk, dev):
-        return walk_march_plain(walk, origins, dirs, eps, far, max_iters)
+    _f32(dirs, (origins.shape[0], 3), "dirs", origins.device)
+    return check_walk(walk, origins.device)
+
+
+def _tile_width(n: int, width: int) -> int:
+    """``width`` where n rays make an image of whole 8 x 4 pixel tiles
+    ``width`` rays a row, else 0 (the rays' own order)."""
+    _need(int(width) >= 0, "width must be 0 or the image's rays a row")
+    width = int(width)
+    return width if width and width % 8 == 0 and n % width == 0 and n // width % 4 == 0 else 0
+
+
+def _launch_march(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int, form: int,
+                  width: int = 0, stats=None):
+    """One launch of ``sdf_walk_march`` in ``form`` (0 the persistent warps,
+    1 one thread a ray) on checked CUDA inputs; ``width`` as
+    ``walk_march``'s; ``stats``, a (1,) int64 tensor or None, gets the
+    persistent warps' trips added."""
     _no_graph(origins, dirs, walk.coeffs)
+    n, dev = origins.shape[0], origins.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
     depth = torch.empty(n, dtype=torch.float32, device=dev)
     its = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
+        counter = torch.empty(1, dtype=torch.int32, device=dev)   # zeroed by the entry
         build.launch("sdf_walk_march", dev, *walk_args(walk), origins.data_ptr(),
-                     dirs.data_ptr(), n, float(np.float32(eps)), float(np.float32(far)),
-                     int(max_iters), hit.data_ptr(), pos.data_ptr(), depth.data_ptr(),
-                     its.data_ptr())
-        build.count_launch(globals(), "march_launch_count")
+                     dirs.data_ptr(), n, _tile_width(n, width), float(np.float32(eps)),
+                     float(np.float32(far)), int(max_iters), int(form), hit.data_ptr(),
+                     pos.data_ptr(), depth.data_ptr(), its.data_ptr(), counter.data_ptr(),
+                     None if stats is None else stats.data_ptr())
     return hit, pos, depth, its
+
+
+def walk_march(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int,
+               width: int = 0):
+    """K12: ``walk_march_plain``'s (hit (R,) bool, position (R, 3), depth
+    (R,), trips (R,) int32) of contiguous (R, 3) float32 origins and
+    directions on the walk's device: on the card one launch of persistent
+    warps (and the fill of its ray counter), a ray leaving once it hits
+    (last d <= eps), passes ``far`` or has taken ``max_iters`` trips, the
+    same bits as ``walk_march_one_thread``. ``width``: where the rays are
+    an image, row-major, ``width`` rays a row, of whole 8 x 4 pixel tiles,
+    the warps take them a tile at a time (neighbouring rays march alike);
+    the results do not depend on it. Rays are marched as the plain version
+    marches them, but for one whose position turns infinite: the plain
+    version's later trips move a done ray by an infinite step times 0,
+    which is NaN; the kernel leaves it as it was."""
+    if not _check_march(walk, origins, dirs):
+        _tile_width(origins.shape[0], width)
+        return walk_march_plain(walk, origins, dirs, eps, far, max_iters)
+    out = _launch_march(walk, origins, dirs, eps, far, max_iters, 0, width)
+    if origins.shape[0]:
+        build.count_launch(globals(), "march_launch_count")
+    return out
+
+
+def walk_march_one_thread(walk: Walk, origins, dirs, eps: float, far: float, max_iters: int):
+    """``walk_march`` one thread a ray for all its trips (``walk_march_kernel``,
+    K12 before its persistent warps): the reference that the card's tests
+    hold ``walk_march`` against bit for bit; not counted. CUDA tensors
+    only."""
+    _need(_check_march(walk, origins, dirs), "the one-thread march runs on the card only")
+    return _launch_march(walk, origins, dirs, eps, far, max_iters, 1)
 
 
 class WalkQuery(torch.autograd.Function):
