@@ -46,6 +46,18 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   id and of rows with a dead half), its bound and its fetch floor: its
   own row stream through the faster K3 probe;
 * both scans pinned at 2^16 to 2^21 points;
+* K13, the exact build's region cull (one launch a node group): path A's
+  and path B's builds launch it once a group and never the plain
+  version (``CullLog``); the d6 build both ways through ``_build_exact``
+  (the plain cull pinned, then K13: seconds, identical arrays, equal to
+  path A's) and once more with every group held bit-equal to the plain
+  route, each form timed on the most populous group of each width
+  (``build_both_ways``, ``cull_vs_plain``); on path B the top group (128
+  nodes x 131,072 slots, expanded rows) and the most populous group of 128
+  slots the same way (kept from a second build, after path B's peak
+  device memory was read), the top group's row in the JSON line; the d7
+  build's breakdown, phases and profiler, in a process of its own
+  (``build_profile_alone``);
 * the depth-7 cell: the 100,800-triangle torus of bench.py's big mesh,
   start depth 3, 2^20 uniform points (the grouped scan) and its oracle
   gate, K2 at the d7 oracle's shape (10k x 100,800) and its point order
@@ -201,6 +213,8 @@ standard output is one JSON object:
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import json
 import os
 import re
@@ -465,10 +479,11 @@ def _sass_branches(so_path, short: str) -> str:
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     from sdflib_tpu_torch.ops import (
-        exact_query, march, nearest, octree_query, row_gather, scan, walk,
+        cull, exact_query, march, nearest, octree_query, row_gather, scan, walk,
     )
 
     scan.launch_count = scan.grouped_launch_count = nearest.launch_count = 0
+    cull.launch_count = 0
     nearest.morton_launch_count = 0
     row_gather.block_launch_count = row_gather.tile_launch_count = 0
     octree_query.launch_count = march.launch_count = march.beam_launch_count = 0
@@ -483,10 +498,11 @@ def read_counts():
     captured pieces count their kernels at the warm-up run and at the
     capture; replays launch them without the wrapper."""
     from sdflib_tpu_torch.ops import (
-        exact_query, march, nearest, octree_query, row_gather, scan, walk,
+        cull, exact_query, march, nearest, octree_query, row_gather, scan, walk,
     )
 
     return {
+        "region_cull": cull.launch_count,
         "exact_finish": exact_query.finish_launch_count,
         "exact_descend": exact_query.descend_launch_count,
         "leaf_sort": exact_query.sort_launch_count,
@@ -886,6 +902,318 @@ def exact_kernels_vs_plain(sdf, pts, label, sweep: bool = False):
             "exact_sorted_gather": res["K9 window"],
             "exact_sorted_gather_grouped": res["K9 grouped"],
             "exact_finish": res["K7 distance"], "exact_finish_grad": res["K7 gradient"]}
+
+
+# -- K13, the exact build's region cull ------------------------------------------
+
+# K13's bound: flops of an anchor's squared distance in pass 1 (the frame
+# products shared by the 27 anchors), of a winner's corner distance, and of
+# an anchor of pass 2 (the distance again, the gradient and the 8 corner
+# terms; a kept slot needs one anchor at least); bytes a pair (id, valid,
+# keep, sqd_center), a touched field row, a node (its centre and count).
+FLOPS_CULL_EVAL = 34
+FLOPS_CULL_CORNER = 46
+FLOPS_CULL_PASS2 = 102
+CULL_PAIR_BYTES = 4 + 1 + 1 + 4
+CULL_ROW_BYTES = 19 * 4
+CULL_NODE_BYTES = 12 + 8
+# the builds the smoke breaks down: depth -> (torus, start depth, bucket budget)
+BUILDS = {6: (dict(nu=96, nv=48), 2, None), 7: (dict(nu=420, nv=120), 3, 8 << 30)}
+
+
+@contextlib.contextmanager
+def plain_cull():
+    """While entered, the exact build culls with the region cull's plain
+    version (``_cull_group(plain=True)``, the chunks of the parent's build)."""
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+
+    real = eo._cull_group
+    eo._cull_group = functools.partial(real, plain=True)
+    try:
+        yield
+    finally:
+        eo._cull_group = real
+
+
+class CullLog:
+    """While entered, ``_ExactBuild.cull`` counts the node groups it culls
+    and ``region_cull_plain`` its calls, on the plain route and the
+    wrapper's CPU route (``groups``, ``plain_calls``); the group with the
+    most nodes of each width in ``widths`` is kept as (centers, cand,
+    valid, half) in ``kept`` (the first of equals); with ``check`` each
+    group's K13 result is held bit-equal to the plain route's
+    (``_cull_group(plain=True)``, the chunks of the parent's build), and
+    ``checked`` counts them."""
+
+    def __init__(self, widths=(), check=False):
+        self.widths = None if widths is None else set(widths)
+        self.check = check
+        self.groups = self.plain_calls = self.checked = 0
+        self.kept = {}
+
+    def __enter__(self):
+        from sdflib_tpu_torch.ops import cull as cull_mod
+        from sdflib_tpu_torch.sdf import exact_octree as eo
+
+        self._eo, self._cull, self._plain = eo, eo._ExactBuild.cull, eo.region_cull_plain
+        self._mod = cull_mod
+        log = self
+
+        def plain(*args):
+            log.plain_calls += 1
+            return log._plain(*args)
+
+        def cull(build, group, half):
+            log.groups += 1
+            centers, cand, valid = group[:3]
+            N, K = cand.shape
+            if ((log.widths is None or K in log.widths)
+                    and (K not in log.kept or N > log.kept[K][1].shape[0])):
+                log.kept[K] = (centers, cand, valid, half)
+            out = log._cull(build, group, half)
+            if log.check:
+                eo.region_cull_plain = log._plain
+                try:
+                    want = eo._cull_group("region", build.tables, centers, cand, valid, half,
+                                          eo._chunk_rows(K, build.pair_budget), plain=True)
+                finally:
+                    eo.region_cull_plain = plain
+                _check(cull_equal(out, want), f"K13 differs from region_cull_plain on a "
+                                              f"{N} x {K} group (half {half})")
+                log.checked += 1
+            return out
+
+        eo._ExactBuild.cull, eo.region_cull_plain = cull, plain
+        cull_mod.region_cull_plain = plain
+        return self
+
+    def __exit__(self, *exc):
+        self._eo._ExactBuild.cull, self._eo.region_cull_plain = self._cull, self._plain
+        self._mod.region_cull_plain = self._plain
+        return False
+
+
+def cull_equal(got, want) -> bool:
+    """keep, counts and sqd_center bit for bit."""
+    import torch
+
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)))
+
+
+def cull_bound(cand, valid, keep) -> tuple[float, str]:
+    """K13's least time on a group (``FLOPS_CULL_*``, ``CULL_*_BYTES``):
+    every pair's bytes, each touched field row once, the nodes; pass 1 over
+    the valid pairs, the 216 corners a node, pass 2's 27 anchors for each
+    culled pair and one for each kept pair."""
+    import torch
+
+    N, K = cand.shape
+    pairs, kept = int(valid.sum()), int(keep.sum())
+    rows = int(torch.unique(cand[valid]).numel())
+    nbytes = N * K * CULL_PAIR_BYTES + rows * CULL_ROW_BYTES + N * CULL_NODE_BYTES
+    ops = (pairs * 27 * FLOPS_CULL_EVAL + N * 216 * FLOPS_CULL_CORNER
+           + ((pairs - kept) * 27 + kept) * FLOPS_CULL_PASS2)
+    return _bound(nbytes, ops)
+
+
+def cull_vs_plain(tables, group, label, plain_reps: int = 3):
+    """K13 in each form against the plain route (``_cull_group(plain=True)``)
+    on one node group: bit-equal, each form and the plain route timed (CUDA
+    events). Returns dict(err, ms (the form ``lanes_for`` picks), plain_ms,
+    bound, forms {lanes: ms}, lanes)."""
+    from sdflib_tpu_torch.ops import cull
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+
+    centers, cand, valid, half = group
+    N, K = cand.shape
+    C = eo._chunk_rows(K, 1 << 21)          # _build_exact's default pair budget
+
+    def plain():
+        return eo._cull_group("region", tables, centers, cand, valid, half, C, plain=True)
+
+    want = plain()
+    forms = {}
+    for lanes in cull.LANES:
+        _check(cull_equal(cull.region_cull(tables, centers, cand, valid, half, lanes=lanes),
+                          want), f"K13 with {lanes} lanes differs from plain ({label})")
+        forms[lanes] = _cuda_ms(lambda: cull.region_cull(tables, centers, cand, valid, half,
+                                                         lanes=lanes))
+    lanes = cull.lanes_for(K)
+    plain_ms = _cuda_ms(plain, reps=plain_reps)
+    bound = cull_bound(cand, valid, want[0])
+    rows = ", expanded rows" if cand.stride(0) == 0 else ""
+    print(f"K13 region cull vs plain ({label}, N={N}, K={K}{rows}, "
+          f"{int(valid.sum())} valid pairs, {int(want[1].sum())} kept): bit-equal in every form; "
+          + ", ".join(f"{n} lanes {ms:.4f} ms" for n, ms in forms.items())
+          + f"; picked {lanes}; plain {plain_ms:.3f} ms ({C} nodes a chunk); bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) = {bound[0] / forms[lanes]:.1%} of the picked form")
+    return dict(err=0.0, ms=forms[lanes], plain_ms=plain_ms, bound=bound, forms=forms,
+                lanes=lanes)
+
+
+def build_both_ways(dev, depth: int, sdf) -> dict:
+    """The exact build at ``depth`` (``BUILDS``) through ``_build_exact``,
+    the plain cull pinned and with K13, each timed (host clock, synchronised),
+    their octree, leaf_offset, leaf_count, tri_flat and leaf_centers
+    identical and equal to ``sdf``'s (the main path's build); then once
+    more with every group's K13 result held bit-equal to the plain route's,
+    keeping the most populous group of each width for ``cull_vs_plain``."""
+    import torch
+
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+    from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data, soa_to_torch
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    torus, start, _ = BUILDS[depth]
+    mesh = make_torus(R=0.3, r=0.12, **torus)
+    cbox = mesh.bounding_box.add_margin(0.14).cubified()
+    tris = soa_to_torch(calculate_mesh_triangle_data(mesh), dev)
+    args = (tris, cbox.min, float(cbox.size[0]), depth, start, 32)
+    out, secs = {}, {}
+    for name, pin in (("plain", plain_cull), ("K13", contextlib.nullcontext)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pin():
+            out[name] = eo._build_exact(*args)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    a, b = out["K13"], out["plain"]
+    same = (all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3])) and torch.equal(a[3], b[3])
+            and np.array_equal(a[4], b[4]))
+    _check(same, f"the d{depth} build with K13 differs from the plain cull's")
+    main = (sdf.octree_data, sdf.leaf_offset, sdf.leaf_count)
+    _check(all(np.array_equal(x, y) for x, y in zip(main, b[:3]))
+           and torch.equal(sdf.tri_flat, b[3]), f"the main path's d{depth} build differs")
+    with CullLog(widths=None, check=True) as log:
+        eo._build_exact(*args)
+    print(f"exact build d{depth} both ways (_build_exact): plain cull {secs['plain']:.3f} s, "
+          f"K13 {secs['K13']:.3f} s ({secs['plain'] / secs['K13']:.1f}x); octree, leaf_offset, "
+          f"leaf_count, tri_flat, leaf_centers identical, and the main path's too; K13 "
+          f"bit-equal to the plain route on all {log.checked} groups "
+          f"(widths {sorted(log.kept)})")
+    del out
+    return dict(plain_s=secs["plain"], k13_s=secs["K13"], groups=log.checked, kept=log.kept,
+                tables=eo.prepare_cull_inputs(tris, "region"))
+
+
+BUILD_PARTS = (("K13 region cull", ("region_cull",)),
+               ("sorts (the compactions' torch.sort)", ("sort", "Sort")),
+               ("gathers, scatters, index", ("gather", "scatter", "index", "Index")),
+               ("reductions", ("reduce", "Reduce")),
+               ("copies, fills", ("Memcpy", "Memset", "copy", "fill", "Fill")),
+               ("elementwise", ("elementwise", "vectorized", "unrolled")))
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaDeviceSynchronize")
+
+
+def build_profile_alone(depth: int, plain: int = 0, profiled: int = 1) -> None:
+    """The exact build's breakdown at ``depth`` (``BUILDS``), in a process
+    of its own (the full smoke starts one for d7 with K13): ``ExactOctreeSdf``
+    built once as the main path builds it (its wall seconds), once with
+    each phase synchronised at its ends (seconds of the cull, of
+    ``_compact_rows`` and ``_compact_leaf_rows``, of the rest of
+    ``finish``: the group's host read of its kept counts, the leaf and
+    child bookkeeping; of ``_fill_tri_flat``; of the rest of
+    ``_build_exact``; of the buckets and the rest of the entry point), and
+    with ``profiled`` once under torch.profiler (device time by kind of
+    kernel, the busy share, host time in the CUDA calls that wait). With
+    ``plain`` the cull's plain version is pinned (the parent's build)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdflib_tpu_torch import ExactOctreeSdf
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    dev = torch.device("cuda", 0)
+    torus, start, budget = BUILDS[depth]
+    mesh = make_torus(R=0.3, r=0.12, **torus)
+    box = mesh.bounding_box.add_margin(0.14)
+    label = f"d{depth} {'plain cull' if plain else 'K13'}"
+    if plain:                         # for the rest of this process
+        eo._cull_group = functools.partial(eo._cull_group, plain=True)
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdf = ExactOctreeSdf(mesh, box, max_depth=depth, start_depth=start,
+                             min_triangles_per_node=32, bucket_byte_budget=budget, device=dev)
+        torch.cuda.synchronize()
+        return sdf, time.perf_counter() - t0
+
+    sdf, wall = build()
+    leaves = sdf.num_leaves
+    del sdf
+    acc, calls = collections.defaultdict(float), collections.Counter()
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[name] += time.perf_counter() - t0
+                calls[name] += 1
+        return run
+
+    patched = [(eo, n) for n in ("_compact_rows", "_compact_leaf_rows", "_fill_tri_flat",
+                                 "_build_exact", "calculate_mesh_triangle_data")]
+    patched += [(eo._ExactBuild, "cull"), (eo._ExactBuild, "finish"),
+                (eo.ExactOctreeSdf, "_set_state")]
+    real = {(obj, n): getattr(obj, n) for obj, n in patched}
+    for (obj, n), fn in real.items():
+        setattr(obj, n, timed(n, fn))
+    _, phased = build()
+    for (obj, n), fn in real.items():
+        setattr(obj, n, fn)
+    parts = {
+        "calculate_mesh_triangle_data (host numpy)": acc["calculate_mesh_triangle_data"],
+        "cull": acc["cull"],
+        "_compact_rows": acc["_compact_rows"],
+        "_compact_leaf_rows": acc["_compact_leaf_rows"],
+        "finish's rest (host read of the kept counts, bookkeeping)":
+            acc["finish"] - acc["_compact_rows"] - acc["_compact_leaf_rows"],
+        "_fill_tri_flat": acc["_fill_tri_flat"],
+        "_build_exact's rest (levels, merges, host epilogue)":
+            acc["_build_exact"] - acc["cull"] - acc["finish"] - acc["_fill_tri_flat"],
+        "_set_state (the bucket tables, the query's tables)": acc["_set_state"],
+        "the rest of the entry point": (phased - acc["_build_exact"] - acc["_set_state"]
+                                        - acc["calculate_mesh_triangle_data"]),
+    }
+    print(f"build breakdown, {label} ({leaves} leaves): {wall:.3f} s as the main path builds it; "
+          f"{phased:.3f} s with each phase synchronised ({calls['cull']} groups, "
+          f"{calls['finish']} finishes):")
+    for name, s in parts.items():
+        print(f"    {s:.3f} s ({s / phased:.1%})  {name}")
+    if not profiled:
+        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s = build()
+    avgs = prof.key_averages()
+    on_dev = collections.defaultdict(float)
+    for e in avgs:
+        if e.device_type == DeviceType.CUDA:
+            on_dev[e.key] += e.self_device_time_total / 1e6
+    busy = sum(on_dev.values())
+    waits = sum(e.self_cpu_time_total for e in avgs if e.key in SYNC_CALLS) / 1e6
+    groups, left = collections.defaultdict(float), dict(on_dev)
+    for name, marks in BUILD_PARTS:
+        for key in [k for k in left if any(m in k for m in marks)]:
+            groups[name] += left.pop(key)
+    groups["other kernels"] = sum(left.values())
+    acts = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+    print(f"build profile, {label}: {prof_s:.3f} s under the profiler, device busy {busy:.3f} s "
+          f"({busy / prof_s:.1%}), host time in {'/'.join(SYNC_CALLS)} {waits:.3f} s "
+          f"({waits / prof_s:.1%}), {acts} device activities")
+    for name, s in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {s:.4f} s ({s / max(busy, 1e-12):.1%} of busy)  {name}")
+    for key, s in sorted(on_dev.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"      {s:.4f} s  {key[:90]}")
+    _check(busy > 0.0, f"the build's profiler session recorded no device activity ({label})")
 
 
 def morton_profile(pts, label):
@@ -3794,6 +4122,7 @@ def main() -> None:
     from sdflib_tpu_torch import ExactOctreeSdf, RealSdf
     from sdflib_tpu_torch.kernels import build
     from sdflib_tpu_torch.ops import exact_query, nearest, row_gather, scan
+    from sdflib_tpu_torch.sdf.exact_octree import prepare_cull_inputs
     from sdflib_tpu_torch.ops.point_triangle import (
         pack_triangle_fields,
         sq_dist_from_vertex_cols,
@@ -3822,7 +4151,8 @@ def main() -> None:
                   "leaf_sort_keys_kernel", "leaf_sort_pass_kernel",
                   "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
                   "walk_key_kernel", "walk_reduce_kernel", "walk_reduce_span_kernel",
-                  "walk_backward_kernel", "walk_march_kernel", "walk_march_warps_kernel"):
+                  "walk_backward_kernel", "walk_march_kernel", "walk_march_warps_kernel",
+                  "region_cull_warp_kernel", "region_cull_block_kernel"):
         lines = [(_instance(k), v) for k, v in report.items()
                  if short in k and (short.startswith("walk") or "walk_" not in k)]
         for tag, line in lines or [("", "not reported")]:
@@ -4061,9 +4391,10 @@ def main() -> None:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sdf = ExactOctreeSdf(mesh, box, max_depth=6, start_depth=2,
-                         min_triangles_per_node=32, device=dev)
-    torch.cuda.synchronize()
+    with CullLog() as log_a:
+        sdf = ExactOctreeSdf(mesh, box, max_depth=6, start_depth=2,
+                             min_triangles_per_node=32, device=dev)
+        torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cnt = sdf.leaf_count
     print(f"exact build d6: {build_s:.3f} s, leaves {sdf.num_leaves}, mean list "
@@ -4109,8 +4440,21 @@ def main() -> None:
     _check(g_bad < 5e-3, f"gradient mismatch share {g_bad}")
     print(f"launches on main path A (d6): {launches['d6']}")
     # K8 alone: the first grouped query of a padded size descends the origin
-    for name in ("nearest", "scan_window", "scan_grouped", "exact_descend", *EXACT_KERNELS):
+    for name in ("nearest", "scan_window", "scan_grouped", "exact_descend", "region_cull",
+                 *EXACT_KERNELS):
         _check(launches["d6"][name] > 0, f"{name} was not launched on path A")
+    _check(launches["d6"]["region_cull"] == log_a.groups and log_a.plain_calls == 0,
+           f"the d6 build launched K13 {launches['d6']['region_cull']} times for "
+           f"{log_a.groups} groups and the plain cull {log_a.plain_calls} times")
+    print(f"K13 on path A's build: one launch a group ({log_a.groups}), no plain cull")
+
+    # -- K13 against its plain version: the d6 build both ways, every group,
+    # each form at each width ------------------------------------------------
+    both6 = build_both_ways(dev, 6, sdf)
+    for K, group in sorted(both6["kept"].items()):
+        cull_vs_plain(both6["tables"], group, f"d6, the widest group of width {K}",
+                      plain_reps=1)
+    del both6
 
     # -- K1w against its plain version on the 2^21 bench points -------------
     k1_err, k1_ms, k1_plain_ms, (pts_s, b0, nc, visit, rows) = window_vs_plain(
@@ -4206,10 +4550,11 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bsdf = ExactOctreeSdf(big, big_box, max_depth=7, start_depth=3,
-                          min_triangles_per_node=32, bucket_byte_budget=8 << 30,
-                          device=dev)
-    torch.cuda.synchronize()
+    big_kw = dict(max_depth=7, start_depth=3, min_triangles_per_node=32,
+                  bucket_byte_budget=8 << 30, device=dev)
+    with CullLog() as log_b:
+        bsdf = ExactOctreeSdf(big, big_box, **big_kw)
+        torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cnt = bsdf.leaf_count
     print(f"exact build d7 ({big.indices.size // 3} triangles): {build_s:.3f} s, "
@@ -4233,6 +4578,30 @@ def main() -> None:
           f"{launches['d7']}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     _check(err7 <= ORACLE_TOL, f"d7 oracle max error {err7} > {ORACLE_TOL}")
+    _check(launches["d7"]["region_cull"] == log_b.groups and log_b.plain_calls == 0,
+           f"the d7 build launched K13 {launches['d7']['region_cull']} times for "
+           f"{log_b.groups} groups and the plain cull {log_b.plain_calls} times")
+    print(f"K13 on path B's build: one launch a group ({log_b.groups}), no plain cull")
+    # K13 against the plain route on the top group and the most populous one
+    # of 128 slots, the narrowest width of a build that stops at 32, kept
+    # (~0.1 GB) from a build of their own, after path B's peak was read
+    top_width = 1 << (big.indices.size // 3 - 1).bit_length()     # the start level's padded lists
+    with CullLog(widths=(top_width, 128)) as log_b:
+        ExactOctreeSdf(big, big_box, **big_kw)
+    big_tables = prepare_cull_inputs(bsdf.triangles, "region")
+    _check(set(log_b.kept) == {top_width, 128}, f"d7 kept groups of widths {sorted(log_b.kept)}")
+    kernels["region_cull"] = cull_vs_plain(big_tables, log_b.kept[top_width],
+                                           "d7, the top group")
+    narrow = log_b.kept[128]
+    depth = round(np.log2(float(big_box.cubified().size[0]) / (2 * narrow[3])))
+    cull_vs_plain(big_tables, narrow, f"d7, the most populous group of 128 slots, depth {depth}")
+    del big_tables, log_b
+    profiled = subprocess.run([sys.executable, "-c", "import chip_smoke as cs; "
+                               "cs.build_profile_alone(7)"],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+    print(profiled.stdout, end="")
+    _check(profiled.returncode == 0,
+           f"the d7 build's profiler process failed:\n{profiled.stderr[-4000:]}")
     big_tris = big_oracle.triangles
     k2_err7, _, _, _ = k2_vs_plain(bopts, big_oracle.fields, big_tris, "d7 oracle")
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2_err7)
@@ -4257,7 +4626,7 @@ def main() -> None:
         print(profiled.stdout, end="")
         _check(profiled.returncode == 0,
                f"the order's profiler process failed:\n{profiled.stderr[-4000:]}")
-    for name in ("nearest", "nearest_morton", "scan_grouped", *EXACT_KERNELS):
+    for name in ("nearest", "nearest_morton", "scan_grouped", "region_cull", *EXACT_KERNELS):
         _check(launches["d7"][name] > 0, f"{name} was not launched on path B")
     row = []
     for impl, name in (("xla", "grouped"), ("xla_window", "window")):
@@ -4394,6 +4763,8 @@ def main() -> None:
                         "sdflib_tpu/diff/query.py:108"),
         "walk_march": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                        "sdflib_tpu/render/sphere_trace.py:251"),
+        "region_cull": ("sdflib_tpu_torch/csrc/region_cull.cu",
+                        "sdflib_tpu/sdf/exact_octree.py:160"),
     }
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

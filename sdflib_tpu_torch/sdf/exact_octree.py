@@ -4,11 +4,13 @@ Port of the JAX package's ``sdf/exact_octree.py`` (reference:
 ExactOctreeSdf.h:35-218, ExactOctreeSdf.cpp:7-320):
 
 * Build: a level loop over node groups. Each group's candidate lists are
-  culled by the named strategy in chunks of (C, K) pairs: "region" (the
-  per-node-region influence test, the reference's default
-  PerNodeRegionTrianglesInfluence role, ``_region_cull_chunk``),
+  culled by the named strategy: "region" (the per-node-region influence
+  test, the reference's default PerNodeRegionTrianglesInfluence role; on a
+  CUDA device one launch of kernel K13 a group, ``ops/cull.py``
+  ``region_cull``, else ``region_cull_plain`` in chunks of (C, K) pairs),
   "lattice", "basic", "precise" or "per_vertex" (the reference's other
-  influence strategies; the last three through ``ops.gjk``). Nodes at
+  influence strategies in plain torch, in chunks; the last three through
+  ``ops.gjk``). Nodes at
   ``min_triangles_per_node``, ``max_depth`` or the futility ratio become
   leaves whose lists are sorted by distance to the leaf centre; the rest
   subdivide. Leaf lists are stored CSR-style in ``tri_flat``, each span
@@ -46,6 +48,15 @@ import numpy as np
 import torch
 
 from ..mesh import BoundingBox, Mesh
+from ..ops.cull import (
+    _CORNER_OFFS,
+    _F32_SQRT3,
+    _LATTICE_OFFS,
+    _f32,
+    cull_in_chunks,
+    region_cull,
+    region_cull_plain,
+)
 from ..ops.exact_query import (
     exact_descend,
     exact_finish_plain,
@@ -62,7 +73,6 @@ from ..ops.gjk import box_triangle_distance, corner_sphere_hull_tri_lower
 from ..ops.point_triangle import (
     NUM_PACKED_FIELDS,
     pack_triangle_fields,
-    sq_dist_and_grad_from_field_fn,
     sq_dist_from_field_fn,
 )
 from ..ops.scan import (
@@ -79,19 +89,6 @@ from .octree_builder import CHILDREN_INDEX_MASK, IS_LEAF_MASK, _round_pow2
 from .sdf_function import SdfFormat, SdfFunction, resolve_device
 
 __all__ = ["ExactOctreeSdf"]
-
-# 8 cube corners in {-1,1}^3 (units of the node half size).
-_CORNER_OFFS = np.array(
-    [[(c & 1) * 2 - 1, ((c >> 1) & 1) * 2 - 1, ((c >> 2) & 1) * 2 - 1]
-     for c in range(8)],
-    np.float32,
-)
-# 27 half-step lattice anchors in {-1,0,1}^3; anchor 13 is the centre.
-_LATTICE_OFFS = np.array(
-    [[i, j, k] for k in (-1, 0, 1) for j in (-1, 0, 1) for i in (-1, 0, 1)],
-    np.float32,
-)
-_F32_SQRT3 = np.sqrt(np.float32(3.0))
 
 _LEAF_CHUNK = 64      # slots per bucket row; CSR spans pad to a multiple
 _SLAB_ROWS = 256      # tri_flat pads to whole slabs, as the JAX build does
@@ -112,73 +109,6 @@ _QUERY_BLOCK = 1 << 17   # the JAX package's padding unit for large batches
 _SCAN_IMPLS = {"xla": "grouped", "pallas": "grouped",
                "xla_window": "window", "pallas_window": "window"}
 _BUCKET_FORMATS = ("auto", "vertex9", "frame19")
-
-
-def _f32(x) -> float:
-    """A Python float holding the float32 rounding of ``x``."""
-    return float(np.float32(x))
-
-
-def _region_cull_chunk(tables, centers, cand_idx, cand_valid, half):
-    """Per-node-region influence cull of one (C, K) chunk.
-
-    At each of the 27 half-step anchors l of a node, with sub-cube corner
-    offsets q, keep candidate t iff
-
-        min over the 8 corners q of [d_t(l) + g_t(l).(q - l) - d_b(q)] <= eps
-
-    where b is the anchor's nearest candidate and g_t the gradient of the
-    unsigned distance, or when d_t(l) lies within the sub-cube radius. The
-    tangent under-estimates the convex d_t and the trilinear corner
-    interpolation over-estimates d_b, so every possible winner inside the
-    sub-cube survives (see the JAX package's docstring). The gradient is
-    computed analytically as 2 (p - proj) / (2 d), branch by branch of the
-    region ladder.
-
-    ``tables`` holds the (T, 19) field table and its transpose. Returns
-    (keep (C, K) bool, kept counts (C,), squared distance to the node
-    centre (C, K), the leaf-list sort key)."""
-    idx = cand_idx.long()
-    cols = [tables.packed_t[r][idx] for r in range(tables.packed_t.shape[0])]
-    px, py, pz = centers[:, 0:1], centers[:, 1:2], centers[:, 2:3]
-    qh = _f32(np.float32(0.5) * np.float32(half))
-    s = _f32(_F32_SQRT3 * np.float32(qh))
-    eps = _f32(np.float32(2e-3) * np.float32(half))
-    near = _f32(np.float32(s) + np.float32(eps))
-    offs = _LATTICE_OFFS * np.float32(half)
-    q = torch.as_tensor(_CORNER_OFFS * np.float32(qh), device=centers.device)
-
-    keep = torch.zeros(cand_idx.shape, dtype=torch.bool, device=centers.device)
-    sqd_center = None
-    for l in range(27):
-        ox, oy, oz = (float(v) for v in offs[l])
-        lx, ly, lz = px + ox, py + oy, pz + oz                    # (C, 1)
-        sqd, gx2, gy2, gz2 = sq_dist_and_grad_from_field_fn(
-            lx, ly, lz, lambda r: cols[r]
-        )
-        sqd = torch.where(cand_valid, sqd, torch.inf)
-        if l == 13:
-            sqd_center = sqd
-        d_l = sqd.sqrt()
-        inv = 0.5 / d_l.clamp_min(1e-20)
-        gx, gy, gz = gx2 * inv, gy2 * inv, gz2 * inv
-
-        # the anchor's nearest candidate, evaluated at the 8 corners
-        b = idx.gather(1, sqd.argmin(dim=1, keepdim=True))[:, 0]
-        fb = tables.packed[b]                                     # (C, 19)
-        d_b = sq_dist_from_field_fn(
-            lx + q[:, 0], ly + q[:, 1], lz + q[:, 2], lambda r: fb[:, r : r + 1]
-        ).sqrt()                                                  # (C, 8)
-        phi = (
-            d_l[..., None]
-            + gx[..., None] * q[:, 0]
-            + gy[..., None] * q[:, 1]
-            + gz[..., None] * q[:, 2]
-            - d_b[:, None, :]
-        )                                                         # (C, K, 8)
-        keep |= (phi.amin(dim=-1) <= eps) | (d_l <= near)
-    keep &= cand_valid
-    return keep, keep.sum(dim=1), sqd_center
 
 
 def _lattice_cull_chunk(tables, centers, cand_idx, cand_valid, half):
@@ -325,7 +255,7 @@ def _precise_cull_chunk(tables, centers, cand_idx, cand_valid, half):
 
 _CULL_CHUNKS = {
     "lattice": _lattice_cull_chunk,
-    "region": _region_cull_chunk,
+    "region": region_cull,
     "basic": _basic_cull_chunk,
     "precise": _precise_cull_chunk,
     "per_vertex": _per_vertex_cull_chunk,
@@ -364,22 +294,22 @@ def prepare_cull_inputs(tris: TriangleDataSoA, strategy: str):
 def cull_chunk(strategy: str, tables: CullTables, centers, cand_idx, cand_valid, half):
     """One (C, K) chunk of a strategy's cull: (keep (C, K), kept counts
     (C,), squared distance to the node centre (C, K), the leaf-list sort
-    key)."""
+    key). "region" launches K13 for CUDA tensors."""
     return _CULL_CHUNKS[strategy](tables, centers, cand_idx, cand_valid, half)
 
 
-def _cull_group(strategy, tables, centers, cand, valid, half, C):
-    """A strategy's cull of a node group, in chunks of C nodes (the
-    precise cull's pair state carries a region factor, so its chunks
-    shrink by it)."""
+def _cull_group(strategy, tables, centers, cand, valid, half, C, plain=False):
+    """A strategy's cull of a node group: "region" through K13's wrapper
+    (one launch over the whole group on a CUDA device, chunks of C nodes
+    of the plain version on the CPU) unless ``plain`` pins the plain
+    version; the other strategies in chunks of C nodes (the precise cull's
+    pair state carries a region factor, so its chunks shrink by it)."""
+    if strategy == "region" and not plain:
+        return region_cull(tables, centers, cand, valid, half, rows=C)
+    fn = region_cull_plain if strategy == "region" else _CULL_CHUNKS[strategy]
     if strategy == "precise":
         C = max(8, C // _PRECISE_MAX_REGIONS)
-    parts = [
-        cull_chunk(strategy, tables, centers[i : i + C], cand[i : i + C],
-                   valid[i : i + C], half)
-        for i in range(0, centers.shape[0], C)
-    ]
-    return tuple(torch.cat(x) for x in zip(*parts))
+    return cull_in_chunks(fn, C, tables, centers, cand, valid, half)
 
 
 def _compact_rows(idx_rows, keep_rows):
@@ -395,6 +325,12 @@ def _compact_leaf_rows(sqd_center, idx_rows, keep_rows):
     key = torch.where(keep_rows, sqd_center, torch.inf)
     order = torch.sort(key, dim=1, stable=True).indices
     return idx_rows.gather(1, order)
+
+
+def _chunk_rows(K: int, pair_budget: int) -> int:
+    """The nodes of K slots in a chunk of the plain culls: about half
+    ``pair_budget`` pairs, at least 8."""
+    return max(8, _round_pow2(max(1, pair_budget // max(K, 1)), 1) // 2)
 
 
 class _ExactBuild:
@@ -422,10 +358,12 @@ class _ExactBuild:
         }
 
     def cull(self, group, half):
-        """Enqueue the cull of a group (no host sync)."""
+        """Enqueue the cull of a group (no host sync). ``cull_shapes``
+        counts the (C, K) chunks of the plain version, as the JAX package
+        reports them, also where K13 culls the group in one launch."""
         centers, cand, valid, _, _ = group
         N, K = cand.shape
-        C = max(8, _round_pow2(max(1, self.pair_budget // max(K, 1)), 1) // 2)
+        C = _chunk_rows(K, self.pair_budget)
         key = f"{C}x{K}"
         shapes = self.stats["cull_shapes"]
         shapes[key] = shapes.get(key, 0) + -(-N // C)
@@ -511,6 +449,26 @@ def _split_groups(groups, entry_budget):
             slices[-1].append(part)
             acc += (j - i) * K
     return [s for s in slices if s]
+
+
+def _fill_tri_flat(leaf_chunks, leaf_offset, total: int, device):
+    """The CSR candidate array (total,) int32: each leaf's kept ids at its
+    offset, -1 elsewhere."""
+    tri_flat = torch.full((total,), -1, dtype=torch.int32, device=device)
+    row0 = 0
+    for ids, cnt in leaf_chunks:
+        Lg, w = ids.shape
+        off = torch.as_tensor(leaf_offset[row0 : row0 + Lg], device=device).long()
+        n = torch.as_tensor(cnt, device=device)
+        strip = max(1, (1 << 26) // max(w, 1))   # bounds the (rows, w) positions
+        lanes = torch.arange(w, device=device)
+        for s0 in range(0, Lg, strip):
+            s1 = min(s0 + strip, Lg)
+            mask = lanes[None, :] < n[s0:s1, None]
+            pos = off[s0:s1, None] + lanes[None, :]
+            tri_flat[pos[mask]] = ids[s0:s1][mask]
+        row0 += Lg
+    return tri_flat
 
 
 def _build_exact(
@@ -641,20 +599,7 @@ def _build_exact(
         leaf_offset[: len(counts)] = np.concatenate([[0], np.cumsum(spans)[:-1]])
         leaf_count[: len(counts)] = counts
 
-    tri_flat = torch.full((total,), -1, dtype=torch.int32, device=device)
-    row0 = 0
-    for ids, cnt in b.leaf_chunks:
-        Lg, w = ids.shape
-        off = torch.as_tensor(leaf_offset[row0 : row0 + Lg], device=device).long()
-        n = torch.as_tensor(cnt, device=device)
-        strip = max(1, (1 << 26) // max(w, 1))   # bounds the (rows, w) positions
-        lanes = torch.arange(w, device=device)
-        for s0 in range(0, Lg, strip):
-            s1 = min(s0 + strip, Lg)
-            mask = lanes[None, :] < n[s0:s1, None]
-            pos = off[s0:s1, None] + lanes[None, :]
-            tri_flat[pos[mask]] = ids[s0:s1][mask]
-        row0 += Lg
+    tri_flat = _fill_tri_flat(b.leaf_chunks, leaf_offset, total, device)
     leaf_centers = (
         np.concatenate(b.leaf_centers) if b.leaf_centers
         else np.zeros((L, 3), np.float32)
