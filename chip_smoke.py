@@ -115,6 +115,13 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   without a beam; then a 512^2 camera frame in sdf_render's defaults
   shaded five ways (written as PNGs to a temporary directory) and a 512^2
   plane cut;
+* path D on the walk (``walk_frame_path``): path C's octree saved and
+  loaded with no query grid, one graph a frame of K14's rounds, K15's
+  prepass and K10's normals, held bit-equal to the earlier eager route
+  (torch trips over K10) and to the all-torch plain frame (hit masks on
+  >= 99.9%, q99 of |depth diff| <= 1e-4 of the box), K14 and K15 held
+  the same two ways (``walk_segments_vs_plain``), and the C++ SdfLib's
+  two ``.bin`` files through the same route;
 * main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the bench
   torus (128^3 corners) by BASIC init (K2 over every corner) and by
   OCTREE init (K1 through a depth-6 exact octree), the two held to each
@@ -491,6 +498,7 @@ def reset_counts():
     exact_query.gather_launch_count = exact_query.sort_launch_count = 0
     walk.launch_count = walk.backward_launch_count = walk.march_launch_count = 0
     walk.key_launch_count = walk.sort_launch_count = walk.reduce_launch_count = 0
+    walk.segment_launch_count = walk.beam_launch_count = 0
 
 
 def read_counts():
@@ -522,6 +530,8 @@ def read_counts():
         "walk_sort": walk.sort_launch_count,
         "walk_reduce": walk.reduce_launch_count,
         "walk_march": walk.march_launch_count,
+        "walk_segment": walk.segment_launch_count,
+        "walk_beam": walk.beam_launch_count,
     }
 
 
@@ -1283,8 +1293,8 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None,
     of a session the profiler can miss the first call's first activities
     (at d7 2^20 about 10 of the query's 33, which read as 29 a call). On
     an H100 a profiler session now and then records no device activity
-    at all, torch's own kernels included: such a session is profiled
-    again, up to ``PROFILE_TRIES`` sessions in all."""
+    at all, torch's own kernels included, or only some of one call's: such
+    a session is profiled again, up to ``PROFILE_TRIES`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1304,9 +1314,10 @@ def breakdown(fn, label, top=6, counts=None, device_ms=None, activities=None,
         # a warm session's step annotations span whole calls: no activity
         avgs = [e for e in avgs if not e.key.startswith("ProfilerStep")]
         on_dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
-        if on_dev:
+        if sum(e.count for e in on_dev) >= 3:
             break
-        print(f"breakdown, {label}: the profiler session recorded no device activity")
+        print(f"breakdown, {label}: the profiler session recorded less than one device "
+              f"activity a call")
     dev_us = collections.defaultdict(float)      # a name may head several rows
     for e in on_dev:
         dev_us[e.key] += e.self_device_time_total / 3
@@ -1860,12 +1871,18 @@ def approx_path(dev, root: str, n_query: int):
     return launches, k2, k4
 
 
-def approx_profile(n_query: int) -> None:
+def approx_profile(n_query: int, n_rays: int = 1024) -> None:
     """Path C's busy share, in a process of its own (``approx_path`` starts
     one): path C's no_continuity octree and its grids built on the card,
     then ``get_distance`` and ``get_distance_and_gradient`` on ``n_query``
     uniform points (seed 1) broken down by the profiler. Inside the full
-    smoke the profiler records no device activity for K4's launches."""
+    smoke the profiler records no device activity for K4's launches. Then
+    the walk frame's (``walk_frame_profile``) on the same octree saved
+    before its grids and loaded with no grid, ``n_rays``^2 rays: a
+    process of the profiler's costs the smoke ~20 s, so the two share
+    one."""
+    import tempfile
+
     import torch
 
     from sdflib_tpu_torch import OctreeSdf
@@ -1876,6 +1893,9 @@ def approx_profile(n_query: int) -> None:
     box = mesh.bounding_box.add_margin(0.14)
     sdf = OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
                     init_algorithm="no_continuity", device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    path = os.path.join(tmp, "approx_d6.npz")
+    sdf.save(path)
     sdf.build_query_grid()
     pts = _uniform(box, n_query, 1, dev)
     for label, fn in (("get_distance", lambda: sdf.get_distance(pts)),
@@ -1883,6 +1903,11 @@ def approx_profile(n_query: int) -> None:
         _, busy_ms, acts = breakdown(fn, f"approx {label} d6 {n_query} points, grid route "
                                          f"(a process of its own)", top=8)
         _check(acts > 0 and busy_ms > 0.0, f"the profiler saw no device activity ({label})")
+    del sdf, pts
+    try:
+        walk_frame_profile(path, n_rays)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _ortho_rays(n: int, dev):
@@ -2248,6 +2273,476 @@ def trace_path(dev, n_rays: int):
     torch.cuda.empty_cache()
     return launches, segments
 
+
+# A beam trip of K15 counted as a K12 trip (the walk, the value, the step)
+# and the radius, the division and the tests: ~320 flops.
+FLOPS_WALK_BEAM_TRIP = 320
+
+
+def _eager_parent_frame(sdf, origins, dirs, kw):
+    """One frame on the parent commit's walk route, patched in: torch trips
+    over K10's distance (one K10 launch, ~10 elementwise kernels and a host
+    sync every 16 trips), so the frame runs eagerly, keyed apart. Returns
+    (result, ms by CUDA events, stats)."""
+    import importlib
+    from functools import partial
+
+    import torch
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    real, stats = st._route, {}
+
+    def parent_route(octree, eps):
+        r = real(octree, eps)
+        if r.march.func is not ow.walk_segment:
+            return r
+        w = r.march.args[0]
+        return r._replace(march=partial(ow.walk_segment_plain, w, query=ow.walk_query),
+                          beam=partial(ow.walk_beam_plain, w, query=ow.walk_query),
+                          kernel=False, key=r.key + ("parent",))
+
+    st._route = parent_route
+    try:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = st.trace_octree(sdf, origins, dirs, stats_out=stats, **kw)
+        end.record()
+        end.synchronize()
+    finally:
+        st._route = real
+    return res, start.elapsed_time(end), stats
+
+
+def _same_but_infinite(a, b) -> tuple[bool, int]:
+    """Whether two traces are bit-equal on every field at the rays whose
+    positions are finite in both, and how many rays are not."""
+    import torch
+
+    ok = torch.isfinite(a.position).all(-1) & torch.isfinite(b.position).all(-1)
+    same = all(torch.equal(x[ok], y[ok]) for x, y in zip(a, b))
+    return same, int((~ok).sum())
+
+
+def walk_segments_vs_plain(sdf, origins, dirs, kw):
+    """K15 and K14 against their plain versions in the frame's forms on
+    the walk: the beam prepass (its 256 trips of every beam) in one K15
+    launch from the frame's setup, then the first round's 8 trips of every
+    ray in one K14 launch from its start. Each is held bit-equal to its
+    plain version over K10's distance (the parent's eager trips), but for
+    rays whose position turns infinite, and to its plain version over the
+    plain walk, all torch (active flags and trip counts agree on >= 99.9%,
+    q99 of |depth diff| <= 1e-4 of the box, as K12 is held), and timed from
+    the same start state beside the latter and its bound: the state read
+    and written once, the words and rows the live rays touch, trip by trip,
+    each once, and ~310 flops a useful trip. Returns {"walk_beam": ...,
+    "walk_segment": ...}, each (max |depth diff| against the all-torch
+    plain version on the rays with finite positions, ms, plain ms,
+    bound)."""
+    import importlib
+
+    import torch
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    R = origins.shape[0] * origins.shape[1]
+    frame = st._Frame(sdf, origins.shape, R, R, R, beam=4, graphs=False, **kw)
+    frame.o_in.copy_(origins.reshape(-1, 3))
+    frame.d_in.copy_(dirs.reshape(-1, 3))
+    frame.live_in.fill_(1.0)
+    frame._setup()
+    walk = sdf._walk()
+    box = float(np.float32(sdf.box.size[0]))
+
+    def restorer(bufs, start):
+        def restore():
+            for b, x in zip(bufs, start):
+                b.copy_(x)
+        return restore
+
+    def run(name, kernel, plain, bufs, consts, trips, state_bytes, flops, act):
+        start = [b.clone() for b in bufs]
+        ref = [b.clone() for b in start]
+        live_pts, useful = [], 0
+        for _ in range(trips):       # the parent's trips one by one: the touched walks
+            live = ref[act] > 0
+            if not bool(live.any()):
+                break
+            live_pts.append(ref[0][live])
+            useful += int(live.sum())
+            plain(walk, *ref, *consts, 1, query=ow.walk_query)
+        got = [b.clone() for b in start]
+        kernel(walk, *got, *consts, trips)
+        ok = torch.isfinite(got[0]).all(-1) & torch.isfinite(ref[0]).all(-1)
+        same = all(torch.equal(a[ok], b[ok]) for a, b in zip(got, ref))
+        _check(same, f"{name} departs from its plain version over K10's distance")
+        restore = restorer(bufs, start)
+        ms = _cuda_ms_prep(restore, lambda: kernel(walk, *bufs, *consts, trips))
+        # the plain version over the plain walk, all torch, from the start
+        plain_ms = _cuda_ms_prep(restore, lambda: plain(walk, *bufs, *consts, trips), reps=1)
+        fin = torch.isfinite(got[0]).all(-1) & torch.isfinite(bufs[0]).all(-1)
+        dd = (got[1][fin] - bufs[1][fin]).abs()
+        d_err, q99 = float(dd.max()), float(torch.quantile(dd, 0.99))
+        agree = float((got[act][fin] == bufs[act][fin]).float().mean())
+        its_eq = float((got[4] == bufs[4]).float().mean()) if len(bufs) == 5 else 1.0
+        _check(agree >= 0.999 and its_eq >= 0.999,
+               f"{name}: active flags agree with the all-torch plain version on {agree:.4%}, "
+               f"trip counts on {its_eq:.4%}")
+        _check(q99 <= 1e-4 * box, f"{name}: q99 |depth diff| {q99} against the all-torch plain "
+               f"version above 1e-4 of the box")
+        n = bufs[0].shape[0]
+        words, rows = _walk_touched(walk, torch.cat(live_pts))
+        touched = 4 * words + 4 * walk.num_coeff * rows
+        bound = _bound(n * state_bytes + touched, useful * flops)
+        print(f"{name} vs plain ({n} rays, {trips} trips in one launch, {useful} useful trips, "
+              f"{touched} B of words and rows touched): bit-equal to the parent's trips over "
+              f"K10 on the {int(ok.sum())} rays with finite positions ({int((~ok).sum())} "
+              f"not); against the all-torch plain version on the {int(fin.sum())} rays with "
+              f"finite positions: active flags agree on {agree:.6%}, trip counts on "
+              f"{its_eq:.6%}, |depth diff| q99 {q99:.3e} (allowance {1e-4 * box:.3e}), max "
+              f"{d_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
+              f"({bound[1]}) = {bound[0] / ms:.1%} of the kernel's time")
+        restore()
+        kernel(walk, *bufs, *consts, trips)
+        return d_err, ms, plain_ms, bound
+
+    beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
+    beam_consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
+    out = {"walk_beam": run("K15 walk_beam", ow.walk_beam, ow.walk_beam_plain, beam_bufs,
+                            beam_consts, st._BEAM_ITERS, BEAM_STATE_BYTES,
+                            FLOPS_WALK_BEAM_TRIP, 2)}
+    frame._start()
+    bufs = [frame.pos, frame.acc, frame.last_d, frame.active, frame.its]
+    consts = (frame.dirs, frame.eps_w, frame.far_w)
+    first = frame.schedule[0][0]
+    out["walk_segment"] = run("K14 walk_segment", ow.walk_segment, ow.walk_segment_plain, bufs,
+                              consts, first, MARCH_STATE_BYTES, FLOPS_WALK_TRIP, 3)
+    del frame
+    return out
+
+
+def walk_frame_profile(path: str, n_rays: int) -> None:
+    """The walk frame's busy share, host syncs and graph launches under the
+    profiler, in a process of its own (``approx_profile``'s): the
+    container at ``path`` loaded with no grid, ``n_rays``^2 rays."""
+    import torch
+
+    from sdflib_tpu_torch import SdfFunction
+    from sdflib_tpu_torch.render import trace_octree
+
+    dev = torch.device("cuda", 0)
+    sdf = SdfFunction.load(path, device=dev)
+    origins, dirs = _ortho_rays(n_rays, dev)
+    kw = dict(eps=1e-5, far=4.0, max_iters=1024)
+    trace_octree(sdf, origins, dirs, **kw)           # captures the frame's graph
+    counts = {SYNC_EVENTS: 0, GRAPH_LAUNCH_EVENTS: 0}
+    kernel_ms = {"walk_segment": 0.0, "walk_beam": 0.0, "walk_query": 0.0}
+    ev_ms, busy_ms, acts = breakdown(lambda: trace_octree(sdf, origins, dirs, **kw),
+                                     f"walk frame d6 {n_rays}^2 rays, a graph (a process of "
+                                     f"its own)", top=8, counts=counts, device_ms=kernel_ms)
+    _check(acts > 0 and busy_ms > 0.0, "the profiler saw no device activity (walk frame)")
+    print(f"walk frame under the profiler: {ev_ms:.4f} ms a frame, busy {busy_ms:.4f} ms "
+          f"({busy_ms / ev_ms:.1%}); host syncs {counts[SYNC_EVENTS]:.0f}, graph launches "
+          f"{counts[GRAPH_LAUNCH_EVENTS]:.0f} a frame; device ms a frame: K14 "
+          f"{kernel_ms['walk_segment']:.4f}, K15 {kernel_ms['walk_beam']:.4f}, K10 (normals) "
+          f"{kernel_ms['walk_query']:.4f}")
+    _check(counts[SYNC_EVENTS] == 0 and counts[GRAPH_LAUNCH_EVENTS] == 1,
+           f"the profiler saw {counts[SYNC_EVENTS]} host syncs and "
+           f"{counts[GRAPH_LAUNCH_EVENTS]} graph launches a walk frame")
+
+
+def walk_frame_path(dev, root: str, n_rays: int):
+    """Path D on the walk: path C's d6 no_continuity octree saved to an
+    ``.npz`` and loaded with no query grid, as ``sdf_render`` loads a
+    container, traced at bench.py's n_rays^2 rays (beam 4, eps 1e-5, far
+    4, 1,024 trips). The counts run from the load to the first frame,
+    which captures the frame's one CUDA graph; a second frame replays it
+    with one launch, no host sync. The frame is held to the parent's route
+    (torch trips over K10, eager, once) bit for bit but for rays whose
+    position turns infinite, and timed (CUDA events, best of 3) beside it,
+    and to the all-torch plain frame (``_plain``: hit masks on >= 99.9%,
+    q99 of |depth diff| <= 1e-4 of the box); K15 and K14 against their plain
+    versions in the frame's forms (``walk_segments_vs_plain``) (its busy
+    share: ``walk_frame_profile``, in path C's profiler process); then the C++
+    SdfLib's ``octree_torus_cpp.bin`` (aligned) and its builder's
+    ``builders_octree_nc.bin`` (rows at any word) at 512^2 camera rays,
+    each graph frame against the parent's eager frame. Returns (the path's launch
+    counts, the segments' checks)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf, SdfFunction
+    from sdflib_tpu_torch.io.sdflib_binary import load_sdflib_bin
+    from sdflib_tpu_torch.render import Camera, trace_octree
+    from sdflib_tpu_torch.render.sphere_trace import _trace
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    t_path = time.perf_counter()
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(0.14)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_walk_")
+    path = os.path.join(tmp, "approx_d6.npz")
+    OctreeSdf(mesh, box, max_depth=6, start_depth=2, termination_threshold=1e-3,
+              init_algorithm="no_continuity", device=dev).save(path)
+    origins, dirs = _ortho_rays(n_rays, dev)
+    R = n_rays * n_rays
+    kw = dict(eps=1e-5, far=4.0, max_iters=1024)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdf = SdfFunction.load(path, device=dev)
+    _check(sdf._query_grid is None and sdf._fat_grid is None and sdf._fast_layout,
+           "the loaded container has a query grid or a foreign layout")
+    stats = {}
+    res = trace_octree(sdf, origins, dirs, stats_out=stats, **kw)     # captures the graph
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"walk frame path: the .npz loaded and the first frame traced in {first_s:.3f} s "
+          f"(host clock, the warm-up run and the capture included); launches: {launches}")
+    for name in ("walk_segment", "walk_beam", "walk_query"):
+        _check(launches[name] > 0, f"{name} was not launched on the walk frame path")
+    for name in ("march", "beam", "octree_query"):
+        _check(launches[name] == 0, f"{name} was launched on the walk route")
+    _check(stats["graphs_captured"] == 1 and stats["host_syncs"] == 0,
+           f"the walk frame captured {stats['graphs_captured']} graphs with "
+           f"{stats['host_syncs']} host syncs")
+    again = {}
+    res2 = trace_octree(sdf, origins, dirs, stats_out=again, **kw)
+    _check(again["graphs_captured"] == 0 and again["graphs_replayed"] == 1
+           and again["host_syncs"] == 0, f"the second walk frame did not replay: {again}")
+    eager = _trace(sdf, origins, dirs, block_size=None, beam=4, pyramid=True, stats_out=None,
+                   active=None, graphs=False, **kw)
+    same = [torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(res, res2, eager)]
+    _check(all(same), f"the walk graph frame departs from its eager schedule: {same}")
+    hit = res.hit
+    n_hit, trips = int(hit.sum()), int(res.iterations.sum(dtype=torch.int64))
+    _check(res.depth.shape == (n_rays, n_rays) and bool(torch.isfinite(res.depth).all())
+           and bool(torch.isfinite(res.normal[hit]).all()) and 0 < n_hit < R,
+           f"walk frame outputs: {n_hit} hits of {R}, not all finite")
+    graph_ms = _cuda_ms(lambda: trace_octree(sdf, origins, dirs, **kw))
+
+    parent, parent_ms, pstats = _eager_parent_frame(sdf, origins, dirs, kw)
+    ok, bad = _same_but_infinite(res, parent)
+    print(f"walk frame d6 {n_rays}^2 rays (beam 4, no grid): graph {graph_ms:.4f} ms a frame "
+          f"(CUDA events, best of 3), {again['host_syncs']} host syncs, "
+          f"{again['graphs_replayed']} graph launch, {stats['marched_ray_trips']} ray-trips "
+          f"offered, {trips} useful; the parent's route (torch trips over K10, eager, once) "
+          f"{parent_ms:.4f} ms, {pstats['host_syncs']} host syncs, "
+          f"{pstats['graphs_replayed']} graph launches, {pstats['marched_ray_trips']} "
+          f"ray-trips offered ({parent_ms / graph_ms:.1f}x); hits {n_hit}; the two bit-equal "
+          f"by field but for {bad} rays whose position turns infinite: {ok}")
+    _check(ok, "the walk graph frame departs from the parent's eager frame")
+    del res2, eager, parent
+
+    # the frame on the plain versions over the plain walk, all torch
+    # (eager, once), held as K12 is: hit masks on >= 99.9%, q99 of |depth
+    # diff| on common hits <= 1e-4 of the box
+    box = float(np.float32(sdf.box.size[0]))
+    sdf._plain = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = trace_octree(sdf, origins, dirs, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        sdf._plain = False
+    agree = float((plain.hit == hit).float().mean())
+    both = plain.hit & hit
+    dd = (plain.depth[both] - res.depth[both]).abs()
+    q99, dmax = float(torch.quantile(dd, 0.99)), float(dd.max())
+    print(f"walk graph frame against the all-torch plain frame ({plain_s * 1e3:.3f} ms, host "
+          f"clock, eager, once): hit masks agree on {agree:.6%}, |depth diff| on "
+          f"{int(both.sum())} common hits q99 {q99:.3e} (allowance {1e-4 * box:.3e}), max "
+          f"{dmax:.3e}; iterations equal on "
+          f"{float((plain.iterations == res.iterations).float().mean()):.6%}")
+    _check(agree >= 0.999, f"walk graph and all-torch plain frames' hit masks agree on "
+           f"{agree:.4%}")
+    _check(q99 <= 1e-4 * box, f"walk graph and all-torch plain frames' depths differ, q99 {q99}")
+    del plain, dd
+    torch.cuda.synchronize(dev)
+    st._FRAMES.frames.clear()
+
+    t0 = time.perf_counter()
+    segments = walk_segments_vs_plain(sdf, origins, dirs, kw)
+    t_seg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the C++ SdfLib's own files: its octree (aligned) and its builder's
+    # output (rows at any word)
+    layouts = []
+    for name in ("octree_torus_cpp.bin", "builders_octree_nc.bin"):
+        gold = load_sdflib_bin(os.path.join(root, GOLDEN, name), device=dev)
+        layouts.append(gold._fast_layout)
+        area = gold.get_sample_area()
+        center = np.asarray(area.center, np.float64)
+        cam = Camera(position=center + np.array([0.6, 0.45, 0.9])
+                     * float(np.linalg.norm(area.size)), target=center, fov_y_deg=45.0)
+        co, cd = (torch.as_tensor(a, device=dev) for a in cam.rays(512, 512))
+        gstats = {}
+        cpp = trace_octree(gold, co, cd, stats_out=gstats, **kw)
+        cpp_ms = _cuda_ms(lambda: trace_octree(gold, co, cd, **kw))
+        cpp_parent, cpp_parent_ms, _ = _eager_parent_frame(gold, co, cd, kw)
+        ok, bad = _same_but_infinite(cpp, cpp_parent)
+        share, p_share = float(cpp.hit.float().mean()), float(cpp_parent.hit.float().mean())
+        print(f"walk frame, C++ {name} ({'aligned' if gold._fast_layout else 'word by word'}) "
+              f"512^2 camera rays: graph {cpp_ms:.4f} ms ({gstats['graphs_captured']} captured, "
+              f"{gstats['host_syncs']} host syncs), hit share {share:.6%}; the parent's eager "
+              f"frame {cpp_parent_ms:.4f} ms, hit share {p_share:.6%}; bit-equal but for {bad} "
+              f"rays whose position turns infinite: {ok}")
+        _check(ok and share == p_share and 0.0 < share < 1.0,
+               f"the walk frame of {name} departs from the parent's")
+    _check(layouts == [True, False], f"the C++ files' layouts {layouts}")
+    del sdf, res, gold, cpp, cpp_parent
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize(dev)
+    st._FRAMES.frames.clear()
+    torch.cuda.empty_cache()
+    print(f"walk frame path took {time.perf_counter() - t_path:.1f} s: the segments "
+          f"{t_seg:.1f} s, the C++ files {time.perf_counter() - t0:.1f} s (its profile runs "
+          f"in path C's profiler process)")
+    return launches, segments
+
+
+
+WALK_AB_FRAME_REPS = 10
+WALK_AB_RENDERS = 3
+
+
+def walk_frame_ab(parent: str, pairs: int = 2) -> None:
+    """The walk frame and ``sdf_render`` timed in two checkouts of the
+    port, in turns, on one card: ``python3 -c "import chip_smoke as cs;
+    cs.walk_frame_ab('PARENT')"`` from this checkout, PARENT another (for
+    example a ``git archive`` of the parent commit, unpacked). A first
+    process builds path C's octree (the bench torus, d6, no_continuity)
+    and saves it as an ``.npz``, and exports the torus, written as a
+    binary PLY, with ``sdf_export`` at the CLI's defaults (path H's
+    ``oct.npz``). Each checkout then runs in processes of its own, in
+    turns (``pairs`` pairs, the first of a pair taking turns), each
+    printing one ``walk_frame_ab`` JSON line (``_walk_ab_probe``)."""
+    from sdflib_tpu_torch.tools.exact_ab import _build_all
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+
+    def run(call: str, *args: str) -> None:
+        out = subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+                              f" import chip_smoke as cs; cs.{call}(*sys.argv[2:])", root, *args],
+                             capture_output=True, text=True, timeout=900)
+        print(out.stdout, end="")
+        _check(out.returncode == 0, f"{call}{args} failed:\n{out.stderr[-4000:]}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_walk_ab_")
+    try:
+        t0 = time.perf_counter()
+        _build_all([parent, root])
+        print(f"walk_frame_ab: both checkouts' kernels built in {time.perf_counter() - t0:.1f} s")
+        run("_walk_ab_store", work)
+        for i in range(pairs):
+            for tree in ((parent, root) if i % 2 == 0 else (root, parent)):
+                run("_walk_ab_probe", tree, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _walk_ab_store(store: str) -> None:
+    """``walk_frame_ab``'s d6 ``.npz`` and CLI export, made by this
+    checkout into ``store``."""
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf
+    from sdflib_tpu_torch.tools import sdf_export
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    dev = torch.device("cuda", 0)
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    OctreeSdf(mesh, mesh.bounding_box.add_margin(0.14), max_depth=6, start_depth=2,
+              termination_threshold=1e-3, init_algorithm="no_continuity",
+              device=dev).save(os.path.join(store, "approx_d6.npz"))
+    ply = os.path.join(store, "torus.ply")
+    _write_ply(mesh, ply)
+    _check(sdf_export.main([ply, os.path.join(store, "oct.npz"), "--device", str(dev)]) == 0,
+           "sdf_export failed")
+
+
+def _walk_ab_probe(tree: str, store: str) -> None:
+    """One checkout's walk frame and renders, in a process of its own: the
+    package of ``tree`` loads the d6 ``.npz`` with no query grid, traces
+    bench.py's 1024^2 frame (beam 4, eps 1e-5, far 4, 1,024 trips) once
+    (the capture of its graph where the route has one), then times
+    ``WALK_AB_FRAME_REPS`` frames (CUDA events, best and median) and reads
+    a frame's stats; then ``sdf_render`` on the export at 1024^2 with AO
+    and shadows, in-process, ``WALK_AB_RENDERS`` times (wall seconds, each
+    call synchronised; each loads the container anew, so each traces a
+    first frame). Prints one ``walk_frame_ab`` JSON line with the card's
+    name and power limit."""
+    import io
+
+    sys.path.insert(0, tree)
+    import torch
+
+    from sdflib_tpu_torch import SdfFunction
+    from sdflib_tpu_torch.render import trace_octree
+    from sdflib_tpu_torch.tools import sdf_render
+
+    dev = torch.device("cuda", 0)
+    origins, dirs = _ortho_rays(1024, dev)
+    kw = dict(eps=1e-5, far=4.0, max_iters=1024)
+    sdf = SdfFunction.load(os.path.join(store, "approx_d6.npz"), device=dev)
+
+    def frame(stats=None):
+        return trace_octree(sdf, origins, dirs, stats_out=stats, **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = frame()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    stats = {}
+    frame(stats)
+    ms = []
+    for _ in range(WALK_AB_FRAME_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        frame()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    renders = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(WALK_AB_RENDERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = sdf_render.main([os.path.join(store, "oct.npz"),
+                                      os.path.join(tmp, f"render{i}.png"), "--width", "1024",
+                                      "--height", "1024", "--ao", "--shadow",
+                                      "--device", str(dev)])
+            torch.cuda.synchronize()
+            renders.append(time.perf_counter() - t0)
+            _check(rc == 0, f"sdf_render returned {rc}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print("walk_frame_ab " + json.dumps({
+        "tree": tree, "card": smi, "first_frame_s": first_s, "frame_ms_best": min(ms),
+        "frame_ms_median": float(np.median(ms)), "host_syncs": stats.get("host_syncs"),
+        "graphs_captured": stats.get("graphs_captured"),
+        "graphs_replayed": stats.get("graphs_replayed"),
+        "ray_trips_offered": stats.get("marched_ray_trips"),
+        "useful_ray_trips": int(res.iterations.sum(dtype=torch.int64)),
+        "hits": int(res.hit.sum()), "sdf_render_s": renders,
+        "depth_sum": float(res.depth.double().sum()),
+    }))
 
 def grid_path(dev):
     """Main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the
@@ -4152,6 +4647,7 @@ def main() -> None:
                   "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
                   "walk_key_kernel", "walk_reduce_kernel", "walk_reduce_span_kernel",
                   "walk_backward_kernel", "walk_march_kernel", "walk_march_warps_kernel",
+                  "walk_segment_kernel", "walk_beam_kernel",
                   "region_cull_warp_kernel", "region_cull_block_kernel"):
         lines = [(_instance(k), v) for k, v in report.items()
                  if short in k and (short.startswith("walk") or "walk_" not in k)]
@@ -4679,6 +5175,12 @@ def main() -> None:
         err, ms, plain_ms, bound = segments[name]
         kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
 
+    # -- path D on the walk: a container with no query grid ------------------
+    launches["walk_frame"], segments = walk_frame_path(dev, root, 1024)
+    for name in ("walk_segment", "walk_beam"):
+        err, ms, plain_ms, bound = segments[name]
+        kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
     # -- main path E, the uniform grid at depth 7 ---------------------------
     launches["grid"], k2e = grid_path(dev)
     kernels["nearest"]["err"] = max(kernels["nearest"]["err"], k2e[0])
@@ -4763,6 +5265,10 @@ def main() -> None:
                         "sdflib_tpu/diff/query.py:108"),
         "walk_march": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                        "sdflib_tpu/render/sphere_trace.py:251"),
+        "walk_segment": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                         "sdflib_tpu/render/sphere_trace.py:411"),
+        "walk_beam": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                      "sdflib_tpu/render/sphere_trace.py:541"),
         "region_cull": ("sdflib_tpu_torch/csrc/region_cull.cu",
                         "sdflib_tpu/sdf/exact_octree.py:160"),
     }

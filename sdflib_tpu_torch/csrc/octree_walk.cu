@@ -1,5 +1,6 @@
-// K10-K12: the approximate octree's walk over a given coefficient pointer,
-// its backward, and the generic march over it.
+// K10-K15: the approximate octree's walk over a given coefficient pointer,
+// its backward, the generic march over it, and the sphere tracer's march
+// and beam segments over it.
 //
 // K10, walk_query_kernel, replaces the JAX package's XLA-fused walk,
 // sdflib_tpu/sdf/octree.py _octree_query (:56), and the forward of
@@ -93,6 +94,20 @@
 // chip_smoke.py hold the persistent form against. Trilinear rows and the
 // word-by-word layout march in the same warps with walk::query's read.
 //
+// K14 and K15 are the sphere tracer's walk route (a container with no
+// query grid, or eps above the free cells' margin): K14, walk_segment_kernel,
+// replaces _march_pyramid_jit's trips (sdflib_tpu/render/sphere_trace.py
+// :411) over the walk's dist_fn (:304-311), and K15, walk_beam_kernel, the
+// walk branch of _beam_prepass_jit (:541, :588-594). As K5 and K6 do on
+// the grid (march.cu), a thread runs up to `trips` trips of its ray on the
+// frame's state in place (position, distance so far, last distance, active
+// flag, trips), a done ray leaving at once, so a launch carries a round's
+// budget with no host check and a frame of such launches is one CUDA graph.
+// The distance is K12's march_distance (the same bits as K10, whose eager
+// trips they replace: ~10 launches and a host sync every 16 trips). K12's
+// persistent warps were tried for K14 and lost to one thread a ray in the
+// walk frame (PERF.md, K14).
+//
 // Bound: K10 by bytes moved once: the points in and the outputs out (16 B
 // a point, 12 more with a gradient), and the node words and coefficient
 // rows the points touch, which on path F's 2^22 points are 2,941 rows that
@@ -108,7 +123,9 @@
 // ray waits on its own walk (three divisions, a dependent node word a
 // level, then the row), so the card hides that chain only across many
 // rays in flight: the persistent warps keep every lane's slot on a live
-// ray, and the quad fold's registers let twice the warps in.
+// ray, and the quad fold's registers let twice the warps in. K14 and K15
+// likewise: ~310 flops a useful trip against the state read and written
+// once (68 B a ray, 60 a beam) and the touched words and rows.
 //
 // Launches a backward on the aligned layout: the key launch, the
 // gradient's zero fill, the leaf sort (a memset and 1 + passes launches: 2
@@ -760,6 +777,99 @@ walk_march_warps_kernel(walk::Tree T, const float* __restrict__ origins,
   if (stats != nullptr && lane == 0) atomicAdd(stats, trips);
 }
 
+// K14's and K15's ray state, read from and written back to the frame's
+// arrays at index r.
+__device__ __forceinline__ Ray load_state(const float* __restrict__ pos,
+                                          const float* __restrict__ acc,
+                                          const float* __restrict__ last_d, float a,
+                                          const int* __restrict__ its,
+                                          const float* __restrict__ dirs, int r) {
+  const size_t o = 3 * static_cast<size_t>(r);
+  Ray s;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    s.p[k] = pos[o + k];
+    s.u[k] = dirs[o + k];
+  }
+  s.ac = acc[r];
+  s.ld = last_d[r];
+  s.a = a;
+  s.it = its[r];
+  return s;
+}
+
+__device__ __forceinline__ void store_state(const Ray& s, int r, float* __restrict__ pos,
+                                            float* __restrict__ acc,
+                                            float* __restrict__ last_d,
+                                            float* __restrict__ active, int* __restrict__ its) {
+  const size_t o = 3 * static_cast<size_t>(r);
+  pos[o] = s.p[0];
+  pos[o + 1] = s.p[1];
+  pos[o + 2] = s.p[2];
+  acc[r] = s.ac;
+  last_d[r] = s.ld;
+  active[r] = s.a;
+  its[r] = s.it;
+}
+
+// K14, one thread a ray: up to `trips` march trips of its ray in place. A
+// ray inactive at a trip leaves: the torch trip moves it by step * 0 and
+// keeps its state.
+template <int N, bool kQuads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+walk_segment_kernel(walk::Tree T, float* __restrict__ pos, float* __restrict__ acc,
+                    float* __restrict__ last_d, float* __restrict__ active,
+                    int* __restrict__ its, const float* __restrict__ dirs, int n, float eps,
+                    float far, int trips) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const float a = active[r];
+  if (!(a > 0.0f)) return;
+  const walk::Box w = walk::load_box(T);
+  Ray s = load_state(pos, acc, last_d, a, its, dirs, r);
+  for (int t = 0; t < trips && s.a > 0.0f; ++t) {
+    march_step(s, march_distance<N, kQuads>(T, w, s.p), eps, far);
+  }
+  store_state(s, r, pos, acc, last_d, active, its);
+}
+
+// K15, one thread a beam: up to `trips` beam trips in place, K6's
+// beam_kernel (march.cu) over the walk's distance. The walk proves no cell
+// free, so the tube-safe exit step is -inf and the step, max(dstep, -inf),
+// is dstep itself (a NaN kept, as torch.maximum keeps it).
+template <int N, bool kQuads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+walk_beam_kernel(walk::Tree T, float* __restrict__ pos, float* __restrict__ acc,
+                 float* __restrict__ active, const float* __restrict__ dirs,
+                 const float* __restrict__ r0, const float* __restrict__ rd, int n, float margin,
+                 float half_margin, float far, int trips) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n) return;
+  float a = active[r];
+  if (!(a > 0.0f)) return;
+  const walk::Box w = walk::load_box(T);
+  const size_t o = 3 * static_cast<size_t>(r);
+  float p[3] = {pos[o], pos[o + 1], pos[o + 2]};
+  const float u[3] = {dirs[o], dirs[o + 1], dirs[o + 2]};
+  const float rr0 = r0[r], grow = rd[r];
+  float ac = acc[r];
+  for (int t = 0; t < trips && a > 0.0f; ++t) {
+    const float radius = rr0 + ac * grow;
+    const float d = march_distance<N, kQuads>(T, w, p);
+    const float step = leaf::nan_max(((d - radius) - margin) / (1.0f + grow), 0.0f);
+    const float moved = step * a;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p[k] = p[k] + u[k] * moved;
+    ac = ac + moved;
+    a = a * ((step > half_margin && ac < far) ? 1.0f : 0.0f);
+  }
+  pos[o] = p[0];
+  pos[o + 1] = p[1];
+  pos[o + 2] = p[2];
+  acc[r] = ac;
+  active[r] = a;
+}
+
 inline int blocks(long long n, int per) { return static_cast<int>((n + per - 1) / per); }
 
 // The persistent march: the counter's fill, then as many blocks as the
@@ -791,6 +901,24 @@ cudaError_t launch_march_warps(const walk::Tree& T, const float* origins, const 
   if (err != cudaSuccess) return err;
   walk_march_warps_kernel<N, kQuads, kMinBlocks><<<nb, kThreads, 0, st>>>(
       T, origins, dirs, n, width, eps, far, max_iters, hit, pos, depth, its, counter, stats);
+  return cudaGetLastError();
+}
+
+template <int N, bool kQuads, int kMinBlocks>
+cudaError_t launch_segment(const walk::Tree& T, float* pos, float* acc, float* last_d,
+                           float* active, int* its, const float* dirs, int n, float eps,
+                           float far, int trips, cudaStream_t st) {
+  walk_segment_kernel<N, kQuads, kMinBlocks><<<blocks(n, kThreads), kThreads, 0, st>>>(
+      T, pos, acc, last_d, active, its, dirs, n, eps, far, trips);
+  return cudaGetLastError();
+}
+
+template <int N, bool kQuads, int kMinBlocks>
+cudaError_t launch_beam(const walk::Tree& T, float* pos, float* acc, float* active,
+                        const float* dirs, const float* r0, const float* rd, int n, float margin,
+                        float half_margin, float far, int trips, cudaStream_t st) {
+  walk_beam_kernel<N, kQuads, kMinBlocks><<<blocks(n, kThreads), kThreads, 0, st>>>(
+      T, pos, acc, active, dirs, r0, rd, n, margin, half_margin, far, trips);
   return cudaGetLastError();
 }
 
@@ -1012,5 +1140,46 @@ extern "C" int sdf_walk_march(SDF_WALK_PARAMS, const float* origins, const float
                 : launch_march_warps<64, false, 1>(T, origins, dirs, n, width, eps, far,
                                                    max_iters, hit, pos, depth, its, counter,
                                                    stats, st);
+  return static_cast<int>(err);
+}
+
+// K14: up to `trips` march trips of each of the n rays, in place, one
+// thread a ray: pos (n, 3), acc, last_d, active (float 0/1) (n,), its (n,)
+// int32 trips taken, dirs (n, 3).
+extern "C" int sdf_walk_segment(SDF_WALK_PARAMS, float* pos, float* acc, float* last_d,
+                                float* active, int* its, const float* dirs, int n, float eps,
+                                float far, int trips, void* stream) {
+  if (n <= 0 || trips <= 0) return static_cast<int>(cudaGetLastError());
+  const walk::Tree T = SDF_WALK_TREE;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // K12's instances: the aligned tricubic rows fold a quad at a time in 64
+  // registers; trilinear rows and rows at any word read c[N]
+  const cudaError_t err =
+      !tricubic ? launch_segment<8, false, 1>(T, pos, acc, last_d, active, its, dirs, n, eps,
+                                              far, trips, st)
+      : fast    ? launch_segment<64, true, kMarchMinBlocks>(T, pos, acc, last_d, active, its,
+                                                            dirs, n, eps, far, trips, st)
+                : launch_segment<64, false, 1>(T, pos, acc, last_d, active, its, dirs, n, eps,
+                                               far, trips, st);
+  return static_cast<int>(err);
+}
+
+// K15: up to `trips` beam trips of each of the n beams, in place: pos (n,
+// 3), acc, active (float 0/1) (n,), dirs (n, 3), the radius at the origin
+// r0 and its growth rd (n,).
+extern "C" int sdf_walk_beam(SDF_WALK_PARAMS, float* pos, float* acc, float* active,
+                             const float* dirs, const float* r0, const float* rd, int n,
+                             float margin, float half_margin, float far, int trips,
+                             void* stream) {
+  if (n <= 0 || trips <= 0) return static_cast<int>(cudaGetLastError());
+  const walk::Tree T = SDF_WALK_TREE;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !tricubic ? launch_beam<8, false, 1>(T, pos, acc, active, dirs, r0, rd, n, margin,
+                                           half_margin, far, trips, st)
+      : fast    ? launch_beam<64, true, kMarchMinBlocks>(T, pos, acc, active, dirs, r0, rd, n,
+                                                         margin, half_margin, far, trips, st)
+                : launch_beam<64, false, 1>(T, pos, acc, active, dirs, r0, rd, n, margin,
+                                            half_margin, far, trips, st);
   return static_cast<int>(err);
 }

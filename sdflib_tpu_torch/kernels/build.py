@@ -110,6 +110,11 @@ _SIGNATURES = {
     # (walk..., origins, dirs, n, width, eps, far, max_iters, form, hit, pos,
     #  depth, its, counter, stats or null, stream)
     "sdf_walk_march": [*_WALK, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # (walk..., pos, acc, last_d, active, its, dirs, n, eps, far, trips, stream)
+    "sdf_walk_segment": [*_WALK, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P],
+    # (walk..., pos, acc, active, dirs, r0, rd, n, margin, half margin, far,
+    #  trips, stream)
+    "sdf_walk_beam": [*_WALK, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
     # (packed, T, centers, N, cand, cand row stride, valid, valid row stride,
     #  K, h, qh, eps, near, lanes, keep, counts, sqd, stream)
     "sdf_region_cull": [_P, _I, _P, _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I,

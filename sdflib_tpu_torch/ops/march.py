@@ -11,13 +11,14 @@ evaluation (``csrc/leaf_eval.cuh``) is their inner step. They replace the
 XLA-fused march loops of the JAX package (sdflib_tpu/render/
 sphere_trace.py ``_march_pyramid_jit`` :411 and ``_beam_prepass_jit``
 :541 over ``_grid_distance_and_step`` :44). ``march_trips`` and
-``beam_trips`` run the trips of any step function in torch (the walk
-route, the generic march). ``launch_count`` and ``beam_launch_count``
+``beam_trips`` run the trips of any step function in torch (the plain
+versions here and of the walk route's K14 and K15, ``ops/walk.py``, and
+the generic march). ``launch_count`` and ``beam_launch_count``
 count kernel launches.
 
 A kernel's ray leaves its loop once it is done, so one launch carries a
 whole round's budget and needs no host check. The torch trips (the plain
-versions, the walk route) cost as much for a done ray as for a live one,
+versions) cost as much for a done ray as for a live one,
 so they check for a live ray instead (``_run_trips``) and stop once none
 is. The segments write the state in place, and a kernel launch allocates
 nothing, so a CUDA graph captures it as one node.
@@ -246,10 +247,10 @@ def beam_segment_plain(grid: LeafGrid, pos, acc, active, dirs, r0, rd, margin: f
                       exit_early=True)
 
 
-def _check_state(grid: LeafGrid, pos, dirs, floats: dict, ints: dict) -> tuple[bool, int]:
-    """Raise unless the ray state lies on the grid's device, contiguous,
-    of one ray count n: ``pos`` and ``dirs`` (n, 3) float32, ``floats``
-    (n,) float32, ``ints`` (n,) int32. (launch the kernel, n)."""
+def _check_rays(pos, dirs, floats: dict, ints: dict) -> int:
+    """Raise unless the ray state lies on one device, contiguous, of one
+    ray count n: ``pos`` and ``dirs`` (n, 3) float32, ``floats`` (n,)
+    float32, ``ints`` (n,) int32. Returns n."""
     _need(isinstance(pos, torch.Tensor) and pos.ndim == 2, "pos must be an (n, 3) tensor")
     n, dev = pos.shape[0], pos.device
     for name, t in {"pos": pos, "dirs": dirs}.items():
@@ -261,7 +262,13 @@ def _check_state(grid: LeafGrid, pos, dirs, floats: dict, ints: dict) -> tuple[b
               and tuple(t.shape) == (n,), f"{name} must be an ({n},) int32 tensor")
         _need(t.device == dev, f"{name} lies on {t.device}, not on {dev}")
         _need(t.is_contiguous(), f"{name} must be contiguous")
-    return check_grid(grid, dev), n
+    return n
+
+
+def _check_state(grid: LeafGrid, pos, dirs, floats: dict, ints: dict) -> tuple[bool, int]:
+    """``_check_rays`` on the grid's device: (launch the kernel, n)."""
+    n = _check_rays(pos, dirs, floats, ints)
+    return check_grid(grid, pos.device), n
 
 
 def march_segment(grid: LeafGrid, pos, acc, last_d, active, its, dirs, eps: float,

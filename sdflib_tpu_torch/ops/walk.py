@@ -1,5 +1,6 @@
-"""K10-K12: the approximate octree's walk over a given coefficient
-tensor, its backward, and the generic march over it.
+"""K10-K15: the approximate octree's walk over a given coefficient
+tensor, its backward, the generic march over it, and the sphere tracer's
+march and beam segments over it.
 
 The walk (OctreeSdf.cpp:93-152) takes a point's start-grid cell and up to
 ``levels`` descents to its leaf, then the leaf polynomial; a ``Walk``
@@ -33,15 +34,25 @@ for ``OctreeSdf`` queries, the trainable tensor for ``diff``).
   The same bits as one thread a ray (``walk_march_one_thread``, the
   reference). Replaces sdflib_tpu/render/sphere_trace.py ``sphere_trace``
   (:251) as sdflib_tpu/diff/render.py (:65-68) calls it.
+* ``walk_segment`` (K14, ``walk_segment_kernel``) and ``walk_beam`` (K15,
+  ``walk_beam_kernel``): the tracer's walk route (``render/sphere_trace.py``
+  ``_route`` with no query grid), up to ``trips`` march or beam trips of
+  each ray of the frame's state in place, one thread a ray, a done ray
+  leaving at once: K5 and K6 (``ops/march.py``) over K12's distance.
+  Replace ``_march_pyramid_jit``'s trips (sdflib_tpu/render/
+  sphere_trace.py :411 over :304-311) and the walk branch of
+  ``_beam_prepass_jit`` (:541, :588-594).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 torch version (``walk_query_plain``, ``walk_keys_plain``,
-``walk_reduce_plain``, ``walk_backward_plain``, ``walk_march_plain``) for
-CPU tensors. The counters: ``launch_count`` (K10), ``backward_launch_count``
+``walk_reduce_plain``, ``walk_backward_plain``, ``walk_march_plain``,
+``walk_segment_plain``, ``walk_beam_plain``) for CPU tensors. The
+counters: ``launch_count`` (K10), ``backward_launch_count``
 (K11 as a whole, one a backward on either layout), ``key_launch_count``,
 ``sort_launch_count`` (K11's leaf sort: its memset and launches are one
-call), ``reduce_launch_count`` (its two launches are one call) and
-``march_launch_count``.
+call), ``reduce_launch_count`` (its two launches are one call),
+``march_launch_count``, ``segment_launch_count`` (K14) and
+``beam_launch_count`` (K15).
 The kernels have no autograd: ``walk_query`` raises for points or
 coefficients that require a gradient. ``WalkQuery``, the autograd
 Function of ``diff/query.py`` and of ``OctreeSdf`` distances of points
@@ -68,14 +79,17 @@ from ..kernels import build
 from .box import box_distance
 from .exact_query import launch_leaf_sort, sort_bits
 from .interpolation import _deriv_power_vectors, _monomials, _power_vectors, gradient_at
+from .march import _check_rays, beam_trips, march_trips
 from .octree_query import _CIDX, _coeff_rows, _f32, _finish, _need
 
 __all__ = [
     "Walk", "MODES", "GROUPS", "REDUCE_TILE", "reduce_plan", "walk_query", "walk_query_plain",
     "walk_keys", "walk_keys_plain", "walk_reduce", "walk_reduce_plain", "walk_backward",
     "walk_backward_plain", "walk_march", "walk_march_plain", "walk_march_one_thread",
+    "walk_segment", "walk_segment_plain", "walk_beam", "walk_beam_plain",
     "WalkQuery", "launch_count", "backward_launch_count", "key_launch_count",
     "sort_launch_count", "reduce_launch_count", "march_launch_count",
+    "segment_launch_count", "beam_launch_count",
 ]
 
 launch_count = 0
@@ -84,6 +98,8 @@ key_launch_count = 0
 sort_launch_count = 0
 reduce_launch_count = 0
 march_launch_count = 0
+segment_launch_count = 0
+beam_launch_count = 0
 # What a query returns besides the distance: nothing, the normalised
 # gradient (OctreeSdf.get_distance_and_gradient) or the world gradient
 # (octree_query_diff's with_gradient); the kernel's mode is the index.
@@ -249,24 +265,37 @@ def _no_graph(*tensors) -> None:
           "of diff/query.py")
 
 
-def walk_query(walk: Walk, points, mode: str, group: int | None = None):
+def walk_query(walk: Walk, points, mode: str, group: int | None = None, out=None):
     """K10: ``walk_query_plain``'s d (P,), or (d, g (P, 3)), of contiguous
     (P, 3) float32 points on the walk's device: the kernel on the card,
     the plain version on the CPU. ``group``: the lanes that read an aligned
     tricubic row, 1, 4 or 8 (default ``GROUPS[mode]``); every size gives
-    the same bits."""
+    the same bits. ``out``, if given, holds the outputs' tensors (d, or
+    (d, g)) to write in place, as a captured frame needs."""
     _need(mode in MODES, f"mode must be one of {MODES}")
     group = GROUPS[mode] if group is None else group
     _need(group in (1, 4, 8), "group must be 1, 4 or 8")
     _need(isinstance(points, torch.Tensor), "points must be a tensor")
     _f32(points, (None, 3), "points", points.device)
-    if not check_walk(walk, points.device):
-        return walk_query_plain(walk, points, mode)
-    _no_graph(points, walk.coeffs)
     n = points.shape[0]
-    d = torch.empty(n, dtype=torch.float32, device=points.device)
-    g = None if mode == "distance" else torch.empty((n, 3), dtype=torch.float32,
-                                                    device=points.device)
+    if out is not None:
+        _f32(out if mode == "distance" else out[0], (n,), "d", points.device)
+        if mode != "distance":
+            _f32(out[1], (n, 3), "g", points.device)
+    if not check_walk(walk, points.device):
+        res = walk_query_plain(walk, points, mode)
+        if out is None:
+            return res
+        for dst, src in ((out, res),) if mode == "distance" else zip(out, res):
+            dst.copy_(src)
+        return out
+    _no_graph(points, walk.coeffs)
+    if out is None:
+        d = torch.empty(n, dtype=torch.float32, device=points.device)
+        g = None if mode == "distance" else torch.empty((n, 3), dtype=torch.float32,
+                                                        device=points.device)
+    else:
+        d, g = (out, None) if mode == "distance" else out
     if n:
         build.launch("sdf_walk_query", points.device, *walk_args(walk), points.data_ptr(), n,
                      MODES.index(mode), group, d.data_ptr(),
@@ -547,7 +576,6 @@ def walk_march_plain(walk: Walk, origins, dirs, eps: float, far: float, max_iter
     each ray's trips: (hit, position, depth, trips (R,) int32) of the
     (R, 3) rays; eps and far in world units."""
     from ..render.sphere_trace import _march   # render imports sdf, which imports this
-    from .march import march_trips
 
     def step(p, _):
         d = walk_query_plain(walk, p, "distance")
@@ -629,6 +657,95 @@ def walk_march_one_thread(walk: Walk, origins, dirs, eps: float, far: float, max
     only."""
     _need(_check_march(walk, origins, dirs), "the one-thread march runs on the card only")
     return _launch_march(walk, origins, dirs, eps, far, max_iters, 1)
+
+
+# -- K14 and K15: the tracer's march and beam segments on the walk -----------------
+
+def walk_segment_plain(walk: Walk, pos, acc, last_d, active, its, dirs, eps: float,
+                       far: float, trips: int, query=walk_query_plain) -> int:
+    """``walk_segment`` in torch: up to ``trips`` march trips
+    (``ops/march.py`` ``_trip``) of step max(d, 0), d ``query(walk, pos,
+    "distance")``, with the early exit of ``_run_trips``. Returns the host
+    syncs taken. ``query=walk_query`` on the card gives K10's distance,
+    K14's bits: the walk route's eager trips before K14, which the card's
+    tests and ``chip_smoke.py`` hold K14 against."""
+    def step(p, _):
+        d = query(walk, p, "distance")
+        return d, d.clamp_min(0.0)
+
+    return march_trips(step, pos, acc, last_d, active, its, dirs, eps, far, trips,
+                       exit_early=True)
+
+
+def walk_beam_plain(walk: Walk, pos, acc, active, dirs, r0, rd, margin: float, far: float,
+                    trips: int, query=walk_query_plain) -> int:
+    """``walk_beam`` in torch: up to ``trips`` beam trips (``ops/march.py``
+    ``_beam_trip``) over ``query``'s distance with the tube-safe exit step
+    fixed at -inf (the walk proves no cell free), with the early exit of
+    ``_run_trips``. Returns the host syncs taken."""
+    def beam_step(p, _, shrink):
+        d = query(walk, p, "distance")
+        return d, torch.full_like(d, -torch.inf)
+
+    return beam_trips(beam_step, pos, acc, active, dirs, r0, rd, margin, far, trips,
+                      exit_early=True)
+
+
+def _check_walk_state(walk: Walk, pos, dirs, floats: dict, ints: dict) -> tuple[bool, int]:
+    """``ops/march.py`` ``_check_rays`` on the walk's device: (launch the
+    kernel, n)."""
+    n = _check_rays(pos, dirs, floats, ints)
+    launch = check_walk(walk, pos.device)
+    if launch:
+        _no_graph(pos, walk.coeffs)
+    return launch, n
+
+
+def walk_segment(walk: Walk, pos, acc, last_d, active, its, dirs, eps: float, far: float,
+                 trips: int) -> int:
+    """K14: up to ``trips`` march trips of the (n,) rays on the walk, in
+    place: ``pos`` and ``dirs`` (n, 3), ``acc``, ``last_d`` and ``active``
+    (float 0/1) (n,) float32, ``its`` (n,) int32 trips taken; eps and far
+    in world units. On the card one launch, one thread a ray, a done ray
+    leaving at once; ``walk_segment_plain`` on the CPU. A ray whose
+    position turns infinite is left as it is, where the plain trips' later
+    trips move it by an infinite step times 0 (NaN). Returns the host
+    syncs taken (the plain version's)."""
+    launch, n = _check_walk_state(walk, pos, dirs,
+                                  {"acc": acc, "last_d": last_d, "active": active},
+                                  {"its": its})
+    if not launch:
+        return walk_segment_plain(walk, pos, acc, last_d, active, its, dirs, eps, far, trips)
+    if n == 0 or trips <= 0:
+        return 0
+    build.launch("sdf_walk_segment", pos.device, *walk_args(walk), pos.data_ptr(),
+                 acc.data_ptr(), last_d.data_ptr(), active.data_ptr(), its.data_ptr(),
+                 dirs.data_ptr(), n, float(np.float32(eps)), float(np.float32(far)),
+                 int(trips))
+    build.count_launch(globals(), "segment_launch_count")
+    return 0
+
+
+def walk_beam(walk: Walk, pos, acc, active, dirs, r0, rd, margin: float, far: float,
+              trips: int) -> int:
+    """K15: up to ``trips`` beam trips of the (n,) beam rays on the walk,
+    in place: ``pos`` and ``dirs`` (n, 3), ``acc``, ``active``, the radius
+    at the origin ``r0`` and its growth ``rd`` (n,) float32; margin and far
+    in world units. On the card one launch, a done beam leaving at once;
+    ``walk_beam_plain`` on the CPU. Returns the host syncs taken (the
+    plain version's)."""
+    launch, n = _check_walk_state(walk, pos, dirs,
+                                  {"acc": acc, "active": active, "r0": r0, "rd": rd}, {})
+    if not launch:
+        return walk_beam_plain(walk, pos, acc, active, dirs, r0, rd, margin, far, trips)
+    if n == 0 or trips <= 0:
+        return 0
+    build.launch("sdf_walk_beam", pos.device, *walk_args(walk), pos.data_ptr(), acc.data_ptr(),
+                 active.data_ptr(), dirs.data_ptr(), r0.data_ptr(), rd.data_ptr(), n,
+                 float(np.float32(margin)), float(np.float32(0.5 * margin)),
+                 float(np.float32(far)), int(trips))
+    build.count_launch(globals(), "beam_launch_count")
+    return 0
 
 
 class WalkQuery(torch.autograd.Function):

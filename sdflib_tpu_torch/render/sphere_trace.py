@@ -17,10 +17,11 @@ shrinking prefixes (``_Frame``), with no host check: on the card one CUDA
 graph a frame; small frames and ``pyramid=False`` march rounds over the
 still-active rays, compacted between rounds with one host sync each. On
 the card a round's march (every trip of its budget over a prefix) and the
-beam prepass are one launch each of K5 and K6 (``ops/march.py``), and the
-normals one of K4 (``ops/octree_query.py``); on the CPU, and on the walk
-route, the same trips run as torch ops, which check for live rays
-themselves (``ops.march._run_trips``).
+beam prepass are one launch each of K5 and K6 (``ops/march.py``) on the
+grid, of K14 and K15 (``ops/walk.py``) on the walk, and the normals one of
+K4 (``ops/octree_query.py``) or K10; on the CPU the same trips run as
+torch ops, which check for live rays themselves
+(``ops.march._run_trips``).
 """
 from __future__ import annotations
 
@@ -36,13 +37,20 @@ import torch
 from ..ops.march import (
     beam_segment,
     beam_segment_plain,
-    beam_trips,
     march_segment,
     march_segment_plain,
     march_trips,
 )
 from ..ops.octree_query import grid_query, grid_query_plain
-from ..sdf.octree import OctreeSdf, _octree_query
+from ..ops.walk import (
+    walk_beam,
+    walk_beam_plain,
+    walk_query,
+    walk_query_plain,
+    walk_segment,
+    walk_segment_plain,
+)
+from ..sdf.octree import OctreeSdf
 from ..sdf.sdf_function import resolve_device
 
 __all__ = ["TraceResult", "sphere_trace", "trace_octree"]
@@ -220,7 +228,7 @@ class _Route(NamedTuple):
     beam: object      # (pos, acc, active, dirs, r0, rd, margin, far, trips) -> syncs, in place
     normals: object   # (pos, out=None) -> normalized gradient (into out[1])
     margin: float     # the beam's safety margin, world units
-    kernel: bool      # the trips are K5/K6 launches (no host check: a frame is one graph)
+    kernel: bool      # the trips are kernel launches (no host check: a frame is one graph)
     key: tuple        # the route and the arrays it reads
 
 
@@ -231,53 +239,41 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     fused rows, which hold the same values, are not), else the walk; the
     grid (and its free-cell steps) only for eps <=
     ``OctreeSdf._FREE_CELL_MARGIN``, the margin the free flags were proven
-    with. On a grid the march and the beam are K5 and K6, each launch as
-    many trips as it is given (a done ray leaves at once), in torch on the
-    CPU or where ``octree._plain`` pins the plain versions; the walk runs
-    its trips in torch, each trip's distance K10 on the card (the plain
-    walk where ``_plain`` pins it). Torch trips check for live rays
-    themselves (``ops.march._run_trips``). The normals ride the same rows
-    (K4), else the walk. The beam's margin is the hit threshold plus a fit-error
-    budget: the Lipschitz argument runs through the true distance, which
-    the polynomial tracks within the build's termination threshold."""
+    with. The march and the beam are K5 and K6 on a grid, K14 and K15
+    (``ops/walk.py``) on the walk, each launch as many trips as it is given
+    (a done ray leaves at once); their plain versions, torch trips that
+    check for live rays themselves (``ops.march._run_trips``), run on the
+    CPU or where ``octree._plain`` pins them. The normals ride the same
+    rows (K4), else the walk (K10). The beam's margin is the hit threshold
+    plus a fit-error budget: the Lipschitz argument runs through the true
+    distance, which the polynomial tracks within the build's termination
+    threshold."""
     box_args = (octree._box_min, octree._box_size3)
     mbv = octree.min_border_value
     words = octree._octree_dev
-    walk = dict(levels=octree.max_depth - octree.start_depth, fast=octree._fast_layout,
-                num_coeff=octree.num_coefficients, interpolation=octree.interpolation)
+    walk = octree._walk()
     fat, thin = octree._fat_grid, octree._query_grid
     sgs, depth, plain = octree.start_grid_size, octree.max_depth, octree._plain
     shade = None if thin is None else octree._leaf_grid(False)
     grid = shade if eps <= OctreeSdf._FREE_CELL_MARGIN else None
 
-    def distance(p):
-        return _octree_query(words, p, *box_args, sgs, mbv, with_gradient=False, plain=plain,
-                             **walk)
-
     if grid is not None:
         march = partial(march_segment_plain if plain else march_segment, grid)
         beam = partial(beam_segment_plain if plain else beam_segment, grid)
     else:
-        def step(p, _):
-            dist = distance(p)
-            return dist, dist.clamp_min(0.0)
-
-        def beam_step(p, _, shrink):
-            dist = distance(p)
-            return dist, torch.full_like(dist, -torch.inf)
-
-        march = partial(march_trips, step, exit_early=True)
-        beam = partial(beam_trips, beam_step, exit_early=True)
+        march = partial(walk_segment_plain if plain else walk_segment, walk)
+        beam = partial(walk_beam_plain if plain else walk_beam, walk)
 
     def normals(pos, out=None):
-        if shade is not None and not plain:
+        if plain:
+            g = (grid_query_plain(shade, pos, True) if shade is not None else
+                 walk_query_plain(walk, pos, "normal"))[1]
+            return g if out is None else out[1].copy_(g)
+        if shade is not None:
             # a frame's end points are coherent: neighbouring rays share
             # rows, which one thread a point reads with broadcast loads
             return grid_query(shade, pos, True, out, group=1)[1]
-        g = (grid_query_plain(shade, pos, True) if shade is not None else
-             _octree_query(words, pos, *box_args, sgs, mbv, with_gradient=True, plain=plain,
-                           **walk))[1]
-        return g if out is None else out[1].copy_(g)
+        return walk_query(walk, pos, "normal", out=out)[1]
 
     box_size = float(octree.box.size[0])
     margin = eps * box_size + 4.0 * octree.termination_threshold
@@ -286,10 +282,9 @@ def _route(octree: OctreeSdf, eps: float) -> _Route:
     # and the scalars
     arrays = tuple(None if a is None else (a.device, a.data_ptr(), tuple(a.shape))
                    for a in (words, fat, thin, *box_args))
-    kernel = grid is not None and not plain
-    key = (arrays, grid is not None, plain, mbv, margin, sgs, depth,
-           tuple(sorted(walk.items())))
-    return _Route(march, beam, normals, margin, kernel, key)
+    key = (arrays, grid is not None, plain, mbv, margin, sgs, depth, walk.levels, walk.fast,
+           walk.num_coeff, walk.interpolation)
+    return _Route(march, beam, normals, margin, not plain, key)
 
 
 # -- the whole-frame trace: the static pyramid --------------------------------
@@ -410,23 +405,23 @@ class _Frame:
     host check: the beam prepass, the static pyramid of march rounds over
     shrinking prefixes with a compaction of the active rays to the front
     after each, a full-width straggler march, the unsort and the normals.
-    On a kernel route the frame is one piece, on the card one CUDA graph
-    replayed with one launch.
+    On a kernel route (the grid's K5/K6 or the walk's K14/K15) the frame
+    is one piece, on the card one CUDA graph replayed with one launch.
 
     The rays are padded to ``Rp``: a padding ray points along unit x and
     starts inactive. The beam prepass runs its ``_BEAM_ITERS`` trips as
-    one K6 launch. A round marches the prefix ``[:n]`` for its trips as
-    one K5 launch: a ray that is done leaves the kernel at once, so the
-    round ends with its longest ray, as the JAX while_loop exits. Then each
+    one K6 (K15) launch. A round marches the prefix ``[:n]`` for its trips
+    as one K5 (K14) launch: a ray that is done leaves the kernel at once,
+    so the round ends with its longest ray, as the JAX while_loop exits. Then each
     ray's count is added at ``perm[:n]`` and the first W rows compacted: W
     is the prefix with a floor of ``_SORT_FLOOR``, and ``Rp`` on the last
     round so that every active ray sits at the front. The straggler march
     gives every ray still active the budget of all rounds but the first (a
     ray that overflowed every prefix was only offered the first), over the
     full width as in the JAX march: the rows past the active ones leave at
-    once. Torch trips (the CPU, the plain versions, the walk route) stop
-    once no ray is active (``ops.march._run_trips``), so on the card they
-    take host syncs and the frame runs eagerly. A ray's march depends on the ray
+    once. Torch trips (the CPU, the plain versions) stop once no ray is
+    active (``ops.march._run_trips``), so on the card they take host syncs
+    and the frame runs eagerly. A ray's march depends on the ray
     alone, so a ray that converges within its budget ends where the round
     scheduler of ``trace_octree(pyramid=False)`` ends it, in as many steps.
     The B-ray blocks of the JAX march (TPU VMEM units) are not carried: a
@@ -672,10 +667,10 @@ def trace_octree(
     each ray a safe start depth. A frame of at least 2^15 rays, padded to
     whole blocks of ``block_size`` (default 2^17, at most the ray count),
     with ``max_iters`` >= 64 then marches the JAX package's static
-    pyramid (``_Frame``) with no host check: on a CUDA octree's grid as
-    one captured CUDA graph, replayed with one launch and kept for later
-    frames of the same shape on the same structure (at most four a card);
-    on the CPU, the walk route and the pinned plain versions eagerly.
+    pyramid (``_Frame``) with no host check: on a CUDA octree, on its grid
+    or its walk, as one captured CUDA graph, replayed with one launch and
+    kept for later frames of the same shape on the same structure (at most
+    four a card); on the CPU and with the pinned plain versions eagerly.
     ``stats_out["rounds"]`` receives ``[("pyramid", schedule, 0)]``, and
     ``graphs_captured``, ``graphs_replayed``, ``host_syncs`` (those of
     torch trips on the card) and ``marched_ray_trips`` (the ray-trips the

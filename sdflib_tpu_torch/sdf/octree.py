@@ -456,6 +456,14 @@ class OctreeSdf(SdfFunction):
                         self._box_min, self._box_size3, self.min_border_value,
                         self.max_depth, self.num_coefficients, self.interpolation)
 
+    def _walk(self) -> Walk:
+        """The walk over the octree words and their float32 view (K10, and
+        the tracer's walk route, K14 and K15)."""
+        return Walk(self._octree_dev, self._octree_dev.view(torch.float32), self._box_min,
+                    self._box_size3, float(self.min_border_value), int(self.start_grid_size),
+                    self.max_depth - self.start_depth, self.num_coefficients, self.interpolation,
+                    self._fast_layout)
+
     def _query(self, points, with_gradient: bool):
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         flat = pts.reshape(-1, 3).contiguous()
