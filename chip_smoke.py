@@ -373,7 +373,8 @@ FLOPS_DESCEND = 12
 # The leaf sort (K8's key and a stable radix sort by it): its bound counts
 # the point in and lid_s (4 B) and the order (8 B) out, and each touched
 # grid word once; its design moves 16 B a point in the key launch (the
-# point in, the key out) and 16 B a digit pass (48 B in two passes).
+# point in, the key out) and 16 B a digit pass on average (64 B in three
+# passes: 4 B in and 8 B out, 8 in and 8 out, 8 in and 12 out).
 SORT_POINT_BYTES = 12 + 4 + 8
 SORT_DESIGN_BYTES = 16
 SORT_PASS_BYTES = 16
@@ -381,9 +382,10 @@ SORT_PASS_BYTES = 16
 # (the leaf sort, the gather, the group assembly, K1, K7).
 EXACT_MAX_ACTIVITIES = 40
 # ... and in each scan no more than the query takes with the leaf sort
-# (the d6 2^21 window query; the grouped queries, d6 and d7 2^20): 7 and
-# 22 on an H100, where K8 and torch's sort took 18 and 33
-EXACT_ACTIVITIES = {"window": 7, "grouped": 22}
+# (the d6 2^21 window query; the grouped queries, d6 and d7 2^20): 8 and
+# 23 on an H100 with its three digit passes at depths 6 and 7 (7 and 22
+# with two), where K8 and torch's sort took 18 and 33
+EXACT_ACTIVITIES = {"window": 8, "grouped": 23}
 # The exact query's launch counters (the leaf sort, K9, K7), and the names
 # of its kernels in a profile: the leaf sort's two kernels and its memset,
 # and torch's radix sort, which a query over the leaf grid must not run.
@@ -709,10 +711,14 @@ def _walk_keys(sdf, q):
 
 
 # The leaf sort's edge sweep: batch sizes (a tile is 4,096 keys) and leaf
-# counts (1 bit for 1 and 2 leaves, 10 bits for 513, two digits of 9 for
-# 2^18 and of 11 for 2^21 + 1).
+# counts (1 bit for 1 and 2 leaves, digits of 5 + 5 for 513, of 6 + 6 + 6
+# for 2^18 and of 8 + 7 + 7 for 2^21 + 1); then keys of every plan from one
+# pass to four (1, 7, 8, 9, 12, 21 and 31 bits) at the tile's edges, and
+# K11's 2^22 keys of 12 bits.
 SWEEP_SIZES = (0, 1, 255, 256, 257, 4095, 4096, 4097, (1 << 20) + 3)
 SWEEP_LEAVES = (1, 2, 513, 1 << 18, (1 << 21) + 1)
+SWEEP_BITS = (1, 7, 8, 9, 12, 21, 31)
+SWEEP_BIT_SIZES = (4095, 4096, 4097, (1 << 20) + 3)
 
 
 def leaf_sort_sweep(dev) -> int:
@@ -722,7 +728,10 @@ def leaf_sort_sweep(dev) -> int:
     far outside it, every 101st coordinate NaN), in both modes, the lean
     launch and the public wrapper, ``torch.equal`` to
     ``torch.sort(keys, stable=True)``; then every point in one leaf and
-    keys in descending order at 2^20 + 3. Returns the cases checked."""
+    keys in descending order at 2^20 + 3; keys of every bits of
+    ``SWEEP_BITS`` at ``SWEEP_BIT_SIZES`` in both modes (a run of few
+    values, a descending run, both extremes; a depth-5 grid of such ids);
+    K11's 2^22 keys of 12 bits. Returns the cases checked."""
     import torch
 
     from sdflib_tpu_torch.ops import exact_query as eq
@@ -771,6 +780,27 @@ def leaf_sort_sweep(dev) -> int:
             down = (L - 1 - torch.arange(P, device=dev) % L).to(torch.int32)
             same(eq.launch_leaf_sort(down, None, None, 0, bits), eq.leaf_sort_plain(down),
                  "descending keys")
+    for bits in SWEEP_BITS:
+        top = (1 << bits) - 1
+        rng = np.random.default_rng(bits)
+        grid = rng.integers(0, top + 1, 8 ** 5, dtype=np.int64)
+        grid[:2] = (0, top)
+        grid = torch.as_tensor(grid.astype(np.int32), device=dev)
+        for P in SWEEP_BIT_SIZES + ((1 << 22,) if bits == 12 else ()):
+            keys = rng.integers(0, top + 1, P, dtype=np.int64)
+            keys[: P // 8] = rng.integers(0, min(top, 3) + 1, P // 8)
+            keys[P // 8: P // 4] = top - np.arange(P // 4 - P // 8) % (top + 1)
+            keys[-1], keys[0] = top, 0
+            keys = torch.as_tensor(keys.astype(np.int32), device=dev)
+            what = f"P={P}, {bits} bits"
+            same(eq.launch_leaf_sort(keys, None, None, 0, bits), eq.leaf_sort_plain(keys),
+                 f"{what}, keys given")
+            pts = (np.asarray(lo, np.float32)
+                   + rng.uniform(-0.1, 1.1, (P, 3)).astype(np.float32) * np.float32(size))
+            pts.reshape(-1)[::101] = np.nan
+            pts = torch.as_tensor(pts, device=dev)
+            same(eq.launch_leaf_sort(pts, grid, box, 5, bits),
+                 eq.leaf_sort_plain(pts, grid, box_min, box_size3, 5), what)
     torch.cuda.synchronize()
     return cases
 
@@ -919,11 +949,14 @@ def exact_kernels_vs_plain(sdf, pts, label, sweep: bool = False):
 # K13's bound: flops of an anchor's squared distance in pass 1 (the frame
 # products shared by the 27 anchors), of a winner's corner distance, and of
 # an anchor of pass 2 (the distance again, the gradient and the 8 corner
-# terms; a kept slot needs one anchor at least); bytes a pair (id, valid,
-# keep, sqd_center), a touched field row, a node (its centre and count).
+# terms; a kept slot needs one anchor at least), or of one the skip test
+# settles (the distance again, its root, the near test and the skip test's
+# 7); bytes a pair (id, valid, keep, sqd_center), a touched field row, a
+# node (its centre and count).
 FLOPS_CULL_EVAL = 34
 FLOPS_CULL_CORNER = 46
 FLOPS_CULL_PASS2 = 102
+FLOPS_CULL_SKIP = 34 + 2 + 7
 CULL_PAIR_BYTES = 4 + 1 + 1 + 4
 CULL_ROW_BYTES = 19 * 4
 CULL_NODE_BYTES = 12 + 8
@@ -952,16 +985,21 @@ class CullLog:
     most nodes of each width in ``widths`` is kept as (centers, cand,
     valid, half) in ``kept`` (the first of equals); with ``check`` each
     group's K13 result is held bit-equal to the plain route's
-    (``_cull_group(plain=True)``, the chunks of the parent's build), and
-    ``checked`` counts them."""
+    (``_cull_group(plain=True)``, the chunks of the parent's build) in
+    every form of the kernel, ``checked`` counts them, and ``tally`` sums
+    pass 2's tallies of the form ``lanes_for`` picks (evaluations, near
+    keeps, skips, full evaluations)."""
 
     def __init__(self, widths=(), check=False):
         self.widths = None if widths is None else set(widths)
         self.check = check
         self.groups = self.plain_calls = self.checked = 0
         self.kept = {}
+        self.tally = [0, 0, 0, 0]
 
     def __enter__(self):
+        import torch
+
         from sdflib_tpu_torch.ops import cull as cull_mod
         from sdflib_tpu_torch.sdf import exact_octree as eo
 
@@ -990,6 +1028,14 @@ class CullLog:
                     eo.region_cull_plain = plain
                 _check(cull_equal(out, want), f"K13 differs from region_cull_plain on a "
                                               f"{N} x {K} group (half {half})")
+                for lanes in cull_mod.LANES:
+                    stats = torch.zeros(4, dtype=torch.int64, device=centers.device)
+                    got = cull_mod.region_cull(build.tables, centers, cand, valid, half,
+                                               lanes=lanes, stats=stats)
+                    _check(cull_equal(got, want), f"K13 with {lanes} lanes differs from "
+                           f"region_cull_plain on a {N} x {K} group (half {half})")
+                    if lanes == cull_mod.lanes_for(K):
+                        log.tally = [a + b for a, b in zip(log.tally, stats.tolist())]
                 log.checked += 1
             return out
 
@@ -1011,27 +1057,44 @@ def cull_equal(got, want) -> bool:
             and torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)))
 
 
-def cull_bound(cand, valid, keep) -> tuple[float, str]:
+def cull_bound(cand, valid, keep, skipped=None) -> tuple[float, str]:
     """K13's least time on a group (``FLOPS_CULL_*``, ``CULL_*_BYTES``):
     every pair's bytes, each touched field row once, the nodes; pass 1 over
     the valid pairs, the 216 corners a node, pass 2's 27 anchors for each
-    culled pair and one for each kept pair."""
+    culled pair and one for each kept pair. With ``skipped`` (pass 2's
+    skip tally of the run), that many of those anchors, at most all of the
+    culled pairs', count at ``FLOPS_CULL_SKIP``: the work this run's data
+    needs. Without it every anchor counts in full."""
     import torch
 
     N, K = cand.shape
     pairs, kept = int(valid.sum()), int(keep.sum())
     rows = int(torch.unique(cand[valid]).numel())
     nbytes = N * K * CULL_PAIR_BYTES + rows * CULL_ROW_BYTES + N * CULL_NODE_BYTES
+    anchors = (pairs - kept) * 27 + kept
+    skip = min(skipped or 0, anchors - kept)
     ops = (pairs * 27 * FLOPS_CULL_EVAL + N * 216 * FLOPS_CULL_CORNER
-           + ((pairs - kept) * 27 + kept) * FLOPS_CULL_PASS2)
+           + (anchors - skip) * FLOPS_CULL_PASS2 + skip * FLOPS_CULL_SKIP)
     return _bound(nbytes, ops)
+
+
+def _skip_line(tally) -> str:
+    """Pass 2's tallies (evaluations, near keeps, skips, full evaluations)
+    as a line."""
+    evals, near, skipped, full = tally
+    return (f"pass 2's anchor evaluations {evals}: {near} kept by the near test, {skipped} "
+            f"skipped by the skip test ({skipped / max(evals, 1):.1%}), {full} in full")
 
 
 def cull_vs_plain(tables, group, label, plain_reps: int = 3):
     """K13 in each form against the plain route (``_cull_group(plain=True)``)
     on one node group: bit-equal, each form and the plain route timed (CUDA
-    events). Returns dict(err, ms (the form ``lanes_for`` picks), plain_ms,
-    bound, forms {lanes: ms}, lanes)."""
+    events), and the picked form's pass 2 tallies from a stats launch,
+    which the bound counts (``cull_bound``). Returns dict(err, ms (the form
+    ``lanes_for`` picks), plain_ms, bound, full_bound (every anchor in
+    full), forms {lanes: ms}, lanes, skipped_share)."""
+    import torch
+
     from sdflib_tpu_torch.ops import cull
     from sdflib_tpu_torch.sdf import exact_octree as eo
 
@@ -1051,15 +1114,165 @@ def cull_vs_plain(tables, group, label, plain_reps: int = 3):
                                                          lanes=lanes))
     lanes = cull.lanes_for(K)
     plain_ms = _cuda_ms(plain, reps=plain_reps)
-    bound = cull_bound(cand, valid, want[0])
+    stats = torch.zeros(4, dtype=torch.int64, device=centers.device)
+    cull.region_cull(tables, centers, cand, valid, half, stats=stats)
+    skip = stats.tolist()
+    bound = cull_bound(cand, valid, want[0], skipped=skip[2])
+    full = cull_bound(cand, valid, want[0])
     rows = ", expanded rows" if cand.stride(0) == 0 else ""
     print(f"K13 region cull vs plain ({label}, N={N}, K={K}{rows}, "
           f"{int(valid.sum())} valid pairs, {int(want[1].sum())} kept): bit-equal in every form; "
           + ", ".join(f"{n} lanes {ms:.4f} ms" for n, ms in forms.items())
           + f"; picked {lanes}; plain {plain_ms:.3f} ms ({C} nodes a chunk); bound "
-          f"{bound[0]:.4f} ms ({bound[1]}) = {bound[0] / forms[lanes]:.1%} of the picked form")
-    return dict(err=0.0, ms=forms[lanes], plain_ms=plain_ms, bound=bound, forms=forms,
-                lanes=lanes)
+          f"{bound[0]:.4f} ms ({bound[1]}, the skipped anchors at {FLOPS_CULL_SKIP} flops) = "
+          f"{bound[0] / forms[lanes]:.1%} of the picked form, {forms[lanes] / bound[0]:.2f}x; "
+          f"every anchor in full {full[0]:.4f} ms, "
+          f"{forms[lanes] / full[0]:.2f}x; {_skip_line(skip)}")
+    return dict(err=0.0, ms=forms[lanes], plain_ms=plain_ms, bound=bound, full_bound=full,
+                forms=forms, lanes=lanes, skipped_share=skip[2] / max(skip[0], 1))
+
+
+# K13's A/B variants (``cull_ab``): name -> [(file under the package,
+# pattern, replacement)] (``tools/exact_ab.py`` ``copy_with_rewrites``)
+_CULL_CU = "csrc/region_cull.cu"
+CULL_VARIANTS = {
+    # the skip test in the warp form too, or in neither form
+    "warp-skip": [(_CULL_CU, r"region_cull_warp_kernel<kStats, false>",
+                   "region_cull_warp_kernel<kStats, true>")],
+    "noskip": [(_CULL_CU, r"region_cull_block_kernel<kStats, true>",
+                "region_cull_block_kernel<kStats, false>")],
+    # the warp form with the whole register file a thread (one block an SM)
+    "warp-regs": [(_CULL_CU, r"__launch_bounds__\(kWarpThreads, 2\)",
+                   "__launch_bounds__(kWarpThreads, 1)")],
+}
+
+
+def cull_ab(parent: str | None = None, variants: str = "warp-skip,noskip") -> None:
+    """K13 timed on the exact build's own node groups in checkouts of the
+    port and in variants of this one, in turns, on one card: ``python3 -c
+    "import chip_smoke as cs; cs.cull_ab('PARENT')"`` from this checkout,
+    PARENT another (for example a ``git archive`` of the parent commit,
+    unpacked) or None. A first process builds d6 and d7 (``BUILDS``, as
+    paths A and B build them) with this checkout, keeps the most populous
+    group of each width (``CullLog``) and saves each with the plain route's
+    result (``_cull_ab_store``). Each tree then runs in a process of its
+    own, in turns (``tools/exact_ab.py`` ``run_in_turns``: parent, this
+    one, the ``CULL_VARIANTS`` named, the same reversed, this one, parent),
+    each printing one ``cull_ab`` JSON line (``_cull_ab_probe``)."""
+    from sdflib_tpu_torch.tools.exact_ab import _build_all, copy_with_rewrites, run_in_turns
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    names = ["base", *(n for n in variants.split(",") if n)]
+
+    def argv(call: str, *args: str) -> list:
+        return [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+                f" import chip_smoke as cs; cs.{call}(*sys.argv[2:])", root, *args]
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cull_ab_")
+    try:
+        trees = {name: copy_with_rewrites(work, name, CULL_VARIANTS[name]) if name != "base"
+                 else root for name in names}
+        if parent is not None:
+            trees["parent"] = os.path.abspath(parent)
+        _build_all(sorted(set(trees.values())))
+        groups = os.path.join(work, "groups")
+        os.makedirs(groups)
+        out = subprocess.run(argv("_cull_ab_store", groups), capture_output=True, text=True,
+                             timeout=900)
+        _check(out.returncode == 0, f"_cull_ab_store failed:\n{out.stderr[-4000:]}")
+        run_in_turns(names, lambda name: argv("_cull_ab_probe", name, trees[name], groups),
+                     parent is not None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _cull_ab_tris(depth: int, dev):
+    """The triangles and cubified box of ``BUILDS[depth]``'s torus, and its
+    start depth."""
+    from sdflib_tpu_torch.triangle import calculate_mesh_triangle_data, soa_to_torch
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    torus, start, _ = BUILDS[depth]
+    mesh = make_torus(R=0.3, r=0.12, **torus)
+    cbox = mesh.bounding_box.add_margin(0.14).cubified()
+    return soa_to_torch(calculate_mesh_triangle_data(mesh), dev), cbox, start
+
+
+def _cull_ab_store(where: str) -> None:
+    """``cull_ab``'s groups: d6 and d7 built with this checkout, each
+    width's most populous group and its plain result saved under ``where``."""
+    import torch
+
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+
+    dev = torch.device("cuda", 0)
+    for depth in (6, 7):
+        tris, cbox, start = _cull_ab_tris(depth, dev)
+        with CullLog(widths=None) as log:
+            eo._build_exact(tris, cbox.min, float(cbox.size[0]), depth, start, 32)
+        tables = eo.prepare_cull_inputs(tris, "region")
+        for K, (centers, cand, valid, half) in sorted(log.kept.items()):
+            want = eo._cull_group("region", tables, centers, cand, valid, half,
+                                  eo._chunk_rows(K, 1 << 21), plain=True)
+            expanded = cand.stride(0) == 0
+            torch.save(dict(depth=depth, K=K, N=centers.shape[0], half=half,
+                            centers=centers.cpu(), expanded=expanded,
+                            cand=(cand[:1] if expanded else cand).cpu(),
+                            valid=(valid[:1] if expanded else valid).cpu(),
+                            want=[x.cpu() for x in want]),
+                       os.path.join(where, f"d{depth}_{K}.pt"))
+        del log, tables, tris
+        torch.cuda.empty_cache()
+
+
+def _cull_ab_probe(name: str, tree: str, where: str) -> None:
+    """One tree's K13 on ``cull_ab``'s saved groups, in a process of its
+    own: in each form the tree has, held bit-equal to the plain result and
+    timed (CUDA events, best of 5 after a warm-up); where the tree's
+    ``region_cull`` takes ``stats``, pass 2's tallies (evaluations, near
+    keeps, skips, full evaluations); the tree's ptxas line for each of
+    K13's kernels. Prints one ``cull_ab`` JSON line with the card's name
+    and power limit."""
+    import inspect
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from sdflib_tpu_torch.kernels import build
+    from sdflib_tpu_torch.ops import cull
+    from sdflib_tpu_torch.sdf import exact_octree as eo
+
+    dev = torch.device("cuda", 0)
+    has_stats = "stats" in inspect.signature(cull.region_cull).parameters
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    out = {"variant": name, "tree": os.path.abspath(tree), "card": smi, "groups": {}}
+    tables = {}
+    for path in sorted(os.listdir(where), key=lambda p: (p[:2], int(p[3:-3]))):
+        g = torch.load(os.path.join(where, path))
+        depth, K, N = g["depth"], g["K"], g["N"]
+        if depth not in tables:
+            tables = {depth: eo.prepare_cull_inputs(_cull_ab_tris(depth, dev)[0], "region")}
+        tab = tables[depth]
+        centers = g["centers"].to(dev)
+        cand, valid = g["cand"].to(dev), g["valid"].to(dev)
+        if g["expanded"]:
+            cand, valid = cand.expand(N, -1), valid.expand(N, -1)
+        want = [x.to(dev) for x in g["want"]]
+        row = {"N": N, "pairs": int(valid.sum()), "kept": int(want[1].sum()),
+               "picked": cull.lanes_for(K)}
+        for lanes in cull.LANES:
+            run = lambda: cull.region_cull(tab, centers, cand, valid, g["half"], lanes=lanes)
+            _check(cull_equal(run(), want), f"{name}: K13 with {lanes} lanes differs from the "
+                   f"plain route on d{depth} K={K}")
+            row[str(lanes)] = _cuda_ms(run, reps=5)
+        if has_stats:
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            cull.region_cull(tab, centers, cand, valid, g["half"], stats=stats)
+            row["stats"] = dict(zip(("evals", "near", "skipped", "full"), stats.tolist()))
+        out["groups"][f"d{depth} K={K}"] = row
+    out["ptxas"] = {k: v for k, v in build.ptxas_report().items() if "region_cull" in k}
+    print("cull_ab " + json.dumps(out))
 
 
 def build_both_ways(dev, depth: int, sdf) -> dict:
@@ -1100,8 +1313,8 @@ def build_both_ways(dev, depth: int, sdf) -> dict:
     print(f"exact build d{depth} both ways (_build_exact): plain cull {secs['plain']:.3f} s, "
           f"K13 {secs['K13']:.3f} s ({secs['plain'] / secs['K13']:.1f}x); octree, leaf_offset, "
           f"leaf_count, tri_flat, leaf_centers identical, and the main path's too; K13 "
-          f"bit-equal to the plain route on all {log.checked} groups "
-          f"(widths {sorted(log.kept)})")
+          f"bit-equal to the plain route on all {log.checked} groups in every form "
+          f"(widths {sorted(log.kept)}); {_skip_line(log.tally)}")
     del out
     return dict(plain_s=secs["plain"], k13_s=secs["K13"], groups=log.checked, kept=log.kept,
                 tables=eo.prepare_cull_inputs(tris, "region"))
@@ -2340,7 +2553,8 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
     each once, and ~310 flops a useful trip. Returns {"walk_beam": ...,
     "walk_segment": ...}, each (max |depth diff| against the all-torch
     plain version on the rays with finite positions, ms, plain ms,
-    bound)."""
+    bound), and "touched": the larger of the two's bytes of words and rows
+    touched."""
     import importlib
 
     import torch
@@ -2407,7 +2621,10 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
               f"({bound[1]}) = {bound[0] / ms:.1%} of the kernel's time")
         restore()
         kernel(walk, *bufs, *consts, trips)
+        touched_all.append(touched)
         return d_err, ms, plain_ms, bound
+
+    touched_all = []
 
     beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
     beam_consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
@@ -2420,6 +2637,7 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
     first = frame.schedule[0][0]
     out["walk_segment"] = run("K14 walk_segment", ow.walk_segment, ow.walk_segment_plain, bufs,
                               consts, first, MARCH_STATE_BYTES, FLOPS_WALK_TRIP, 3)
+    out["touched"] = max(touched_all)
     del frame
     return out
 
@@ -2575,6 +2793,15 @@ def walk_frame_path(dev, root: str, n_rays: int):
     t0 = time.perf_counter()
     segments = walk_segments_vs_plain(sdf, origins, dirs, kw)
     t_seg = time.perf_counter() - t0
+    # the frame's least time, as path D's: its rays' state in and out once,
+    # the words and rows it touches (at least the beams' or the first
+    # round's), and its useful trips' flops
+    rows_b = segments.pop("touched")
+    frame_bound = _bound(R * FRAME_RAY_BYTES + rows_b, trips * FLOPS_WALK_TRIP)
+    print(f"walk frame bound ({FRAME_RAY_BYTES} B a ray in and out, as path D's frame, and "
+          f"{rows_b} B of words and rows, the larger of the beams' and the first round's, "
+          f"each once; {trips} useful trips x {FLOPS_WALK_TRIP} flops): "
+          f"{frame_bound[0]:.4f} ms ({frame_bound[1]})")
     t0 = time.perf_counter()
 
     # the C++ SdfLib's own files: its octree (aligned) and its builder's
@@ -2880,9 +3107,9 @@ def _k11_pieces(w, pts, gd, gg, bits: int, nodes: int, touched: int, walk_flops:
            "versions")
     key_ms = _cuda_ms(lambda: ow.walk_keys(w, pts, gd, gg))
     key_plain = _cuda_ms(lambda: ow.walk_keys_plain(w, pts, gd, gg), reps=2)
-    sort_ms = _cuda_ms(lambda: eq.leaf_sort(keys, None, None, None, 0, bits))
+    sort_ms, sort_dev = _timed(lambda: eq.leaf_sort(keys, None, None, None, 0, bits), "")
     sort_plain = _cuda_ms(lambda: eq.leaf_sort_plain(keys))
-    sort_lib = _cuda_ms(lambda: torch.sort(keys, stable=True))
+    sort_lib, sort_lib_dev = _timed(lambda: torch.sort(keys, stable=True), "")
     red_ms = _cuda_ms(lambda: ow.walk_reduce(w, lid_s, order, share))
     red_plain = _cuda_ms(lambda: ow.walk_reduce_plain(w, lid_s, order, share), reps=1)
     rows = w.words.numel() // nc
@@ -2908,8 +3135,9 @@ def _k11_pieces(w, pts, gd, gg, bits: int, nodes: int, touched: int, walk_flops:
                        + touched * nc * 4, n * (FLOPS_K11_GG if gg_in else FLOPS_K11))
     print(f"K11 pieces ({tag}), {n} points, {bits} bits: key launch {key_ms:.4f} ms (plain "
           f"{key_plain:.4f}, bound {key_bound[0]:.4f}, {key_bound[1]}); leaf sort "
-          f"{sort_ms:.4f} ms (plain {sort_plain:.4f}, torch.sort {sort_lib:.4f}, bound "
-          f"{sort_bound[0]:.4f}); reduction {red_ms:.4f} ms (plain {red_plain:.4f}, bound "
+          f"{sort_ms:.4f} ms ({sort_dev:.4f} device; digits {eq._digit_plan(bits)}; plain "
+          f"{sort_plain:.4f}, torch.sort(stable=True) {sort_lib:.4f} ({sort_lib_dev:.4f} "
+          f"device), bound {sort_bound[0]:.4f}); reduction {red_ms:.4f} ms (plain {red_plain:.4f}, bound "
           f"{red_bound[0]:.4f}, {red_bound[1]}); the reduction step's reference, "
           f"index_put_(accumulate=True) of the same weights: {put_ms:.4f} ms (relative "
           f"difference {put_err:.3e})")

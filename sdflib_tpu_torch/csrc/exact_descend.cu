@@ -21,32 +21,42 @@
 // lid_s (int32) and the order (int64), equal to torch.sort(keys,
 // stable=True). The keys are leaf ids below L, so it is a stable LSD radix
 // sort over only their bits = max(1, bit_length(L - 1)), in the fewest
-// digits of at most 11 bits (two passes at depths 6 and 7, three up to 31
-// bits), where torch's general sort takes four 8-bit passes of int32 keys
-// with int64 values. One call is a memset of the look-back state and:
+// digits of at most 8 bits, as even as can be (three passes of 6 bits at
+// depth 6, of 7 at depth 7, two of 6 for K11's 12 bits), so that with 256
+// threads a block each thread owns one digit's bin: the tile's count, its
+// scan, its status word and its look-back are one word a thread. One call
+// is a memset of the look-back state and:
 //  * the key launch (K8 fused with the upsweep): a block stages 2,048
 //    points with 16-byte loads through shared memory, computes and writes
 //    each key, and counts every pass's digits in shared memory, then with
-//    atomics into one 4,096-bin table in L2 (integer counts: the same
-//    every run). The last block to finish turns each pass's counts into
-//    its digits' first places. With keys given (the node walk's) it only
-//    counts them.
-//  * one launch a digit pass ("onesweep"): a block takes its tile of 4,096
-//    keys from an atomic counter, never from blockIdx, so a tile that
-//    spins on an earlier one never waits on a block not yet scheduled.
-//    Each warp ranks its 512 keys in index order (__match_any_sync and
-//    popcounts over a per-warp count of each digit), a prefix over the
-//    warps in order gives the rank in the tile: the sort is stable. The
-//    tile publishes its digit counts, then finds the counts of all earlier
-//    tiles by decoupled look-back (one status word a tile and digit: a
-//    2-bit flag, aggregate or inclusive prefix, over a 30-bit count), and
-//    writes its keys and values from shared memory in sorted order, so a
-//    digit's run goes out as consecutive stores. The first pass's value
-//    is the index (int32); the last pass writes lid_s and the order as
-//    int64, the types K9 and K7 read.
-// Nothing is read back to the host. Bound: bytes; the design moves 48 B a
-// point in two passes (12 B of point and a 4 B key; 4 B in and 8 B out;
-// 8 B in, 4 + 8 B out).
+//    atomics into one table in L2 (integer counts: the same every run).
+//    The last block to finish turns each pass's counts into its digits'
+//    first places. With keys given (the node walk's) it only counts them.
+//  * one launch a digit pass ("onesweep", with CUB's early counts): a
+//    block takes its tile of 4,096 keys from an atomic counter, never from
+//    blockIdx, so a tile that spins on an earlier one never waits on a
+//    block not yet scheduled. It copies the tile into shared memory with
+//    16-byte loads, counts its digits (a shared atomic a key) and
+//    publishes the counts at once (one status word a tile and digit: a
+//    2-bit flag, aggregate or inclusive prefix, over a 30-bit count), so
+//    the look-back of a later tile moves at the speed of counting, not of
+//    ranking. Then each warp ranks its 512 keys in index order (the lanes
+//    of a step that share a digit found by one __ballot_sync a bit, and
+//    popcounts over a per-warp count of each digit), and the tile finds
+//    the counts of all earlier tiles by decoupled look-back (CUB's order),
+//    its first read issued before the ranking. A prefix over the warps in
+//    order gives the rank in the tile: the sort is stable. The tile goes
+//    out from shared memory in sorted order, so a digit's run leaves as
+//    consecutive stores. The first pass's value is the index (int32); the
+//    last pass writes lid_s and the order as int64, the types K9 and K7
+//    read. Three blocks an SM.
+// Measured on an H100 (PERF.md; tools/leaf_sort_ab.py): the digits
+// matched with __match_any_sync, the early counts by one atomic a warp's
+// digit, two blocks an SM, the look-back before the ranking and tiles of
+// 2,048, 3,072 and 5,120 keys were each slower.
+// Nothing is read back to the host. Bound: bytes; the design moves 64 B a
+// point in three passes (12 B of point and a 4 B key; 4 B in and 8 B out
+// twice; 8 B in, 4 + 8 B out).
 //
 // K9 replaces the gathers of the sorted order (the multi-operand lax.sort
 // carries the coordinates, :934-941) and of each sorted point's bucket
@@ -150,21 +160,30 @@ constexpr int kSortThreads = 256;
 constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kSortItems = 16;                          // keys a thread in a pass
 constexpr int kSortTile = kSortThreads * kSortItems;    // keys a tile: 4,096
+constexpr int kWarpKeys = 32 * kSortItems;              // keys a warp ranks
 constexpr int kKeyPoints = 2048;                        // points a step of the key launch
-constexpr int kMaxDigit = 11;
-constexpr int kMaxRadix = 1 << kMaxDigit;
-constexpr int kDigitsPerThread = kMaxRadix / kSortThreads;
-constexpr int kMaxPasses = 3;
-// every pass's bins side by side: at most 2 x 2^11 (11 + 11 bits) or
-// 2^11 + 2 x 2^10 (11 + 10 + 10 bits, the widest three-pass plan)
-constexpr int kHistBins = 2 * kMaxRadix;
+constexpr int kMaxDigit = 8;
+constexpr int kRadix = 1 << kMaxDigit;                  // a bin a thread
+constexpr int kMaxPasses = 4;                           // 31 bits: 8 + 8 + 8 + 7
+// every pass's bins side by side
+constexpr int kHistBins = kMaxPasses * kRadix;
 // the state's words before the look-back status: the bins, the key
-// launch's ticket, a tile counter a pass
-constexpr int kStateHead = kHistBins + 1 + kMaxPasses;
+// launch's ticket, a tile counter a pass (a multiple of 4: the buffers
+// after the state stay 16-byte aligned)
+constexpr int kStateHead = kHistBins + 1 + kMaxPasses + 3;
 constexpr unsigned kCountMask = (1u << 30) - 1;
 constexpr unsigned kFlagAggregate = 1u << 30;           // the tile's own count
 constexpr unsigned kFlagPrefix = 2u << 30;              // the count of it and every earlier tile
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kRadix == kSortThreads, "a digit's bin a thread");
+static_assert(kStateHead % 4 == 0 && kSortTile % 4 == 0, "16-byte aligned buffers and tiles");
+
+// tools/leaf_sort_ab.py's "phases" variant defines these to record the
+// global timer at each step of a tile; they are empty otherwise.
+#ifndef SORT_STAMP
+#define SORT_STAMP(step)
+#define SORT_STAMPS_OUT()
+#endif
 
 // The digits of a sort over ``bits`` bits, least significant first: the
 // fewest passes of at most kMaxDigit bits, as even as can be (the first
@@ -209,26 +228,31 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
+// The lanes of the warp whose d equals this lane's, d in [0, 2^(width + 1)):
+// one ballot a bit. __match_any_sync's time grows with the distinct values
+// in the warp (up to 32 of a step's keys here) and measured slower.
+__device__ __forceinline__ unsigned lanes_alike(int d, int width) {
+  unsigned m = kFull;
+#pragma unroll
+  for (int b = 0; b <= kMaxDigit; ++b) {
+    if (b > width) break;
+    const bool bit = (d >> b) & 1;
+    const unsigned set = __ballot_sync(kFull, bit);
+    m &= bit ? set : ~set;
+  }
+  return m;
+}
+
 // A look-back that has waited this long on an earlier tile (which holds a
 // running block: it took its index first) traps instead of hanging.
 constexpr unsigned long long kSpinLimitNs = 2000000000ull;
 
-// Exclusive prefix sums of s[0..n) in shared memory, in place (n <=
-// kMaxRadix); every thread of the block calls it after s is complete, and
-// s is complete again when it returns.
-__device__ void block_exclusive_scan(unsigned* s, int n) {
-  __shared__ unsigned warp_sum[kSortWarps];
+// The exclusive prefix sum over the block's threads of v, in thread order
+// (every thread of the block calls it; warp_sum is kSortWarps words of
+// shared memory, free again when it returns).
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sum) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (n + kSortThreads - 1) / kSortThreads;
-  const int lo = threadIdx.x * per;
-  unsigned before[kDigitsPerThread];
-  unsigned sum = 0;
-#pragma unroll
-  for (int i = 0; i < kDigitsPerThread; ++i) {
-    before[i] = sum;
-    if (i < per && lo + i < n) sum += s[lo + i];
-  }
-  unsigned incl = sum;
+  unsigned incl = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const unsigned y = __shfl_up_sync(kFull, incl, o);
@@ -236,12 +260,10 @@ __device__ void block_exclusive_scan(unsigned* s, int n) {
   }
   if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
-  unsigned pre = incl - sum;
+  unsigned pre = incl - v;
   for (int w = 0; w < warp; ++w) pre += warp_sum[w];
-#pragma unroll
-  for (int i = 0; i < kDigitsPerThread; ++i)
-    if (i < per && lo + i < n) s[lo + i] = pre + before[i];
   __syncthreads();
+  return pre;
 }
 
 // The key launch: keys (from the points, or given) and every pass's digit
@@ -253,6 +275,7 @@ __global__ void __launch_bounds__(kSortThreads)
                           int* __restrict__ keys_out, unsigned* __restrict__ state) {
   __shared__ float4 staged4[kKeyPoints * 3 / 4];
   __shared__ unsigned count[kHistBins];
+  __shared__ unsigned warp_sum[kSortWarps];
   __shared__ bool last;
   float* staged = reinterpret_cast<float*>(staged4);
   for (int i = threadIdx.x; i < plan.bins; i += kSortThreads) count[i] = 0;
@@ -292,169 +315,180 @@ __global__ void __launch_bounds__(kSortThreads)
   if (threadIdx.x == 0) last = atomicAdd(state + kHistBins, 1u) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
-  // every block's counts are in: each pass's exclusive sums over its digits
-  for (int i = threadIdx.x; i < plan.bins; i += kSortThreads) count[i] = __ldcg(state + i);
-  __syncthreads();
+  // every block's counts are in: each pass's exclusive sums over its digits,
+  // a digit a thread
 #pragma unroll
-  for (int p = 0; p < kMaxPasses; ++p)
-    if (p < plan.passes) block_exclusive_scan(count + plan.off[p], 1 << plan.width[p]);
-  for (int i = threadIdx.x; i < plan.bins; i += kSortThreads) state[i] = count[i];
+  for (int p = 0; p < kMaxPasses; ++p) {
+    if (p >= plan.passes) break;
+    const int d = threadIdx.x, R = 1 << plan.width[p];
+    const unsigned c = d < R ? __ldcg(state + plan.off[p] + d) : 0u;
+    const unsigned first = block_exclusive_scan(c, warp_sum);
+    if (d < R) state[plan.off[p] + d] = first;
+  }
 }
 
-// A digit pass's shared memory: the per-warp digit counts while it ranks
-// (16 bits a digit: a warp counts at most 512 keys), then the tile in
-// sorted order.
-union __align__(16) PassShared {
-  unsigned short warp_count[kSortWarps][kMaxRadix];
-  struct {
-    int key[kSortTile];
-    int val[kSortTile];
-  } tile;
+// A digit pass's shared memory: the tile's keys and values in index order
+// as loaded, then in sorted order.
+struct __align__(16) PassTile {
+  int key[kSortTile];
+  int val[kSortTile];
 };
+
+// Copy n ints from global src (16-byte aligned when vec) to shared dst,
+// read once: 16-byte loads, all issued before the first store.
+__device__ __forceinline__ void load_tile(const int* __restrict__ src, int n, bool vec,
+                                          int* dst) {
+  if (vec && n == kSortTile) {
+    constexpr int kVecs = kSortTile / 4 / kSortThreads;
+    int4 v[kVecs];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j)
+      v[j] = __ldcs(reinterpret_cast<const int4*>(src) + threadIdx.x + j * kSortThreads);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j)
+      reinterpret_cast<int4*>(dst)[threadIdx.x + j * kSortThreads] = v[j];
+  } else {
+    for (int i = threadIdx.x; i < n; i += kSortThreads) dst[i] = __ldcs(src + i);
+  }
+}
 
 // One digit pass over the keys (and values; none: the index) into the
 // outputs (values as int32, or as int64 into order on the last pass).
-__global__ void __launch_bounds__(kSortThreads)
+// Three blocks an SM: a 2^21-key pass's 512 tiles in one wave.
+__global__ void __launch_bounds__(kSortThreads, 3)
     leaf_sort_pass_kernel(const int* __restrict__ keys_in, const int* __restrict__ vals_in, int P,
                           int shift, int width, const unsigned* __restrict__ first,
                           unsigned* tile_counter, unsigned* status, int* __restrict__ keys_out,
                           int* __restrict__ vals_out, long long* __restrict__ order_out) {
-  __shared__ PassShared sm;
-  __shared__ unsigned place[kMaxRadix];
+  __shared__ PassTile sm;
+  __shared__ unsigned hist[kRadix];                       // the tile's count of each digit
+  __shared__ __align__(16) unsigned short warp_count[kSortWarps][kRadix];
+  __shared__ unsigned place[kRadix];
+  __shared__ unsigned warp_sum[kSortWarps];
   __shared__ int tile_index;
+  SORT_STAMP(0);
   const int R = 1 << width;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) tile_index = static_cast<int>(atomicAdd(tile_counter, 1u));
-  uint4* zero = reinterpret_cast<uint4*>(&sm.warp_count[0][0]);
-  for (int i = threadIdx.x; i < kSortWarps * kMaxRadix / 8; i += kSortThreads)
-    zero[i] = make_uint4(0, 0, 0, 0);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) tile_index = static_cast<int>(atomicAdd(tile_counter, 1u));
+  hist[t] = 0;
+  reinterpret_cast<uint4*>(&warp_count[0][0])[t] = make_uint4(0, 0, 0, 0);
+  static_assert(sizeof(warp_count) == kSortThreads * sizeof(uint4), "a uint4 a thread");
   __syncthreads();
   const int tile = tile_index;
-  // warp w holds the tile's keys [512 w, 512 w + 512): item k of lane l is
-  // key 512 w + 32 k + l, so (k, lane) is index order within the warp
-  const int base = tile * kSortTile + warp * (kSortItems * 32) + lane;
+  SORT_STAMP(1);
+  const int base = tile * kSortTile;
+  const int n = min(kSortTile, P - base);
+  // the tile in index order: keys_in, vals_in and every buffer the call
+  // made start 16-byte aligned, given keys may not
+  const bool vec = (reinterpret_cast<uintptr_t>(keys_in) & 15) == 0;
+  load_tile(keys_in + base, n, vec, sm.key);
+  if (vals_in != nullptr) load_tile(vals_in + base, n, true, sm.val);
+  __syncthreads();
+  // warp w ranks the tile's keys [kWarpKeys w, kWarpKeys (w + 1)): item k
+  // of lane l is key kWarpKeys w + 32 k + l, so (k, lane) is index order
+  const int first_i = warp * kWarpKeys + lane;
   int key[kSortItems], val[kSortItems], rank[kSortItems];
 #pragma unroll
   for (int k = 0; k < kSortItems; ++k) {
-    const int i = base + 32 * k;
-    key[k] = i < P ? __ldcs(keys_in + i) : 0;
-    val[k] = vals_in == nullptr ? i : (i < P ? __ldcs(vals_in + i) : 0);
+    const int i = first_i + 32 * k;
+    key[k] = i < n ? sm.key[i] : 0;
+    val[k] = vals_in == nullptr ? base + i : (i < n ? sm.val[i] : 0);
   }
-  const unsigned below = (1u << lane) - 1;
+  // the early counts: one shared atomic a key (a warp's lanes of one digit
+  // matched first and counted once measured slower, PERF.md)
 #pragma unroll
-  for (int k = 0; k < kSortItems; ++k) {
-    const bool live = base + 32 * k < P;
-    const int d = live ? digit_of(key[k], shift, width) : R;     // R: no key
-    const unsigned peers = __match_any_sync(kFull, d);
-    const int leader = __ffs(peers) - 1;
-    unsigned seen = 0;
-    if (live && lane == leader) {
-      seen = sm.warp_count[warp][d];
-      sm.warp_count[warp][d] = static_cast<unsigned short>(seen + __popc(peers));
-    }
-    rank[k] = static_cast<int>(__shfl_sync(kFull, seen, leader) + __popc(peers & below));
-    __syncwarp();
-  }
+  for (int k = 0; k < kSortItems; ++k)
+    if (first_i + 32 * k < n) atomicAdd(&hist[digit_of(key[k], shift, width)], 1u);
   __syncthreads();
-  // each digit's count in the tile (published at once) and each warp's
-  // first place among the digit's keys
-  unsigned mine[kDigitsPerThread];
-#pragma unroll
-  for (int j = 0; j < kDigitsPerThread; ++j) {
-    const int d = threadIdx.x + j * kSortThreads;
-    mine[j] = 0;
-    if (d >= R) continue;
-    unsigned sum = 0;
-    for (int w = 0; w < kSortWarps; ++w) {
-      const unsigned c = sm.warp_count[w][d];
-      sm.warp_count[w][d] = static_cast<unsigned short>(sum);
-      sum += c;
-    }
-    mine[j] = sum;
-    place[d] = sum;
-    store_volatile(status + static_cast<size_t>(tile) * R + d,
-                   (tile == 0 ? kFlagPrefix : kFlagAggregate) | sum);
+  // publish the tile's counts before ranking: a later tile's look-back
+  // reads them while this one ranks
+  const unsigned mine = t < R ? hist[t] : 0u;
+  unsigned* own = status + static_cast<size_t>(tile) * R + t;
+  unsigned word = 0;
+  if (t < R) {
+    store_volatile(own, (tile == 0 ? kFlagPrefix : kFlagAggregate) | mine);
+    if (tile > 0) word = load_volatile(own - R);      // the first look-back read, in flight
   }
-  // decoupled look-back: the digits' counts over every earlier tile, all
-  // of a thread's digits in flight at once
-  unsigned before[kDigitsPerThread];
-#pragma unroll
-  for (int j = 0; j < kDigitsPerThread; ++j) before[j] = 0;
-  if (tile > 0) {
-    int at[kDigitsPerThread];
-    unsigned pending = 0;
-#pragma unroll
-    for (int j = 0; j < kDigitsPerThread; ++j) {
-      at[j] = tile - 1;
-      if (threadIdx.x + j * kSortThreads < R) pending |= 1u << j;
-    }
+  SORT_STAMP(2);
+  // decoupled look-back over the earlier tiles' counts of digit t
+  unsigned before = 0;
+  auto look_back = [&]() {
+    if (tile == 0 || t >= R) return;
+    const unsigned* at = own - R;
     unsigned long long spin_start = 0;
-    while (pending != 0) {
-      unsigned word[kDigitsPerThread];
-#pragma unroll
-      for (int j = 0; j < kDigitsPerThread; ++j)
-        word[j] = (pending >> j & 1) ? load_volatile(status + static_cast<size_t>(at[j]) * R +
-                                                     threadIdx.x + j * kSortThreads)
-                                     : 0;
-      bool waiting = false;
-#pragma unroll
-      for (int j = 0; j < kDigitsPerThread; ++j) {
-        if (!(pending >> j & 1)) continue;
-        const unsigned flag = word[j] & ~kCountMask;
-        if (flag == 0) {                                // not published yet: again
-          waiting = true;
-          continue;
-        }
-        before[j] += word[j] & kCountMask;
-        if (flag == kFlagPrefix) pending &= ~(1u << j);
-        else --at[j];
-      }
-      if (waiting) {
+    for (;;) {
+      const unsigned flag = word & ~kCountMask;
+      if (flag == 0) {                                  // not published yet: again
         const unsigned long long now = global_ns();
         if (spin_start == 0) spin_start = now;
         else if (now - spin_start > kSpinLimitNs) __trap();
+        word = load_volatile(at);
+        continue;
       }
+      before += word & kCountMask;
+      if (flag == kFlagPrefix) break;
+      at -= R;
+      word = load_volatile(at);
     }
+    store_volatile(own, kFlagPrefix | (before + mine));
+  };
+  // rank: each warp in index order (the lanes of a step that share a digit
+  // found by ballots), a per-warp running count of each digit
+  const unsigned below = (1u << lane) - 1;
+  auto rank_keys = [&]() {
 #pragma unroll
-    for (int j = 0; j < kDigitsPerThread; ++j) {
-      const int d = threadIdx.x + j * kSortThreads;
-      if (d < R)
-        store_volatile(status + static_cast<size_t>(tile) * R + d,
-                       kFlagPrefix | (before[j] + mine[j]));
+    for (int k = 0; k < kSortItems; ++k) {
+      const bool live = first_i + 32 * k < n;
+      const int d = live ? digit_of(key[k], shift, width) : R;      // R: no key
+      const unsigned mask = lanes_alike(d, width);
+      const int leader = __ffs(mask) - 1;
+      unsigned seen = 0;
+      if (live && lane == leader) {
+        seen = warp_count[warp][d];
+        warp_count[warp][d] = static_cast<unsigned short>(seen + __popc(mask));
+      }
+      rank[k] = static_cast<int>(__shfl_sync(kFull, seen, leader) + __popc(mask & below));
+      __syncwarp();
+    }
+  };
+  rank_keys();
+  SORT_STAMP(3);
+  look_back();
+  SORT_STAMP(4);
+  // each digit's first place in the tile, then each warp's among its keys
+  const unsigned tile_first = block_exclusive_scan(mine, warp_sum);
+  if (t < R) {
+    unsigned sum = tile_first;
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) {
+      const unsigned c = warp_count[w][t];
+      warp_count[w][t] = static_cast<unsigned short>(sum);
+      sum += c;
+    }
+    // the output place of the tile's sorted position 0 for digit t
+    place[t] = first[t] + before - tile_first;
+  }
+  __syncthreads();
+  // the tile in sorted order, over the keys as loaded (every thread has
+  // read its own: the barriers above)
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    if (first_i + 32 * k < n) {
+      const int at = rank[k] + warp_count[warp][digit_of(key[k], shift, width)];
+      sm.key[at] = key[k];
+      sm.val[at] = val[k];
     }
   }
   __syncthreads();
-  block_exclusive_scan(place, R);                       // the digit's first place in the tile
-#pragma unroll
-  for (int k = 0; k < kSortItems; ++k) {
-    if (base + 32 * k < P) {
-      const int d = digit_of(key[k], shift, width);
-      rank[k] += static_cast<int>(place[d] + sm.warp_count[warp][d]);
-    }
-  }
-  __syncthreads();                                      // the counts are read: stage over them
-#pragma unroll
-  for (int j = 0; j < kDigitsPerThread; ++j) {
-    const int d = threadIdx.x + j * kSortThreads;
-    // the output place of the tile's sorted position 0 for digit d
-    if (d < R) place[d] = first[d] + before[j] - place[d];
-  }
-#pragma unroll
-  for (int k = 0; k < kSortItems; ++k) {
-    if (base + 32 * k < P) {
-      sm.tile.key[rank[k]] = key[k];
-      sm.tile.val[rank[k]] = val[k];
-    }
-  }
-  __syncthreads();
-  const int n = min(kSortTile, P - tile * kSortTile);
-  for (int i = threadIdx.x; i < n; i += kSortThreads) {
-    const int k = sm.tile.key[i];
+  for (int i = t; i < n; i += kSortThreads) {
+    const int k = sm.key[i];
     const unsigned at = place[digit_of(k, shift, width)] + i;
     keys_out[at] = k;
-    if (order_out != nullptr) order_out[at] = sm.tile.val[i];
-    else vals_out[at] = sm.tile.val[i];
+    if (order_out != nullptr) order_out[at] = sm.val[i];
+    else vals_out[at] = sm.val[i];
   }
+  SORT_STAMP(5);
+  SORT_STAMPS_OUT();
 }
 
 }  // namespace
@@ -494,30 +528,32 @@ extern "C" int sdf_exact_sorted_gather(const float* points, const long long* ord
 // the grid (8^depth,) int32 as K8 computes them (depth 0..10, the box by
 // value), or given as keys (P,) int32 (points null). Every key must lie
 // in [0, 2^bits), bits 1..31. sms: the card's SMs (the key launch's
-// grid). work: int32 scratch of work_words, at least
+// grid). work: int32 scratch of work_words, 16-byte aligned, at least
 // ops/exact_query.py _sort_words: the look-back state (zeroed here), the
-// keys when computed, and two buffers a pass past the first. Anything out
-// of range returns cudaErrorInvalidValue.
+// keys when computed, and a key and a value buffer for each of the first
+// two passes but the last, each buffer P rounded up to a multiple of 4.
+// Anything out of range returns cudaErrorInvalidValue.
 extern "C" int sdf_leaf_sort(const float* points, const int* keys, int P, const int* grid,
                              int depth, float lx, float ly, float lz, float sx, float sy,
                              float sz, int bits, int sms, int* work, long long work_words,
                              int* lid_s, long long* order, void* stream) {
   const bool given = points == nullptr;
   if (P < 0 || P > static_cast<int>(kCountMask) || bits < 1 || bits > 31 || sms < 1 ||
+      (reinterpret_cast<uintptr_t>(work) & 15) != 0 ||
       (given ? keys == nullptr : (depth < 0 || depth > 10 || grid == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return static_cast<int>(cudaGetLastError());
   const Plan plan = digit_plan(bits);
   const long long tiles = (P + kSortTile - 1) / kSortTile;
-  const long long state_words = kStateHead + tiles * plan.bins;
-  const long long need = state_words + static_cast<long long>(P) *
-                                           ((given ? 0 : 1) + 2 * (plan.passes - 1));
+  const long long state_words = (kStateHead + tiles * plan.bins + 3) / 4 * 4;
+  const long long Pp = (P + 3ll) / 4 * 4;
+  const long long need = state_words + Pp * ((given ? 0 : 1) + 2 * std::min(plan.passes - 1, 2));
   if (work_words < need) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned* state = reinterpret_cast<unsigned*>(work);
   int* buf = work + state_words;
   int* key0 = given ? const_cast<int*>(keys) : buf;
-  if (!given) buf += P;
+  if (!given) buf += Pp;
   cudaError_t err = cudaMemsetAsync(state, 0, state_words * sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Box box = {{lx, ly, lz}, {sx, sy, sz}};
@@ -537,8 +573,8 @@ extern "C" int sdf_leaf_sort(const float* points, const int* keys, int P, const 
   const int* vin = nullptr;
   for (int p = 0; p < plan.passes; ++p) {
     const bool final = p == plan.passes - 1;
-    int* kout = final ? lid_s : buf + static_cast<size_t>(2 * (p % 2)) * P;
-    int* vout = final ? nullptr : kout + P;
+    int* kout = final ? lid_s : buf + 2 * (p % 2) * Pp;
+    int* vout = final ? nullptr : kout + Pp;
     leaf_sort_pass_kernel<<<static_cast<int>(tiles), kSortThreads, 0, s>>>(
         kin, vin, P, plan.shift[p], plan.width[p], state + plan.off[p],
         state + kHistBins + 1 + p, status, kout, vout, final ? order : nullptr);

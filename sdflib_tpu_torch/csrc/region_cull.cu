@@ -32,18 +32,41 @@
 // the plain version's on the card.
 //
 // Design (one node a group of G threads, a warp or a block):
-// * pass 1: each thread takes slots s = lane, lane + G, ...; a valid slot's
-//   19 fields are read once, its frame products for the 3 x, y and z
-//   anchor coordinates (27 multiplies) serve all 27 anchors, and 27 running
-//   (squared distance, slot) minima stay in registers; anchor 13's value is
-//   sqd_center. The minima reduce across the warp (shuffles; with a block
-//   a node, then the warps' minima in shared memory) into the 27 winners.
+// * rows: the field table padded to 20 floats a row (ops/cull.py
+//   cull_rows, built once a build), read as five 16-byte loads; the 20th
+//   float is n, a bound on the norm of the row's gradient (below).
+// * pass 1: each thread takes slots s = lane, lane + G, ...; a valid
+//   slot's frame products for the 3 x, y and z anchor coordinates serve
+//   all 27 anchors, whose running (squared distance, slot) minima stay in
+//   registers; anchor 13's value is sqd_center. The minima reduce across
+//   the warp (shuffles; with a block a node, then the warps' minima in
+//   shared memory) into the 27 winners. The 54 minima take the kernels to
+//   the 128-register cap with a 72-byte spill; pass 1 in three slabs of 9
+//   anchors (each slot read thrice) had no spill and was slower on an
+//   H100, as was a warp-form block of 255 registers (PERF.md).
 // * corners: the group evaluates the 27 winners at their sub-cube's 8
-//   corners, 216 distances a node, into shared memory.
-// * pass 2: each thread evaluates its valid slots again, anchor by anchor,
-//   with the gradient; the near test first, then the 8 corner terms; the
-//   first anchor that keeps a slot ends its loop (keep is an OR). No
-//   (K, 8) phi or other (N, K) transient is written.
+//   corners, 216 distances a node, into shared memory, and the largest of
+//   each anchor's 8 (NaN if any is).
+// * pass 2: each thread evaluates its valid slots again, anchor by anchor:
+//   the distance d, the near test, then (in the block form) the skip
+//   test, then the gradient and the 8 corner terms; the first anchor that
+//   keeps a slot ends its loop (keep is an OR). No (K, 8) phi or other
+//   (N, K) transient is written.
+// * the skip test: the gradient's norm is |M^T h| / d, M the row's frame
+//   and h its halves; |h| = d but on an edge, where it is |de| |b| (or
+//   |c|) against d >= |de|. So |g| <= n = max(1, |b|, |c|) ||M||_2 (the
+//   norm bounded by Gershgorin's circles of M M^T: 1 to rounding for a
+//   true frame, whatever a degenerate row holds), and every corner term
+//   is at least lb = d - sqrt(3) qh n - max_c d_b. An anchor whose lb
+//   exceeds eps by kSkipRel of the terms' magnitudes (far above float32's
+//   rounding of every term) keeps nothing: its gradient and corners are
+//   skipped. keep is an OR over the anchors, so no bit changes. A NaN or
+//   an infinity in d, n or d_b makes the comparison false: the anchor is
+//   evaluated in full. It holds at 66-93% of the wide groups' anchor
+//   evaluations and at none of the deepest level's, where the warp form
+//   runs: there it only cost time, so the warp form leaves it out. The
+//   launcher picks it by form (``launch``; ops/cull.py SKIP_LANES mirrors
+//   the pick, chip_smoke.py ``cull_ab`` times the other picks).
 // Forms (the wrapper picks G from K, ops/cull.py lanes_for): a warp a
 // node in 256-thread blocks, or a 512-thread block a node for wide rows of
 // few nodes (the top levels, up to 131,072 slots a node).
@@ -54,8 +77,9 @@
 // each); bytes: a pair's id, valid, keep and sqd_center (10 B) and each
 // touched field row once. --fmad=false keeps every multiply and add a
 // separate instruction, so the floor is ~2x the bound taken at the FMA
-// rate. Measured (PERF.md): 6.7-7.1x the bound on the d7 top group, with
-// 128 registers and an 88-byte spill.
+// rate. The skip test takes ~60 of an anchor's 102 flops out where it
+// holds; chip_smoke.py's bound counts the anchors it skipped at the ~43
+// of the distance and the tests (cull_bound, from the run's tallies).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,8 +92,9 @@ constexpr int kWarpThreads = 256;    // block of the warp-a-node form
 constexpr int kNodeThreads = 512;    // block of the block-a-node form
 constexpr int kAnchors = 27;
 constexpr int kCorners = 8;
-constexpr int kFields = 19;          // ops/point_triangle.py NUM_PACKED_FIELDS
+constexpr int kRowFloats = 20;       // ops/cull.py ROW_FLOATS: 19 fields and n
 constexpr int kCenter = 13;          // the anchor at the node centre
+constexpr float kSkipRel = 1.0f / 16384.0f;   // the skip test's margin, relative
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Consts {
@@ -77,6 +102,13 @@ struct Consts {
   float qh;     // float32(0.5 * h): the corners' offset
   float eps;    // float32(2e-3) * h
   float near;   // s + eps, s = float32(sqrt(3)) * qh
+  float reach;  // sqrt(3) qh, rounded up: the corners' distance from the anchor
+};
+
+// Pass 2's tallies (the stats launch): anchor evaluations, kept by the
+// near test, skipped, evaluated in full.
+struct Tally {
+  unsigned long long evals, near, skipped, full;
 };
 
 // torch.argmin's order: a NaN before any number, then the smaller value,
@@ -97,9 +129,34 @@ __device__ __forceinline__ void frame_coords(const float* f, float px, float py,
   ppz = f[9] * dx + f[10] * dy + f[11] * dz;
 }
 
-// region_sq_dist_sel's squared distance and sq_dist_and_grad_from_field_fn's
-// triangle-space gradient halves (hx, hy before the factor 2): the same
-// region tests, the gradient selected branch by branch.
+// sq_dist_and_grad_from_field_fn's triangle-space gradient halves (hx, hy
+// before the factor 2): region_sq_dist_sel's region tests, the gradient
+// selected branch by branch.
+__device__ __forceinline__ void grad_halves(float ppx, float ppy, const float* f, float& hx,
+                                            float& hy) {
+  const float v2x = f[16], v3x = f[17], v3y = f[18];
+  const float b0 = f[12], b1 = f[13], c0 = f[14], c1 = f[15];
+  const float de1 = -ppy;
+  const float de2 = (ppx - v2x) * b1 - ppy * b0;
+  const float de3 = ppx * c1 - ppy * c0;
+  const float rx2 = ppx - v2x;
+  const float rx3 = ppx - v3x;
+  const float ry3 = ppy - v3y;
+  const bool a1 = ppx <= 0.0f, e1 = ppx >= v2x;
+  const bool a2 = rx2 * b0 + ppy * b1 <= 0.0f, e2 = rx3 * b0 + ry3 * b1 >= 0.0f;
+  const bool a3 = ppx * c0 + ppy * c1 >= 0.0f, e3 = rx3 * c0 + ry3 * c1 <= 0.0f;
+  const bool r1 = de1 >= 0.0f, r2 = de2 >= 0.0f, r3 = de3 >= 0.0f;
+  // vertices as the distance, edge1 (0, -de1), edge2 (de2 b1, -de2 b0),
+  // edge3 (de3 c1, -de3 c0), the face (0, 0)
+  const float gx1 = a1 ? ppx : (e1 ? rx2 : 0.0f), gy1 = (a1 || e1) ? ppy : -de1;
+  const float gx2 = a2 ? rx2 : (e2 ? rx3 : de2 * b1), gy2 = a2 ? ppy : (e2 ? ry3 : -de2 * b0);
+  const float gx3 = a3 ? ppx : (e3 ? rx3 : de3 * c1), gy3 = a3 ? ppy : (e3 ? ry3 : -de3 * c0);
+  hx = r1 ? gx1 : (r2 ? gx2 : (r3 ? gx3 : 0.0f));
+  hy = r1 ? gy1 : (r2 ? gy2 : (r3 ? gy3 : 0.0f));
+}
+
+// region_sq_dist_sel's squared distance and grad_halves's halves in one
+// pass over the ladder (pass 2 without the skip test).
 __device__ __forceinline__ float sq_dist_grad(float ppx, float ppy, float ppz, const float* f,
                                               float& hx, float& hy) {
   const float v2x = f[16], v3x = f[17], v3y = f[18];
@@ -130,17 +187,30 @@ __device__ __forceinline__ float sq_dist_grad(float ppx, float ppy, float ppz, c
   return x * x + y * y + z2;
 }
 
-__device__ __forceinline__ void load_fields(const float* __restrict__ packed, int T, int t,
-                                            float* f) {
-  const float* row = packed + static_cast<size_t>(t < 0 ? t + T : t) * kFields;
+__device__ __forceinline__ float row_sq_dist(float ppx, float ppy, float ppz, const float* f) {
+  return region_sq_dist_sel(ppx, ppy, ppz, f[16], f[17], f[18], f[12], f[13], f[14], f[15]);
+}
+
+// Row t of the padded table (an id below 0 reads row t + T, as torch's
+// indexing does): five 16-byte loads.
+__device__ __forceinline__ void load_row(const float* __restrict__ rows, int T, int t, float* f) {
+  const float4* r =
+      reinterpret_cast<const float4*>(rows + static_cast<size_t>(t < 0 ? t + T : t) * kRowFloats);
 #pragma unroll
-  for (int r = 0; r < kFields; ++r) f[r] = __ldg(row + r);
+  for (int q = 0; q < kRowFloats / 4; ++q) {
+    const float4 v = __ldg(r + q);
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
 }
 
 // The node's work area in shared memory.
 struct NodeSmem {
   int win[kAnchors];                 // each anchor's winning triangle
   float db[kAnchors * kCorners];     // its distance at the sub-cube's corners
+  float dbmax[kAnchors];             // the largest of an anchor's 8 (NaN if any is)
 };
 
 // Reduce a (value, slot) pair over the lanes of a warp.
@@ -156,7 +226,8 @@ __device__ __forceinline__ void warp_min(float& v, int& i) {
   }
 }
 
-__device__ __forceinline__ int warp_sum(int c) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T c) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
   return c;
@@ -164,7 +235,7 @@ __device__ __forceinline__ int warp_sum(int c) {
 
 // Pass 1 of one thread: its slots' 27 squared distances, anchor 13's
 // written to sqd_center, the running minima in bv / bi.
-__device__ __forceinline__ void pass1(const float* __restrict__ packed, int T,
+__device__ __forceinline__ void pass1(const float* __restrict__ rows, int T,
                                       const int* __restrict__ cand,
                                       const uint8_t* __restrict__ valid, int K, int lane,
                                       int G, const float (&ax)[3], const float (&ay)[3],
@@ -182,8 +253,8 @@ __device__ __forceinline__ void pass1(const float* __restrict__ packed, int T,
       }
       continue;
     }
-    float f[kFields];
-    load_fields(packed, T, cand[s], f);
+    float f[kRowFloats];
+    load_row(rows, T, cand[s], f);
     // ppx = (f3 dx + f4 dy) + f5 dz: the products of each anchor coordinate
     float mx[3][3], my[3][3], mz[3][3];   // [output axis][anchor index]
 #pragma unroll
@@ -202,8 +273,7 @@ __device__ __forceinline__ void pass1(const float* __restrict__ packed, int T,
       const float ppx = mx[0][i] + my[0][j] + mz[0][k];
       const float ppy = mx[1][i] + my[1][j] + mz[1][k];
       const float ppz = mx[2][i] + my[2][j] + mz[2][k];
-      const float sq = region_sq_dist_sel(ppx, ppy, ppz, f[16], f[17], f[18], f[12], f[13],
-                                          f[14], f[15]);
+      const float sq = row_sq_dist(ppx, ppy, ppz, f);
       if (l == kCenter) sqd_row[s] = sq;
       if (better(sq, s, bv[l], bi[l])) {
         bv[l] = sq;
@@ -220,13 +290,13 @@ __device__ __forceinline__ float anchor_off(int a, float h) {
 
 // The corners: task e = 8 l + c evaluates anchor l's winner at corner c;
 // (px, py, pz) is the node centre.
-__device__ __forceinline__ void corners(const float* __restrict__ packed, int T, int lane,
-                                        int G, float px, float py, float pz, const Consts& k,
+__device__ __forceinline__ void corners(const float* __restrict__ rows, int T, int lane, int G,
+                                        float px, float py, float pz, const Consts& k,
                                         NodeSmem& sm) {
   for (int e = lane; e < kAnchors * kCorners; e += G) {
     const int l = e >> 3, c = e & 7;
-    float f[kFields];
-    load_fields(packed, T, sm.win[l], f);
+    float f[kRowFloats];
+    load_row(rows, T, sm.win[l], f);
     const float qx = (c & 1) ? k.qh : -k.qh;
     const float qy = (c & 2) ? k.qh : -k.qh;
     const float qz = (c & 4) ? k.qh : -k.qh;
@@ -234,24 +304,41 @@ __device__ __forceinline__ void corners(const float* __restrict__ packed, int T,
     const float lz = pz + anchor_off(l / 9, k.h);
     float ppx, ppy, ppz;
     frame_coords(f, lx + qx, ly + qy, lz + qz, ppx, ppy, ppz);
-    sm.db[e] = sqrtf(region_sq_dist_sel(ppx, ppy, ppz, f[16], f[17], f[18], f[12], f[13],
-                                        f[14], f[15]));
+    sm.db[e] = sqrtf(row_sq_dist(ppx, ppy, ppz, f));
+  }
+}
+
+// Each anchor's largest corner distance, NaN where any is (after corners,
+// once every corner is in shared memory).
+__device__ __forceinline__ void corner_max(int lane, NodeSmem& sm) {
+  if (lane < kAnchors) {
+    float m = sm.db[lane * kCorners];
+#pragma unroll
+    for (int c = 1; c < kCorners; ++c) {
+      const float v = sm.db[lane * kCorners + c];
+      m = (v > m || v != v) ? v : m;
+      if (m != m) break;
+    }
+    sm.dbmax[lane] = m;
   }
 }
 
 // Pass 2 of one thread: keep for each of its slots; returns its kept count.
-__device__ __forceinline__ int pass2(const float* __restrict__ packed, int T,
+template <bool kStats, bool kSkip>
+__device__ __forceinline__ int pass2(const float* __restrict__ rows, int T,
                                      const int* __restrict__ cand,
                                      const uint8_t* __restrict__ valid, int K, int lane, int G,
                                      const float (&ax)[3], const float (&ay)[3],
                                      const float (&az)[3], const Consts& k,
-                                     const NodeSmem& sm, uint8_t* __restrict__ keep_row) {
+                                     const NodeSmem& sm, uint8_t* __restrict__ keep_row,
+                                     Tally& tally) {
   int kept = 0;
   for (int s = lane; s < K; s += G) {
     bool keep = false;
     if (valid[s]) {
-      float f[kFields];
-      load_fields(packed, T, cand[s], f);
+      float f[kRowFloats];
+      load_row(rows, T, cand[s], f);
+      const float reach = k.reach * f[19];
       float mx[3][3], my[3][3], mz[3][3];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
@@ -269,12 +356,25 @@ __device__ __forceinline__ int pass2(const float* __restrict__ packed, int T,
         const float ppx = mx[0][i] + my[0][j] + mz[0][kk];
         const float ppy = mx[1][i] + my[1][j] + mz[1][kk];
         const float ppz = mx[2][i] + my[2][j] + mz[2][kk];
+        // without the skip test the gradient halves come with the distance
         float hx, hy;
-        const float d = sqrtf(sq_dist_grad(ppx, ppy, ppz, f, hx, hy));
+        const float d = sqrtf(kSkip ? row_sq_dist(ppx, ppy, ppz, f)
+                                    : sq_dist_grad(ppx, ppy, ppz, f, hx, hy));
+        if (kStats) ++tally.evals;
         if (d <= k.near) {
+          if (kStats) ++tally.near;
           keep = true;
           break;
         }
+        // the skip test: every corner term is at least lb (false on a NaN)
+        const float dbm = sm.dbmax[l];
+        const float lb = (d - reach) - dbm;
+        if (kSkip && lb > k.eps + kSkipRel * ((d + reach) + dbm)) {
+          if (kStats) ++tally.skipped;
+          continue;
+        }
+        if (kStats) ++tally.full;
+        if (kSkip) grad_halves(ppx, ppy, f, hx, hy);
         hx = 2.0f * hx;
         hy = 2.0f * hy;
         const float hz = 2.0f * ppz;
@@ -318,14 +418,29 @@ __device__ __forceinline__ void anchor_coords(const float* __restrict__ centers,
   }
 }
 
+// Add a warp's tallies to the launch's (lane 0, one atomic a field).
+__device__ __forceinline__ void flush_tally(Tally t, unsigned long long* out) {
+  t.evals = warp_sum(t.evals);
+  t.near = warp_sum(t.near);
+  t.skipped = warp_sum(t.skipped);
+  t.full = warp_sum(t.full);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(out, t.evals);
+    atomicAdd(out + 1, t.near);
+    atomicAdd(out + 2, t.skipped);
+    atomicAdd(out + 3, t.full);
+  }
+}
+
 // A warp a node, 8 nodes a block.
+template <bool kStats, bool kSkip>
 __global__ void __launch_bounds__(kWarpThreads, 2)
-region_cull_warp_kernel(const float* __restrict__ packed, int T,
+region_cull_warp_kernel(const float* __restrict__ rows, int T,
                          const float* __restrict__ centers, int N,
                          const int* __restrict__ cand, long long cand_stride,
                          const uint8_t* __restrict__ valid, long long valid_stride, int K,
                          Consts k, uint8_t* __restrict__ keep, long long* __restrict__ counts,
-                         float* __restrict__ sqd) {
+                         float* __restrict__ sqd, unsigned long long* __restrict__ stats) {
   constexpr int G = 32;
   __shared__ NodeSmem smem[kWarpThreads / G];
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
@@ -346,8 +461,8 @@ region_cull_warp_kernel(const float* __restrict__ packed, int T,
     bv[l] = INFINITY;
     bi[l] = 0x7fffffff;
   }
-  pass1(packed, T, crow, vrow, Kn, lane, G, ax, ay, az, sqd + static_cast<size_t>(nc) * K,
-        bv, bi);
+  pass1(rows, T, crow, vrow, Kn, lane, G, ax, ay, az, sqd + static_cast<size_t>(nc) * K, bv,
+        bi);
 #pragma unroll
   for (int l = 0; l < kAnchors; ++l) {
     warp_min(bv[l], bi[l]);
@@ -355,23 +470,28 @@ region_cull_warp_kernel(const float* __restrict__ packed, int T,
   }
   __syncwarp();
   if (live) {
-    corners(packed, T, lane, G, centers[3 * n], centers[3 * n + 1], centers[3 * n + 2], k, sm);
+    corners(rows, T, lane, G, centers[3 * n], centers[3 * n + 1], centers[3 * n + 2], k, sm);
+    __syncwarp();
+    corner_max(lane, sm);
   }
   __syncwarp();
+  Tally tally = {};
   const int kept = warp_sum(
-      pass2(packed, T, crow, vrow, Kn, lane, G, ax, ay, az, k, sm,
-            keep + static_cast<size_t>(nc) * K));
+      pass2<kStats, kSkip>(rows, T, crow, vrow, Kn, lane, G, ax, ay, az, k, sm,
+                    keep + static_cast<size_t>(nc) * K, tally));
   if (lane == 0 && live) counts[n] = kept;
+  if (kStats) flush_tally(tally, stats);
 }
 
 // A 512-thread block a node.
+template <bool kStats, bool kSkip>
 __global__ void __launch_bounds__(kNodeThreads, 1)
-region_cull_block_kernel(const float* __restrict__ packed, int T,
+region_cull_block_kernel(const float* __restrict__ rows, int T,
                          const float* __restrict__ centers, int N,
                          const int* __restrict__ cand, long long cand_stride,
                          const uint8_t* __restrict__ valid, long long valid_stride, int K,
                          Consts k, uint8_t* __restrict__ keep, long long* __restrict__ counts,
-                         float* __restrict__ sqd) {
+                         float* __restrict__ sqd, unsigned long long* __restrict__ stats) {
   constexpr int kWarps = kNodeThreads / 32;
   __shared__ NodeSmem sm;
   __shared__ float wv[kWarps][kAnchors];
@@ -390,8 +510,8 @@ region_cull_block_kernel(const float* __restrict__ packed, int T,
     bv[l] = INFINITY;
     bi[l] = 0x7fffffff;
   }
-  pass1(packed, T, crow, vrow, K, t, kNodeThreads, ax, ay, az,
-        sqd + static_cast<size_t>(n) * K, bv, bi);
+  pass1(rows, T, crow, vrow, K, t, kNodeThreads, ax, ay, az, sqd + static_cast<size_t>(n) * K,
+        bv, bi);
 #pragma unroll
   for (int l = 0; l < kAnchors; ++l) {
     warp_min(bv[l], bi[l]);
@@ -413,12 +533,17 @@ region_cull_block_kernel(const float* __restrict__ packed, int T,
     sm.win[t] = crow[i];
   }
   __syncthreads();
-  corners(packed, T, t, kNodeThreads, centers[3 * n], centers[3 * n + 1], centers[3 * n + 2], k,
+  corners(rows, T, t, kNodeThreads, centers[3 * n], centers[3 * n + 1], centers[3 * n + 2], k,
           sm);
   __syncthreads();
-  const int kept = warp_sum(pass2(packed, T, crow, vrow, K, t, kNodeThreads, ax, ay, az,
-                                       k, sm, keep + static_cast<size_t>(n) * K));
+  corner_max(t, sm);
+  __syncthreads();
+  Tally tally = {};
+  const int kept = warp_sum(pass2<kStats, kSkip>(rows, T, crow, vrow, K, t, kNodeThreads,
+                                                      ax, ay, az, k, sm,
+                                                      keep + static_cast<size_t>(n) * K, tally));
   if (lane == 0) wsum[warp] = kept;
+  if (kStats) flush_tally(tally, stats);
   __syncthreads();
   if (t == 0) {
     long long total = 0;
@@ -427,36 +552,50 @@ region_cull_block_kernel(const float* __restrict__ packed, int T,
   }
 }
 
+template <bool kStats>
+void launch(const float* rows, int T, const float* centers, int N, const int* cand,
+            long long cand_stride, const uint8_t* valid, long long valid_stride, int K,
+            const Consts& k, int lanes, uint8_t* keep, long long* counts, float* sqd,
+            unsigned long long* stats, cudaStream_t st) {
+  // the skip test in the block form only (ops/cull.py SKIP_LANES)
+  if (lanes == 32)
+    region_cull_warp_kernel<kStats, false><<<(N + 7) / 8, kWarpThreads, 0, st>>>(
+        rows, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, keep, counts, sqd,
+        stats);
+  else
+    region_cull_block_kernel<kStats, true><<<N, kNodeThreads, 0, st>>>(
+        rows, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, keep, counts, sqd,
+        stats);
+}
+
 }  // namespace
 
-// packed (T, 19) float32 row-major; centers (N, 3) float32; cand (N, K)
-// int32 and valid (N, K) bool, each with unit stride along K and the given
-// row stride (0 for an expanded row); h, qh, eps, near as float32; lanes 32
-// (a warp a node) or 512 (a block a node); keep (N, K) bool, counts
-// (N,) int64, sqd (N, K) float32, contiguous. An id below 0 reads row
-// id + T, as torch's indexing does.
-extern "C" int sdf_region_cull(const float* packed, int T, const float* centers, int N,
+// rows (T, 20) float32 row-major, 16-byte aligned (ops/cull.py cull_rows:
+// the 19 packed fields and the gradient bound n); centers (N, 3) float32;
+// cand (N, K) int32 and valid (N, K) bool, each with unit stride along K
+// and the given row stride (0 for an expanded row); h, qh, eps, near as
+// float32, reach = sqrt(3) qh rounded up; lanes 32 (a warp a node) or 512
+// (a block a node); keep (N, K) bool, counts (N,) int64, sqd (N, K)
+// float32, contiguous; stats null, or 4 uint64 that pass 2's tallies are
+// added to (evaluations, near keeps, skips, full evaluations). An id below
+// 0 reads row id + T, as torch's indexing does.
+extern "C" int sdf_region_cull(const float* rows, int T, const float* centers, int N,
                                const int* cand, long long cand_stride, const uint8_t* valid,
                                long long valid_stride, int K, float h, float qh, float eps,
-                               float near, int lanes, uint8_t* keep, long long* counts,
-                               float* sqd, void* stream) {
-  if (N < 0 || K <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                               float near, float reach, int lanes, uint8_t* keep,
+                               long long* counts, float* sqd, unsigned long long* stats,
+                               void* stream) {
+  if (N < 0 || K <= 0 || T <= 0 || (lanes != 32 && lanes != kNodeThreads) ||
+      (reinterpret_cast<uintptr_t>(rows) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
-  const Consts k{h, qh, eps, near};
+  const Consts k{h, qh, eps, near, reach};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (lanes) {
-    case 32:
-      region_cull_warp_kernel<<<(N + 7) / 8, kWarpThreads, 0, st>>>(
-          packed, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, keep, counts,
-          sqd);
-      break;
-    case kNodeThreads:
-      region_cull_block_kernel<<<N, kNodeThreads, 0, st>>>(
-          packed, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, keep, counts,
-          sqd);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (stats != nullptr)
+    launch<true>(rows, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, lanes, keep,
+                 counts, sqd, stats, st);
+  else
+    launch<false>(rows, T, centers, N, cand, cand_stride, valid, valid_stride, K, k, lanes, keep,
+                  counts, sqd, nullptr, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -115,10 +115,11 @@ _SIGNATURES = {
     # (walk..., pos, acc, active, dirs, r0, rd, n, margin, half margin, far,
     #  trips, stream)
     "sdf_walk_beam": [*_WALK, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P],
-    # (packed, T, centers, N, cand, cand row stride, valid, valid row stride,
-    #  K, h, qh, eps, near, lanes, keep, counts, sqd, stream)
+    # (rows, T, centers, N, cand, cand row stride, valid, valid row stride,
+    #  K, h, qh, eps, near, reach, lanes, keep, counts, sqd, stats or null,
+    #  stream)
     "sdf_region_cull": [_P, _I, _P, _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I,
-                        _F, _F, _F, _F, _I, _P, _P, _P, _P],
+                        _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

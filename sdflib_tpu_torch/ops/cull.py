@@ -10,6 +10,11 @@ plain version. It replaces no TPU kernel: the JAX package's
 ``_region_cull_chunk`` (sdflib_tpu/sdf/exact_octree.py:160) is XLA-fused
 code, mapped over a group's chunks by ``_cull_group`` (:446).
 
+The kernel reads the field table padded to ``ROW_FLOATS`` floats a row,
+``cull_rows``: the 19 packed fields, then a bound on the norm of the
+row's distance gradient, which its skip test needs (``csrc/region_cull.cu``).
+The exact build makes it once, beside the packed table (``CullTables.rows``).
+
 ``launch_count`` counts the kernel's launches, one a call with nodes.
 """
 from __future__ import annotations
@@ -25,8 +30,8 @@ from .point_triangle import (
     sq_dist_from_field_fn,
 )
 
-__all__ = ["region_cull", "region_cull_plain", "cull_in_chunks", "lanes_for", "LANES",
-           "launch_count"]
+__all__ = ["region_cull", "region_cull_plain", "cull_in_chunks", "cull_rows", "lanes_for",
+           "LANES", "SKIP_LANES", "ROW_FLOATS", "launch_count"]
 
 # 8 cube corners in {-1,1}^3 (units of the node half size).
 _CORNER_OFFS = np.array(
@@ -41,6 +46,8 @@ _LATTICE_OFFS = np.array(
 )
 _F32_SQRT3 = np.sqrt(np.float32(3.0))
 LANES = (32, 512)    # the kernel's forms: a warp a node, or a 512-thread block a node
+SKIP_LANES = (512,)  # the forms whose pass 2 takes the skip test (the kernel's launch)
+ROW_FLOATS = 20      # the kernel's row: the 19 packed fields and the gradient bound
 launch_count = 0
 
 
@@ -57,6 +64,30 @@ def _thresholds(half):
     eps = _f32(np.float32(2e-3) * np.float32(half))
     near = _f32(np.float32(s) + np.float32(eps))
     return qh, eps, near
+
+
+def _reach(qh: float) -> float:
+    """sqrt(3) ``qh`` (a corner's distance from its anchor), rounded up to
+    float32: the skip test's reach a unit of gradient."""
+    return _f32(np.sqrt(3.0) * float(qh) * (1.0 + 2.0 ** -20))
+
+
+def cull_rows(packed):
+    """(T, ROW_FLOATS) float32, row-major: each (T, 19) packed field row,
+    then n, an upper bound on the norm of the unsigned distance's gradient
+    that the row gives anywhere: max(1, |b|, |c|) (an edge's gradient
+    halves are its distance times its normal (b0, b1) or (c0, c1)) times
+    the spectral norm of the frame M (rows 3-11), bounded by Gershgorin's
+    circles of M M^T; computed in float64 and rounded up. NaN where the
+    row holds one, so that no skip test passes on it."""
+    f = packed.double()
+    M = f[:, 3:12].reshape(-1, 3, 3)
+    mmt = (M[:, :, None, :] * M[:, None, :, :]).sum(-1)             # (T, 3, 3): r_i . r_j
+    norm = mmt.abs().sum(-1).amax(-1).sqrt()
+    edge = torch.maximum(torch.hypot(f[:, 12], f[:, 13]), torch.hypot(f[:, 14], f[:, 15]))
+    n = torch.maximum(edge, torch.ones_like(edge)) * norm * (1.0 + 2.0 ** -20)
+    n = torch.where(torch.isnan(f).any(1), torch.nan, n)
+    return torch.cat([packed, n[:, None].to(torch.float32)], dim=1).contiguous()
 
 
 def region_cull_plain(tables, centers, cand_idx, cand_valid, half):
@@ -139,14 +170,18 @@ def lanes_for(K: int) -> int:
 
 
 def region_cull(tables, centers, cand, valid, half, *, lanes: int | None = None,
-                rows: int | None = None):
+                rows: int | None = None, stats=None):
     """K13: ``region_cull_plain``'s outputs for a whole node group; a CUDA
     device runs the kernel in one launch, the CPU the plain version in
     chunks of ``rows`` nodes (default all). ``tables.packed`` is the (T,
-    19) field table; ``cand`` (N, K) int32 and ``valid`` (N, K) bool may be
+    19) field table, ``tables.rows`` its ``cull_rows`` (read on the card
+    only); ``cand`` (N, K) int32 and ``valid`` (N, K) bool may be
     expanded rows (row stride 0); ``lanes`` pins the kernel's form
-    (``LANES``; default ``lanes_for(K)``). Ids must lie in [-T, T), as
-    torch's indexing requires; the kernel does not check them."""
+    (``LANES``; default ``lanes_for(K)``). With ``stats``, a (4,) int64
+    CUDA tensor, the launch adds pass 2's tallies to it: anchor
+    evaluations, kept by the near test, skipped by the skip test,
+    evaluated in full. Ids must lie in [-T, T), as torch's indexing
+    requires; the kernel does not check them."""
     dev = centers.device
     packed = tables.packed
     _tensor(packed, torch.float32, (None, NUM_PACKED_FIELDS), "packed", dev)
@@ -161,7 +196,13 @@ def region_cull(tables, centers, cand, valid, half, *, lanes: int | None = None,
                               valid, half)
     T = packed.shape[0]
     _need(K > 0 and T > 0, "region_cull needs candidates and triangles")
-    packed, centers = packed.contiguous(), centers.contiguous()
+    table = tables.rows
+    _tensor(table, torch.float32, (T, ROW_FLOATS), "tables.rows", dev)
+    _need(table.is_contiguous() and table.data_ptr() % 16 == 0,
+          "tables.rows must be contiguous and 16-byte aligned")
+    if stats is not None:
+        _tensor(stats, torch.int64, (4,), "stats", dev)
+    centers = centers.contiguous()
     cand = cand if cand.stride(1) == 1 else cand.contiguous()
     valid = valid if valid.stride(1) == 1 else valid.contiguous()
     keep = torch.empty((N, K), dtype=torch.bool, device=dev)
@@ -169,9 +210,11 @@ def region_cull(tables, centers, cand, valid, half, *, lanes: int | None = None,
     sqd = torch.empty((N, K), dtype=torch.float32, device=dev)
     if N:
         qh, eps, near = _thresholds(half)
-        build.launch("sdf_region_cull", dev, packed.data_ptr(), T, centers.data_ptr(), N,
+        build.launch("sdf_region_cull", dev, table.data_ptr(), T, centers.data_ptr(), N,
                      cand.data_ptr(), cand.stride(0), valid.data_ptr(), valid.stride(0), K,
-                     _f32(half), qh, eps, near, lanes_for(K) if lanes is None else lanes,
-                     keep.data_ptr(), counts.data_ptr(), sqd.data_ptr())
+                     _f32(half), qh, eps, near, _reach(qh),
+                     lanes_for(K) if lanes is None else lanes, keep.data_ptr(),
+                     counts.data_ptr(), sqd.data_ptr(),
+                     None if stats is None else stats.data_ptr())
         build.count_launch(globals(), "launch_count")
     return keep, counts, sqd

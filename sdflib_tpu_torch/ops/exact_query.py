@@ -15,9 +15,9 @@ its plain torch version, beside it here, for CPU tensors.
   stable sort by it, ``torch.sort(exact_descend_plain(...),
   stable=True)``, as a stable LSD radix sort over only the keys' bits
   (``sort_bits`` of the leaf count; ``_digit_plan`` splits them into the
-  fewest digits of at most ``MAX_DIGIT`` bits), the key computed in its
-  first launch. Given int32 keys instead of points (the node walk's), it
-  sorts those.
+  fewest digits of at most ``MAX_DIGIT`` = 8 bits, a bin a thread of a
+  block), the key computed in its first launch. Given int32 keys instead
+  of points (the node walk's), it sorts those.
 * K9, ``exact_sorted_gather`` (``csrc/exact_descend.cu``; the gathers of
   the sorted order, :934-941, and of the window scan's bounds,
   :982-983): ``pts[order]`` and, for the window scan and the id-only
@@ -152,11 +152,12 @@ def exact_descend(points, leaf_grid, box_min, box_size3, depth: int):
 
 # -- the leaf sort: K8's key and a stable sort by it -----------------------------
 
-MAX_DIGIT = 11          # the widest digit of a pass (kMaxDigit)
+MAX_DIGIT = 8           # the widest digit of a pass (kMaxDigit): a bin a thread
 SORT_TILE = 4096        # keys a tile of a digit pass (kSortTile)
+_MAX_PASSES = 4         # 31 bits (kMaxPasses)
 # the look-back state's head: every pass's bins, a ticket, a tile counter a
-# pass (kStateHead)
-_STATE_HEAD = 2 * (1 << MAX_DIGIT) + 1 + 3
+# pass, padding to a multiple of 4 words (kStateHead)
+_STATE_HEAD = _MAX_PASSES * (1 << MAX_DIGIT) + 1 + _MAX_PASSES + 3
 
 
 def sort_bits(num_leaves: int) -> int:
@@ -174,14 +175,21 @@ def _digit_plan(bits: int) -> tuple[int, ...]:
     return tuple(base + (i < extra) for i in range(passes))
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def _sort_words(P: int, bits: int, given: bool) -> int:
     """The int32 words of the leaf sort's scratch: the look-back state (a
-    status word a tile and digit of each pass), the keys unless given, and
-    a key and a value buffer for each pass but the last."""
+    status word a tile and digit of each pass) rounded up to a multiple of
+    4, then buffers of P rounded up to a multiple of 4 (16-byte aligned
+    tiles): the keys unless given, and a key and a value buffer for each
+    of the first two passes but the last (later passes take turns in
+    them)."""
     widths = _digit_plan(bits)
     tiles = -(-P // SORT_TILE)
-    return (_STATE_HEAD + tiles * sum(1 << w for w in widths)
-            + P * ((0 if given else 1) + 2 * (len(widths) - 1)))
+    state = _round4(_STATE_HEAD + tiles * sum(1 << w for w in widths))
+    return state + _round4(P) * ((0 if given else 1) + 2 * min(len(widths) - 1, 2))
 
 
 def leaf_sort_plain(points, leaf_grid=None, box_min=None, box_size3=None, depth: int = 0):

@@ -54,6 +54,7 @@ from ..ops.cull import (
     _LATTICE_OFFS,
     _f32,
     cull_in_chunks,
+    cull_rows,
     region_cull,
     region_cull_plain,
 )
@@ -265,12 +266,14 @@ _CULL_STRATEGIES = tuple(_CULL_CHUNKS)
 
 class CullTables(NamedTuple):
     """The device tables of a cull strategy: the (T, 19) packed fields,
-    their (19, T) transpose, and the strategy's geometry (the (T, 6)
-    triangle AABBs for "lattice", the (T, 3, 3) world vertices for
-    "basic", "precise" and "per_vertex", None for "region")."""
+    their (19, T) transpose, the strategy's geometry (the (T, 6) triangle
+    AABBs for "lattice", the (T, 3, 3) world vertices for "basic",
+    "precise" and "per_vertex", None for "region"), and for "region" K13's
+    padded rows (``ops/cull.py`` ``cull_rows``, which the card's cull reads)."""
     packed: torch.Tensor
     packed_t: torch.Tensor
     geo: torch.Tensor | None
+    rows: torch.Tensor | None = None
 
 
 def prepare_cull_inputs(tris: TriangleDataSoA, strategy: str):
@@ -288,7 +291,8 @@ def prepare_cull_inputs(tris: TriangleDataSoA, strategy: str):
         torch.cat([vw.amin(dim=1), vw.amax(dim=1)], dim=-1) if strategy == "lattice"
         else None if strategy == "region" else vw
     )
-    return CullTables(packed, packed.t().contiguous(), geo)
+    rows = cull_rows(packed) if strategy == "region" else None
+    return CullTables(packed, packed.t().contiguous(), geo, rows)
 
 
 def cull_chunk(strategy: str, tables: CullTables, centers, cand_idx, cand_valid, half):

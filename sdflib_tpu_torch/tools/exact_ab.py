@@ -52,17 +52,17 @@ BATCHES = (("d6", 1 << 21, True), ("d6", 1 << 16, False), ("d7", 1 << 20, True))
 QUERY_REPS = 200
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _LOADS = (r"hint::load\(([^;]*?), once\)", r"__ldg(\1)")
-# name -> [(source under csrc/, pattern, replacement)]: each pattern must
-# match at least once
+# name -> [(file under the package, pattern, replacement)]
+# (``copy_with_rewrites``)
 HINT_VARIANTS = {
-    "k7-loads": [("exact_finish.cu", *_LOADS)],
-    "k7-stores": [("exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
+    "k7-loads": [("csrc/exact_finish.cu", *_LOADS)],
+    "k7-stores": [("csrc/exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
                    r"*reinterpret_cast<float2*>(\1) = make_float2(\2, \3)"),
-                  ("exact_finish.cu", r"hint::store\(([^,;]+), ([^,;]+), keep\)",
+                  ("csrc/exact_finish.cu", r"hint::store\(([^,;]+), ([^,;]+), keep\)",
                    r"*(\1) = \2")],
-    "k7-pair": [("exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
+    "k7-pair": [("csrc/exact_finish.cu", r"hint::store2\(([^,;]+), ([^,;]+), ([^,;]+), keep\)",
                  r"hint::store(\1, \2, keep); hint::store(\1 + 1, \3, keep)")],
-    "k9-loads": [("exact_descend.cu", *_LOADS)],
+    "k9-loads": [("csrc/exact_descend.cu", *_LOADS)],
 }
 HINT_VARIANTS["none"] = (HINT_VARIANTS["k7-loads"] + HINT_VARIANTS["k7-stores"]
                          + HINT_VARIANTS["k9-loads"])
@@ -78,15 +78,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _variant(name: str, where: str) -> str:
-    """A copy of this checkout's package under ``where``, with the
-    sources of ``HINT_VARIANTS[name]`` rewritten; returns the checkout."""
-    tree = os.path.join(where, name)
-    shutil.copytree(os.path.join(_ROOT, "sdflib_tpu_torch"),
+def copy_with_rewrites(where: str, name: str, rewrites, root: str = _ROOT) -> str:
+    """A copy of ``root``'s package under ``where`` (in a directory named
+    after ``name``), each (file under the package, pattern, replacement) of
+    ``rewrites`` applied; every pattern must match at least once. Returns
+    the copy's checkout. The A/B tools' variants (``HINT_VARIANTS``,
+    ``leaf_sort_ab.VARIANTS``, ``chip_smoke.CULL_VARIANTS``) are made so."""
+    tree = os.path.join(where, re.sub(r"\W", "_", name))
+    shutil.copytree(os.path.join(root, "sdflib_tpu_torch"),
                     os.path.join(tree, "sdflib_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for src, pattern, repl in HINT_VARIANTS[name]:
-        path = os.path.join(tree, "sdflib_tpu_torch", "csrc", src)
+    for src, pattern, repl in rewrites:
+        path = os.path.join(tree, "sdflib_tpu_torch", src)
         with open(path) as f:
             text, n = re.subn(pattern, repl, f.read())
         if n == 0:
@@ -94,6 +97,20 @@ def _variant(name: str, where: str) -> str:
         with open(path, "w") as f:
             f.write(text)
     return tree
+
+
+def run_in_turns(names, argv, parent: bool, timeout: int = 900) -> None:
+    """``argv(name)`` run in a process each, in turns: "parent" (where
+    ``parent``), "base", the other ``names``, the same reversed, "base",
+    "parent"; prints each process's output as it ends and raises on the
+    first that fails."""
+    rest = [n for n in names if n != "base"]
+    ends = ["parent"] if parent else []
+    for name in [*ends, "base", *rest, *rest[::-1], "base", *ends]:
+        run = subprocess.run(argv(name), capture_output=True, text=True, timeout=timeout)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"the probe of {name} failed:\n{run.stderr[-4000:]}")
 
 
 def _build_all(trees) -> None:
@@ -262,7 +279,8 @@ def main(argv=None) -> int:
     try:
         store = os.path.join(work, "store")
         os.makedirs(store)
-        variants = [_variant(name, work) for name in HINT_VARIANTS] if args.variants else []
+        variants = ([copy_with_rewrites(work, name, rw) for name, rw in HINT_VARIANTS.items()]
+                    if args.variants else [])
         t0 = time.perf_counter()
         _build_all([parent, _ROOT, *variants])
         print(f"exact_ab: {2 + len(variants)} checkouts' kernels built in "

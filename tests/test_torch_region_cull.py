@@ -27,8 +27,13 @@ On the CPU:
   512-thread block a node), on rows of 40 and 300 slots with ties at the
   minimum (a triangle twice in a row), a zero-area and a collinear
   triangle, a triangle whose fields are NaN, invalid padding, an
-  all-invalid row, and on the expanded top level at depths 1 and 2: the
-  same function before any card sees it.
+  all-invalid row, on the expanded top level at depths 1 and 2, and on
+  nodes whose candidates sit a float32 step of the centre from ``near``
+  and ``eps``: the same function before any card sees it. The replay
+  takes pass 2's skip test (an anchor whose bound on every corner term
+  exceeds eps keeps nothing) and asserts that it never skips an anchor
+  whose full evaluation keeps; a NaN bound or NaN corner distance never
+  skips.
 * ``region_cull`` on CPU tensors is the plain version, whole or in chunks
   of nodes, and counts no launch; a CPU ``ExactOctreeSdf`` build counts
   none either; its argument checks raise.
@@ -38,7 +43,9 @@ tests/test_torch_region_cull.py``; JAX is imported only inside the CPU
 tests' bodies): K13 in each of its forms is bit-equal to
 ``region_cull_plain`` on the card (keep, counts, sqd_center) at K = 8, 64,
 512 and 131,072 (the last expanded, row stride 0), over a table with a
-zero-area triangle; a card ``ExactOctreeSdf`` build launches K13 once a
+zero-area triangle, and on the nodes about the thresholds (with pass 2's
+tallies equal to the replay's); every group of the bench torus's d6
+build in each form; a card ``ExactOctreeSdf`` build launches K13 once a
 node group and never the plain version, and equals the build with the
 plain cull pinned, array for array.
 """
@@ -59,6 +66,7 @@ from sdflib_tpu_torch.utils.primitives import make_torus
 torch.set_num_threads(1)
 f32 = np.float32
 INT_MAX = np.iinfo(np.int32).max
+SKIP_REL = 1.0 / 16384.0      # csrc/region_cull.cu kSkipRel
 TORUS = dict(R=0.3, r=0.12, nu=24, nv=12)
 
 
@@ -173,11 +181,19 @@ def _frame(px, py, pz, F):
             F[..., 9] * dx + F[..., 10] * dy + F[..., 11] * dz)
 
 
-def replay(packed, centers, cand, valid, half, G: int):
-    """K13's two passes in numpy float32 for G threads a node: (keep,
+def replay(packed, centers, cand, valid, half, G: int, rows=None, skip_test=None):
+    """K13's two passes in numpy float32 for G threads a node, over the
+    padded rows (``cull.cull_rows`` of ``packed`` unless given): (keep,
     counts, sqd_center, each slot's (corner minimum, distance) at every
-    anchor (N, K, 27) for the JAX comparison's margins, the winners)."""
+    anchor (N, K, 27) for the JAX comparison's margins, the winners, pass
+    2's tallies {evals, near, skipped, full}). Pass 2 takes the skip test
+    before the gradient where ``skip_test`` (default: where the kernel's
+    form of G threads does, ``cull.SKIP_LANES``), and asserts in every
+    form that the test never holds at an anchor whose full evaluation
+    keeps the slot."""
     packed, centers = np.asarray(packed, f32), np.asarray(centers, f32)
+    rows = (cull.cull_rows(torch.as_tensor(packed)).numpy() if rows is None
+            else np.asarray(rows, f32))
     cand, valid = np.asarray(cand), np.asarray(valid)
     N, K = cand.shape
     T = packed.shape[0]
@@ -185,7 +201,7 @@ def replay(packed, centers, cand, valid, half, G: int):
     qh, eps, near = (f32(x) for x in cull._thresholds(half))
     o = np.array([-h, f32(0), h], f32)
     A = [centers[:, a : a + 1] + o for a in range(3)]             # (N, 3) anchor coordinates
-    F = packed[np.where(cand < 0, cand + T, cand)]                # (N, K, 19)
+    F = rows[np.where(cand < 0, cand + T, cand)]                  # (N, K, 20)
 
     def products(F):
         """m[o][a] (N, K, 3): f[3 + 3o] dx, f[4 + 3o] dy, f[5 + 3o] dz."""
@@ -219,18 +235,22 @@ def replay(packed, centers, cand, valid, half, G: int):
         off //= 2
     assert (bi == bi[:, :1]).all()
     win = np.take_along_axis(cand, bi[:, 0], axis=1)              # (N, 27) triangles
-    # the winners at their sub-cube's corners
-    Fw = packed[np.where(win < 0, win + T, win)]                  # (N, 27, 19)
+    # the winners at their sub-cube's corners, and each anchor's largest
+    Fw = rows[np.where(win < 0, win + T, win)]                    # (N, 27, 20)
     db = np.empty((N, 27, 8), f32)
     for l in range(27):
         for c in range(8):
             q = [qh if (c >> a) & 1 else -qh for a in range(3)]
             p = [A[a][:, (l // 3 ** a) % 3] + q[a] for a in range(3)]
             db[:, l, c] = np.sqrt(_ladder(*_frame(*p, Fw[:, l]), Fw[:, l], False))
-    # pass 2: anchor by anchor (a slot's first keeping anchor ends its loop:
-    # the OR over the anchors)
-    keep = np.zeros((N, K), bool)
+    dbmax = db.max(-1)                                            # NaN if any is
+    reach = f32(cull._reach(qh)) * F[..., 19]                     # (N, K)
+    skip_test = G in cull.SKIP_LANES if skip_test is None else skip_test
+    # pass 2: anchor by anchor; a slot's first keeping anchor ends its loop
+    # (the OR over the anchors), and only the anchors before it count
+    done = np.zeros((N, K), bool)
     margins = np.empty((N, K, 27, 2), f32)
+    tally = dict(evals=0, near=0, skipped=0, full=0)
     for l in range(27):
         ppx, ppy, ppz = pp(m, l)
         sq, hx, hy = _ladder(ppx, ppy, ppz, F, True)
@@ -245,9 +265,22 @@ def replay(packed, centers, cand, valid, half, G: int):
                         for c8 in range(8)], axis=-1)
         mn = np.where(np.isnan(phi).any(-1), f32(np.nan), phi.min(-1))
         margins[..., l, 0], margins[..., l, 1] = mn, d
-        keep |= (d <= near) | (mn <= eps)
-    keep &= valid
-    return keep, keep.sum(1), sq1[..., 13], margins, win
+        with np.errstate(invalid="ignore"):
+            dbm = dbmax[:, l, None]
+            lb = (d - reach) - dbm
+            skip = lb > eps + f32(SKIP_REL) * ((d + reach) + dbm)
+        active = valid & ~done
+        by_near = active & (d <= near)
+        assert not (active & ~by_near & skip & (mn <= eps)).any(), \
+            "the skip test holds at a keeping anchor"
+        skip &= skip_test
+        skipped = active & ~by_near & skip
+        full = active & ~by_near & ~skip
+        for name, x in (("evals", active), ("near", by_near), ("skipped", skipped),
+                        ("full", full)):
+            tally[name] += int(x.sum())
+        done |= by_near | (full & (mn <= eps))
+    return done, done.sum(1), sq1[..., 13], margins, win, tally
 
 
 def _decided(packed, centers, cand, valid, half, tie_ulps=64, thr_ulps=16):
@@ -444,6 +477,100 @@ def test_replay_ties_and_nan_follow_argmin():
     assert int(sqd.argmin(dim=1)[2]) == 3 and bool(torch.isnan(sqd[2, 3]))
 
 
+def _bisect(fn, lo: float, hi: float) -> tuple[float, float]:
+    """Adjacent float32 x (or as close as 80 halvings get) about a change
+    of sign of ``fn`` between ``lo`` and ``hi``."""
+    below = fn(lo) > 0
+    for _ in range(80):
+        mid = float(f32(0.5 * (lo + hi)))
+        if mid in (lo, hi):
+            break
+        if (fn(mid) > 0) == below:
+            lo = mid
+        else:
+            hi = mid
+    return lo, hi
+
+
+@functools.lru_cache(maxsize=1)
+def _threshold_nodes():
+    """Four depth-3 nodes of one row of 40 valid candidates, their centres
+    on the normal through triangle 37's centroid: two about the place where
+    its distance at the centre anchor crosses ``near`` (one float32 step of
+    the centre apart), two where some slot's corner minimum at some anchor
+    crosses ``eps`` with its distance past ``near``. Returns (centers,
+    cand, valid, half, the near slot, (slot, anchor) of the eps pair)."""
+    mesh = _mesh(True)
+    tables = _tables(mesh)
+    packed = tables.packed.numpy()
+    _, half = _centers(mesh, 3, [0])
+    _, eps, near = (f32(x) for x in cull._thresholds(half))
+    v, idx = mesh.vertices.astype(np.float64), mesh.indices.astype(np.int64)
+    tri = v[idx[37]]
+    normal = np.cross(tri[1] - tri[0], tri[2] - tri[0])
+    normal /= np.linalg.norm(normal)
+    at = lambda x: (tri.mean(0) + normal * x).astype(f32)[None]
+    cand, valid = _rows(tables, np.concatenate([at(0.0), at(0.0)]), 40,
+                        np.random.default_rng(11))
+    cand, valid = cand[:1], np.ones((1, 40), bool)
+    s0 = int(np.flatnonzero(cand[0] == 37)[0])
+    margins = lambda x: replay(packed, at(x), cand, valid, half, 32)[3][0]      # (K, 27, 2)
+    n_lo, n_hi = _bisect(lambda x: margins(x)[s0, 13, 1] - near, 0.0, 2.0 * float(near))
+    xs = np.linspace(float(near), 6 * half, 48)
+    m = [margins(x) for x in xs]
+    for a, b, ma, mb in zip(xs, xs[1:], m, m[1:]):
+        cross = ((ma[..., 1] > near) & (mb[..., 1] > near)
+                 & ((ma[..., 0] <= eps) != (mb[..., 0] <= eps)))
+        if cross.any():
+            s, l = (int(x) for x in np.argwhere(cross)[0])
+            break
+    e_lo, e_hi = _bisect(lambda x: margins(x)[s, l, 0] - eps, a, b)
+    centers = np.concatenate([at(x) for x in (n_lo, n_hi, e_lo, e_hi)])
+    return centers, np.repeat(cand, 4, 0), np.repeat(valid, 4, 0), half, s0, (s, l)
+
+
+@pytest.mark.parametrize("G", cull.LANES)
+def test_replay_equals_plain_near_the_thresholds(G):
+    """Candidates within a step of the centre of ``near`` (the distance)
+    and of ``eps`` (the corner minimum, within 8 ulps of its terms): the
+    replay, skip test and all, bit-equal to the plain version."""
+    mesh = _mesh(True)
+    tables = _tables(mesh)
+    centers, cand, valid, half, s0, (s, l) = _threshold_nodes()
+    _, eps, near = (f32(x) for x in cull._thresholds(half))
+    want = cull.region_cull_plain(tables, torch.as_tensor(centers), torch.as_tensor(cand),
+                                  torch.as_tensor(valid), half)
+    got = replay(tables.packed.numpy(), centers, cand, valid, half, G)
+    _equal(got[:3], [w.numpy() for w in want])
+    d = got[3][:2, s0, 13, 1]
+    assert d[0] <= near < d[1] and d[1] - d[0] <= 4 * np.spacing(near)
+    mn, dl = got[3][2:, s, l, 0], got[3][2:, s, l, 1]
+    assert (dl > near).all() and (mn[0] <= eps) != (mn[1] <= eps)
+    assert np.abs(mn - eps).max() <= 8 * np.spacing(dl.max())
+    assert got[5]["full"] > 0 and (got[5]["skipped"] > 0) == (G in cull.SKIP_LANES)
+
+
+def test_replay_nan_never_skips():
+    """A NaN bound n, or a NaN among an anchor's corner distances, takes
+    the anchor through the full evaluation: no skip, and the same bits."""
+    mesh, tables, centers, cand, valid, half = _replay_inputs()
+    rows = cull.cull_rows(tables.packed)
+    base = replay(tables.packed.numpy(), centers, cand, valid, half, 32, rows=rows,
+                  skip_test=True)
+    assert base[5]["skipped"] > 0
+    nan_rows = rows.clone()
+    nan_rows[:, 19] = float("nan")
+    got = replay(tables.packed.numpy(), centers, cand, valid, half, 32, rows=nan_rows,
+                 skip_test=True)
+    assert got[5]["skipped"] == 0 and got[5]["evals"] == base[5]["evals"]
+    _equal(got[:3], base[:3])
+    packed = tables.packed.clone()
+    packed[cand[2, 3]] = float("nan")            # node 2's winner at every anchor
+    got = replay(packed.numpy(), centers[2:3], cand[2:3], valid[2:3], half, 512)
+    assert (got[4] == cand[2, 3]).all() and got[5]["skipped"] == 0
+    assert torch.isnan(cull.cull_rows(packed)[cand[2, 3], 19])
+
+
 # -- CPU: the wrapper and the build on the CPU -----------------------------------
 
 def test_cpu_wrapper_is_plain():
@@ -512,6 +639,53 @@ def test_kernel_equals_plain(card, K, lanes):
     assert cull.launch_count == before + 1
     _equal([x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want])
     assert 0 < int(want[1].sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", cull.LANES)
+def test_kernel_near_the_thresholds(card, lanes):
+    """The four nodes about ``near`` and ``eps``: bit-equal to the plain
+    version on the card, and pass 2's tallies (evaluations, near keeps,
+    skips, full evaluations) equal to the replay's: the kernel's launch
+    takes the skip test in the forms of ``cull.SKIP_LANES`` and no other."""
+    mesh, tables = card
+    centers, cand, valid, half, _, _ = _threshold_nodes()
+    args = (torch.as_tensor(centers, device="cuda"), torch.as_tensor(cand, device="cuda"),
+            torch.as_tensor(valid, device="cuda"), half)
+    stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    got = cull.region_cull(tables, *args, lanes=lanes, stats=stats)
+    _equal([x.cpu().numpy() for x in got],
+           [x.cpu().numpy() for x in cull.region_cull_plain(tables, *args)])
+    want = replay(tables.packed.cpu().numpy(), centers, cand, valid, half, lanes)[5]
+    assert stats.tolist() == [want[k] for k in ("evals", "near", "skipped", "full")]
+    assert (stats[2].item() > 0) == (lanes in cull.SKIP_LANES)
+
+
+@pytest.mark.cuda
+def test_d6_build_groups_in_every_form(card, monkeypatch):
+    """The bench torus's d6 build (``chip_smoke.py``'s path A): every node
+    group's cull bit-equal to the plain route in each form of K13."""
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    tris = soa_to_torch(calculate_mesh_triangle_data(mesh), "cuda")
+    bmin, size = _box(mesh)
+    real = eo._ExactBuild.cull
+    seen = []
+
+    def cull_checked(self, group, half):
+        centers, cand, valid = group[:3]
+        want = eo._cull_group("region", self.tables, centers, cand, valid, half,
+                              eo._chunk_rows(cand.shape[1], self.pair_budget), plain=True)
+        for lanes in cull.LANES:
+            got = cull.region_cull(self.tables, centers, cand, valid, half, lanes=lanes)
+            assert all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                   b.view(torch.int32) if b.dtype == torch.float32 else b)
+                       for a, b in zip(got, want)), (cand.shape, lanes)
+        seen.append(cand.shape)
+        return real(self, group, half)
+
+    monkeypatch.setattr(eo._ExactBuild, "cull", cull_checked)
+    eo._build_exact(tris, bmin, size, 6, 2, 32)
+    assert len(seen) > 4 and max(k for _, k in seen) >= 2048
 
 
 @pytest.mark.cuda
