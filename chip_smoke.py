@@ -120,8 +120,11 @@ a checkout compiles them with nvcc) and drives the exact-octree paths:
   prepass and K10's normals, held bit-equal to the earlier eager route
   (torch trips over K10) and to the all-torch plain frame (hit masks on
   >= 99.9%, q99 of |depth diff| <= 1e-4 of the box), K14 and K15 held
-  the same two ways (``walk_segments_vs_plain``), and the C++ SdfLib's
-  two ``.bin`` files through the same route;
+  the same two ways (``walk_segments_vs_plain``), every K14 launch of the
+  frame in every form (one thread a ray, 8 lanes a ray, the plan's)
+  from the frame's own states, bit-equal and timed, with K15's trip
+  histogram (``walk_round_table``), and the C++ SdfLib's two ``.bin``
+  files through the same route;
 * main path E, the uniform grid: ``UniformGridSdf(depth=7)`` on the bench
   torus (128^3 corners) by BASIC init (K2 over every corner) and by
   OCTREE init (K1 through a depth-6 exact octree), the two held to each
@@ -500,7 +503,7 @@ def reset_counts():
     exact_query.gather_launch_count = exact_query.sort_launch_count = 0
     walk.launch_count = walk.backward_launch_count = walk.march_launch_count = 0
     walk.key_launch_count = walk.sort_launch_count = walk.reduce_launch_count = 0
-    walk.segment_launch_count = walk.beam_launch_count = 0
+    walk.segment_launch_count = walk.segment_group_launch_count = walk.beam_launch_count = 0
 
 
 def read_counts():
@@ -533,6 +536,7 @@ def read_counts():
         "walk_reduce": walk.reduce_launch_count,
         "walk_march": walk.march_launch_count,
         "walk_segment": walk.segment_launch_count,
+        "walk_segment_group": walk.segment_group_launch_count,
         "walk_beam": walk.beam_launch_count,
     }
 
@@ -2542,20 +2546,34 @@ def _same_but_infinite(a, b) -> tuple[bool, int]:
 def walk_segments_vs_plain(sdf, origins, dirs, kw):
     """K15 and K14 against their plain versions in the frame's forms on
     the walk: the beam prepass (its 256 trips of every beam) in one K15
-    launch from the frame's setup, then the first round's 8 trips of every
-    ray in one K14 launch from its start. Each is held bit-equal to its
+    launch from the frame's setup, the first round's 8 trips of every ray
+    in one K14 launch from its start, one thread a ray as the frame runs
+    it and forced into K14's group form, and the frame's first round in the
+    group form (``segment_form``; the rounds before it marched as the
+    frame marches them) from its state. Each is held bit-equal to its
     plain version over K10's distance (the parent's eager trips), but for
-    rays whose position turns infinite, and to its plain version over the
-    plain walk, all torch (active flags and trip counts agree on >= 99.9%,
-    q99 of |depth diff| <= 1e-4 of the box, as K12 is held), and timed from
-    the same start state beside the latter and its bound: the state read
-    and written once, the words and rows the live rays touch, trip by trip,
-    each once, and ~310 flops a useful trip. Returns {"walk_beam": ...,
-    "walk_segment": ...}, each (max |depth diff| against the all-torch
-    plain version on the rays with finite positions, ms, plain ms,
-    bound), and "touched": the larger of the two's bytes of words and rows
-    touched."""
+    rays whose position turns infinite, and compared with its plain
+    version over the plain walk, all torch. The first round in both forms
+    and the beams are held to the latter as K12 is (active flags and trip
+    counts agree on >= 99.9%, q99 of |depth diff| <= 1e-4 of the box). The
+    group round is held bit-equal to one thread a ray from the same state
+    and its active flags on >= 99.9%; its trip counts and depths against
+    the all-torch plain version are printed beside one thread a ray's, not
+    gated: its rays are the frame's hardest, marching near the surface
+    for 56 trips before it and 64 in it, where the two walks' distances,
+    a few ulps apart, move trip counts and depths (the whole frame is
+    held to the all-torch plain frame in ``walk_frame_path``). Each is
+    timed from the same start state beside the all-torch plain version
+    and its bound: the state read and written once, the words and rows
+    the live rays touch, trip by trip, each once, and ~310 flops a useful
+    trip. Returns {"walk_beam": ..., "walk_segment": ...,
+    "walk_segment_group": ...}, each (max |depth diff| against the
+    all-torch plain version on the rays with finite positions, ms, plain
+    ms, bound); the group form's max is its first-round one, the gated
+    one, its times and bound the group round's; and "touched": the largest
+    of their bytes of words and rows touched."""
     import importlib
+    from functools import partial
 
     import torch
 
@@ -2577,7 +2595,26 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
                 b.copy_(x)
         return restore
 
-    def run(name, kernel, plain, bufs, consts, trips, state_bytes, flops, act):
+    def against(got, plain, act):
+        """(rays with finite positions, active flags agreeing, trip counts
+        agreeing, q99 and max of |depth diff|) of ``got`` against the
+        all-torch plain end state ``plain``."""
+        fin = torch.isfinite(got[0]).all(-1) & torch.isfinite(plain[0]).all(-1)
+        dd = (got[1][fin] - plain[1][fin]).abs()
+        agree = float((got[act][fin] == plain[act][fin]).float().mean())
+        its_eq = float((got[4] == plain[4]).float().mean()) if len(plain) == 5 else 1.0
+        return int(fin.sum()), agree, its_eq, float(torch.quantile(dd, 0.99)), float(dd.max())
+
+    def gate(name, agree, its_eq, q99, trips=True):
+        _check(agree >= 0.999 and (its_eq >= 0.999 or not trips),
+               f"{name}: active flags agree with the all-torch plain version on {agree:.4%}, "
+               f"trip counts on {its_eq:.4%}")
+        if trips:
+            _check(q99 <= 1e-4 * box, f"{name}: q99 |depth diff| {q99} against the all-torch "
+                   f"plain version above 1e-4 of the box")
+
+    def run(name, kernel, plain, bufs, consts, trips, state_bytes, flops, act, thread=None,
+            group=None):
         start = [b.clone() for b in bufs]
         ref = [b.clone() for b in start]
         live_pts, useful = [], 0
@@ -2593,20 +2630,36 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
         ok = torch.isfinite(got[0]).all(-1) & torch.isfinite(ref[0]).all(-1)
         same = all(torch.equal(a[ok], b[ok]) for a, b in zip(got, ref))
         _check(same, f"{name} departs from its plain version over K10's distance")
+        if thread is not None:       # one thread a ray from the same state
+            one = [b.clone() for b in start]
+            thread(walk, *one, *consts, trips)
+            _check(all(_bits_equal(a, b) for a, b in zip(got, one)),
+                   f"{name} departs from one thread a ray")
         restore = restorer(bufs, start)
         ms = _cuda_ms_prep(restore, lambda: kernel(walk, *bufs, *consts, trips))
         # the plain version over the plain walk, all torch, from the start
         plain_ms = _cuda_ms_prep(restore, lambda: plain(walk, *bufs, *consts, trips), reps=1)
-        fin = torch.isfinite(got[0]).all(-1) & torch.isfinite(bufs[0]).all(-1)
-        dd = (got[1][fin] - bufs[1][fin]).abs()
-        d_err, q99 = float(dd.max()), float(torch.quantile(dd, 0.99))
-        agree = float((got[act][fin] == bufs[act][fin]).float().mean())
-        its_eq = float((got[4] == bufs[4]).float().mean()) if len(bufs) == 5 else 1.0
-        _check(agree >= 0.999 and its_eq >= 0.999,
-               f"{name}: active flags agree with the all-torch plain version on {agree:.4%}, "
-               f"trip counts on {its_eq:.4%}")
-        _check(q99 <= 1e-4 * box, f"{name}: q99 |depth diff| {q99} against the all-torch plain "
-               f"version above 1e-4 of the box")
+        fin, agree, its_eq, q99, d_err = against(got, bufs, act)
+        gate(name, agree, its_eq, q99, trips=thread is None)
+        note = ""
+        if thread is not None:
+            one_at = against(one, bufs, act)
+            note = (f" (one thread a ray from the same state: active flags {one_at[1]:.6%}, "
+                    f"trip counts {one_at[2]:.6%}, q99 {one_at[3]:.3e}, max {one_at[4]:.3e}; "
+                    f"trip counts and depths printed, not gated)")
+        if group is not None:        # the group form forced from the same start
+            alt = [b.clone() for b in start]
+            group(walk, *alt, *consts, trips)
+            ok_g = torch.isfinite(alt[0]).all(-1) & torch.isfinite(ref[0]).all(-1)
+            _check(all(torch.equal(a[ok_g], b[ok_g]) for a, b in zip(alt, ref)),
+                   f"{name}, forced into the group form, departs from its plain version over "
+                   f"K10's distance")
+            g_at = against(alt, bufs, act)
+            gate(f"{name}, forced into the group form", *g_at[1:4])
+            note = (f"; forced into the group form: bit-equal to the plain version over K10, "
+                    f"against the all-torch one active flags {g_at[1]:.6%}, trip counts "
+                    f"{g_at[2]:.6%}, q99 {g_at[3]:.3e}, max {g_at[4]:.3e}")
+            group_err.append(g_at[4])
         n = bufs[0].shape[0]
         words, rows = _walk_touched(walk, torch.cat(live_pts))
         touched = 4 * words + 4 * walk.num_coeff * rows
@@ -2614,17 +2667,18 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
         print(f"{name} vs plain ({n} rays, {trips} trips in one launch, {useful} useful trips, "
               f"{touched} B of words and rows touched): bit-equal to the parent's trips over "
               f"K10 on the {int(ok.sum())} rays with finite positions ({int((~ok).sum())} "
-              f"not); against the all-torch plain version on the {int(fin.sum())} rays with "
+              f"not); against the all-torch plain version on the {fin} rays with "
               f"finite positions: active flags agree on {agree:.6%}, trip counts on "
               f"{its_eq:.6%}, |depth diff| q99 {q99:.3e} (allowance {1e-4 * box:.3e}), max "
-              f"{d_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
-              f"({bound[1]}) = {bound[0] / ms:.1%} of the kernel's time")
+              f"{d_err:.3e}{note}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) = {bound[0] / ms:.1%} of the kernel's time")
         restore()
         kernel(walk, *bufs, *consts, trips)
         touched_all.append(touched)
         return d_err, ms, plain_ms, bound
 
-    touched_all = []
+    touched_all, group_err = [], []
+    group_form = partial(ow.walk_segment, form=ow.SEGMENT_FORMS[-1])
 
     beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
     beam_consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
@@ -2636,10 +2690,256 @@ def walk_segments_vs_plain(sdf, origins, dirs, kw):
     consts = (frame.dirs, frame.eps_w, frame.far_w)
     first = frame.schedule[0][0]
     out["walk_segment"] = run("K14 walk_segment", ow.walk_segment, ow.walk_segment_plain, bufs,
-                              consts, first, MARCH_STATE_BYTES, FLOPS_WALK_TRIP, 3)
+                              consts, first, MARCH_STATE_BYTES, FLOPS_WALK_TRIP, 3,
+                              group=group_form)
+    # the frame's rounds up to the first that takes the group form, and
+    # that one in the same way
+    i, form = 0, 1
+    while form == 1:
+        k, n = frame.schedule[i]
+        frame._round_end(n, min(frame.Rp, max(n, st._SORT_FLOOR)))
+        i += 1
+        k, n = frame.schedule[i]
+        form = ow.segment_form(n, walk.num_coeff == 64, walk.fast)
+        if form == 1:
+            frame._march(n, k)
+    bufs = [frame.pos[:n], frame.acc[:n], frame.last_d[:n], frame.active[:n], frame.its[:n]]
+    _, ms, plain_ms, bound = run(f"K14 walk_segment, round {i}, {form} lanes a ray",
+                                 ow.walk_segment, ow.walk_segment_plain, bufs,
+                                 (frame.dirs[:n], *consts[1:]), k, MARCH_STATE_BYTES,
+                                 FLOPS_WALK_TRIP, 3, thread=partial(ow.walk_segment, form=1))
+    out["walk_segment_group"] = (group_err[0], ms, plain_ms, bound)
     out["touched"] = max(touched_all)
     del frame
     return out
+
+
+WALK_BEAM_MARKS = (8, 16, 24, 32, 48, 64, 128, 255)
+
+
+def walk_beam_histogram(frame, walk) -> dict:
+    """K15's trip histogram on the walk frame's beams: K15 one trip a
+    launch from the frame's setup (the same bits as one launch: the state
+    stays in place), the beams still live after each trip. Prints those
+    after ``WALK_BEAM_MARKS`` trips, the useful trips and the longest beam;
+    returns {trip: live beams after it} for every trip taken."""
+    import importlib
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    bufs = [frame.b_pos, frame.b_acc, frame.b_active]
+    consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin, frame.beam_far)
+    start = [b.clone() for b in bufs]
+    live, useful = {}, 0
+    for t in range(1, st._BEAM_ITERS + 1):
+        n_live = int((bufs[2] > 0).sum())
+        if not n_live:
+            break
+        useful += n_live
+        ow.walk_beam(walk, *bufs, *consts, 1)
+        live[t] = int((bufs[2] > 0).sum())
+    for b, x in zip(bufs, start):
+        b.copy_(x)
+    n = bufs[0].shape[0]
+    longest = max(live, default=0)
+    print(f"K15 trip histogram on the walk ({n} beams, one trip a launch): live after "
+          + ", ".join(f"{t} trips {live.get(t, 0)}" for t in WALK_BEAM_MARKS)
+          + f"; {useful} useful trips ({useful / n:.2f} a beam), the longest beam {longest} "
+          f"trips")
+    return live
+
+
+def _forms_from(label, bufs, forms, call, totals=None, repeats: int = 1) -> dict:
+    """Each of ``forms`` ({label: fn}) run by ``call(fn)`` from the state
+    ``bufs`` holds now, held bit-equal to the first and timed in device ms
+    (CUDA events around graph replays, ``_graph_ms``, less the restore's),
+    ``repeats`` times in turns (the forms' order reversed every other
+    turn); ``bufs`` left at the first form's end. Returns {label: [ms a
+    turn]}; adds each form's best to ``totals``."""
+    start = [b.clone() for b in bufs]
+
+    def restore():
+        for b, x in zip(bufs, start):
+            b.copy_(x)
+
+    first, times = None, collections.defaultdict(list)
+    for name, fn in forms.items():
+        restore()
+        call(fn)
+        end = [b.clone() for b in bufs]
+        first = end if first is None else first
+        _check(all(_bits_equal(a, b) for a, b in zip(end, first)),
+               f"{label}: the form '{name}' departs from '{next(iter(forms))}'")
+    for turn in range(repeats):
+        names = list(forms) if turn % 2 == 0 else list(forms)[::-1]
+        restore_ms = _graph_ms(restore)
+        for name in names:
+            fn = forms[name]
+            times[name].append(_graph_ms(lambda: (restore(), call(fn))) - restore_ms)
+    if totals is not None:
+        for name, ms in times.items():
+            totals[name] += min(ms)
+    for b, x in zip(bufs, first):
+        b.copy_(x)
+    return dict(times)
+
+
+def _kept_leaf_share(walk, bufs, dirs, eps: float, far: float, trips: int) -> tuple[int, int]:
+    """Of the trips that K14's live rays take from the state ``bufs`` in a
+    launch of ``trips``, those whose ray is in the box and in the leaf of
+    its trip before in that launch (where the group form reuses its kept
+    row): the plain trips over K10's distance, K14's bits, one at a time,
+    each ray's leaf word from ``_descend`` before each. Returns (such
+    trips, trips); ``bufs`` are left as they were."""
+    import torch
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    state = [b.clone() for b in bufs]
+    prev = torch.full((state[0].shape[0],), -1, dtype=torch.int64, device=state[0].device)
+    kept = taken = 0
+    for _ in range(trips):
+        live = state[3] > 0
+        if not bool(live.any()):
+            break
+        word, _, in_box, _ = ow._descend(walk.words, state[0], walk.box_min, walk.box_size3,
+                                         walk.start_grid_size, levels=walk.levels,
+                                         fast=walk.fast)
+        leaf = torch.where(in_box, word.to(torch.int64), -1)
+        kept += int((live & in_box & (leaf == prev)).sum())
+        taken += int(live.sum())
+        prev = torch.where(live, leaf, prev)
+        ow.walk_segment_plain(walk, *state, dirs, eps, far, 1, query=ow.walk_query)
+    return kept, taken
+
+
+def walk_round_table(sdf, origins, dirs, kw, beam=4, repeats: int = 1,
+                     kept_leaf: bool = False) -> dict:
+    """K14's launches in the walk frame (``beam`` as the tracer's; None:
+    no prepass, the dense schedule), each at the frame's own state, in
+    every form: the frame run eagerly piece by piece (setup, K15's prepass,
+    start, each round's march and round end, the straggler march). K15's
+    trip histogram first (``walk_beam_histogram``) and its prepass's device
+    ms; then each K14 launch one thread a ray, 8 lanes a ray, and in
+    ``segment_form``'s form, from the same start, held bit-equal to the
+    first and timed ``repeats`` times in turns (``_forms_from``). Prints a
+    line a launch: (trips, n), the rays live before and after, the useful
+    trips, the longest ray's, with ``kept_leaf`` the trips in the leaf of
+    the trip before (``_kept_leaf_share``: where the group form reuses its
+    kept row), each form's device ms, and the best of each summed a frame.
+    Returns {"beam": K15's device ms or None, "rounds": [(trips, n, live
+    before, live after, useful, longest, {form: [device ms]})], "frame":
+    {form: device ms summed}}."""
+    import importlib
+    from functools import partial
+
+    import torch
+
+    from sdflib_tpu_torch.ops import walk as ow
+
+    st = importlib.import_module("sdflib_tpu_torch.render.sphere_trace")
+    walk = sdf._walk()
+    fast = walk.num_coeff == 64 and walk.fast
+    R = origins.shape[0] * origins.shape[1]
+    B = min(st._TRACE_BLOCK, R)
+    Rp = -(-R // B) * B
+    frame = st._Frame(sdf, origins.shape, R, Rp, B, beam=beam, graphs=False, **kw)
+    frame.o_in.copy_(origins.reshape(-1, 3))
+    frame.d_in.copy_(dirs.reshape(-1, 3))
+    frame.live_in.fill_(1.0)
+    frame._setup()
+    beam_ms = None
+    if frame.beam_on:
+        walk_beam_histogram(frame, walk)
+        beam_bufs = [frame.b_pos, frame.b_acc, frame.b_active]
+        beam_consts = (frame.b_dirs, frame.b_r0, frame.b_rd, frame.route.margin,
+                       frame.beam_far)
+        beam_ms = min(_forms_from("K15 prepass", beam_bufs, {"thread": ow.walk_beam},
+                                  lambda fn: fn(walk, *beam_bufs, *beam_consts,
+                                                st._BEAM_ITERS))["thread"])
+        print(f"K15 prepass ({beam_bufs[0].shape[0]} beams, {st._BEAM_ITERS} trips in one "
+              f"launch) from the frame's setup: {beam_ms:.4f} ms device")
+    frame._start()
+    launches = list(frame.schedule) + ([(frame.remaining, Rp)] if frame.remaining else [])
+    forms = {"thread": partial(ow.walk_segment, form=1)}
+    forms.update({f"group{g}": partial(ow.walk_segment, form=g)
+                  for g in ow.SEGMENT_FORMS[1:] if fast})
+    forms["plan"] = ow.walk_segment
+    rows, totals = [], collections.defaultdict(float)
+    for i, (k, n) in enumerate(launches):
+        bufs = [frame.pos[:n], frame.acc[:n], frame.last_d[:n], frame.active[:n],
+                frame.its[:n]]
+        live_before = int((bufs[3] > 0).sum())
+        kept = ""
+        if live_before and kept_leaf:
+            hits, taken = _kept_leaf_share(walk, bufs, frame.dirs[:n], frame.eps_w,
+                                           frame.far_w, k)
+            kept = f"; in the leaf of their trip before on {hits} of {taken} trips"
+        times = _forms_from(f"K14 launch {i} ({k} trips, {n} rays)", bufs, forms,
+                            lambda fn: fn(walk, *bufs, frame.dirs[:n], frame.eps_w,
+                                          frame.far_w, k), totals, repeats)
+        live_after = int((bufs[3] > 0).sum())
+        useful = int(bufs[4].sum(dtype=torch.int64))
+        longest = int(bufs[4].max())
+        rows.append((k, n, live_before, live_after, useful, longest, times))
+        print(f"K14 launch {i} ({k} trips, {n} rays): live {live_before} -> {live_after}, "
+              f"{useful} useful trips, the longest ray {longest}{kept}; the plan's form "
+              f"{ow.segment_form(n, fast, walk.fast)}; device ms "
+              + ", ".join(f"{label} " + " / ".join(f"{t:.4f}" for t in ms)
+                          for label, ms in times.items()))
+        if i < len(frame.schedule):
+            W = frame.Rp if i == len(frame.schedule) - 1 else min(frame.Rp,
+                                                                  max(n, st._SORT_FLOOR))
+            frame._round_end(n, W)
+    print(f"K14 device ms a frame ({R} rays, beam {beam}), the best of each launch summed "
+          f"(every form bit-equal): "
+          + ", ".join(f"{label} {ms:.4f}" for label, ms in totals.items()))
+    del frame
+    return {"beam": beam_ms, "rounds": rows, "frame": dict(totals)}
+
+
+def walk_rounds_alone(n_rays: int = 1024, beam=4, repeats: int = 3) -> None:
+    """``walk_round_table`` in a process of its own, with the trips in the
+    leaf of the trip before: path C's d6 no_continuity octree saved and
+    loaded with no query grid, as ``walk_frame_path`` loads it, and
+    bench.py's ``n_rays``^2 rays (eps 1e-5, far 4, 1,024 trips; ``beam``
+    4 as bench.py, None for the dense schedule), each form timed
+    ``repeats`` times in turns: ``python3 -c 'import chip_smoke as cs;
+    cs.walk_rounds_alone(512)'``. Prints the card's name and power limit
+    first; after the table, the kernels' registers and, with beams, the
+    frame's profile (``walk_frame_profile``)."""
+    import tempfile
+
+    import torch
+
+    from sdflib_tpu_torch import OctreeSdf, SdfFunction
+    from sdflib_tpu_torch.kernels import build
+    from sdflib_tpu_torch.utils.primitives import make_torus
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rounds_")
+    try:
+        path = os.path.join(tmp, "approx_d6.npz")
+        OctreeSdf(mesh, mesh.bounding_box.add_margin(0.14), max_depth=6, start_depth=2,
+                  termination_threshold=1e-3, init_algorithm="no_continuity",
+                  device=dev).save(path)
+        sdf = SdfFunction.load(path, device=dev)
+        origins, dirs = _ortho_rays(n_rays, dev)
+        walk_round_table(sdf, origins, dirs, dict(eps=1e-5, far=4.0, max_iters=1024), beam,
+                         repeats, kept_leaf=True)
+        for k, v in build.ptxas_report().items():
+            if "walk_segment" in k or "walk_beam" in k:
+                print(f"ptxas {re.search(r'walk_\w+?_kernel', k).group()}{_instance(k)}: {v}")
+        del sdf
+        if beam is not None:
+            walk_frame_profile(path, n_rays)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def walk_frame_profile(path: str, n_rays: int) -> None:
@@ -2683,8 +2983,11 @@ def walk_frame_path(dev, root: str, n_rays: int):
     position turns infinite, and timed (CUDA events, best of 3) beside it,
     and to the all-torch plain frame (``_plain``: hit masks on >= 99.9%,
     q99 of |depth diff| <= 1e-4 of the box); K15 and K14 against their plain
-    versions in the frame's forms (``walk_segments_vs_plain``) (its busy
-    share: ``walk_frame_profile``, in path C's profiler process); then the C++
+    versions in the frame's forms (``walk_segments_vs_plain``), every K14
+    launch of the frame in every form from the frame's own states,
+    bit-equal and timed, and K15's trip histogram (``walk_round_table``)
+    (its busy share:
+    ``walk_frame_profile``, in path C's profiler process); then the C++
     SdfLib's ``octree_torus_cpp.bin`` (aligned) and its builder's
     ``builders_octree_nc.bin`` (rows at any word) at 512^2 camera rays,
     each graph frame against the parent's eager frame. Returns (the path's launch
@@ -2726,7 +3029,7 @@ def walk_frame_path(dev, root: str, n_rays: int):
     launches = read_counts()
     print(f"walk frame path: the .npz loaded and the first frame traced in {first_s:.3f} s "
           f"(host clock, the warm-up run and the capture included); launches: {launches}")
-    for name in ("walk_segment", "walk_beam", "walk_query"):
+    for name in ("walk_segment", "walk_segment_group", "walk_beam", "walk_query"):
         _check(launches[name] > 0, f"{name} was not launched on the walk frame path")
     for name in ("march", "beam", "octree_query"):
         _check(launches[name] == 0, f"{name} was launched on the walk route")
@@ -2792,15 +3095,17 @@ def walk_frame_path(dev, root: str, n_rays: int):
 
     t0 = time.perf_counter()
     segments = walk_segments_vs_plain(sdf, origins, dirs, kw)
+    walk_round_table(sdf, origins, dirs, kw)
     t_seg = time.perf_counter() - t0
     # the frame's least time, as path D's: its rays' state in and out once,
-    # the words and rows it touches (at least the beams' or the first
-    # round's), and its useful trips' flops
+    # the words and rows it touches (at least the beams', the first
+    # round's or the first group round's), and its useful trips' flops
     rows_b = segments.pop("touched")
     frame_bound = _bound(R * FRAME_RAY_BYTES + rows_b, trips * FLOPS_WALK_TRIP)
     print(f"walk frame bound ({FRAME_RAY_BYTES} B a ray in and out, as path D's frame, and "
-          f"{rows_b} B of words and rows, the larger of the beams' and the first round's, "
-          f"each once; {trips} useful trips x {FLOPS_WALK_TRIP} flops): "
+          f"{rows_b} B of words and rows, the largest of the beams', the first round's and "
+          f"the first group round's, each once; {trips} useful trips x {FLOPS_WALK_TRIP} "
+          f"flops): "
           f"{frame_bound[0]:.4f} ms ({frame_bound[1]})")
     t0 = time.perf_counter()
 
@@ -2901,6 +3206,53 @@ def _walk_ab_store(store: str) -> None:
            "sdf_export failed")
 
 
+def _render_phases(src: str, png: str, dev, side: int = 1024) -> dict:
+    """``sdf_render``'s steps at ``side``^2 with AO and shadows (its defaults
+    otherwise), one by one, each synchronised: wall seconds of the load,
+    the camera's rays, the trace (a first frame, with its capture), AO,
+    the shadows, and the shading with the PNG."""
+    import torch
+
+    from sdflib_tpu_torch.render import (Camera, ambient_occlusion, shade_lambert, soft_shadow,
+                                         trace_octree, write_png)
+    from sdflib_tpu_torch.sdf.octree import OctreeSdf
+    from sdflib_tpu_torch.tools.common import load_sdf
+
+    light = (0.577, 0.577, 0.577)
+    times, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        times[name] = t - t0
+        t0 = t
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdf = load_sdf(src, dev)
+    _check(isinstance(sdf, OctreeSdf), "the export is not an octree")
+    mark("load")
+    area = sdf.get_sample_area()
+    center = np.asarray(area.center, np.float64)
+    diag = float(np.linalg.norm(area.size))
+    cam = Camera(position=center + np.array([0.6, 0.45, 0.9]) * diag, target=center,
+                 fov_y_deg=45.0)
+    origins, dirs = cam.rays(side, side)
+    mark("rays")
+    res = trace_octree(sdf, origins, dirs, eps=1e-5, far=4.0, max_iters=1024)
+    mark("trace")
+    ao = ambient_occlusion(sdf.get_distance, res.position, res.normal)
+    mark("ao")
+    shadow = soft_shadow(sdf.get_distance, res.position, light)
+    mark("shadow")
+    img = shade_lambert(res.position, res.normal, res.hit, light_dir=light, view_dir=dirs,
+                        ao=ao, shadow=shadow)
+    write_png(png, img.cpu().numpy() if isinstance(img, torch.Tensor) else img)
+    mark("shade_png")
+    return times
+
+
 def _walk_ab_probe(tree: str, store: str) -> None:
     """One checkout's walk frame and renders, in a process of its own: the
     package of ``tree`` loads the d6 ``.npz`` with no query grid, traces
@@ -2910,8 +3262,10 @@ def _walk_ab_probe(tree: str, store: str) -> None:
     a frame's stats; then ``sdf_render`` on the export at 1024^2 with AO
     and shadows, in-process, ``WALK_AB_RENDERS`` times (wall seconds, each
     call synchronised; each loads the container anew, so each traces a
-    first frame). Prints one ``walk_frame_ab`` JSON line with the card's
-    name and power limit."""
+    first frame), then its steps one by one as many times (``_render_phases``:
+    wall seconds of each). Then the frame under the profiler (``breakdown``): the
+    busy share and K14's and K15's device ms a frame. Prints one
+    ``walk_frame_ab`` JSON line with the card's name and power limit."""
     import io
 
     sys.path.insert(0, tree)
@@ -2945,6 +3299,8 @@ def _walk_ab_probe(tree: str, store: str) -> None:
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
+    kernel_ms = {"walk_segment": 0.0, "walk_beam": 0.0}
+    ev_ms, busy_ms, _ = breakdown(frame, f"walk_frame_ab {tree}", top=4, device_ms=kernel_ms)
     renders = []
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(WALK_AB_RENDERS):
@@ -2958,16 +3314,20 @@ def _walk_ab_probe(tree: str, store: str) -> None:
             torch.cuda.synchronize()
             renders.append(time.perf_counter() - t0)
             _check(rc == 0, f"sdf_render returned {rc}")
+        phases = [_render_phases(os.path.join(store, "oct.npz"), os.path.join(tmp, "p.png"),
+                                 dev) for _ in range(WALK_AB_RENDERS)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print("walk_frame_ab " + json.dumps({
         "tree": tree, "card": smi, "first_frame_s": first_s, "frame_ms_best": min(ms),
-        "frame_ms_median": float(np.median(ms)), "host_syncs": stats.get("host_syncs"),
+        "frame_ms_median": float(np.median(ms)), "profiled_frame_ms": ev_ms,
+        "busy_ms": busy_ms, "k14_device_ms": kernel_ms["walk_segment"],
+        "k15_device_ms": kernel_ms["walk_beam"], "host_syncs": stats.get("host_syncs"),
         "graphs_captured": stats.get("graphs_captured"),
         "graphs_replayed": stats.get("graphs_replayed"),
         "ray_trips_offered": stats.get("marched_ray_trips"),
         "useful_ray_trips": int(res.iterations.sum(dtype=torch.int64)),
-        "hits": int(res.hit.sum()), "sdf_render_s": renders,
+        "hits": int(res.hit.sum()), "sdf_render_s": renders, "sdf_render_phases_s": phases,
         "depth_sum": float(res.depth.double().sum()),
     }))
 
@@ -4875,7 +5235,7 @@ def main() -> None:
                   "exact_sorted_gather_kernel", "exact_finish_kernel", "walk_query_kernel",
                   "walk_key_kernel", "walk_reduce_kernel", "walk_reduce_span_kernel",
                   "walk_backward_kernel", "walk_march_kernel", "walk_march_warps_kernel",
-                  "walk_segment_kernel", "walk_beam_kernel",
+                  "walk_segment_kernel", "walk_beam_kernel", "walk_segment_group_kernel",
                   "region_cull_warp_kernel", "region_cull_block_kernel"):
         lines = [(_instance(k), v) for k, v in report.items()
                  if short in k and (short.startswith("walk") or "walk_" not in k)]
@@ -5405,7 +5765,7 @@ def main() -> None:
 
     # -- path D on the walk: a container with no query grid ------------------
     launches["walk_frame"], segments = walk_frame_path(dev, root, 1024)
-    for name in ("walk_segment", "walk_beam"):
+    for name in ("walk_segment", "walk_segment_group", "walk_beam"):
         err, ms, plain_ms, bound = segments[name]
         kernels[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
 
@@ -5495,6 +5855,8 @@ def main() -> None:
                        "sdflib_tpu/render/sphere_trace.py:251"),
         "walk_segment": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                          "sdflib_tpu/render/sphere_trace.py:411"),
+        "walk_segment_group": ("sdflib_tpu_torch/csrc/octree_walk.cu",
+                               "sdflib_tpu/render/sphere_trace.py:411"),
         "walk_beam": ("sdflib_tpu_torch/csrc/octree_walk.cu",
                       "sdflib_tpu/render/sphere_trace.py:541"),
         "region_cull": ("sdflib_tpu_torch/csrc/region_cull.cu",

@@ -353,18 +353,26 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int mask, int width) {
   return v;
 }
 
-// tricubic<Grad> of one point's row read by the group: lane s of the group
-// calls it (every lane of the warp does: the shuffles span the warp);
-// base null reads nothing.
-template <bool Grad, int kGroup, int S>
-__device__ __forceinline__ float4 tricubic_group(const float4* base, int s, const float f[3]) {
+// Lane s's loads of one point's row for the group: float4s s, s + kGroup,
+// ...; base null reads nothing (zeros).
+template <int kGroup, int S>
+__device__ __forceinline__ void group_load(const float4* base, int s,
+                                           float4 (&v)[GroupRow<kGroup, S>::kSlots]) {
   using R = GroupRow<kGroup, S>;
-  float4 v[R::kSlots];
 #pragma unroll
   for (int q = 0; q < R::kSlots; ++q) {
     const int i = s + kGroup * q;
     v[q] = (base != nullptr && i < R::kFloat4s) ? __ldg(base + i) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// tricubic<Grad> of one point's row from the group's loads v (group_load):
+// lane s of the group calls it (every lane of the warp does: the shuffles
+// span the warp).
+template <bool Grad, int kGroup, int S>
+__device__ __forceinline__ float4 group_sum(const float4 (&v)[GroupRow<kGroup, S>::kSlots],
+                                            int s, const float f[3]) {
+  using R = GroupRow<kGroup, S>;
   float4 lo[R::kQuads], hi[R::kQuads];
   quad_coeffs<kGroup, S>(v, s, lo, hi);
   const float fx = f[0], fy = f[1], fz = f[2];
@@ -390,6 +398,16 @@ __device__ __forceinline__ float4 tricubic_group(const float4* base, int s, cons
 #pragma unroll
   for (int j = 1; j < R::kQuads; ++j) total = add4(total, part[j]);
   return total;
+}
+
+// tricubic<Grad> of one point's row read by the group: lane s of the group
+// calls it (every lane of the warp does: the shuffles span the warp);
+// base null reads nothing.
+template <bool Grad, int kGroup, int S>
+__device__ __forceinline__ float4 tricubic_group(const float4* base, int s, const float f[3]) {
+  float4 v[GroupRow<kGroup, S>::kSlots];
+  group_load<kGroup, S>(base, s, v);
+  return group_sum<Grad, kGroup, S>(v, s, f);
 }
 
 // tricubic<Grad> of one thread's aligned row (16 float4 from base), read

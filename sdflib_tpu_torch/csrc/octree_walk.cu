@@ -108,6 +108,29 @@
 // persistent warps were tried for K14 and lost to one thread a ray in the
 // walk frame (PERF.md, K14).
 //
+// The frame's later rounds march prefixes of 2,048-8,192 rays, too few to
+// fill the card: such a launch lasts its longest ray's chain of trips,
+// about 0.7 us a trip one thread a ray on an H100 (a trip: three
+// divisions, a dependent node word a level, the row, the fold, the step).
+// walk_segment_group_kernel, K14's group form, gives each ray kGroup = 8
+// lanes (ops/walk.py segment_form picks it from the launch's width):
+// every lane walks the ray (the same bits, no shuffle), the group reads
+// its row two float4 a lane and sums it by shuffles in tricubic_quads'
+// order (leaf_eval.cuh group_sum), and keeps
+// the row in its registers with the leaf's start cell and children's bits:
+// while the ray stays in that leaf, a trip skips the walk's loads and the
+// row's. The children come from the bits of the start-cell fraction,
+// floor(2^levels f0), and the leaf's position is frac(2^steps f0): each
+// doubling and subtracted floor of the descent is exact in float, so both
+// are the descent's bits and the group form is bit-equal to one thread a
+// ray. No register cap: a narrow launch cannot fill the card anyway.
+// Measured and left out (PERF.md, K14/K15): 4 and 16 lanes a ray (16
+// gained ~0.01 ms of a 1.6 ms frame for a summation path of its own), the
+// group form without the kept leaf, the node words staged in shared memory (the
+// walk's node loads hit L1 already), and K15 split into its first 16 trips
+// one thread a beam and the tail in groups (the second launch cost more
+// than the tail's shorter chain saved).
+//
 // Bound: K10 by bytes moved once: the points in and the outputs out (16 B
 // a point, 12 more with a gradient), and the node words and coefficient
 // rows the points touch, which on path F's 2^22 points are 2,941 rows that
@@ -125,7 +148,8 @@
 // rays in flight: the persistent warps keep every lane's slot on a live
 // ray, and the quad fold's registers let twice the warps in. K14 and K15
 // likewise: ~310 flops a useful trip against the state read and written
-// once (68 B a ray, 60 a beam) and the touched words and rows.
+// once (68 B a ray, 60 a beam) and the touched words and rows; a narrow
+// launch is bound by its longest ray's chain, which neither counts.
 //
 // Launches a backward on the aligned layout: the key launch, the
 // gradient's zero fill, the leaf sort (a memset and 1 + passes launches: 2
@@ -870,7 +894,157 @@ walk_beam_kernel(walk::Tree T, float* __restrict__ pos, float* __restrict__ acc,
   active[r] = a;
 }
 
+// ---- K14's group form: kGroup lanes a ray ---------------------------------
+// (the aligned tricubic rows only; see the header)
+
+// A group's leaf: where its ray's last walk ended, and that leaf's row as
+// the lane loaded it (float4s s, s + kGroup, ... of the row).
+template <int kGroup>
+struct GroupLeaf {
+  int ic[3];     // the start cell
+  int top[3];    // the children's bits above the leaf, an axis each
+  int start;     // the row's first word; -1: none (the walk reads no row)
+  int steps;     // descents below the start grid
+  float4 row[leaf::GroupRow<kGroup, 0>::kSlots];
+};
+
+// march_distance<64, true> of a group's ray, from its leaf when the ray
+// stays in it: every lane of the group walks the ray (the same bits, no
+// shuffle) and the group sums the row. The walk is walk::descend's with
+// the children taken from the start-cell fraction's bits: the fraction at
+// level l is frac(2^l f0) (each doubling and each subtracted floor is
+// exact in float), so its test against 0.5 is bit (levels - 1 - l) of
+// floor(2^levels f0), and the leaf's position is frac(2^steps f0), the
+// same bits as the descent's. A ray in the same start cell whose bits
+// above the leaf match the group's leaf lies in that leaf: the walk and
+// the row's loads are skipped. A lane whose group has no ray (live false)
+// walks nothing and returns a value that is not used.
+template <int kGroup>
+__device__ __forceinline__ float group_distance(const walk::Tree& T, const walk::Box& w,
+                                                GroupLeaf<kGroup>& c, const float p[3],
+                                                bool live, int s) {
+  walk::Reach r;
+  r.start = -1;
+  r.steps = 0;
+  r.f[0] = r.f[1] = r.f[2] = 0.0f;
+  bool in_box = false;
+  if (live) {
+    float f0[3];
+    int ic[3], bits[3];
+    in_box = true;
+    const float scale = static_cast<float>(1u << T.levels);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = (p[a] - w.b.mn[a]) / w.cell[a];
+      const float fl = floorf(t);
+      in_box = in_box && fl >= 0.0f && fl < static_cast<float>(T.sgs);
+      f0[a] = t - fl;
+      ic[a] = in_box ? static_cast<int>(fl) : 0;
+      bits[a] = in_box ? static_cast<int>(floorf(f0[a] * scale)) : 0;
+    }
+    if (in_box) {
+      bool same = c.start >= 0;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        same = same && ic[a] == c.ic[a] && (bits[a] >> (T.levels - c.steps)) == c.top[a];
+      }
+      if (!same) {
+        const int n = T.sgs;
+        int word = __ldg(T.words + (ic[2] * n + ic[1]) * n + ic[0]);
+        int steps = 0;
+        bool past = false;
+        for (int l = 0; l < T.levels && word >= 0; ++l) {
+          const int sh = T.levels - 1 - l;
+          const int child = (((bits[2] >> sh) & 1) << 2) + (((bits[1] >> sh) & 1) << 1) +
+                            ((bits[0] >> sh) & 1);
+          const int at = (((word & leaf::kIndexMask) >> 3) << 3) + child;
+          if (at >= T.num_words) {
+            past = true;
+            break;
+          }
+          word = __ldg(T.words + at);
+          ++steps;
+        }
+        const int start = ((word & leaf::kIndexMask) / 64) * 64;
+        c.start = !past && start + 64 <= T.num_words ? start : -1;
+        c.steps = steps;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          c.ic[a] = ic[a];
+          c.top[a] = bits[a] >> (T.levels - steps);
+        }
+        leaf::group_load<kGroup, 0>(
+            c.start >= 0 ? reinterpret_cast<const float4*>(T.coeffs + c.start) : nullptr, s,
+            c.row);
+      }
+      r.start = c.start;
+      r.steps = c.steps;
+      const float up = static_cast<float>(1u << c.steps);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float u = f0[a] * up;
+        r.f[a] = u - floorf(u);
+      }
+    }
+  }
+  const float4 v = leaf::group_sum<false, kGroup, 0>(c.row, s, r.f);
+  float g[3];
+  return walk::answer<walk::kDistance>(T, w, p, in_box, r, v, g);
+}
+
+// K14, kGroup lanes a ray: walk_segment_kernel's trips, operation for
+// operation, with the row read by the group and kept while the ray stays
+// in its leaf. A warp without a live ray leaves at once; the others run
+// until their last ray is done (the shuffles span the warp), a done ray's
+// group reading nothing and its state left as it is; the group's first
+// lane stores the state.
+template <int kGroup>
+__global__ void __launch_bounds__(kThreads)
+walk_segment_group_kernel(walk::Tree T, float* __restrict__ pos, float* __restrict__ acc,
+                          float* __restrict__ last_d, float* __restrict__ active,
+                          int* __restrict__ its, const float* __restrict__ dirs, int n,
+                          float eps, float far, int trips) {
+  const long long slot = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int r = static_cast<int>(slot / kGroup);
+  const int s = static_cast<int>(threadIdx.x) & (kGroup - 1);
+  const float a = r < n ? active[r] : 0.0f;
+  bool live = a > 0.0f;
+  if (__ballot_sync(leaf::kFullMask, live) == 0u) return;
+  const walk::Box w = walk::load_box(T);
+  Ray ray{};
+  if (live) ray = load_state(pos, acc, last_d, a, its, dirs, r);
+  GroupLeaf<kGroup> c{};
+  c.start = -1;
+  for (int t = 0; t < trips && __any_sync(leaf::kFullMask, live); ++t) {
+    const float d = group_distance<kGroup>(T, w, c, ray.p, live, s);
+    if (live) {
+      march_step(ray, d, eps, far);
+      live = ray.a > 0.0f;
+    }
+  }
+  if (a > 0.0f && s == 0) store_state(ray, r, pos, acc, last_d, active, its);
+}
+
 inline int blocks(long long n, int per) { return static_cast<int>((n + per - 1) / per); }
+
+// Whether K14 takes `form` on this layout: 1 (one thread a ray) on any, 8
+// lanes a ray on the aligned tricubic rows, with n * form lanes within an
+// int.
+inline bool form_ok(int form, int tricubic, int fast, int n) {
+  return form == 1 ||
+         (form == 8 && tricubic && fast && static_cast<long long>(n) * form <= 0x7fffffffLL);
+}
+
+// K14's group form: n rays kGroup lanes a ray.
+template <int kGroup>
+cudaError_t launch_segment_group(const walk::Tree& T, float* pos, float* acc, float* last_d,
+                                 float* active, int* its, const float* dirs, int n, float eps,
+                                 float far, int trips, cudaStream_t st) {
+  walk_segment_group_kernel<kGroup>
+      <<<blocks(static_cast<long long>(n) * kGroup, kThreads), kThreads, 0, st>>>(
+          T, pos, acc, last_d, active, its, dirs, n, eps, far, trips);
+  return cudaGetLastError();
+}
 
 // The persistent march: the counter's fill, then as many blocks as the
 // card holds at once (at most one lane a ray).
@@ -1143,24 +1317,28 @@ extern "C" int sdf_walk_march(SDF_WALK_PARAMS, const float* origins, const float
   return static_cast<int>(err);
 }
 
-// K14: up to `trips` march trips of each of the n rays, in place, one
-// thread a ray: pos (n, 3), acc, last_d, active (float 0/1) (n,), its (n,)
-// int32 trips taken, dirs (n, 3).
+// K14: up to `trips` march trips of each of the n rays, in place: pos (n,
+// 3), acc, last_d, active (float 0/1) (n,), its (n,) int32 trips taken,
+// dirs (n, 3). form: 1, one thread a ray; 8, eight lanes a ray
+// (walk_segment_group_kernel, the aligned tricubic rows only).
 extern "C" int sdf_walk_segment(SDF_WALK_PARAMS, float* pos, float* acc, float* last_d,
                                 float* active, int* its, const float* dirs, int n, float eps,
-                                float far, int trips, void* stream) {
+                                float far, int trips, int form, void* stream) {
+  if (!form_ok(form, tricubic, fast, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || trips <= 0) return static_cast<int>(cudaGetLastError());
   const walk::Tree T = SDF_WALK_TREE;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // K12's instances: the aligned tricubic rows fold a quad at a time in 64
-  // registers; trilinear rows and rows at any word read c[N]
+  // K12's instances one thread a ray: the aligned tricubic rows fold a quad
+  // at a time in 64 registers; trilinear rows and rows at any word read c[N]
   const cudaError_t err =
-      !tricubic ? launch_segment<8, false, 1>(T, pos, acc, last_d, active, its, dirs, n, eps,
-                                              far, trips, st)
-      : fast    ? launch_segment<64, true, kMarchMinBlocks>(T, pos, acc, last_d, active, its,
-                                                            dirs, n, eps, far, trips, st)
-                : launch_segment<64, false, 1>(T, pos, acc, last_d, active, its, dirs, n, eps,
-                                               far, trips, st);
+      form == 8   ? launch_segment_group<8>(T, pos, acc, last_d, active, its, dirs, n, eps, far,
+                                            trips, st)
+      : !tricubic  ? launch_segment<8, false, 1>(T, pos, acc, last_d, active, its, dirs, n, eps,
+                                                 far, trips, st)
+      : fast       ? launch_segment<64, true, kMarchMinBlocks>(T, pos, acc, last_d, active, its,
+                                                               dirs, n, eps, far, trips, st)
+                   : launch_segment<64, false, 1>(T, pos, acc, last_d, active, its, dirs, n,
+                                                  eps, far, trips, st);
   return static_cast<int>(err);
 }
 

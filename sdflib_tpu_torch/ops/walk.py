@@ -39,9 +39,12 @@ for ``OctreeSdf`` queries, the trainable tensor for ``diff``).
   ``_route`` with no query grid), up to ``trips`` march or beam trips of
   each ray of the frame's state in place, one thread a ray, a done ray
   leaving at once: K5 and K6 (``ops/march.py``) over K12's distance.
-  Replace ``_march_pyramid_jit``'s trips (sdflib_tpu/render/
-  sphere_trace.py :411 over :304-311) and the walk branch of
-  ``_beam_prepass_jit`` (:541, :588-594).
+  A narrow K14 launch takes the group form (``walk_segment_group_kernel``,
+  ``segment_form``): 8 lanes a ray, which sum its row by shuffles
+  and keep it while the ray stays in its leaf, the same bits. Replace
+  ``_march_pyramid_jit``'s trips (sdflib_tpu/render/sphere_trace.py :411
+  over :304-311) and the walk branch of ``_beam_prepass_jit`` (:541,
+  :588-594).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 torch version (``walk_query_plain``, ``walk_keys_plain``,
@@ -51,7 +54,8 @@ counters: ``launch_count`` (K10), ``backward_launch_count``
 (K11 as a whole, one a backward on either layout), ``key_launch_count``,
 ``sort_launch_count`` (K11's leaf sort: its memset and launches are one
 call), ``reduce_launch_count`` (its two launches are one call),
-``march_launch_count``, ``segment_launch_count`` (K14) and
+``march_launch_count``, ``segment_launch_count`` (K14 in either form),
+``segment_group_launch_count`` (K14's group form) and
 ``beam_launch_count`` (K15).
 The kernels have no autograd: ``walk_query`` raises for points or
 coefficients that require a gradient. ``WalkQuery``, the autograd
@@ -86,10 +90,11 @@ __all__ = [
     "Walk", "MODES", "GROUPS", "REDUCE_TILE", "reduce_plan", "walk_query", "walk_query_plain",
     "walk_keys", "walk_keys_plain", "walk_reduce", "walk_reduce_plain", "walk_backward",
     "walk_backward_plain", "walk_march", "walk_march_plain", "walk_march_one_thread",
-    "walk_segment", "walk_segment_plain", "walk_beam", "walk_beam_plain",
+    "walk_segment", "walk_segment_plain", "walk_beam", "walk_beam_plain", "SEGMENT_FORMS",
+    "GROUP_LANES", "segment_form",
     "WalkQuery", "launch_count", "backward_launch_count", "key_launch_count",
     "sort_launch_count", "reduce_launch_count", "march_launch_count",
-    "segment_launch_count", "beam_launch_count",
+    "segment_launch_count", "segment_group_launch_count", "beam_launch_count",
 ]
 
 launch_count = 0
@@ -99,6 +104,7 @@ sort_launch_count = 0
 reduce_launch_count = 0
 march_launch_count = 0
 segment_launch_count = 0
+segment_group_launch_count = 0
 beam_launch_count = 0
 # What a query returns besides the distance: nothing, the normalised
 # gradient (OctreeSdf.get_distance_and_gradient) or the world gradient
@@ -108,6 +114,14 @@ MODES = ("distance", "normal", "world")
 # 1: one lane reads its own row, as K12 does)
 GROUPS = {"distance": 8, "normal": 4, "world": 4}
 REDUCE_TILE = 1024      # sorted points a block of K11's reduction (kTile)
+# K14's forms: 1, one thread a ray, or 8 lanes a ray on the aligned
+# tricubic rows (walk_segment_group_kernel). The plan gives a launch the
+# group where its lanes, over all its rays, stay within GROUP_LANES, else
+# one thread a ray: in the walk frames timed (256^2-1024^2 rays, with
+# beams and without), every launch that width or narrower with a live ray
+# ran faster in groups, at budgets of 16-256 trips (PERF.md, K14).
+SEGMENT_FORMS = (1, 8)
+GROUP_LANES = 1 << 16
 _THREADS = 256          # threads a block of it (kThreads)
 
 
@@ -701,16 +715,39 @@ def _check_walk_state(walk: Walk, pos, dirs, floats: dict, ints: dict) -> tuple[
     return launch, n
 
 
+def segment_form(n: int, tricubic: bool, fast: bool) -> int:
+    """K14's form for a launch over ``n`` rays on a layout: on the aligned
+    tricubic rows (``tricubic`` and ``fast``) 8 lanes a ray where n * 8
+    lanes stay within ``GROUP_LANES``, else 1, one thread a ray. A narrow
+    launch (the frame's later rounds) leaves the card short of lanes and
+    lasts its longest ray's chain of trips, which a group shortens: it
+    sums the row across its lanes and keeps it while the ray stays in its
+    leaf. A wide one (the first rounds, the straggler march over every
+    row) fills the card one thread a ray. The frame's prefixes are fixed
+    when its graph is captured, and so is each launch's form."""
+    group = SEGMENT_FORMS[-1]
+    return group if tricubic and fast and n * group <= GROUP_LANES else 1
+
+
+def _check_form(walk: Walk, form) -> None:
+    _need(form is None or form in SEGMENT_FORMS, f"form must be one of {SEGMENT_FORMS}")
+    _need(form in (None, 1) or (walk.num_coeff == 64 and walk.fast),
+          "a group of lanes a ray reads the aligned tricubic rows only")
+
+
 def walk_segment(walk: Walk, pos, acc, last_d, active, its, dirs, eps: float, far: float,
-                 trips: int) -> int:
+                 trips: int, form: int | None = None) -> int:
     """K14: up to ``trips`` march trips of the (n,) rays on the walk, in
     place: ``pos`` and ``dirs`` (n, 3), ``acc``, ``last_d`` and ``active``
     (float 0/1) (n,) float32, ``its`` (n,) int32 trips taken; eps and far
-    in world units. On the card one launch, one thread a ray, a done ray
-    leaving at once; ``walk_segment_plain`` on the CPU. A ray whose
-    position turns infinite is left as it is, where the plain trips' later
-    trips move it by an infinite step times 0 (NaN). Returns the host
-    syncs taken (the plain version's)."""
+    in world units. On the card one launch, a done ray leaving at once, in
+    ``segment_form``'s form (``form``, one of ``SEGMENT_FORMS``, forces
+    one: 1 one thread a ray, 8 eight lanes a ray on the aligned tricubic
+    rows; every form the same bits); ``walk_segment_plain`` on
+    the CPU. A ray whose position turns infinite is left as it is, where
+    the plain trips' later trips move it by an infinite step times 0
+    (NaN). Returns the host syncs taken (the plain version's)."""
+    _check_form(walk, form)
     launch, n = _check_walk_state(walk, pos, dirs,
                                   {"acc": acc, "last_d": last_d, "active": active},
                                   {"its": its})
@@ -718,11 +755,15 @@ def walk_segment(walk: Walk, pos, acc, last_d, active, its, dirs, eps: float, fa
         return walk_segment_plain(walk, pos, acc, last_d, active, its, dirs, eps, far, trips)
     if n == 0 or trips <= 0:
         return 0
+    if form is None:
+        form = segment_form(n, walk.num_coeff == 64, walk.fast)
     build.launch("sdf_walk_segment", pos.device, *walk_args(walk), pos.data_ptr(),
                  acc.data_ptr(), last_d.data_ptr(), active.data_ptr(), its.data_ptr(),
                  dirs.data_ptr(), n, float(np.float32(eps)), float(np.float32(far)),
-                 int(trips))
+                 int(trips), int(form))
     build.count_launch(globals(), "segment_launch_count")
+    if form > 1:
+        build.count_launch(globals(), "segment_group_launch_count")
     return 0
 
 

@@ -9,7 +9,16 @@ and loaded through ``from_jax_state`` with no grid:
 * ``walk_segment_plain`` run in budgets of 8, 16 and 24 trips ends bit for
   bit where one run of 48 trips ends, on the aligned and the word-by-word
   layout: a ray's march depends on the ray alone, so the state handed from
-  one segment to the next carries it whole;
+  one segment to the next carries it whole; ``walk_beam_plain``'s 256
+  trips likewise in budgets of 16 and 240;
+* K14's form plan (``segment_form``) as a function of the launch's width,
+  its budget and the layout: 8 lanes a ray on the narrow launches of 64
+  trips and more on the aligned tricubic rows, one thread a ray on wide
+  launches (the walk frame's first rounds and its straggler march), short
+  budgets, trilinear rows and the word-by-word layout, over the frames'
+  schedules at 256^2, 512^2 and 1024^2 rays with
+  beams and without; a group form on those layouts, or another size,
+  raises;
 * ``walk_beam_plain``'s stop depths against JAX's ``_beam_prepass_jit``
   with ``grid_depth=None`` (its walk branch) on the same tiles of 64^2
   camera rays: within 1e-3, their median difference below 1e-6 (the hold
@@ -37,6 +46,12 @@ aligned and the word-by-word layout) and on the C++ SdfLib's own files
 
 * K14 in budgets of 8, 16, 32 and 200 trips ends bit for bit where one ``walk_march_one_thread`` launch of 256 trips ends (hit,
   position, depth, trips);
+* K14's group form, 8 lanes a ray, bit for bit equal to one thread
+  a ray in position, distance, last distance, active flag and trips, over
+  1, 7, 8, 9, 31, 32, 33, 2,047, 2,048 and 8,192 rays in budgets of 1, 8
+  and 256 trips, with infinite, NaN and outside-the-box origins, on the
+  icosphere's words and on a copy with a tenth of its leaf words naming
+  no row;
 * K14 and K15 against their plain versions over K10's distance (the walk
   route's eager trips before them) bit for bit, but for the rays whose
   position turns infinite (an infinite origin among the rays): there the
@@ -47,8 +62,9 @@ aligned and the word-by-word layout) and on the C++ SdfLib's own files
 * a frame of 192^2 rays on a structure with no grid is one CUDA graph:
   the first frame captures it, the second replays it with one launch and
   captures none, both with no host sync and bit-equal to
-  ``_trace(..., graphs=False)``; K14 and K15 are launched at the capture
-  and not at the replay.
+  ``_trace(..., graphs=False)`` and to the eager frame with every K14
+  launch one thread a ray; K14 and K15 are launched at the capture and not
+  at the replay.
 """
 import importlib
 import os
@@ -119,6 +135,85 @@ def test_segment_plain_split_budgets_equal_one_run(jax_pair, fast):
         assert torch.equal(a, b)
     assert 0 < int((whole[2] <= eps).sum()) < o.shape[0]          # some rays hit
     assert int(whole[4].max()) > 24                                 # and marched past a split
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_beam_plain_split_budget_equals_one_run(jax_pair, fast):
+    _, tree = jax_pair
+    walk = tree._walk()._replace(fast=fast)
+    o, d = _cam()
+    o_c, d_c, r0, rd = _beams(o, d, 64)
+    margin = st._route(tree, EPS).margin
+    far = FAR * float(tree.box.size[0])
+    nt = o_c.shape[0]
+    whole = [o_c.clone(), torch.zeros(nt), torch.ones(nt)]
+    split = [x.clone() for x in whole]
+    ow.walk_beam_plain(walk, *whole, d_c, r0, rd, margin, far, 256)
+    for trips in (16, 240):             # the prepass split where few beams are still live
+        assert ow.walk_beam_plain(walk, *split, d_c, r0, rd, margin, far, trips) == 0
+    for a, b in zip(whole, split):
+        assert torch.equal(a, b)
+    assert not bool(whole[2].any()) and float(whole[1].max()) > 0.0
+
+
+# The walk frames' K14 launches, (trips, rays), and the plan's forms, at
+# n^2 rays with beams (the tracer's default) and without (dense): the
+# schedule's rounds, then the straggler march over every row. 8 lanes a
+# ray at <= 8,192 rays, where the group form was timed faster at every
+# budget from 16 trips (PERF.md, K14).
+FRAME_FORMS = {
+    (256, True): ([(8, 65536), (16, 8192), (32, 2048), (64, 1024), (128, 1024),
+                   (256, 1024), (256, 1024), (256, 1024), (8, 1024), (1016, 65536)],
+                  [1, 8, 8, 8, 8, 8, 8, 8, 8, 1]),
+    (256, False): ([(8, 65536), (16, 65536), (32, 32768), (64, 16384), (128, 8192),
+                    (256, 4096), (256, 2048), (256, 1024), (8, 1024), (1016, 65536)],
+                   [1, 1, 1, 1, 8, 8, 8, 8, 8, 1]),
+    (512, True): ([(8, 262144), (16, 32768), (32, 8192), (64, 2048), (128, 1024),
+                   (256, 1024), (256, 1024), (256, 1024), (8, 1024), (1016, 262144)],
+                  [1, 1, 8, 8, 8, 8, 8, 8, 8, 1]),
+    (512, False): ([(8, 262144), (16, 262144), (32, 131072), (64, 65536), (128, 32768),
+                    (256, 16384), (256, 8192), (256, 4096), (8, 4096), (1016, 262144)],
+                   [1, 1, 1, 1, 1, 1, 8, 8, 8, 1]),
+    (1024, True): ([(8, 1 << 20), (16, 131072), (32, 32768), (64, 8192), (128, 4096),
+                    (256, 2048), (256, 2048), (256, 2048), (8, 2048), (1016, 1 << 20)],
+                   [1, 1, 1, 8, 8, 8, 8, 8, 8, 1]),
+    (1024, False): ([(8, 1 << 20), (16, 1 << 20), (32, 524288), (64, 262144), (128, 131072),
+                     (256, 65536), (256, 32768), (256, 16384), (8, 16384), (1016, 1 << 20)],
+                    [1] * 10),
+}
+
+
+def test_segment_form_plan():
+    assert ow.SEGMENT_FORMS == (1, 8)
+    lanes = ow.GROUP_LANES
+    for n in (1, 7, 2048, lanes // 8):               # narrow prefixes: 8 lanes a ray
+        assert ow.segment_form(n, True, True) == 8
+    for n in (lanes // 8 + 1, 32768, 131072, 1 << 20):   # wide prefixes: one thread a ray
+        assert ow.segment_form(n, True, True) == 1
+    for tricubic, fast in ((False, True), (True, False), (False, False)):
+        for n in (1, 2048, 1 << 20):                  # trilinear rows, rows at any word
+            assert ow.segment_form(n, tricubic, fast) == 1
+    for (side, beams), (launches, forms) in FRAME_FORMS.items():
+        R = side * side
+        sched = st._build_pyramid_schedule(R, 1024, min(st._TRACE_BLOCK, R), dense=not beams)
+        got = list(sched) + [(1024 - sched[0][0], R)]
+        assert got == launches, (side, beams, got)
+        assert [ow.segment_form(n, True, True) for _, n in got] == forms, (side, beams)
+
+
+def test_forms_need_the_aligned_tricubic_rows(jax_pair):
+    _, tree = jax_pair
+    walk = tree._walk()
+    eps, far = _world(tree)
+    o, d = _cam(8)
+    state = _start(o)
+    for form in ow.SEGMENT_FORMS:                     # every form runs the plain trips here
+        ow.walk_segment(walk, *state, d, eps, far, 2, form=form)
+    for bad, form in ((walk, 4), (walk, 16), (walk, 32), (walk._replace(fast=False), 8),
+                      (walk._replace(num_coeff=8, interpolation="trilinear"), 8)):
+        with pytest.raises(ValueError):
+            ow.walk_segment(bad, *state, d, eps, far, 2, form=form)
+    ow.walk_segment(walk._replace(fast=False), *state, d, eps, far, 2, form=1)
 
 
 def test_beam_plain_matches_jax(jax_pair):
@@ -377,6 +472,61 @@ def test_k14_k15_against_plain_cpp(cpp_tree):
     _k14_k15_against_plain(cpp_tree)
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bits(got, ref) -> bool:
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref))
+
+
+@pytest.fixture(scope="module")
+def cubic_rays():
+    """(the icosphere's aligned tricubic octree on the card, its walk, the
+    walk with about a tenth of its leaf words naming no row, and 9,216
+    camera rays: every 97th origin infinite, every 89th NaN, every 83rd
+    outside the box looking away)."""
+    _cuda()
+    mesh = make_icosphere(subdivisions=3, radius=0.35)
+    tree = OctreeSdf(mesh, mesh.bounding_box.add_margin(0.14), device="cuda", **CFG)
+    walk = tree._walk()
+    assert walk.fast and walk.num_coeff == 64
+    words = walk.words.clone()
+    rng = np.random.default_rng(7)
+    leaves = torch.nonzero(words < 0)[:, 0].cpu().numpy()
+    lost = torch.as_tensor(rng.choice(leaves, len(leaves) // 10, replace=False), device="cuda")
+    words[lost] = words[lost] | 0x3FFFFFFF            # a row past the octree's end
+    o, d = _cam_at(tree, 96)
+    o, d = o.clone(), d.clone()
+    o[::97] = torch.inf
+    o[::89] = torch.nan
+    o[::83] = o[::83] + 4.0 * float(tree.box.size[0])
+    d[::83] = -d[::83]
+    return tree, walk, walk._replace(words=words), o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [8])
+def test_k14_group_form_equals_one_thread(cubic_rays, form):
+    tree, walk, lost, o, d = cubic_rays
+    eps, far = _world(tree)
+    _reset()
+    for w in (walk, lost):
+        for n in (1, 7, 8, 9, 31, 32, 33, 2047, 2048, 8192):
+            got, ref = _start(o[:n]), _start(o[:n])
+            for trips in (1, 8, 256):
+                ow.walk_segment(w, *got, d[:n], eps, far, trips, form=form)
+                ow.walk_segment(w, *ref, d[:n], eps, far, trips, form=1)
+                assert _same_bits(got, ref), (n, trips, w is lost)
+            if n == 8192:
+                assert bool((ref[2] <= eps).any()) and bool(ref[0].isnan().any())
+                assert bool(ref[0].isinf().any()) and int(ref[4].max()) > 9
+    assert ow.segment_launch_count == 2 * 10 * 3 * 2
+    with pytest.raises(ValueError):
+        ow.walk_segment(walk._replace(fast=False), *_start(o[:8]), d[:8], eps, far, 8,
+                        form=form)
+
+
 def _frame_is_one_graph(tree):
     o, d = _cam_at(tree, 192)
     kw = dict(eps=1e-5, far=4.0, max_iters=1024, beam=4)
@@ -394,6 +544,15 @@ def _frame_is_one_graph(tree):
     for a, b, c in zip(first, second, eager):
         assert torch.equal(a, c) and torch.equal(b, c)
     assert bool(first.hit.any())
+    # the same bits with every launch one thread a ray, as before the forms
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ow, "segment_form", lambda *a: 1)
+    try:
+        one = st._trace(tree, o, d, block_size=None, pyramid=True, stats_out=None,
+                        active=None, graphs=False, **kw)
+    finally:
+        mp.undo()
+    assert _same_bits(first, one)
 
 
 @pytest.mark.cuda
